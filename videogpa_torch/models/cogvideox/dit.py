@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as TF
+from torch.utils.checkpoint import checkpoint
 
 from videogpa_torch.device import resolve_device
 from videogpa_torch.models.cogvideox.config import CogVideoXConfig
@@ -250,6 +251,7 @@ def dit_forward(
     lora: Optional[dict] = None,
     lora_scaling: float = 1.0,
     attn_layout: str = "bhnd",
+    remat: bool = False,
 ) -> torch.Tensor:
     """CogVideoX DiT forward.
 
@@ -258,7 +260,11 @@ def dit_forward(
         encoder_hidden_states: (B, L, text_embed_dim) T5 features.
         timestep: (B,) integer timesteps.
         lora: optional stacked LoRA tree (``videogpa_torch.train.lora``)
-            applied to the attention projections of every block.
+            applied to the attention projections of every block; gradients
+            reach the stacked tensors through the per-layer slices.
+        remat: keep only each block's inputs for the backward and recompute
+            the block there (``torch.utils.checkpoint``), as the JAX
+            package's ``jax.checkpoint`` of the scan body does.
 
     Returns:
         (B, F, out_channels, H, W) float32 prediction (v-prediction).
@@ -306,8 +312,12 @@ def dit_forward(
 
     # 3. transformer blocks
     for i, blk in enumerate(model.blocks):
-        x, encoder = _block_apply(blk, x, encoder, temb, cfg, rope,
-                                  layer_lora(lora, i), lora_scaling, attn_layout)
+        args = (blk, x, encoder, temb, cfg, rope, layer_lora(lora, i), lora_scaling,
+                attn_layout)
+        if remat:
+            x, encoder = checkpoint(_block_apply, *args, use_reentrant=False)
+        else:
+            x, encoder = _block_apply(*args)
 
     # 4. output head
     n_txt = encoder.shape[1]

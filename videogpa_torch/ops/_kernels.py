@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (``videogpa_torch/csrc``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C interface, loaded with ``ctypes``. Libraries land in
-``build/kernels/`` at the checkout root, named by a hash of the source and
-flags, so a changed source rebuilds and an unchanged one is reused. Nothing
-here runs at import time: the CPU tests import every module.
+a plain C interface, loaded with ``ctypes``; all sources compile at once, one
+``nvcc`` process each. Libraries land in ``build/kernels/`` at the checkout
+root, named by a hash of the source, the shared headers and the flags, so a
+changed source rebuilds and an unchanged one is reused. Nothing here runs at
+import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ from typing import Callable, Dict, Iterable
 
 _PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = {"flash_attn_fwd": _PKG / "csrc" / "flash_attn_fwd.cu"}
+_CSRC = _PKG / "csrc"
+SOURCES = {
+    "flash_attn_fwd": _CSRC / "flash_attn_fwd.cu",
+    "flash_attn_bwd": _CSRC / "flash_attn_bwd.cu",
+}
+HEADERS = (_CSRC / "mma_sm90.cuh",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,6 +36,10 @@ _SIGNATURES = {
     "flash_attn_fwd": (
         "videogpa_flash_attn_fwd",
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
+    ),
+    "flash_attn_bwd": (
+        "videogpa_flash_attn_bwd",
+        [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P],
     ),
 }
 
@@ -48,33 +58,40 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
 def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
-    """Compile every named source that has no library yet. Returns each newly
-    built kernel's compiler log (``-Xptxas -v`` register and shared-memory
-    report). Raises on failure."""
+    """Compile every named source that has no library yet, all at once (one
+    ``nvcc`` process per source). Returns each newly built kernel's compiler
+    log (``-Xptxas -v`` register and shared-memory report). Raises on
+    failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [name for name in names if not library_path(name).exists()]
+    if not todo:
+        return {}
     nvcc = _nvcc()
-    logs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run(
+    procs = {}
+    for name in todo:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
+        ))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"kernel build failed: {name} (nvcc exit {proc.returncode}):\n{proc.stdout}")
-        os.replace(tmp, out)
-        logs[name] = proc.stdout
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     return logs
 
 
