@@ -7,20 +7,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. build   — compile every CUDA kernel of the port with nvcc for sm_90a
              into build/kernels/, one nvcc process per source, all at once.
-2. parity  — each kernel against its plain PyTorch version in bf16, at the
-             shapes the main paths give it and at edge cases (ragged and
+2. parity  — each kernel against its plain PyTorch version on the card, at
+             the shapes the main paths give it and at edge cases (ragged and
              cross lengths, every supported head dim, extreme logits,
-             strided views): the forward K1 and the backward K3, and
-             ``attention()`` on CUDA tensors that require grad yielding
-             K3's gradients.
+             strided views): K1 forward (the DiT's and the VGGT global
+             blocks' shapes) and K3 backward (and ``attention()``
+             autograd on CUDA yielding K3's gradients); K4 short-row
+             attention (n_valid mask with NaN in the masked rows, the VGGT
+             frame shape); K6 in f32 (camera head) and bf16 (the Wan shape);
+             K5 scatter-min bit for bit on a real packed z-buffer stream,
+             sentinel-only, one-slot and random streams.
 3. slice   — the tiny CogVideoX DiT, and one tiny DPO train step, on the
-             card in bf16 against the same weights on the CPU in f32.
+             card in bf16 against the same weights on the CPU in f32; the
+             tiny VGGT scorer through ``process_frames_batch``, f32 on both;
+             a small VGGT in the scorer's dtypes (bf16 trunk, f32 camera
+             head) against f32 on the CPU, its blocks through K4 and K1.
 4. main    — the CogVideoX-5B denoise path at full width and depth (42
              layers, hidden 3072, 48 heads x 64) on random bf16 weights:
              2 requests, each a CFG pair at 49f@480x720 (latents
              13x16x60x90, 17,550 video + 226 text tokens) with seeded
              stand-in T5 embeddings, 2 DPM steps each. Checks finite output
-             and that every attention of the path launched the kernel.
+             and that every attention of the path launched K1 (and no
+             other kernel).
    profile — device time by kernel group over one more (profiled) step.
 5. train   — the CogVideoX-5B Diffusion-DPO LoRA train step at full width
              and depth with the CogVideoX-5B recipe (batch 1, accumulate 2,
@@ -30,9 +38,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
              B off zero after the second update, the kernels' launch counts,
              and a checkpoint save/restore round trip.
    profile — device time by kernel group over one more (profiled) mini-step.
-6. timing  — ms per denoise step and per train mini-step, each kernel's ms
-             at the main-path shape beside its bound, its plain version and
-             the library call.
+6. scorer  — the VGGT-1B reward scorer at full width (DINOv2 ViT-L/14, 24 +
+             24 aggregator blocks, f32 camera head, DPT heads, LPIPS VGG16)
+             on random weights: 3 batches (1 cold, 2 warm) of K = 4 clips x
+             10 frames x 518^2 synthetic uint8 frames through
+             ``VideoProcessor.process_frames_batch``, packed z-buffer. Checks
+             finite scores and the launches per batch (K1 24, K4 48, K6 16,
+             K5 4).
+   profile — device time by kernel group over one more (profiled) batch.
+7. timing  — ms per denoise step, train mini-step and scorer batch; each
+             kernel's ms at its main-path shape beside its bound, its plain
+             version and one PyTorch call computing the same function.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -106,6 +122,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _wrappers():
+    """Every kernel wrapper of the port, by name; each counts its launches."""
+    from videogpa_torch.geometry.zbuffer_kernel import scatter_min_u32
+    from videogpa_torch.ops.attention import (
+        flash_attn_bwd, flash_attn_fwd, flash_attn_fwd_d128, flash_attn_fwd_f32,
+        flash_attn_short)
+
+    return {f.__name__: f for f in (flash_attn_fwd, flash_attn_bwd, flash_attn_short,
+                                    flash_attn_fwd_f32, flash_attn_fwd_d128, scatter_min_u32)}
+
+
+def zero_launches() -> None:
+    for f in _wrappers().values():
+        f.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: f.launches for name, f in _wrappers().items()}
+
+
 def phase_build() -> None:
     from videogpa_torch.ops import _kernels
 
@@ -143,8 +179,8 @@ def _check(o, lse, ro, rl):
     return d_o.max().item(), o_atol, d_lse.max().item(), ok
 
 
-def phase_parity(dit_shape):
-    """Kernel vs plain version; returns (max O error, plain ms at the DiT shape)."""
+def phase_parity(dit_shape, vggt_global_shape):
+    """K1 vs its plain version; returns (max O error, plain ms at the DiT shape)."""
     import torch
 
     from videogpa_torch.ops.attention import flash_attn_fwd, flash_attn_fwd_reference
@@ -177,12 +213,36 @@ def phase_parity(dit_shape):
         errs.append(o_err)
     del cases, packed
 
-    # the DiT shape at full size; the plain version needs a (N, N) f32 score
-    # matrix per head, so it runs over chunks of 4 heads covering every head
+    # the main paths' shapes at full size: the DiT's, and the VGGT global
+    # blocks' (13,740 keys: another ragged last tile and B*H grid), there with
+    # q and k as the QK-norm/RoPE outputs and v a view of the qkv projection
     B, N, H, D = dit_shape
     q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+    worst, plain_ms = _parity_full(f"DiT shape {dit_shape}", q, k, v)
+    errs.append(worst)
+    del q, k, v
+    B, N, H, D = vggt_global_shape
+    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    worst, _ = _parity_full(f"VGGT global shape {vggt_global_shape} (v a strided view)",
+                            q.contiguous(), k.contiguous(), v)
+    errs.append(worst)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return max(errs), plain_ms
+
+
+def _parity_full(label, q, k, v, chunk: int = 4):
+    """K1 against its plain version on a full-size bnhd problem; the plain
+    version needs a (N, N) f32 score matrix per head, so it runs over chunks
+    of ``chunk`` heads covering every head. Returns (max |dO|, plain ms summed
+    over the chunks)."""
+    import torch
+
+    from videogpa_torch.ops.attention import flash_attn_fwd, flash_attn_fwd_reference
+
+    B, _, H, _ = q.shape
     o, lse = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
-    chunk = 4
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     plain_ms = 0.0
     worst_o = worst_lse = 0.0
@@ -199,16 +259,12 @@ def phase_parity(dit_shape):
             atols.append(o_atol)
             worst_o, worst_lse = max(worst_o, o_err), max(worst_lse, lse_err)
             if not ok:
-                fail(f"flash_attn_fwd disagrees at the DiT shape, batch {b}, heads {h}..")
+                fail(f"flash_attn_fwd disagrees at the {label}, batch {b}, heads {h}..")
             del ro, rl
-    log(f"[parity] DiT shape {dit_shape} bnhd, all {B * H} heads in chunks of {chunk}: "
+    log(f"[parity] {label} bnhd, all {B * H} heads in chunks of {chunk}: "
         f"max|dO| {worst_o:.3e} (atol {min(atols):.2e}..{max(atols):.2e} + rtol {O_RTOL}), "
-        f"max|dLSE| {worst_lse:.3e} ok; plain version "
-        f"{plain_ms:.1f} ms over the chunks")
-    errs.append(worst_o)
-    del q, k, v, o, lse
-    torch.cuda.empty_cache()
-    return max(errs), plain_ms
+        f"max|dLSE| {worst_lse:.3e} ok; plain version {plain_ms:.1f} ms over the chunks")
+    return worst_o, plain_ms
 
 
 def phase_slice() -> None:
@@ -240,7 +296,6 @@ def phase_main(num_requests: int = 2, steps: int = 2):
 
     from videogpa_torch.models.cogvideox import (
         CogVideoXConfig, SamplerSettings, denoise_loop, dit_init)
-    from videogpa_torch.ops.attention import flash_attn_bwd, flash_attn_fwd
 
     cfg = CogVideoXConfig.cogvideox_5b()
     t0 = time.perf_counter()
@@ -257,7 +312,7 @@ def phase_main(num_requests: int = 2, steps: int = 2):
                     cfg.sample_height, cfg.sample_width)
     torch.cuda.reset_peak_memory_stats()
     request_s = []
-    flash_attn_fwd.launches = flash_attn_bwd.launches = 0
+    zero_launches()
     for r in range(num_requests):
         gen = torch.Generator(device="cuda").manual_seed(100 + r)
         text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim,
@@ -272,13 +327,13 @@ def phase_main(num_requests: int = 2, steps: int = 2):
             fail(f"request {r}: latents {tuple(lat.shape)} not finite or wrong shape")
         log(f"[main] request {r}: {steps} DPM steps in {request_s[-1]:.3f} s, latents "
             f"{tuple(lat.shape)} finite, std {lat.float().std().item():.4f}")
-    launches, bwd_launches = flash_attn_fwd.launches, flash_attn_bwd.launches
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = num_requests * steps * cfg.num_layers
-    log(f"[main] flash_attn_fwd launches {launches} (expected {num_requests} requests x "
-        f"{steps} steps x {cfg.num_layers} layers = {expected}), flash_attn_bwd "
-        f"{bwd_launches} (expected 0)")
-    if launches != expected or bwd_launches != 0:
+    want = {name: expected if name == "flash_attn_fwd" else 0 for name in launches}
+    log(f"[main] launches {json.dumps(launches)}; expected flash_attn_fwd {num_requests} "
+        f"requests x {steps} steps x {cfg.num_layers} layers = {expected}, every other 0")
+    if launches != want:
         fail("the denoise path did not run every attention through the forward kernel alone")
     settings1 = SamplerSettings(num_inference_steps=1, sampler="dpm")
     profile = profile_device_time("one denoise step (profiled)", lambda: denoise_loop(
@@ -289,16 +344,27 @@ def phase_main(num_requests: int = 2, steps: int = 2):
     return {
         "launches": launches, "request_s": request_s,
         "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
-        "launches_per_step": launches // (num_requests * steps), "profile": profile,
+        "launches_per_step": expected // (num_requests * steps), "profile": profile,
     }
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_attn_fwd" in name:
-        return "flash_attn_fwd"
+    if "attn_f32_kernel" in name:
+        return "K6 flash_attn_fwd_f32"
+    if "flash_fwd::kernel<128>" in name:
+        return "K6 flash_attn_fwd_d128"
+    if "flash_fwd::kernel" in name:
+        return "K1 flash_attn_fwd"
     if "flash_attn_bwd" in name:
-        return "flash_attn_bwd"
-    if any(tag in name.lower() for tag in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
+        return "K3 flash_attn_bwd"
+    if "flash_attn_short" in name:
+        return "K4 flash_attn_short"
+    if "scatter_min_kernel" in name:
+        return "K5 scatter_min_u32"
+    low = name.lower()
+    if any(tag in low for tag in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "cudnn conv"
+    if any(tag in low for tag in ("gemm", "nvjet", "xmma", "cutlass", "cublas")):
         return "gemm"
     return "other"
 
@@ -562,7 +628,6 @@ def phase_train(mini_steps: int = 4):
 
     from videogpa_torch.checkpoint import TrainCheckpointer
     from videogpa_torch.models.cogvideox import CogVideoXConfig, dit_init
-    from videogpa_torch.ops.attention import flash_attn_bwd, flash_attn_fwd
     from videogpa_torch.train.dataset import DPODataset, collate
     from videogpa_torch.train.lora import lora_init, lora_leaves
     from videogpa_torch.train.recipes import default_config
@@ -604,7 +669,7 @@ def phase_train(mini_steps: int = 4):
             f"{tuple(batches[0]['prompt_emb'].shape)}")
 
         b_norms, step_ms, metrics_log = [], [], []
-        flash_attn_fwd.launches = flash_attn_bwd.launches = 0
+        zero_launches()
         for i in range(mini_steps):
             gen = torch.Generator(device="cuda").manual_seed(10 + i)
             torch.cuda.synchronize()
@@ -618,20 +683,23 @@ def phase_train(mini_steps: int = 4):
                                for ab in state.lora.values()))
             log(f"[train] mini-step {i + 1}: {step_ms[-1]:.1f} ms, " + json.dumps(m)
                 + f", max|LoRA B| summed over targets {b_norms[-1]:.3e}")
-        fwd, bwd = flash_attn_fwd.launches, flash_attn_bwd.launches
+        launches = read_launches()
+        fwd, bwd = launches["flash_attn_fwd"], launches["flash_attn_bwd"]
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         L = cfg.num_layers
         want_fwd, want_bwd = mini_steps * 6 * L, mini_steps * 2 * L
-        log(f"[train] flash_attn_fwd launches {fwd} (expected {mini_steps} mini-steps x 6 "
-            f"forwards (2 policy, 2 remat recomputes, 2 reference) x {L} layers = {want_fwd}); "
-            f"flash_attn_bwd launches {bwd} (expected {mini_steps} x 2 policy backwards x {L} "
-            f"= {want_bwd}); peak allocated {peak_gb:.2f} GB")
+        want = {name: 0 for name in launches}
+        want.update(flash_attn_fwd=want_fwd, flash_attn_bwd=want_bwd)
+        log(f"[train] launches {json.dumps(launches)}; expected flash_attn_fwd {mini_steps} "
+            f"mini-steps x 6 forwards (2 policy, 2 remat recomputes, 2 reference) x {L} layers "
+            f"= {want_fwd}, flash_attn_bwd {mini_steps} x 2 policy backwards x {L} = "
+            f"{want_bwd}, every other 0; peak allocated {peak_gb:.2f} GB")
         if not all(math.isfinite(v) for m in metrics_log for v in m.values()):
             fail("non-finite train metrics")
         if not (b_norms[1] == 0.0 and b_norms[-1] > 0.0):
             fail(f"LoRA B: expected zero after update 1 (lr schedule(0) = 0) and off zero "
                  f"after update 2, got {b_norms}")
-        if (fwd, bwd) != (want_fwd, want_bwd):
+        if launches != want:
             fail("the train path did not run every attention through the kernels")
 
         ck = TrainCheckpointer(os.path.join(root, "ckpt"), save_top_k=2)
@@ -659,7 +727,7 @@ def phase_train(mini_steps: int = 4):
             state, batches[mini_steps], generator=torch.Generator(device="cuda").manual_seed(9)))
     del dit, state, lora
     torch.cuda.empty_cache()
-    return {"fwd_launches": fwd, "bwd_launches": bwd, "step_ms": step_ms,
+    return {"launches": launches, "step_ms": step_ms,
             "update_ms": [step_ms[i] + step_ms[i + 1] for i in range(0, mini_steps - 1, 2)],
             "peak_gb": peak_gb, "profile": profile, "metrics": metrics_log,
             "checkpoint_s": [save_s, restore_s]}
@@ -710,6 +778,557 @@ def phase_timing(dit_shape, train_shape):
     return out
 
 
+# K6's float32 path against its f32 plain version: both f32, differing only
+# in summation order and the card's exp2 (a few f32 ulps of each weight)
+F32_O_ATOL, F32_O_RTOL = 2e-5, 1e-5
+F32_LSE_ATOL, F32_LSE_RTOL = 1e-5, 1e-6
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def _check_o(o, ro):
+    """K1's O tolerance without an LSE: (max |dO|, atol, ok)."""
+    import torch
+
+    ro = ro.float()
+    atol = min(O_ATOL_MAX, O_ATOL_RMS_FRAC * ro.square().mean().sqrt().item())
+    d = (o.float() - ro).abs()
+    ok = bool((d <= atol + O_RTOL * ro.abs()).all() and torch.isfinite(o).all())
+    return d.max().item(), atol, ok
+
+
+def _timed(fn):
+    """(result, ms) of one call, CUDA events around it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_parity_short(vggt_shape):
+    """K4 against its plain version in bf16; returns (max |dO|, plain ms at
+    the VGGT frame-attention shape)."""
+    import torch
+
+    from videogpa_torch.ops.attention import flash_attn_short, flash_attn_short_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    nan_q, nan_k, nan_v = _attn_case(gen, 1, 200, 256, 2, 64, "bnhd")
+    nan_k[:, 200:] = float("nan")
+    nan_v[:, 200:] = float("nan")
+    packed = torch.randn(1, 640, 3, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    cases = [
+        ("ragged N=300 D=64", _attn_case(gen, 2, 300, 300, 4, 64, "bnhd"), None),
+        ("cross Nq=300 Nk=777 D=64", _attn_case(gen, 1, 300, 777, 3, 64, "bnhd"), None),
+        ("cross Nq=1000 Nk=37 D=64", _attn_case(gen, 1, 1000, 37, 2, 64, "bnhd"), None),
+        ("D=16 N=517", _attn_case(gen, 2, 517, 517, 2, 16, "bnhd"), None),
+        ("D=32 N=517", _attn_case(gen, 2, 517, 517, 2, 32, "bnhd"), None),
+        ("n_valid=200 of Nk=256, NaN in K/V rows >= 200", (nan_q, nan_k, nan_v), 200),
+        ("extreme logits q*1e3 N=300 D=64",
+         _attn_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3), None),
+        ("strided views of packed qkv N=640", packed.unbind(2), None),
+    ]
+    errs = []
+    for name, (q, k, v), n_valid in cases:
+        err, atol, ok = _check_o(flash_attn_short(q, k, v, n_valid),
+                                 flash_attn_short_reference(q, k, v, n_valid))
+        log(f"[parity] K4 {name}: max|dO| {err:.3e} (atol {atol:.2e} + rtol {O_RTOL}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attn_short disagrees with its plain version on {name}")
+        errs.append(err)
+    del cases, packed, nan_q, nan_k, nan_v
+
+    # the VGGT frame-attention shape, q/k/v as views of one packed projection
+    B, N, H, D = vggt_shape
+    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    o = flash_attn_short(q, k, v)
+    ro, plain_ms = _timed(lambda: flash_attn_short_reference(q, k, v))
+    err, atol, ok = _check_o(o, ro)
+    log(f"[parity] K4 VGGT frame shape {vggt_shape} (strided qkv views): max|dO| {err:.3e} "
+        f"(atol {atol:.2e} + rtol {O_RTOL}) {'ok' if ok else 'MISMATCH'}; plain version "
+        f"{plain_ms:.2f} ms")
+    if not ok:
+        fail("flash_attn_short disagrees at the VGGT frame shape")
+    errs.append(err)
+    del q, k, v, o, ro
+    torch.cuda.empty_cache()
+    return max(errs), plain_ms
+
+
+def phase_parity_d128(cam_shape, wan_shape):
+    """K6 against its plain version: the float32 entry (camera head, and every
+    head dim it takes) and bf16 at head_dim 128; returns (max |dO| f32, max
+    |dO| bf16, plain ms at the camera-head shape, plain ms at the Wan shape)."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd_d128, flash_attn_fwd_f32, flash_attn_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def f32(B, Nq, Nk, H, D, layout):
+        shape = (lambda n: (B, n, H, D)) if layout == "bnhd" else (lambda n: (B, H, n, D))
+        return tuple(torch.randn(shape(n), generator=gen, device="cuda")
+                     for n in (Nq, Nk, Nk))
+
+    f32_cases = [
+        ("f32 camera head (4, 10, 16, 128) bnhd", "bnhd", f32(*cam_shape[:2], cam_shape[1],
+                                                             *cam_shape[2:], "bnhd")),
+        ("f32 cross Nq=37 Nk=53 bhnd D=128", "bhnd", f32(2, 37, 53, 3, 128, "bhnd")),
+        ("f32 D=16 N=63 bnhd", "bnhd", f32(2, 63, 63, 2, 16, "bnhd")),
+        ("f32 D=64 N=300 bnhd", "bnhd", f32(1, 300, 300, 2, 64, "bnhd")),
+        ("f32 D=32 N=50 bhnd", "bhnd", f32(1, 50, 50, 2, 32, "bhnd")),
+    ]
+    f32_errs, cam_plain_ms = [], None
+    for name, layout, (q, k, v) in f32_cases:
+        o, lse = flash_attn_fwd_f32(q, k, v, layout=layout, with_lse=True)
+        (ro, rl), ms = _timed(lambda: flash_attn_fwd_reference(q, k, v, layout, True))
+        if cam_plain_ms is None:
+            cam_plain_ms = ms
+        d_o, d_l = (o - ro).abs(), (lse - rl).abs()
+        ok = bool((d_o <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all()
+                  and (d_l <= F32_LSE_ATOL + F32_LSE_RTOL * rl.abs()).all()
+                  and torch.isfinite(o).all())
+        log(f"[parity] K6 {name}: max|dO| {d_o.max().item():.3e} (atol {F32_O_ATOL} + rtol "
+            f"{F32_O_RTOL}), max|dLSE| {d_l.max().item():.3e} (atol {F32_LSE_ATOL} + rtol "
+            f"{F32_LSE_RTOL}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attn_fwd_f32 disagrees with its plain version on {name}")
+        f32_errs.append(d_o.max().item())
+
+    bf16_cases = [
+        ("bf16 ragged N=300 bnhd D=128", "bnhd", _attn_case(gen, 2, 300, 300, 3, 128, "bnhd")),
+        ("bf16 cross Nq=100 Nk=777 bhnd D=128", "bhnd",
+         _attn_case(gen, 1, 100, 777, 2, 128, "bhnd")),
+        ("bf16 extreme logits q*1e3 N=300 D=128", "bnhd",
+         _attn_case(gen, 1, 300, 300, 2, 128, "bnhd", q_scale=1e3)),
+    ]
+    bf16_errs = []
+    for name, layout, (q, k, v) in bf16_cases:
+        o, lse = flash_attn_fwd_d128(q, k, v, layout=layout, with_lse=True)
+        o_err, o_atol, lse_err, ok = _check(
+            o, lse, *flash_attn_fwd_reference(q, k, v, layout=layout, with_lse=True))
+        log(f"[parity] K6 {name}: max|dO| {o_err:.3e} (atol {o_atol:.2e} + rtol {O_RTOL}), "
+            f"max|dLSE| {lse_err:.3e} (atol {LSE_ATOL} + rtol {LSE_RTOL}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attn_fwd_d128 disagrees with its plain version on {name}")
+        bf16_errs.append(o_err)
+    del f32_cases, bf16_cases
+
+    # the Wan shape in bf16 with LSE; the plain version over chunks of 4 heads
+    B, N, H, D = wan_shape
+    q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+    o, lse = flash_attn_fwd_d128(q, k, v, layout="bnhd", with_lse=True)
+    chunk, wan_plain_ms, worst = 4, 0.0, 0.0
+    for h in range(0, H, chunk):
+        sl = (slice(None), slice(None), slice(h, h + chunk))
+        (ro, rl), ms = _timed(lambda: flash_attn_fwd_reference(q[sl], k[sl], v[sl], "bnhd", True))
+        wan_plain_ms += ms
+        o_err, _, _, ok = _check(o[sl], lse[:, h:h + chunk], ro, rl)
+        worst = max(worst, o_err)
+        if not ok:
+            fail(f"flash_attn_fwd_d128 disagrees at the Wan shape, heads {h}..")
+        del ro, rl
+    log(f"[parity] K6 bf16 Wan shape {wan_shape} bnhd with LSE, all {H} heads in chunks of "
+        f"{chunk}: max|dO| {worst:.3e} ok; plain version {wan_plain_ms:.1f} ms over the chunks")
+    bf16_errs.append(worst)
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return max(f32_errs), max(bf16_errs), cam_plain_ms, wan_plain_ms
+
+
+def synthetic_clip(S: int = 10, H: int = 518, W: int = 518, device="cuda"):
+    """A clip-shaped cloud: S smooth depth maps with object edges, seen from
+    S cameras on a small arc, unprojected to S*H*W world points. Returns
+    (points (S*H*W, 3), intrinsics (S, 3, 3), extrinsics (S, 3, 4))."""
+    import torch
+
+    from videogpa_torch.geometry.transforms import depth_to_world_points
+
+    yy, xx = torch.meshgrid(torch.linspace(0, 1, H, device=device),
+                            torch.linspace(0, 1, W, device=device), indexing="ij")
+    depth = torch.stack([
+        2.0 + 0.5 * torch.sin(6 * xx + 0.3 * s) * torch.cos(4 * yy)
+        + 0.8 * ((xx - 0.5).abs() < 0.15).float() * ((yy - 0.4).abs() < 0.2).float()
+        for s in range(S)])
+    f = 0.8 * W
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]], device=device).expand(S, 3, 3)
+    ang = torch.linspace(-0.15, 0.15, S, device=device)
+    c, sn, zero, one = torch.cos(ang), torch.sin(ang), torch.zeros_like(ang), torch.ones_like(ang)
+    R = torch.stack([torch.stack([c, zero, sn], -1), torch.stack([zero, one, zero], -1),
+                     torch.stack([-sn, zero, c], -1)], -2)
+    t = torch.stack([0.3 * ang, 0.05 * ang, zero], -1)[..., None]
+    E = torch.cat([R, t], -1)
+    return depth_to_world_points(depth, E, K).reshape(-1, 3), K.contiguous(), E
+
+
+def zbuffer_stream(S: int = 10, H: int = 518, W: int = 518):
+    """One clip's packed z-buffer update stream: (lin, key, n_slots, pid_bits)."""
+    from videogpa_torch.geometry.projection import packed_keys
+
+    points, K, E = synthetic_clip(S, H, W)
+    lin, key, pid_bits = packed_keys(points, K, E, H, W)
+    return lin.reshape(-1), key.reshape(-1), S * (H * W + 1), pid_bits
+
+
+def phase_parity_zbuffer():
+    """K5 against its plain version on the card, bit for bit; returns the
+    plain ms on one clip's real packed-key stream."""
+    import torch
+
+    from videogpa_torch.geometry.zbuffer_kernel import (
+        SENTINEL, scatter_min_u32, scatter_min_u32_reference)
+
+    S, H, W = 10, 518, 518
+    lin, key, n_slots, pid_bits = zbuffer_stream(S, H, W)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    U = lin.numel()
+    rnd_key = torch.randint(0, 2 ** 32, (U,), generator=gen, device="cuda", dtype=torch.int64)
+    rnd_key[::7] = SENTINEL
+    n_one = min(U, 1 << 22)
+    cases = [
+        (f"real packed-key stream ({S} views x {H}x{W} points, pid_bits {pid_bits}, "
+         f"{int((key != SENTINEL).sum())} of {U} updates live)", lin, key, n_slots),
+        ("sentinel-only stream", lin, torch.full_like(key, SENTINEL), n_slots),
+        (f"all updates on one slot (contention), {n_one} random keys",
+         torch.zeros(n_one, dtype=torch.int64, device="cuda"), rnd_key[:n_one], 1),
+        ("random addresses and keys, every 7th a sentinel",
+         torch.randint(0, n_slots, (U,), generator=gen, device="cuda"), rnd_key, n_slots),
+    ]
+    plain_ms = None
+    for name, l, k, n in cases:
+        got = scatter_min_u32(l, k, n)
+        want, ms = _timed(lambda: scatter_min_u32_reference(l, k, n))
+        plain_ms = ms if plain_ms is None else plain_ms
+        same = torch.equal(got, want)
+        log(f"[parity] K5 {name}: bit-identical to the plain version: {same}; "
+            f"{int((want != SENTINEL).sum())} slots written")
+        if not same:
+            fail(f"scatter_min_u32 differs from its plain version on {name}")
+    del cases, rnd_key, lin, key
+    torch.cuda.empty_cache()
+    return plain_ms
+
+
+# [slice_scorer]: the tiny VGGT scorer, f32 on the card against f32 on the
+# CPU. Backbone outputs differ by summation order only (cuBLAS vs the CPU's
+# BLAS, K6's f32 kernel vs the plain version, f32 convolutions with TF32
+# off): pose_enc within SCORER_POSE_ATOL, depth and conf within
+# SCORER_DENSE_RTOL of their largest value. A score may move further where a
+# pixel's z-buffer winner flips under that noise (near-equal depths): one
+# flipped pixel moves a clip's MSE by at most 1 / (S*H*W), so MSE and the
+# consistency score are held within SCORER_FLIPS such pixels (+1e-5), PSNR
+# within the log of that change, SSIM and LPIPS (local windows of the same
+# frames) within 1e-2 and 1e-3, motion_norm and MVCS (no z-buffer) within 1e-4
+SCORER_POSE_ATOL, SCORER_DENSE_RTOL, SCORER_FLIPS = 1e-4, 1e-4, 10
+
+
+def regular_camera_(model) -> None:
+    """Shift the random camera head's fov outputs by +1 rad. A random head
+    can emit fov 0 after its ReLU (focal length inf, NaN pixels), where the
+    z-buffer would see no geometry at all; with this the scorer does real
+    reprojection work on random weights."""
+    import torch
+
+    with torch.no_grad():
+        model.camera_head.pose_branch.fc2.bias[7:9] += 1.0
+
+
+def synthetic_frames(K: int, S: int, size: int, seed: int):
+    """K clips of S uint8 frames (size x size x 3): a smooth random texture
+    panning a few pixels a frame, as a slow camera move would."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    clips = []
+    for _ in range(K):
+        small = rng.uniform(0, 255, (size // 8 + 2, size // 8 + S + 2, 3))
+        big = np.kron(small, np.ones((8, 8, 1)))  # blocky texture, 8-pixel cells
+        clips.append(np.stack([big[:size, 2 * t: 2 * t + size] for t in range(S)])
+                     .astype(np.uint8))
+    return clips
+
+
+def phase_slice_scorer() -> None:
+    """The tiny VGGT scorer through process_frames_batch, f32 on the card
+    against the same weights and frames in f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+    from videogpa_torch.reward import VideoProcessor
+
+    cfg = VGGTConfig.tiny()
+    ref = vggt_init(cfg, torch.Generator().manual_seed(8), device="cpu").eval()
+    regular_camera_(ref)
+    dev = vggt_init(cfg, device="cuda").eval()
+    dev.load_state_dict(ref.state_dict())
+    lp_ref = lpips_init(torch.Generator().manual_seed(9), device="cpu")
+    lp_dev = lpips_init(device="cuda")
+    lp_dev.load_state_dict(lp_ref.state_dict())
+    clips = synthetic_frames(2, 4, cfg.img_size, seed=10)
+    S, H, W = clips[0].shape[:3]
+
+    imgs = torch.from_numpy(np.stack(clips)).float().permute(0, 1, 4, 2, 3) / 255.0
+    with torch.no_grad():
+        want = vggt_forward(ref, imgs, compute_dtype=torch.float32)
+        got = vggt_forward(dev, imgs.cuda(), compute_dtype=torch.float32)
+    pose_err = (got["pose_enc"].cpu() - want["pose_enc"]).abs().max().item()
+    dense = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+             for k in ("depth", "depth_conf")}
+    log(f"[slice] tiny VGGT f32 card vs CPU: max|d pose_enc| {pose_err:.2e} (limit "
+        f"{SCORER_POSE_ATOL}), depth {dense['depth']:.2e}, conf {dense['depth_conf']:.2e} "
+        f"relative to the largest value (limit {SCORER_DENSE_RTOL})")
+    if pose_err > SCORER_POSE_ATOL or max(dense.values()) > SCORER_DENSE_RTOL:
+        fail("the tiny VGGT forward on the card disagrees with the CPU")
+
+    def score(model, lp, device):
+        vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.float32,
+                            zbuffer_impl="packed", device=device)
+        return vp.process_frames_batch(clips, [0])
+
+    got_s, want_s = score(dev, lp_dev, "cuda"), score(ref, lp_ref, "cpu")
+    flip = SCORER_FLIPS / (S * H * W)
+    worst = {}
+    for g, w in zip(got_s, want_s):
+        for name, b in w[0].items():
+            a = g[0][name]
+            if name in ("MSE", "Consistency_Score"):
+                lim = flip + 1e-5
+            elif name == "PSNR":
+                lim = 10 * np.log10(1 + flip / max(w[0]["MSE"], 1e-12)) + 1e-4
+            else:
+                lim = {"SSIM": 1e-2, "LPIPS": 1e-3}.get(name, 1e-4)
+            d = abs(a - b)
+            worst[name] = max(worst.get(name, 0.0), d)
+            if not (np.isfinite(a) and d <= lim):
+                fail(f"tiny scorer {name}: card {a} vs CPU {b} (limit {lim:.2e})")
+    log(f"[slice] tiny scorer (2 clips x {S} frames at {H}^2, packed z-buffer) f32 card vs "
+        f"CPU, max |d| per score: " + json.dumps({k: float(f"{v:.3e}") for k, v in
+                                                  worst.items()})
+        + f"; MSE limit {SCORER_FLIPS} flipped pixels = {flip + 1e-5:.2e}")
+
+
+# [slice_vggt_bf16]: a small VGGT with the scorer's dtypes on the card (trunk
+# and DPT bf16, camera head f32) against the same weights in f32 on the CPU.
+# Its config keeps the full model's head dims (64 in the blocks, 128 in the
+# camera head) and rows long enough that the global blocks reach K1 (6 frames
+# x 405 tokens = 2,430 keys, past K4's 2,048) and the frame and DINOv2 blocks
+# K4. The bf16 rounding of activations alone moves pose_enc by about 1e-2 (one
+# bf16 ulp of the fov terms near 2), depth and its confidence by < 1e-3 and
+# the world points by < 1e-2 of their largest value (the plain versions in
+# bf16 on the CPU: 1.2e-2, 9.2e-4 and 8.8e-3 over three seeds); the limits
+# are about four times that. One V row out of place in either attention moves
+# pose_enc by 0.17 to 0.4 there.
+BF16_POSE_ATOL, BF16_DENSE_RTOL, BF16_POINTS_RTOL = 5e-2, 5e-3, 3e-2
+
+
+def phase_slice_vggt_bf16() -> None:
+    """A small VGGT in the scorer's dtypes on the card against f32 on the CPU,
+    so that the blocks feed K4 and K1 (and the camera head K6's f32 entry)
+    inside the model."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+
+    cfg = dataclasses.replace(VGGTConfig.tiny(), img_size=280, backbone_dim=128,
+                              backbone_heads=2, embed_dim=128, num_heads=2)
+    dev = vggt_init(cfg, torch.Generator(device="cuda").manual_seed(12), device="cuda",
+                    dtype=torch.bfloat16).eval()
+    regular_camera_(dev)
+    dev.camera_head.float()
+    ref = vggt_init(cfg, device="cpu").eval()
+    ref.load_state_dict({k: v.float().cpu() for k, v in dev.state_dict().items()})
+    clips = synthetic_frames(1, 6, cfg.img_size, seed=12)
+    imgs = torch.from_numpy(np.stack(clips)).float().permute(0, 1, 4, 2, 3) / 255.0
+    with torch.no_grad():
+        want = vggt_forward(ref, imgs, compute_dtype=torch.float32)
+        zero_launches()
+        got = vggt_forward(dev, imgs.cuda(), compute_dtype=torch.bfloat16,
+                           dpt_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    expect = {name: 0 for name in launches}
+    expect.update(flash_attn_fwd=cfg.depth, flash_attn_short=cfg.backbone_depth + cfg.depth,
+                  flash_attn_fwd_f32=cfg.camera_trunk_depth * cfg.camera_iterations)
+    pose_err = (got["pose_enc"].float().cpu() - want["pose_enc"]).abs().max().item()
+    rel = {k: ((got[k].float().cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+           for k in ("depth", "depth_conf", "world_points", "world_points_conf")}
+    log(f"[slice] small VGGT ({cfg.img_size}^2, 6 frames, blocks 2 x 64, camera head 2 x "
+        f"128) bf16 trunk and DPT on the card vs f32 on the CPU: max|d pose_enc| "
+        f"{pose_err:.3e} (limit {BF16_POSE_ATOL}), max|d| / max|ref| " + json.dumps(
+            {k: float(f"{v:.3e}") for k, v in rel.items()})
+        + f" (limits {BF16_DENSE_RTOL}, world_points {BF16_POINTS_RTOL}); launches "
+        + json.dumps(launches))
+    if launches != expect:
+        fail(f"the small bf16 VGGT did not reach K1, K4 and K6 as expected {expect}")
+    if not (pose_err <= BF16_POSE_ATOL and rel["world_points"] <= BF16_POINTS_RTOL
+            and max(v for k, v in rel.items() if k != "world_points") <= BF16_DENSE_RTOL):
+        fail("the small bf16 VGGT on the card disagrees with the CPU reference")
+
+
+def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
+    """The VGGT-1B scorer at full width: K clips x S frames x 518^2 per batch,
+    packed z-buffer, dpt_chunk 8, the fusable metrics with a VGG16 LPIPS."""
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_init
+    from videogpa_torch.reward import VideoProcessor
+
+    cfg = VGGTConfig()
+    t0 = time.perf_counter()
+    model = vggt_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                      dtype=torch.bfloat16).eval()
+    regular_camera_(model)
+    model.camera_head.float()  # the camera head runs in f32
+    lp = lpips_init(torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[scorer] VGGT-1B: DINOv2 ViT-L/14 {cfg.backbone_depth} blocks, aggregator "
+        f"{cfg.depth} frame + {cfg.depth} global blocks at {cfg.embed_dim} ({cfg.num_heads}x"
+        f"{cfg.embed_dim // cfg.num_heads}), camera head {cfg.camera_trunk_depth} blocks at "
+        f"{cfg.tokens_dim} x {cfg.camera_iterations} iterations (f32), DPT {cfg.dpt_features}; "
+        f"{n_params / 1e9:.3f} B params (trunk and DPT bf16), LPIPS VGG16 f32; built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.bfloat16,
+                        dpt_chunk=8, zbuffer_impl="packed", device="cuda")
+    batches = [synthetic_frames(K, S, cfg.img_size, seed=100 + b) for b in range(num_batches)]
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    batch_ms, results = [], None
+    for b, clips in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = vp.process_frames_batch(clips, [0])
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"[scorer] batch {b} ({'cold' if b == 0 else 'warm'}): {batch_ms[-1]:.1f} ms, "
+            f"{K / (batch_ms[-1] / 6e4):.1f} clips/min; clip 0: "
+            + json.dumps({k: round(v, 6) for k, v in results[0][0].items()}))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_batch = {k: v / num_batches for k, v in launches.items()}
+    want = {"flash_attn_fwd": cfg.depth, "flash_attn_bwd": 0,
+            "flash_attn_short": cfg.backbone_depth + cfg.depth,
+            "flash_attn_fwd_f32": cfg.camera_trunk_depth * cfg.camera_iterations,
+            "flash_attn_fwd_d128": 0, "scatter_min_u32": K}
+    log(f"[scorer] launches per batch {json.dumps(per_batch)}; expected {json.dumps(want)} "
+        f"(K1: the {cfg.depth} global blocks; K4: {cfg.backbone_depth} DINOv2 + {cfg.depth} "
+        f"frame blocks; K6 f32: {cfg.camera_trunk_depth} trunk blocks x "
+        f"{cfg.camera_iterations} iterations; K5: one packed z-buffer per clip); peak "
+        f"allocated {peak_gb:.2f} GB")
+    if per_batch != want:
+        fail("the scorer did not run each attention and z-buffer through its kernel")
+    for r in results:
+        for name, v in r[0].items():
+            if not math.isfinite(v):
+                fail(f"non-finite score {name} = {v}")
+        if len(r["_extrinsic"]) != S:
+            fail("extrinsics of the wrong shape")
+    profile = profile_device_time("one scorer batch (profiled)",
+                                  lambda: vp.process_frames_batch(batches[-1], [0]))
+    del vp, model, lp
+    torch.cuda.empty_cache()
+    return {"batch_ms": batch_ms, "clips_per_min": [K / (ms / 6e4) for ms in batch_ms],
+            "peak_gb": peak_gb, "launches": launches, "per_batch": per_batch,
+            "profile": profile}
+
+
+def _bound(flops, nbytes, peak_flops):
+    """(bound ms, what bounds it): the larger of operations over the peak
+    rate of their type and bytes over the HBM rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_timing_scorer(vggt_shape, cam_shape, wan_shape):
+    """K4, K6 (f32 and bf16) and K5 alone at their main-path shapes, beside
+    their bounds and one PyTorch call computing the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.geometry.zbuffer_kernel import SENTINEL, scatter_min_u32
+    from videogpa_torch.ops import _kernels
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd_d128, flash_attn_fwd_f32, flash_attn_short)
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    # K4: q, k, v as strided views of one packed projection, as the blocks feed it
+    B, N, H, D = vggt_shape
+    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    out["k4_ms"] = cuda_ms(lambda: flash_attn_short(q, k, v), iters=20)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # yardstick only
+    out["k4_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
+    out["k4_bound_ms"], out["k4_bound_by"] = _bound(4.0 * B * H * N * N * D,
+                                                     2.0 * 4 * B * N * H * D, PEAK_BF16_FLOPS)
+    del q, k, v, qt, kt, vt
+
+    # K6 f32 at the camera head's shape
+    B, N, H, D = cam_shape
+    q, k, v = (torch.randn(B, N, H, D, generator=gen, device="cuda") for _ in range(3))
+    out["k6_f32_ms"] = cuda_ms(lambda: flash_attn_fwd_f32(q, k, v), iters=200)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["k6_f32_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                       iters=200)
+    out["k6_f32_bound_ms"], out["k6_f32_bound_by"] = _bound(
+        4.0 * B * H * N * N * D, 4.0 * 4 * B * N * H * D, PEAK_F32_FLOPS)
+    del q, k, v, qt, kt, vt
+
+    # K6 bf16 at the Wan DiT's shape, no LSE (sampling)
+    B, N, H, D = wan_shape
+    q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+    out["k6_bf16_ms"] = cuda_ms(lambda: flash_attn_fwd_d128(q, k, v), iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["k6_bf16_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                        iters=5)
+    out["k6_bf16_bound_ms"], out["k6_bf16_bound_by"] = _bound(
+        4.0 * B * H * N * N * D, 2.0 * 4 * B * N * H * D, PEAK_BF16_FLOPS)
+    del q, k, v, qt, kt, vt
+
+    # K5 on one clip's packed-key stream: the kernel alone (fill + launch, on
+    # int32 images of the keys), the wrapper, and scatter_reduce_ "amin"
+    lin, key, n_slots, _ = zbuffer_stream()
+    lin32 = lin.to(torch.int32)
+    key32 = torch.where(key >= 2 ** 31, key - 2 ** 32, key).to(torch.int32)
+    buf = torch.empty(n_slots, dtype=torch.int32, device="cuda")
+    fn = _kernels.kernel("scatter_min_u32")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def raw():
+        buf.fill_(-1)
+        fn(lin32.data_ptr(), key32.data_ptr(), buf.data_ptr(), lin32.numel(), stream)
+
+    out["k5_ms"] = cuda_ms(raw, iters=20)
+    out["k5_wrapper_ms"] = cuda_ms(lambda: scatter_min_u32(lin, key, n_slots), iters=20)
+    buf64 = torch.full((n_slots,), SENTINEL, dtype=torch.int64, device="cuda")
+    out["k5_library_ms"] = cuda_ms(lambda: buf64.scatter_reduce_(0, lin, key, reduce="amin"),
+                                   iters=20)
+    live = int((key != SENTINEL).sum())
+    out["k5_updates"], out["k5_live_updates"] = lin.numel(), live
+    out["k5_bound_ms"], out["k5_bound_by"] = _bound(
+        float(lin.numel()), 8.0 * lin.numel() + 4.0 * n_slots, PEAK_F32_FLOPS)
+    out["k5_updates_per_s"] = lin.numel() / (out["k5_ms"] / 1e3)
+    del lin, key, lin32, key32, buf, buf64
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -717,9 +1336,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     from videogpa_torch.models.cogvideox import CogVideoXConfig
+    from videogpa_torch.models.vggt import VGGTConfig
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     card = gpu_name_and_power()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
@@ -731,17 +1349,33 @@ def main() -> int:
     dit_shape = (2, n_tokens, cfg.num_heads, cfg.head_dim)  # denoise: CFG pair
     train_shape = (1, n_tokens, cfg.num_heads, cfg.head_dim)  # train: batch 1 per forward
 
+    vcfg = VGGTConfig()
+    n_frame = 1 + vcfg.backbone_register_tokens + (vcfg.img_size // vcfg.patch_size) ** 2
+    vggt_shape = (4 * 10, n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
+    vggt_global_shape = (4, 10 * n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
+    cam_shape = (4, 10, vcfg.num_heads, vcfg.tokens_dim // vcfg.num_heads)
+    wan_shape = (1, 18480, 24, 128)  # Wan2.2 DiT attention, for K6's bf16 path
+
     phase_build()
-    fwd_err, fwd_plain_ms = phase_parity(dit_shape)
+    fwd_err, fwd_plain_ms = phase_parity(dit_shape, vggt_global_shape)
     bwd_err, bwd_plain_ms = phase_parity_bwd(train_shape)
+    short_err, short_plain_ms = phase_parity_short(vggt_shape)
+    d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(cam_shape,
+                                                                                wan_shape)
+    zbuf_plain_ms = phase_parity_zbuffer()
     phase_slice()
     phase_slice_dpo()
+    phase_slice_scorer()
+    phase_slice_vggt_bf16()
     main_run = phase_main()
     train_run = phase_train()
+    scorer_run = phase_scorer()
     timing = phase_timing(dit_shape, train_shape)
+    timing.update(phase_timing_scorer(vggt_shape, cam_shape, wan_shape))
 
     attn_share = main_run["launches_per_step"] * timing["fwd_ms"] / main_run["step_ms"][-1]
-    per_mini = train_run["fwd_launches"] // 4, train_run["bwd_launches"] // 4
+    per_mini = (train_run["launches"]["flash_attn_fwd"] // 4,
+                train_run["launches"]["flash_attn_bwd"] // 4)
     train_attn_ms = per_mini[0] * timing["fwd_ms_train_shape"] + per_mini[1] * timing["bwd_ms"]
     log("[timing] " + json.dumps({
         "denoise_step_ms": main_run["step_ms"],
@@ -751,6 +1385,9 @@ def main() -> int:
         "train_update_ms": train_run["update_ms"],
         "train_peak_allocated_gb": train_run["peak_gb"],
         "train_checkpoint_save_restore_s": train_run["checkpoint_s"],
+        "scorer_batch_ms": scorer_run["batch_ms"],
+        "scorer_clips_per_min": scorer_run["clips_per_min"],
+        "scorer_peak_allocated_gb": scorer_run["peak_gb"],
         "flash_attn_fwd_ms_at_dit_shape": timing["fwd_ms"],
         "flash_attn_fwd_tflops": timing["fwd_tflops"],
         "flash_attn_fwd_bound_ms": timing["fwd_bound_ms"],
@@ -762,44 +1399,70 @@ def main() -> int:
         "flash_attn_bwd_bound_ms": timing["bwd_bound_ms"],
         "flash_attn_bwd_sdpa_backward_ms": timing["bwd_library_ms"],
         "flash_attn_bwd_plain_ms_over_head_chunks": bwd_plain_ms,
+        "scorer_k4_k6_k5": {k: v for k, v in timing.items() if k[:3] in ("k4_", "k5_", "k6_")},
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
         "train_attention_shape_bnhd": list(train_shape),
+        "vggt_frame_attention_shape_bnhd": list(vggt_shape),
+        "vggt_global_attention_shape_bnhd": list(vggt_global_shape),
+        "camera_head_attention_shape_bnhd": list(cam_shape),
+        "wan_attention_shape_bnhd": list(wan_shape),
         "card": card,
         "wall_s": time.perf_counter() - t_start,
     }))
     log(card)
+    runs = {"denoise": main_run["launches"], "train": train_run["launches"],
+            "scorer": scorer_run["launches"]}
+
+    def by_path(name):
+        """A wrapper's launches on each main path, as counted in that path's run."""
+        per_path = {path: launches[name] for path, launches in runs.items()}
+        return {"launches": sum(per_path.values()), "launches_by_path": per_path}
+
     log(json.dumps({"kernels": [
-        {
-            "name": "flash_attn_fwd",
-            "route": "cuda",
-            "source": "videogpa_torch/csrc/flash_attn_fwd.cu",
-            "replaces": "videogpa_tpu/ops/attention.py:221",
-            "launches": main_run["launches"] + train_run["fwd_launches"],
-            "launches_by_path": {"denoise": main_run["launches"],
-                                 "train": train_run["fwd_launches"]},
-            "max_abs_err": fwd_err,
-            "ms": timing["fwd_ms"],
-            "plain_ms": fwd_plain_ms,
-            "bound_ms": timing["fwd_bound_ms"],
-            "bound_by": timing["fwd_bound_by"],
-            "library_ms": timing["fwd_library_ms"],
-        },
-        {
-            "name": "flash_attn_bwd",
-            "route": "cuda",
-            "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
-            "replaces": "videogpa_tpu/ops/attention.py:951,983",
-            "launches": train_run["bwd_launches"],
-            "launches_by_path": {"denoise": 0, "train": train_run["bwd_launches"]},
-            "max_abs_err": bwd_err,
-            "ms": timing["bwd_ms"],
-            "plain_ms": bwd_plain_ms,
-            "bound_ms": timing["bwd_bound_ms"],
-            "bound_by": timing["bwd_bound_by"],
-            "library_ms": timing["bwd_library_ms"],
-        },
+        {"name": "flash_attn_fwd", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:221",
+         **by_path("flash_attn_fwd"),
+         "max_abs_err": fwd_err, "ms": timing["fwd_ms"], "plain_ms": fwd_plain_ms,
+         "bound_ms": timing["fwd_bound_ms"], "bound_by": timing["fwd_bound_by"],
+         "library_ms": timing["fwd_library_ms"]},
+        {"name": "flash_attn_bwd", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:951,983",
+         **by_path("flash_attn_bwd"),
+         "max_abs_err": bwd_err, "ms": timing["bwd_ms"], "plain_ms": bwd_plain_ms,
+         "bound_ms": timing["bwd_bound_ms"], "bound_by": timing["bwd_bound_by"],
+         "library_ms": timing["bwd_library_ms"]},
+        {"name": "flash_attn_short", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_short.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:544",
+         **by_path("flash_attn_short"),
+         "max_abs_err": short_err, "ms": timing["k4_ms"], "plain_ms": short_plain_ms,
+         "bound_ms": timing["k4_bound_ms"], "bound_by": timing["k4_bound_by"],
+         "library_ms": timing["k4_library_ms"]},
+        {"name": "scatter_min_u32", "route": "cuda",
+         "source": "videogpa_torch/csrc/zbuffer_scatter_min.cu",
+         "replaces": "videogpa_tpu/geometry/zbuffer_kernel.py:110",
+         **by_path("scatter_min_u32"),
+         "max_abs_err": 0.0, "ms": timing["k5_ms"], "plain_ms": zbuf_plain_ms,
+         "bound_ms": timing["k5_bound_ms"], "bound_by": timing["k5_bound_by"],
+         "library_ms": timing["k5_library_ms"]},
+        {"name": "flash_attn_fwd_f32", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd_d128.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:65",
+         **by_path("flash_attn_fwd_f32"),
+         "max_abs_err": d128_f32_err, "ms": timing["k6_f32_ms"], "plain_ms": cam_plain_ms,
+         "bound_ms": timing["k6_f32_bound_ms"], "bound_by": timing["k6_f32_bound_by"],
+         "library_ms": timing["k6_f32_library_ms"]},
+        {"name": "flash_attn_fwd_d128", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd_d128.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:65",
+         **by_path("flash_attn_fwd_d128"),
+         "max_abs_err": d128_bf16_err, "ms": timing["k6_bf16_ms"], "plain_ms": wan_plain_ms,
+         "bound_ms": timing["k6_bf16_bound_ms"], "bound_by": timing["k6_bf16_bound_by"],
+         "library_ms": timing["k6_bf16_library_ms"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,14 +6,21 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from videogpa_tpu.models.cogvideox import CogVideoXConfig as JaxConfig
 from videogpa_tpu.models.cogvideox import dit_init as jax_dit_init
+from videogpa_tpu.models.lpips import lpips_init as jax_lpips_init
+from videogpa_tpu.models.vggt import VGGTConfig as JaxVGGTConfig
+from videogpa_tpu.models.vggt import vggt_init as jax_vggt_init
+from videogpa_tpu.ops import layers as JL
 from videogpa_torch.convert import load_jax_params, state_dict_from_jax
 from videogpa_torch.models.cogvideox import CogVideoXConfig, CogVideoXTransformer
+from videogpa_torch.models.lpips import LPIPS
+from videogpa_torch.models.vggt import VGGT, VGGTConfig
 
 torch.set_num_threads(2)
 
@@ -23,6 +30,34 @@ _CONFIGS = {
     "tiny_pt2_ofs": dataclasses.replace(
         CogVideoXConfig.tiny(), patch_size_t=2, sample_frames=4, ofs_embed_dim=16),
 }
+
+
+def random_jax_tree(init, *args, seed=0):
+    """A tree with the exact structure, shapes and dtypes of ``init(key,
+    *args)`` (``jax.eval_shape``: nothing is compiled or drawn), filled with
+    seeded numpy draws: kernels U(+-1/sqrt(fan_in)), biases U(+-0.1),
+    layer-norm scales 1 + U(+-0.1), LayerScale gammas 0.1, every other leaf
+    (tokens, tables) N(0, 0.02). JAX's own initialisers take tens of seconds
+    on the CPU for a VGGT tree."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda key: init(key, *args), jax.random.PRNGKey(0))
+
+    def fill(path, leaf):
+        name, shape = getattr(path[-1], "key", None), leaf.shape
+        if name == "kernel":
+            bound = float(np.prod(shape[:-1])) ** -0.5
+            x = rng.uniform(-bound, bound, shape)
+        elif name == "bias":
+            x = rng.uniform(-0.1, 0.1, shape)
+        elif name == "scale":
+            x = 1.0 + rng.uniform(-0.1, 0.1, shape)
+        elif name == "gamma":
+            x = np.full(shape, 0.1)
+        else:
+            x = rng.normal(0.0, 0.02, shape)
+        return x.astype(leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def _jax_tree(cfg):
@@ -85,7 +120,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import importlib, pkgutil, sys, videogpa_torch\n"
         "for m in pkgutil.walk_packages(videogpa_torch.__path__, 'videogpa_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'videogpa_tpu'))\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'videogpa_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules if n.startswith('videogpa_torch')]))\n"
     )
@@ -93,3 +129,82 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 12
+
+
+_STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
+
+
+def _leaves(tree, prefix=""):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        path = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, (dict, list)):
+            yield from _leaves(v, path)
+        else:
+            yield path, v
+
+
+def _rebuilt(sd, path, leaf):
+    """(torch keys, the JAX leaf rebuilt from the port's state dict)."""
+    *module, name = path.split(".")
+    torch_name = {"kernel": "weight", "scale": "weight"}.get(name, name)
+    owner = module[-1] if module else ""
+
+    def jax_layout(t):
+        if name == "kernel" and t.ndim == 2:
+            return t.T
+        if name == "kernel" and t.ndim == 4:  # transposed convs: (I, O, k, k) -> (k, k, I, O)
+            return t.transpose(2, 3, 0, 1) if owner in ("resize0", "resize1") else \
+                t.transpose(2, 3, 1, 0)
+        return t
+
+    at = next((i for i, p in enumerate(module) if p in _STACKED), None)
+    if at is None:
+        key = ".".join(module + [torch_name])
+        return [key], jax_layout(sd[key])
+    keys = [".".join(module[:at + 1] + [str(i)] + module[at + 1:] + [torch_name])
+            for i in range(leaf.shape[0])]
+    return keys, np.stack([jax_layout(sd[k]) for k in keys])
+
+
+@pytest.mark.parametrize("name", ["vggt_tiny", "lpips"])
+def test_vggt_and_lpips_trees_round_trip_strictly(name):
+    """Stacked blocks (DINOv2, frame/global, camera trunk), list leaves
+    (projects, layer_rn, convs, lins), verbatim tokens and LayerScale gammas,
+    and the DPT's transposed convs all land and come back unchanged."""
+    if name == "vggt_tiny":
+        params = random_jax_tree(jax_vggt_init, JaxVGGTConfig.tiny())
+        make = lambda: VGGT(VGGTConfig.tiny())  # noqa: E731
+    else:
+        params = random_jax_tree(jax_lpips_init, seed=1)
+        make = LPIPS
+    model = load_jax_params(make(), params)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    used = set()
+    for path, leaf in _leaves(params):
+        keys, back = _rebuilt(sd, path, leaf)
+        used.update(keys)
+        assert back.dtype == leaf.dtype and back.shape == leaf.shape, path
+        np.testing.assert_array_equal(back, leaf, err_msg=path)
+    assert used == set(sd), set(sd) ^ used
+    partial = dict(params)
+    partial.pop(next(iter(partial)))
+    with pytest.raises(RuntimeError):  # strict: a missing node fails the load
+        load_jax_params(make(), partial)
+
+
+def test_transposed_conv_layout_is_unflipped_in_out():
+    """JAX keeps ``resize0``/``resize1`` HWIO (k, k, in, out) and applies them
+    as an einsum; ``nn.ConvTranspose2d(stride=k)`` wants (in, out, k, k),
+    unflipped -- not the OIHW of an ordinary conv."""
+    params = random_jax_tree(jax_vggt_init, JaxVGGTConfig.tiny())
+    head = load_jax_params(VGGT(VGGTConfig.tiny()), params).depth_head
+    for name, k in (("resize0", 4), ("resize1", 2)):
+        kernel = params["depth_head"][name]["kernel"]
+        w = getattr(head, name).weight.detach().numpy()
+        np.testing.assert_array_equal(w, kernel.transpose(2, 3, 0, 1))
+        x = np.random.default_rng(k).standard_normal((1, kernel.shape[2], 3, 5), dtype=np.float32)
+        want = JL.conv_transpose2d(params["depth_head"][name], jnp.asarray(x), stride=k)
+        with torch.no_grad():
+            got = getattr(head, name)(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)

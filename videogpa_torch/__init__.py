@@ -3,10 +3,16 @@
 The JAX package ``videogpa_tpu`` is the reference; this package keeps its
 module names so each function has an obvious counterpart:
 
-- ``videogpa_torch.ops``     — layers, RoPE, attention (hand-written CUDA kernel)
-- ``videogpa_torch.models``  — CogVideoX DiT, scheduler, denoise loop
-- ``videogpa_torch.train``   — LoRA hook of the DiT
-- ``videogpa_torch.convert`` — JAX parameter tree -> module state
+- ``videogpa_torch.ops``      — layers, RoPE, resize, the ViT block, attention
+  (hand-written CUDA kernels K1, K3, K4, K6)
+- ``videogpa_torch.models``   — CogVideoX DiT, scheduler, denoise loop; VGGT;
+  LPIPS
+- ``videogpa_torch.train``    — LoRA, the DPO loss and train step, dataset
+- ``videogpa_torch.geometry`` — poses, unprojection, z-buffer reprojection
+  (hand-written CUDA scatter-min K5)
+- ``videogpa_torch.metrics``  — the scorer's metric functions and classes
+- ``videogpa_torch.reward``   — the VGGT reward scorer (``VideoProcessor``)
+- ``videogpa_torch.convert``  — JAX parameter tree -> module state
 
 It imports neither ``jax`` nor ``videogpa_tpu``. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; CPU tensors take the plain PyTorch

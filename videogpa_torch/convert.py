@@ -1,15 +1,22 @@
-"""Weight bridge: the JAX package's parameter tree (as numpy) -> module state.
+"""Weight bridge: the JAX package's parameter trees (as numpy) -> module state.
 
 The inverse of ``videogpa_tpu/convert.py:22-56`` (``t_linear``,
-``t_layernorm``, ``t_conv2d``):
+``t_layernorm``, ``t_conv2d``, ``t_conv_transpose2d``):
 
-- Linear:    kernel (in, out)       -> weight (out, in)
-- Conv2d:    kernel HWIO (kh, kw, I, O) -> weight OIHW (O, I, kh, kw)
-- LayerNorm: scale / bias           -> weight / bias
+- Linear:          kernel (in, out)           -> weight (out, in)
+- Conv2d:          kernel HWIO (kh, kw, I, O) -> weight OIHW (O, I, kh, kw)
+- ConvTranspose2d: kernel HWIO (k, k, I, O)   -> weight (I, O, k, k), unflipped
+  (the DPT's ``resize0`` / ``resize1``, applied by JAX as an einsum)
+- LayerNorm:       scale / bias               -> weight / bias
 
-``params["blocks"]`` holds every block's leaves stacked along a leading
-axis; it is unstacked into ``blocks.{i}.*``. Any leaf the bridge cannot name
-raises, and loading is strict, so nothing is left unmapped on either side.
+Leaves under a ``lax.scan``-stacked node (``blocks``, ``frame_blocks``,
+``global_blocks``, the camera head's ``trunk``) carry every layer along a
+leading axis; they are unstacked into ``<node>.{i}.*``. List nodes
+(``projects``, ``layer_rn``, ``convs``, ``lins``) become ``<node>.{i}.*``.
+Tokens and tables (``_VERBATIM``) and LayerScale's ``ls1/ls2.gamma`` are
+copied as they are. Covers the CogVideoX DiT, ``vggt_init`` and
+``lpips_init`` trees. Any leaf the bridge cannot name raises, and loading is
+strict, so nothing is left unmapped on either side.
 """
 
 from __future__ import annotations
@@ -20,15 +27,22 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# top-level leaves copied as they are
-_VERBATIM = ("pos_embedding",)
+# leaves copied as they are, by name
+_VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
+             "register_tokens", "pos_embed", "empty_pose_tokens")
+_LAYER_SCALES = ("ls1", "ls2")
+# nodes whose leaves stack every layer along a leading axis
+_STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
+# 4-D kernels of transposed convolutions (kernel_size == stride)
+_TRANSPOSED_CONVS = ("resize0", "resize1")
 
 
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
-    for key, val in tree.items():
-        path = f"{prefix}.{key}" if prefix else key
-        if isinstance(val, Mapping):
+    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
+    for key, val in items:
+        path = f"{prefix}.{key}" if prefix else str(key)
+        if isinstance(val, (Mapping, list, tuple)):
             out.update(_flatten(val, path))
         else:
             out[path] = np.asarray(val)
@@ -37,11 +51,14 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
 
 def _torch_leaf(path: str, arr: np.ndarray):
     """(torch key, array in torch layout) for one unstacked JAX leaf."""
-    if path in _VERBATIM:
-        return path, arr
     module, _, name = path.rpartition(".")
+    owner = module.rpartition(".")[2]
+    if name in _VERBATIM or (name == "gamma" and owner in _LAYER_SCALES):
+        return path, arr
     if name == "kernel" and arr.ndim == 2:
         return f"{module}.weight", arr.T
+    if name == "kernel" and arr.ndim == 4 and owner in _TRANSPOSED_CONVS:
+        return f"{module}.weight", arr.transpose(2, 3, 0, 1)
     if name == "kernel" and arr.ndim == 4:
         return f"{module}.weight", arr.transpose(3, 2, 0, 1)
     if name == "scale" and arr.ndim == 1:
@@ -52,15 +69,18 @@ def _torch_leaf(path: str, arr: np.ndarray):
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX DiT tree of numpy arrays -> ``CogVideoXTransformer`` state dict."""
+    """JAX parameter tree of numpy arrays -> state dict of the port's module."""
     out: Dict[str, np.ndarray] = {}
     for path, arr in _flatten(params).items():
-        if not path.startswith("blocks."):
+        parts = path.split(".")
+        at = next((i for i, p in enumerate(parts) if p in _STACKED), None)
+        if at is None:
             key, val = _torch_leaf(path, arr)
             out[key] = val
             continue
+        head, rest = ".".join(parts[:at + 1]), ".".join(parts[at + 1:])
         for i in range(arr.shape[0]):
-            key, val = _torch_leaf(f"blocks.{i}.{path[len('blocks.'):]}", arr[i])
+            key, val = _torch_leaf(f"{head}.{i}.{rest}", arr[i])
             out[key] = val
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 

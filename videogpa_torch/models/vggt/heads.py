@@ -1,0 +1,235 @@
+"""VGGT's prediction heads (``videogpa_tpu/models/vggt/heads.py``): the
+iterative camera head and the DPT dense heads.
+
+The camera head runs in float32 on the final layer's camera tokens: its
+trunk is 4 blocks at dim 2,048 with 16 heads of 128, so its attention is K6's
+f32 path on the card, 4 blocks x ``camera_iterations`` launches a forward.
+The DPT head runs in ``compute_dtype`` (the scorer's ``dpt_dtype``), frames
+in chunks of the largest divisor of B*S not above ``chunk_size``, each
+chunk's output written into one preallocated tensor.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as TF
+
+from videogpa_torch.models.vggt.config import VGGTConfig
+from videogpa_torch.ops import layers as L
+from videogpa_torch.ops.resize import resize_bilinear
+from videogpa_torch.ops.transformer import Block, BlockConfig, block_apply
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+def inverse_log_transform(y: torch.Tensor) -> torch.Tensor:
+    return torch.sign(y) * torch.expm1(y.abs())
+
+
+def activate_pose(enc: torch.Tensor) -> torch.Tensor:
+    """absT_quaR_FoV with the fov through a ReLU (the camera head's fl_act)."""
+    return torch.cat([enc[..., :7], torch.relu(enc[..., 7:])], dim=-1)
+
+
+def activate_head(out: torch.Tensor, activation: str,
+                  conf_activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, C, H, W) -> ((B, H, W, C-1) points or depth, (B, H, W) conf), f32.
+    VGGT's heads: "exp" (depth) or "inv_log" (points), conf "expp1"; the
+    JAX package's other activations serve DA3, a later slice."""
+    fmap = out.permute(0, 2, 3, 1).float()
+    xyz, conf = fmap[..., :-1], fmap[..., -1]
+    if activation == "exp":
+        pts = torch.exp(xyz)
+    elif activation == "inv_log":
+        pts = inverse_log_transform(xyz)
+    else:
+        raise ValueError(f"Unknown activation: {activation}")
+    if conf_activation != "expp1":
+        raise ValueError(f"Unknown conf_activation: {conf_activation}")
+    return pts, 1 + torch.exp(conf)
+
+
+# ---------------------------------------------------------------------------
+# Camera head
+# ---------------------------------------------------------------------------
+
+def camera_block_cfg(cfg: VGGTConfig) -> BlockConfig:
+    return BlockConfig(dim=cfg.tokens_dim, num_heads=cfg.num_heads, mlp_ratio=4.0,
+                       init_values=0.01)
+
+
+class CameraHead(nn.Module):
+    def __init__(self, cfg: VGGTConfig, device=None, dtype=None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        dim = cfg.tokens_dim
+        bcfg = camera_block_cfg(cfg)
+        self.trunk = nn.ModuleList(Block(bcfg, **fk) for _ in range(cfg.camera_trunk_depth))
+        self.token_norm = L.LayerNorm(dim, **fk)
+        self.trunk_norm = L.LayerNorm(dim, **fk)
+        self.empty_pose_tokens = nn.Parameter(torch.zeros((1, 1, 9), **fk))
+        self.embed_pose = L.Linear(9, dim, **fk)
+        self.poseLN_modulation = L.Linear(dim, 3 * dim, **fk)
+        self.pose_branch = L.group(fc1=L.Linear(dim, dim // 2, **fk),
+                                   fc2=L.Linear(dim // 2, 9, **fk))
+
+
+def camera_head_forward(head: CameraHead, tokens_last: torch.Tensor) -> List[torch.Tensor]:
+    """tokens_last (B, S, 2C) f32 camera tokens of the final layer -> one
+    (B, S, 9) pose encoding per refinement iteration."""
+    pose_tokens = head.token_norm(tokens_last)
+    B, S, _ = pose_tokens.shape
+    pred = None
+    preds = []
+    for _ in range(head.cfg.camera_iterations):
+        inp = (head.empty_pose_tokens.to(pose_tokens.dtype).expand(B, S, 9) if pred is None
+               else pred.detach())
+        mod = head.poseLN_modulation(TF.silu(head.embed_pose(inp)))
+        shift, scale, gate = mod.chunk(3, dim=-1)
+        normed = L.layernorm(pose_tokens, eps=1e-6)  # AdaLN: no affine parameters
+        x = gate * (normed * (1 + scale) + shift) + pose_tokens
+        for blk in head.trunk:
+            x = block_apply(blk, x)
+        delta = L.mlp(head.pose_branch, head.trunk_norm(x))
+        pred = delta if pred is None else pred + delta
+        preds.append(activate_pose(pred))
+    return preds
+
+
+# ---------------------------------------------------------------------------
+# DPT head
+# ---------------------------------------------------------------------------
+
+def _rcu(f: int, **fk) -> nn.Module:
+    return L.group(conv1=L.Conv2d(f, f, 3, padding=1, **fk),
+                   conv2=L.Conv2d(f, f, 3, padding=1, **fk))
+
+
+def _fusion_block(f: int, has_residual: bool, **fk) -> nn.Module:
+    m = L.group(out_conv=L.Conv2d(f, f, 1, **fk), rcu2=_rcu(f, **fk))
+    if has_residual:
+        m.add_module("rcu1", _rcu(f, **fk))
+    return m
+
+
+class DPTHead(nn.Module):
+    def __init__(self, cfg: VGGTConfig, output_dim: int, device=None, dtype=None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        oc, f, dim_in = cfg.dpt_out_channels, cfg.dpt_features, cfg.tokens_dim
+        self.norm = L.LayerNorm(dim_in, **fk)
+        self.projects = nn.ModuleList(L.Conv2d(dim_in, c, 1, **fk) for c in oc)
+        self.resize0 = L.ConvTranspose2d(oc[0], oc[0], 4, stride=4, **fk)
+        self.resize1 = L.ConvTranspose2d(oc[1], oc[1], 2, stride=2, **fk)
+        self.resize3 = L.Conv2d(oc[3], oc[3], 3, stride=2, padding=1, **fk)
+        self.layer_rn = nn.ModuleList(L.Conv2d(c, f, 3, padding=1, bias=False, **fk) for c in oc)
+        self.refinenet1 = _fusion_block(f, True, **fk)
+        self.refinenet2 = _fusion_block(f, True, **fk)
+        self.refinenet3 = _fusion_block(f, True, **fk)
+        self.refinenet4 = _fusion_block(f, False, **fk)
+        self.output_conv1 = L.Conv2d(f, f // 2, 3, padding=1, **fk)
+        self.output_conv2a = L.Conv2d(f // 2, 32, 3, padding=1, **fk)
+        self.output_conv2b = L.Conv2d(32, output_dim, 1, **fk)
+
+
+def uv_pos_embed(ph: int, pw: int, channels: int, W: int, H: int, device=None) -> torch.Tensor:
+    """UV-grid sinusoidal pos embed (channels, ph, pw), scaled by 0.1
+    (``heads.py:208-232``)."""
+    aspect = W / H
+    diag = (aspect ** 2 + 1.0) ** 0.5
+    span_x, span_y = aspect / diag, 1.0 / diag
+    xs = torch.linspace(-span_x * (pw - 1) / pw, span_x * (pw - 1) / pw, pw, device=device)
+    ys = torch.linspace(-span_y * (ph - 1) / ph, span_y * (ph - 1) / ph, ph, device=device)
+    vv, uu = torch.meshgrid(ys, xs, indexing="ij")
+
+    def sincos(pos_flat, dim):
+        omega = torch.arange(dim // 2, dtype=torch.float32, device=device) / (dim / 2.0)
+        out = pos_flat[:, None] * (1.0 / (100.0 ** omega))[None]
+        return torch.cat([torch.sin(out), torch.cos(out)], dim=1)
+
+    half = channels // 2
+    emb = torch.cat([sincos(uu.reshape(-1), half), sincos(vv.reshape(-1), half)], dim=-1)
+    return emb.reshape(ph, pw, channels).permute(2, 0, 1) * 0.1
+
+
+def _rcu_apply(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    # VGGT's ResidualConvUnit applies ReLU(inplace=True) to its input before
+    # the skip-add, so the residual adds relu(x), not x (heads.py:235-245)
+    xr = torch.relu(x)
+    out = m.conv2(torch.relu(m.conv1(xr)))
+    return out + xr
+
+
+def _fusion(m: nn.Module, x: torch.Tensor, residual=None, size=None) -> torch.Tensor:
+    out = x
+    if residual is not None:
+        out = out + _rcu_apply(m.rcu1, residual)
+    out = _rcu_apply(m.rcu2, out)
+    if size is None:
+        size = (out.shape[-2] * 2, out.shape[-1] * 2)
+    out = resize_bilinear(out, size, align_corners=True)
+    return m.out_conv(out)
+
+
+def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
+              activation: str, conf_activation: str, compute_dtype: torch.dtype):
+    """One chunk: taps are the 4 (K, P, 2C) layer outputs the DPT reads."""
+    H, W = img_hw
+    ph, pw = H // cfg.patch_size, W // cfg.patch_size
+    pyramid = []
+    for i, tokens in enumerate(taps):
+        K = tokens.shape[0]
+        x = tokens[:, cfg.patch_start_idx:].to(compute_dtype)
+        x = head.norm(x)
+        x = x.transpose(1, 2).reshape(K, -1, ph, pw)
+        x = head.projects[i](x)
+        x = x + uv_pos_embed(ph, pw, x.shape[1], W, H, x.device).to(x.dtype)
+        if i == 0:
+            x = head.resize0(x)
+        elif i == 1:
+            x = head.resize1(x)
+        elif i == 3:
+            x = head.resize3(x)
+        pyramid.append(x)
+    l1, l2, l3, l4 = (head.layer_rn[i](p) for i, p in enumerate(pyramid))
+    out = _fusion(head.refinenet4, l4, size=l3.shape[-2:])
+    out = _fusion(head.refinenet3, out, l3, size=l2.shape[-2:])
+    out = _fusion(head.refinenet2, out, l2, size=l1.shape[-2:])
+    out = _fusion(head.refinenet1, out, l1)
+    out = head.output_conv1(out)
+    out = resize_bilinear(out, (ph * cfg.patch_size, pw * cfg.patch_size), align_corners=True)
+    out = out + uv_pos_embed(out.shape[-2], out.shape[-1], out.shape[1], W, H,
+                             out.device).to(out.dtype)
+    out = head.output_conv2b(torch.relu(head.output_conv2a(out)))
+    return activate_head(out, activation, conf_activation)
+
+
+def dpt_head_forward(head: DPTHead, layer_outputs: torch.Tensor, cfg: VGGTConfig, img_hw,
+                     activation: str = "exp", conf_activation: str = "expp1",
+                     chunk_size: int = 8, compute_dtype: torch.dtype = torch.float32
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """layer_outputs (L, B, S, P, 2C); ``cfg.dpt_intermediate_layers`` index
+    its first axis. Returns (preds (B, S, H, W, out-1), conf (B, S, H, W)), f32."""
+    H, W = img_hw
+    _, B, S, P, C2 = layer_outputs.shape
+    BS = B * S
+    chunk = max(c for c in range(1, min(chunk_size, BS) + 1) if BS % c == 0)
+    flat = layer_outputs.reshape(layer_outputs.shape[0], BS, P, C2)
+    taps = [flat[i] for i in cfg.dpt_intermediate_layers]
+    ph, pw = H // cfg.patch_size, W // cfg.patch_size
+    oh, ow = ph * cfg.patch_size, pw * cfg.patch_size
+    n_out = head.output_conv2b.out_channels
+    preds = torch.empty((BS, oh, ow, n_out - 1), dtype=torch.float32, device=flat.device)
+    conf = torch.empty((BS, oh, ow), dtype=torch.float32, device=flat.device)
+    for s in range(0, BS, chunk):
+        p, c = _dpt_core(head, [t[s:s + chunk] for t in taps], cfg, img_hw, activation,
+                         conf_activation, compute_dtype)
+        preds[s:s + chunk] = p
+        conf[s:s + chunk] = c
+    return preds.reshape(B, S, oh, ow, n_out - 1), conf.reshape(B, S, oh, ow)

@@ -24,23 +24,34 @@ _CSRC = _PKG / "csrc"
 SOURCES = {
     "flash_attn_fwd": _CSRC / "flash_attn_fwd.cu",
     "flash_attn_bwd": _CSRC / "flash_attn_bwd.cu",
+    "flash_attn_short": _CSRC / "flash_attn_short.cu",
+    "flash_attn_fwd_d128": _CSRC / "flash_attn_fwd_d128.cu",
+    "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
 }
-HEADERS = (_CSRC / "mma_sm90.cuh",)
+HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "flash_fwd_tile.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P]
+# entry point -> (source, C symbol, argtypes)
 _SIGNATURES = {
-    "flash_attn_fwd": (
-        "videogpa_flash_attn_fwd",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P],
-    ),
+    "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
     "flash_attn_bwd": (
-        "videogpa_flash_attn_bwd",
+        "flash_attn_bwd", "videogpa_flash_attn_bwd",
         [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P],
     ),
+    "flash_attn_short": (
+        "flash_attn_short", "videogpa_flash_attn_short",
+        [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],
+    ),
+    "flash_attn_fwd_d128_bf16": (
+        "flash_attn_fwd_d128", "videogpa_flash_attn_fwd_d128_bf16", _FWD_ARGS),
+    "flash_attn_fwd_f32": ("flash_attn_fwd_d128", "videogpa_flash_attn_fwd_f32", _FWD_ARGS),
+    "scatter_min_u32": (
+        "zbuffer_scatter_min", "videogpa_scatter_min_u32", [_P, _P, _P, _LL, _P]),
 }
 
 _loaded: Dict[str, Callable[..., int]] = {}
@@ -96,12 +107,13 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, str]:
 
 
 def kernel(name: str) -> Callable[..., int]:
-    """The C entry point of kernel ``name``, building it first if needed."""
+    """The C entry point ``name`` (a key of ``_SIGNATURES``), building its
+    source first if needed."""
     fn = _loaded.get(name)
     if fn is None:
-        build([name])
-        symbol, argtypes = _SIGNATURES[name]
-        fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+        source, symbol, argtypes = _SIGNATURES[name]
+        build([source])
+        fn = getattr(ctypes.CDLL(str(library_path(source))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _loaded[name] = fn

@@ -1,13 +1,27 @@
 """Multi-head attention: hand-written Hopper flash kernels + plain PyTorch versions.
 
 Counterpart of ``videogpa_tpu/ops/attention.py``. Every attention in VideoGPA
-is bidirectional (non-causal). ``flash_attn_fwd`` and ``flash_attn_bwd``
-dispatch on the device of their operands: a CPU tensor takes the plain
-version (``flash_attn_fwd_reference`` / ``flash_attn_bwd_reference``), a CUDA
-tensor launches the kernel (``csrc/flash_attn_fwd.cu`` /
-``csrc/flash_attn_bwd.cu``) or raises. There is no fallback from one to the
-other. ``attention`` differentiates through both with a
-``torch.autograd.Function`` whenever an operand requires grad.
+is bidirectional (non-causal). Each kernel wrapper dispatches on the device
+of its operands: a CPU tensor takes the plain version, a CUDA tensor launches
+the kernel or raises. There is no fallback from one to the other.
+
+- ``flash_attn_fwd`` (K1, ``csrc/flash_attn_fwd.cu``): bf16, head_dim < 128,
+  optional LSE.
+- ``flash_attn_bwd`` (K3, ``csrc/flash_attn_bwd.cu``): its backward.
+- ``flash_attn_short`` (K4, ``csrc/flash_attn_short.cu``): bf16 (B, N, H, D)
+  rows of at most 2,048 keys, exact two-pass softmax, ``n_valid`` mask,
+  inference only.
+- ``flash_attn_fwd_d128`` (K6, ``csrc/flash_attn_fwd_d128.cu``): bf16 at
+  head_dim 128 on tensor cores.
+- ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
+  head_dim 16-128 on CUDA cores, for short rows.
+
+``attention`` routes as the JAX package does for bf16, and sends float32
+operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
+and rounding f32 operands would move the f32 heads away from the JAX
+package's.
+It differentiates through K1 and K3 with a ``torch.autograd.Function``
+whenever an operand requires grad.
 """
 
 from __future__ import annotations
@@ -66,19 +80,22 @@ def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int, int, int, i
     return B, N, H, D, sb, sn, sh
 
 
-def _check_operands(fn: str, layout: str, q, k, v, **like_q) -> Tuple[int, int, int, int, int]:
+def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
+                    head_dims=KERNEL_HEAD_DIMS, **like_q) -> Tuple[int, int, int, int, int]:
     """Validate CUDA kernel operands; ``like_q`` are named tensors shaped
-    like q. Returns (B, Nq, H, D, Nk)."""
+    like q. bf16 kernels copy 16-byte chunks, so their operands must be
+    16-byte aligned. Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, _, _, _ = _dims(q, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k, layout)
     for name, x in {"q": q, "k": k, "v": v, **like_q}.items():
         if x.device != q.device:
             raise ValueError(f"{fn}: {name} on {x.device}, q on {q.device}")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{fn}: {name} must be bfloat16, got {x.dtype}")
+        if x.dtype != dtype:
+            raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
         if x.stride(-1) != 1:
             raise ValueError(f"{fn}: {name} needs a contiguous last dim")
-        if x.data_ptr() % 16 or any(st % 8 for st in x.stride()[:-1]):
+        if dtype == torch.bfloat16 and (x.data_ptr() % 16
+                                        or any(st % 8 for st in x.stride()[:-1])):
             raise ValueError(
                 f"{fn}: {name} must be 16-byte aligned with (b, n, h) "
                 "strides that are multiples of 8 elements"
@@ -87,14 +104,34 @@ def _check_operands(fn: str, layout: str, q, k, v, **like_q) -> Tuple[int, int, 
             or any(x.shape != q.shape for x in like_q.values())):
         shapes = {n: tuple(x.shape) for n, x in {"q": q, "k": k, "v": v, **like_q}.items()}
         raise ValueError(f"{fn}: shapes {shapes} do not match")
-    if D not in KERNEL_HEAD_DIMS:
-        raise NotImplementedError(
-            f"{fn}: head_dim {D} not in {KERNEL_HEAD_DIMS} "
-            "(head_dim >= 128 is a later kernel)"
-        )
+    if D not in head_dims:
+        raise NotImplementedError(f"{fn}: head_dim {D} not in {head_dims} for {dtype}")
     if min(Nq, Nk) < 1 or B * H > 65535:
         raise ValueError(f"{fn}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
     return B, Nq, H, D, Nk
+
+
+def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims):
+    """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface."""
+    B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
+                                      head_dims=head_dims)
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    strides = []
+    for x in (q, k, v, o):
+        strides += _dims(x, layout)[4:]
+    fn = _kernels.kernel(entry)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr() if lse is not None else None,
+            B, H, Nq, Nk, D, *strides, D ** -0.5 * _LOG2E, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    return o, lse
 
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -120,26 +157,10 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_fwd_reference(q, k, v, layout, with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
-
-    B, Nq, H, D, Nk = _check_operands("flash_attn_fwd", layout, q, k, v)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    strides = []
-    for x in (q, k, v, o):
-        strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel("flash_attn_fwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            B, H, Nq, Nk, D, *strides, D ** -0.5 * _LOG2E, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd: kernel launch failed with cudaError {rc}")
+    out = _launch_fwd("flash_attn_fwd", "flash_attn_fwd", q, k, v, layout, with_lse,
+                      torch.bfloat16, KERNEL_HEAD_DIMS)
     flash_attn_fwd.launches += 1
-    return o, lse
+    return out
 
 
 flash_attn_fwd.launches = 0
@@ -227,6 +248,129 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
 flash_attn_bwd.launches = 0
 
 
+# short-row eligibility (``videogpa_tpu/ops/attention.py:611-621``): the
+# TPU kernel keeps the whole key row of K and V in VMEM. The same limits pick
+# K4 here, so the same calls reach the same kernel.
+_SHORT_SEQ_MAX = 2048
+_SHORT_KV_VMEM_MAX = 16 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def short_eligible(Nk: int, H: int, D: int, itemsize: int) -> bool:
+    Nk_pad = _round_up(Nk, 128)
+    return Nk_pad <= _SHORT_SEQ_MAX and 2 * Nk_pad * H * D * itemsize <= _SHORT_KV_VMEM_MAX
+
+
+def flash_attn_short_reference(q, k, v, n_valid: Optional[int] = None) -> torch.Tensor:
+    """Plain version of K4. q (B, Nq, H, D), k/v (B, Nk, H, D); keys at index
+    >= n_valid score -inf and their V rows count as zero (so NaN there cannot
+    reach O), as ``_flash_short``'s overwrite mask. Returns a contiguous
+    (B, Nq, H, D) tensor."""
+    Nk = k.shape[1]
+    if n_valid is not None and n_valid < Nk:
+        v = v.clone()
+        v[:, n_valid:] = 0
+    q, k, v = (x.transpose(1, 2) for x in (q, k, v))
+    o, _ = _reference(q, k, v, n_valid=n_valid)
+    return o.transpose(1, 2).contiguous()
+
+
+def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     n_valid: Optional[int] = None) -> torch.Tensor:
+    """Short-row attention in the (B, N, H, D) layout, inference only.
+
+    softmax(Q K^T / sqrt(D)) V over keys [0, n_valid) (default: all Nk).
+    CPU tensors take the plain version. CUDA tensors must be bf16 with D in
+    {16, 32, 64}, any (b, n, h) strides with a contiguous last dim, and
+    ``short_eligible`` key rows; anything else raises. Each kernel launch
+    adds one to ``flash_attn_short.launches``.
+    """
+    n_valid = k.shape[1] if n_valid is None else int(n_valid)
+    if not 1 <= n_valid <= k.shape[1]:
+        raise ValueError(f"flash_attn_short: n_valid {n_valid} outside [1, {k.shape[1]}]")
+    if q.device.type == "cpu":
+        return flash_attn_short_reference(q, k, v, n_valid)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_short: unsupported device {q.device}")
+    B, Nq, H, D, Nk = _check_operands("flash_attn_short", "bnhd", q, k, v)
+    if not short_eligible(Nk, H, D, q.element_size()):
+        raise ValueError(f"flash_attn_short: key row of {Nk} x {H} heads x {D} is not short")
+    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    strides = []
+    for x in (q, k, v, o):
+        strides += _dims(x, "bnhd")[4:]
+    fn = _kernels.kernel("flash_attn_short")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                B, H, Nq, n_valid, D, *strides, D ** -0.5 * _LOG2E, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attn_short: kernel launch failed with cudaError {rc}")
+    flash_attn_short.launches += 1
+    return o
+
+
+flash_attn_short.launches = 0
+
+
+def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        layout: str = "bnhd", with_lse: bool = False):
+    """K1's function at head_dim 128 in bf16 (the tensor-core tile of K1 at
+    D = 128). Same arguments and results as ``flash_attn_fwd``.
+
+    CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
+    tensors must be bf16 with D = 128; anything else raises. Each launch adds
+    one to ``flash_attn_fwd_d128.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.device.type == "cpu":
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_fwd_d128: unsupported device {q.device}")
+    out = _launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", q, k, v, layout,
+                      with_lse, torch.bfloat16, (128,))
+    flash_attn_fwd_d128.launches += 1
+    return out
+
+
+flash_attn_fwd_d128.launches = 0
+
+F32_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       layout: str = "bnhd", with_lse: bool = False):
+    """K1's function on float32 operands at head_dim 16-128, kept in f32 end
+    to end on CUDA cores (the VGGT camera head's trunk runs in f32 at head_dim
+    128). Same arguments and results as ``flash_attn_fwd``.
+
+    Built for the camera head's rows of a few tokens: each warp walks the keys
+    one at a time, so rows of thousands of keys run far below the tensor-core
+    kernels' rates.
+
+    CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
+    tensors must be float32 with D in ``F32_HEAD_DIMS``; anything else
+    raises. Each launch adds one to ``flash_attn_fwd_f32.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.device.type == "cpu":
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_fwd_f32: unsupported device {q.device}")
+    out = _launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", q, k, v, layout, with_lse,
+                      torch.float32, F32_HEAD_DIMS)
+    flash_attn_fwd_f32.launches += 1
+    return out
+
+
+flash_attn_fwd_f32.launches = 0
+
+
 class _FlashAttention(torch.autograd.Function):
     """``flash_attn_fwd`` with ``flash_attn_bwd`` as its backward: the
     counterpart of the JAX ``_flash`` and ``_attention_bnhd_vjp`` custom vjps."""
@@ -251,20 +395,43 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Args:
         q, k, v: (B, H, N, D), or (B, N, H, D) with ``layout="bnhd"`` (the
-            projection-natural layout the DiT feeds). k/v may be longer or
+            projection-natural layout the models feed). k/v may be longer or
             shorter than q.
-        impl: "auto" or "flash" -> the flash kernels on CUDA, their plain
-            versions on CPU. Any other impl raises.
+        impl: "auto" or "flash" -> the kernels on CUDA, their plain versions
+            on CPU. Any other impl raises.
+
+    Routing, as ``attention(impl="flash")`` in the JAX package for bf16:
+
+    - an operand requires grad (and grad is enabled): D < 128 ->
+      ``_FlashAttention`` (K1 with LSE, K3 backward); D >= 128 raises (its
+      backward is K7, a later slice);
+    - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry), at any
+      length; it suits the camera head's short rows, and long f32 rows run
+      there far slower than bf16 rows on the tensor cores;
+    - D >= 128 -> ``flash_attn_fwd_d128`` (K6);
+    - bnhd rows that are ``short_eligible`` -> ``flash_attn_short`` (K4);
+    - otherwise -> ``flash_attn_fwd`` (K1).
 
     Returns:
-        Output in the operands' layout, dtype of q. Differentiable in both
-        layouts: when grad is enabled and an operand requires grad, the
-        forward keeps its LSE and the backward is ``flash_attn_bwd``.
+        Output in the operands' layout, dtype of q.
     """
     if impl not in ("auto", "flash"):
         raise NotImplementedError(
             f"attention impl {impl!r} is not ported yet (flash_int8 and ring are later slices)"
         )
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    D = q.shape[-1]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if D >= 128:
+            raise NotImplementedError(
+                "attention backward at head_dim >= 128 is K7 (_dq_kernel/_dkv_kernel), "
+                "a later slice")
         return _FlashAttention.apply(q, k, v, layout)
+    if q.dtype == torch.float32:
+        return flash_attn_fwd_f32(q, k, v, layout=layout)[0]
+    if D >= 128:
+        return flash_attn_fwd_d128(q, k, v, layout=layout)[0]
+    if layout == "bnhd" and short_eligible(k.shape[1], q.shape[2], D, q.element_size()):
+        return flash_attn_short(q, k, v)
     return flash_attn_fwd(q, k, v, layout=layout)[0]

@@ -9,13 +9,20 @@ them. The semantics that differ from stock PyTorch modules:
   back to the activation dtype;
 - layer-norm statistics are taken in f32 with the biased variance.
 
+- float32 convolutions on the card stay in full f32: cuDNN would run them in
+  TF32 by default (``torch.backends.cudnn.allow_tf32``), which keeps about
+  three decimal digits, and the JAX package's f32 convolutions (LPIPS, an
+  f32 DPT) are the reference.
+
 Layouts: JAX's linear kernel is (in, out), torch's weight (out, in); JAX's
-conv kernel is HWIO, torch's OIHW. ``videogpa_torch.convert`` maps between
-them.
+conv kernel is HWIO, torch's OIHW; JAX's transposed-conv kernel is HWIO too
+(k, k, in, out), torch's ConvTranspose2d weight (in, out, k, k).
+``videogpa_torch.convert`` maps between them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -39,15 +46,59 @@ def layernorm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
 
 
+def _full_f32_conv(x: torch.Tensor):
+    """A float32 convolution on the card runs with cuDNN's TF32 off for the
+    call (``torch.backends.cudnn.flags``), the other cuDNN flags as they are."""
+    if x.dtype != torch.float32 or not x.is_cuda:
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
            stride=1, padding=0) -> torch.Tensor:
     """NCHW convolution with an OIHW weight."""
     b = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(x, weight.to(x.dtype), b, stride=stride, padding=padding)
+    with _full_f32_conv(x):
+        return F.conv2d(x, weight.to(x.dtype), b, stride=stride, padding=padding)
+
+
+def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None, stride: int = 1) -> torch.Tensor:
+    """NCHW transposed conv with kernel_size == stride and padding 0
+    (``videogpa_tpu/ops/layers.py:192``): each input pixel expands to a
+    k x k block through the (unflipped) kernel. weight (in, out, k, k)."""
+    if weight.shape[-2:] != (stride, stride):
+        raise ValueError(f"kernel {tuple(weight.shape[-2:])} must equal the stride {stride}")
+    b = None if bias is None else bias.to(x.dtype)
+    with _full_f32_conv(x):
+        return F.conv_transpose2d(x, weight.to(x.dtype), b, stride=stride)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """Exact (erf) GELU, ``jax.nn.gelu(approximate=False)``."""
+    return F.gelu(x)
+
+
+def mlp(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """fc2(gelu(fc1(x))) with the exact GELU of the ViT blocks and heads."""
+    return m.fc2(gelu(m.fc1(x)))
+
+
+def swiglu(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """silu(x W1) * (x W2) -> W3 (``videogpa_tpu/ops/layers.py:159``)."""
+    x1, x2 = m.w12(x).chunk(2, dim=-1)
+    return m.w3(F.silu(x1) * x2)
+
+
+def swiglu_hidden(dim: int, mlp_ratio: float = 4.0) -> int:
+    """SwiGLUFFNFused hidden width: 2/3 of the MLP hidden, rounded up to 8."""
+    return (int(int(dim * mlp_ratio) * 2 / 3) + 7) // 8 * 8
 
 
 class Linear(nn.Linear):
@@ -65,14 +116,32 @@ class Conv2d(nn.Conv2d):
         return conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """kernel_size == stride, padding 0."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose2d(x, self.weight, self.bias, self.stride[0])
+
+
+def group(**children: nn.Module) -> nn.Module:
+    """A bare module holding named children, one node of a JAX parameter tree."""
+    m = nn.Module()
+    for name, child in children.items():
+        m.add_module(name, child)
+    return m
+
+
 @torch.no_grad()
 def kaiming_uniform_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every Linear/Conv2d/LayerNorm under ``module`` with the JAX
-    initialisers' bounds (``videogpa_tpu/ops/layers.py:29-77``): weight and
-    bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); layer norms ones/zeros."""
+    """Re-draw every Linear/Conv2d/ConvTranspose2d/LayerNorm under ``module``
+    with the JAX initialisers' bounds (``videogpa_tpu/ops/layers.py:29-77``):
+    weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); layer norms
+    ones/zeros."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            # JAX builds the transposed conv with conv2d_init(in, out, k)
+            fan_in = (m.weight.shape[0] * m.weight[0, 0].numel()
+                      if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel())
             bound = fan_in ** -0.5
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:

@@ -1,4 +1,5 @@
-"""3D rotary position embeddings of the video DiTs (``videogpa_tpu/ops/rope.py:68-128``).
+"""Rotary position embeddings (``videogpa_tpu/ops/rope.py``): 3D for the video
+DiTs (:68-128), 2D for the VGGT/DINOv2 ViTs (``rope_2d``, :41-65).
 
 The head dim splits into temporal/vertical/horizontal channel groups
 (hd/4, 3hd/8, 3hd/8); angles use the interleaved layout (each angle repeated
@@ -57,3 +58,40 @@ def apply_rope_interleaved(tokens: torch.Tensor, cos: torch.Tensor,
     """tokens (..., N, D) with interleaved tables broadcastable to them; f32 math."""
     t = tokens.float()
     return (t * cos + rotate_interleaved(t) * sin).to(tokens.dtype)
+
+
+def _angles_1d(positions: torch.Tensor, dim: int, base: float) -> torch.Tensor:
+    """positions (...,) -> rotate-half (duplicated) angles (..., dim)."""
+    exponents = torch.arange(0, dim, 2, dtype=torch.float32, device=positions.device) / dim
+    inv_freq = 1.0 / (base ** exponents)
+    ang = positions[..., None].float() * inv_freq
+    return torch.cat([ang, ang], dim=-1)
+
+
+def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _rope_1d(tokens: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    t = tokens.float()
+    return (t * torch.cos(angles) + _rotate_half(t) * torch.sin(angles)).to(tokens.dtype)
+
+
+def rope_2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
+            layout: str = "bhnd") -> torch.Tensor:
+    """2D RoPE of the VGGT/DINOv2 ViTs (``videogpa_tpu/ops/rope.py:41-65``).
+
+    tokens (B, H, N, D), or (B, N, H, D) with ``layout="bnhd"``; positions
+    (B, N, 2) integer (y, x). The first half of D rotates by y, the second by
+    x, each in the rotate-half (split, not interleaved) form; f32 math.
+    """
+    half = tokens.shape[-1] // 2
+    ang_y = _angles_1d(positions[..., 0], half, base)  # (B, N, half)
+    ang_x = _angles_1d(positions[..., 1], half, base)
+    if layout == "bnhd":
+        ang_y, ang_x = ang_y[:, :, None], ang_x[:, :, None]
+    else:
+        ang_y, ang_x = ang_y[:, None], ang_x[:, None]
+    return torch.cat([_rope_1d(tokens[..., :half], ang_y),
+                      _rope_1d(tokens[..., half:], ang_x)], dim=-1)
