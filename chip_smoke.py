@@ -21,7 +21,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              card in bf16 against the same weights on the CPU in f32; the
              tiny VGGT scorer through ``process_frames_batch``, f32 on both;
              a small VGGT in the scorer's dtypes (bf16 trunk, f32 camera
-             head) against f32 on the CPU, its blocks through K4 and K1.
+             head) against f32 on the CPU, its blocks through K4 and K1;
+             a small Wan DiT at head_dim 128 in bf16 against f32 on the CPU:
+             3 UniPC steps with the TI2V first frame, and one DPO step.
 4. main    — the CogVideoX-5B denoise path at full width and depth (42
              layers, hidden 3072, 48 heads x 64) on random bf16 weights:
              2 requests, each a CFG pair at 49f@480x720 (latents
@@ -46,6 +48,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
              finite scores and the launches per batch (K1 24, K4 48, K6 16,
              K5 4).
    profile — device time by kernel group over one more (profiled) batch.
+   wan     — the Wan2.2-TI2V-5B denoise path at full width and depth (30
+             layers, dim 3072, 24 heads x 128, text 512 x 4096) on random bf16
+             weights: 2 requests, each a CFG pair at 81f@704x1280 (latents
+             48x21x44x80, 18,480 tokens) with a synthetic image latent as the
+             clean first frame, 3 UniPC steps each. Checks finite output, the
+             kept first frame, and that every attention launched K6 (30 self
+             + 30 cross per forward) and no other kernel.
+   wan-train — the Wan2.2-TI2V-5B DPO LoRA train step with its recipe
+             (batch 1, accumulate 2, LoRA r 64 / alpha 128, remat) on a
+             synthetic preference set with image latents: 4 mini-steps, 2
+             updates. Checks finite metrics, LoRA B off zero after the second
+             update, and the launches of K6 (forward, with LSE under grad)
+             and K7 (backward).
+   profile — one more (profiled) Wan step and Wan mini-step.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function.
@@ -126,11 +142,12 @@ def _wrappers():
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from videogpa_torch.geometry.zbuffer_kernel import scatter_min_u32
     from videogpa_torch.ops.attention import (
-        flash_attn_bwd, flash_attn_fwd, flash_attn_fwd_d128, flash_attn_fwd_f32,
-        flash_attn_short)
+        flash_attn_bwd, flash_attn_bwd_d128, flash_attn_fwd, flash_attn_fwd_d128,
+        flash_attn_fwd_f32, flash_attn_short)
 
     return {f.__name__: f for f in (flash_attn_fwd, flash_attn_bwd, flash_attn_short,
-                                    flash_attn_fwd_f32, flash_attn_fwd_d128, scatter_min_u32)}
+                                    flash_attn_fwd_f32, flash_attn_fwd_d128,
+                                    flash_attn_bwd_d128, scatter_min_u32)}
 
 
 def zero_launches() -> None:
@@ -355,6 +372,8 @@ def _kernel_group(name: str) -> str:
         return "K6 flash_attn_fwd_d128"
     if "flash_fwd::kernel" in name:
         return "K1 flash_attn_fwd"
+    if "flash_attn_bwd_d128" in name:
+        return "K7 flash_attn_bwd_d128"
     if "flash_attn_bwd" in name:
         return "K3 flash_attn_bwd"
     if "flash_attn_short" in name:
@@ -423,34 +442,19 @@ def _rel_rms_check(got, want):
     return d.abs().max().item(), rel, bool(rel <= EXTREME_REL_RMS and torch.isfinite(got).all())
 
 
-def phase_parity_bwd(train_shape):
-    """K3 against its plain version, and attention() autograd through it;
-    returns (max gradient error over the element-wise cases, plain ms at
-    the training shape)."""
+def _bwd_cases(tag, fwd, bwd, cases, gen):
+    """A backward kernel ``bwd`` (on the O and LSE of ``fwd``) against the
+    plain version on small cases; returns the element-wise errors."""
     import torch
 
-    from videogpa_torch.ops.attention import (
-        attention, flash_attn_bwd, flash_attn_bwd_reference, flash_attn_fwd)
+    from videogpa_torch.ops.attention import flash_attn_bwd_reference
 
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    packed = torch.randn(1, 640, 3, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
-    cases = [
-        ("ragged N=300 bnhd D=64", "bnhd", _attn_case(gen, 2, 300, 300, 4, 64, "bnhd")),
-        ("cross Nq=300 Nk=777 bhnd D=64", "bhnd", _attn_case(gen, 1, 300, 777, 3, 64, "bhnd")),
-        ("cross Nq=1000 Nk=37 bnhd D=64", "bnhd", _attn_case(gen, 1, 1000, 37, 2, 64, "bnhd")),
-        ("D=16 N=517 bnhd", "bnhd", _attn_case(gen, 2, 517, 517, 2, 16, "bnhd")),
-        ("D=32 N=517 bhnd", "bhnd", _attn_case(gen, 2, 517, 517, 2, 32, "bhnd")),
-        # one-hot P: dS = P (dP - delta) cancels
-        ("extreme logits q*1e3 N=300 D=64", "bnhd",
-         _attn_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3)),
-        ("strided views of packed qkv N=640", "bnhd", packed.unbind(2)),
-    ]
     errs = []
     for name, layout, (q, k, v) in cases:
         extreme = name.startswith("extreme")
-        o, lse = flash_attn_fwd(q, k, v, layout=layout, with_lse=True)
+        o, lse = fwd(q, k, v, layout=layout, with_lse=True)
         do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
-        got = flash_attn_bwd(q, k, v, o, lse, do, layout=layout)
+        got = bwd(q, k, v, o, lse, do, layout=layout)
         ops = [q, k, v, o, do]
         if extreme:
             ops = [x.float() for x in ops]
@@ -465,50 +469,64 @@ def phase_parity_bwd(train_shape):
                 parts.append(f"max|{gname}| {err:.3e} (atol {atol:.2e})")
                 errs.append(err)
             if not ok:
-                log(f"[parity] K3 {name}: " + ", ".join(parts) + " MISMATCH")
-                fail(f"flash_attn_bwd {gname} disagrees with its plain version on {name}")
+                log(f"[parity] {tag} {name}: " + ", ".join(parts) + " MISMATCH")
+                fail(f"{bwd.__name__} {gname} disagrees with its plain version on {name}")
         limit = (f"vs the f32 plain version, RMS ratio limit {EXTREME_REL_RMS}" if extreme
                  else f"+ rtol {GRAD_RTOL}")
-        log(f"[parity] K3 {name}: " + ", ".join(parts) + f" {limit} ok")
-    del cases, packed, o, lse, do, got, want, ops
+        log(f"[parity] {tag} {name}: " + ", ".join(parts) + f" {limit} ok")
+    return errs
 
-    # attention() on CUDA tensors that require grad: the autograd Function
-    # runs K1 with LSE forward and K3 backward, bit for bit the direct calls
-    q, k, v = (x.requires_grad_(True) for x in _attn_case(gen, 1, 300, 300, 4, 64, "bnhd"))
-    fwd0, bwd0 = flash_attn_fwd.launches, flash_attn_bwd.launches
+
+def _autograd_check(tag, fwd, bwd, qkv, gen):
+    """attention() on CUDA tensors that require grad: the autograd Function
+    runs ``fwd`` with LSE and ``bwd``, bit for bit the direct calls."""
+    import torch
+
+    from videogpa_torch.ops.attention import attention
+
+    q, k, v = (x.requires_grad_(True) for x in qkv)
+    fwd0, bwd0 = fwd.launches, bwd.launches
     o = attention(q, k, v, layout="bnhd")
     if type(o.grad_fn).__name__ != "_FlashAttentionBackward":
         fail(f"attention() on CUDA tensors that require grad has grad_fn {o.grad_fn}")
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
     o.backward(do)
     with torch.no_grad():
-        o2, lse = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
-        direct = flash_attn_bwd(q, k, v, o2, lse, do, layout="bnhd")
+        o2, lse = fwd(q, k, v, layout="bnhd", with_lse=True)
+        direct = bwd(q, k, v, o2, lse, do, layout="bnhd")
     same = all(torch.equal(x.grad, d) for x, d in zip((q, k, v), direct))
-    counted = (flash_attn_fwd.launches - fwd0, flash_attn_bwd.launches - bwd0) == (2, 2)
-    log(f"[parity] attention() autograd on CUDA: grad_fn _FlashAttentionBackward, "
-        f"q/k/v grads equal to direct flash_attn_bwd: {same}, launches counted: {counted}")
+    counted = (fwd.launches - fwd0, bwd.launches - bwd0) == (2, 2)
+    log(f"[parity] attention() autograd on CUDA at D = {q.shape[-1]}: grad_fn "
+        f"_FlashAttentionBackward, q/k/v grads equal to direct {bwd.__name__}: {same}, "
+        f"launches counted: {counted}")
     if not (same and counted and torch.equal(o.detach(), o2)):
-        fail("attention() autograd on CUDA did not yield K3's gradients")
-    del q, k, v, o, o2, do, direct
+        fail(f"attention() autograd on CUDA did not yield {tag}'s gradients")
 
-    # the training shape at full size; the plain version needs (N, N) f32
-    # score matrices per head, so it runs over chunks of 4 heads
-    B, N, H, D = train_shape
-    q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
-    o, lse = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
+
+def _bwd_full(tag, label, fwd, bwd, q, k, v, layout, gen, chunk=4):
+    """A backward kernel against its plain version on a full-size problem; the
+    plain version needs (Nq, Nk) f32 score matrices per head, so it runs over
+    chunks of ``chunk`` heads covering every head. Returns ([max |dQ|, |dK|,
+    |dV|], plain ms summed over the chunks)."""
+    import torch
+
+    from videogpa_torch.ops.attention import flash_attn_bwd_reference
+
+    B, H = (q.shape[0], q.shape[2]) if layout == "bnhd" else q.shape[:2]
+    o, lse = fwd(q, k, v, layout=layout, with_lse=True)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
-    grads = flash_attn_bwd(q, k, v, o, lse, do, layout="bnhd")
-    chunk = 4
+    grads = bwd(q, k, v, o, lse, do, layout=layout)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     plain_ms, worst, atols = 0.0, [0.0, 0.0, 0.0], []
     for b in range(B):
         for h in range(0, H, chunk):
-            sl = (slice(b, b + 1), slice(None), slice(h, h + chunk))
+            heads = slice(h, h + chunk)
+            sl = ((slice(b, b + 1), slice(None), heads) if layout == "bnhd"
+                  else (slice(b, b + 1), heads))
             start.record()
             want = flash_attn_bwd_reference(q[sl], k[sl], v[sl], o[sl],
-                                            lse[b:b + 1, h:h + chunk].contiguous(), do[sl],
-                                            layout="bnhd")
+                                            lse[b:b + 1, heads].contiguous(), do[sl],
+                                            layout=layout)
             end.record()
             torch.cuda.synchronize()
             plain_ms += start.elapsed_time(end)
@@ -517,26 +535,150 @@ def phase_parity_bwd(train_shape):
                 worst[i] = max(worst[i], err)
                 atols.append(atol)
                 if not ok:
-                    fail(f"flash_attn_bwd disagrees at the training shape, batch {b}, "
+                    fail(f"{bwd.__name__} disagrees at the {label}, batch {b}, "
                          f"heads {h}.., gradient {'QKV'[i]}")
             del want
-    log(f"[parity] K3 training shape {train_shape} bnhd, all {B * H} heads in chunks of "
+    log(f"[parity] {tag} {label} {layout}, all {B * H} heads in chunks of "
         f"{chunk}: max|dQ| {worst[0]:.3e}, max|dK| {worst[1]:.3e}, max|dV| {worst[2]:.3e} "
         f"(atol {min(atols):.2e}..{max(atols):.2e} + rtol {GRAD_RTOL}) ok; plain version "
         f"{plain_ms:.1f} ms over the chunks")
+    return worst, plain_ms
+
+
+def phase_parity_bwd(train_shape):
+    """K3 against its plain version, and attention() autograd through it;
+    returns (max gradient error over the element-wise cases, plain ms at
+    the training shape)."""
+    import torch
+
+    from videogpa_torch.ops.attention import flash_attn_bwd, flash_attn_fwd
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    packed = torch.randn(1, 640, 3, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+    cases = [
+        ("ragged N=300 bnhd D=64", "bnhd", _attn_case(gen, 2, 300, 300, 4, 64, "bnhd")),
+        ("cross Nq=300 Nk=777 bhnd D=64", "bhnd", _attn_case(gen, 1, 300, 777, 3, 64, "bhnd")),
+        ("cross Nq=1000 Nk=37 bnhd D=64", "bnhd", _attn_case(gen, 1, 1000, 37, 2, 64, "bnhd")),
+        ("D=16 N=517 bnhd", "bnhd", _attn_case(gen, 2, 517, 517, 2, 16, "bnhd")),
+        ("D=32 N=517 bhnd", "bhnd", _attn_case(gen, 2, 517, 517, 2, 32, "bhnd")),
+        # one-hot P: dS = P (dP - delta) cancels
+        ("extreme logits q*1e3 N=300 D=64", "bnhd",
+         _attn_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3)),
+        ("strided views of packed qkv N=640", "bnhd", packed.unbind(2)),
+    ]
+    errs = _bwd_cases("K3", flash_attn_fwd, flash_attn_bwd, cases, gen)
+    del cases, packed
+    _autograd_check("K3", flash_attn_fwd, flash_attn_bwd,
+                    _attn_case(gen, 1, 300, 300, 4, 64, "bnhd"), gen)
+
+    B, N, H, D = train_shape
+    q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+    worst, plain_ms = _bwd_full("K3", f"training shape {train_shape}", flash_attn_fwd,
+                                flash_attn_bwd, q, k, v, "bnhd", gen)
     errs.extend(worst)
-    del q, k, v, o, lse, do, grads
+    del q, k, v
     torch.cuda.empty_cache()
     return max(errs), plain_ms
 
 
-def _tiny_dpo_step(model, cfg, lora, batch, draws, compute_dtype):
+def _proj_views(gen, B, N, H, D):
+    """One attention operand as the Wan DiT feeds it: a (B, H, N, D) view of
+    a (B, N, H*D) projection, strided in n and h with a contiguous last dim."""
+    import torch
+
+    y = torch.randn(B, N, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    return y.reshape(B, N, H, D).transpose(1, 2)
+
+
+def phase_parity_bwd_d128(wan_shape, text_len):
+    """K7 against its plain version at head_dim 128, attention() autograd
+    through K6 and K7, and K6 with LSE at the shapes this path adds. Returns
+    (max gradient error over the element-wise cases, plain ms at the Wan
+    self-attention shape, plain ms at the cross shape, K6 max |dO| at the new
+    shapes, K6 plain ms at the cross shape)."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_bwd_d128, flash_attn_fwd_d128, flash_attn_fwd_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    cases = [
+        ("ragged N=300 bnhd D=128", "bnhd", _attn_case(gen, 2, 300, 300, 3, 128, "bnhd")),
+        ("cross Nq=300 Nk=777 bhnd D=128", "bhnd", _attn_case(gen, 1, 300, 777, 2, 128, "bhnd")),
+        ("ragged cross Nq=1000 Nk=37 bnhd D=128", "bnhd",
+         _attn_case(gen, 1, 1000, 37, 2, 128, "bnhd")),
+        ("cross Nq=333 Nk=512, strided (B, H, N, D) views of projections", "bhnd",
+         (_proj_views(gen, 2, 333, 3, 128), _proj_views(gen, 2, 512, 3, 128),
+          _proj_views(gen, 2, 512, 3, 128))),
+        # one-hot P: dS = P (dP - delta) cancels
+        ("extreme logits q*1e3 N=300 D=128", "bnhd",
+         _attn_case(gen, 1, 300, 300, 2, 128, "bnhd", q_scale=1e3)),
+    ]
+    errs = _bwd_cases("K7", flash_attn_fwd_d128, flash_attn_bwd_d128, cases, gen)
+    del cases
+    _autograd_check("K7", flash_attn_fwd_d128, flash_attn_bwd_d128,
+                    _attn_case(gen, 1, 300, 300, 3, 128, "bnhd"), gen)
+
+    # the Wan self-attention shape at full size, operands as the DiT feeds them
+    B, N, H, D = wan_shape
+    q, k, v = (_proj_views(gen, B, N, H, D) for _ in range(3))
+    worst, self_plain_ms = _bwd_full("K7", f"Wan self-attention shape {wan_shape} (strided "
+                                     "views)", flash_attn_fwd_d128, flash_attn_bwd_d128,
+                                     q, k, v, "bhnd", gen)
+    errs.extend(worst)
+    # the cross-attention shape: 512 text keys; one chunk holds all heads
+    k, v = (_proj_views(gen, B, text_len, H, D) for _ in range(2))
+    worst, cross_plain_ms = _bwd_full(
+        "K7", f"Wan cross-attention shape Nq {N} x Nk {text_len} (strided views)",
+        flash_attn_fwd_d128, flash_attn_bwd_d128, q, k, v, "bhnd", gen, chunk=H)
+    errs.extend(worst)
+
+    # K6 with LSE at the cross shape and at B = 2 (the CFG pair)
+    k6_errs, k6_cross_plain_ms = [], None
+    q2 = _proj_views(gen, 2, N, H, D)
+    for label, qq, kk, vv in (
+            (f"cross shape Nq {N} x Nk {text_len}", q, k, v),
+            ("cross shape at B = 2 (CFG pair)", q2, _proj_views(gen, 2, text_len, H, D),
+             _proj_views(gen, 2, text_len, H, D))):
+        o, lse = flash_attn_fwd_d128(qq, kk, vv, layout="bhnd", with_lse=True)
+        (ro, rl), ms = _timed(lambda: flash_attn_fwd_reference(qq, kk, vv, "bhnd", True))
+        k6_cross_plain_ms = ms if k6_cross_plain_ms is None else k6_cross_plain_ms
+        o_err, o_atol, lse_err, ok = _check(o, lse, ro, rl)
+        log(f"[parity] K6 bf16 with LSE, Wan {label} bhnd (strided views): max|dO| "
+            f"{o_err:.3e} (atol {o_atol:.2e} + rtol {O_RTOL}), max|dLSE| {lse_err:.3e} "
+            f"{'ok' if ok else 'MISMATCH'}; plain version {ms:.1f} ms")
+        if not ok:
+            fail(f"flash_attn_fwd_d128 disagrees at the Wan {label}")
+        k6_errs.append(o_err)
+        del o, lse, ro, rl
+    # self-attention at B = 2: two heads of each batch element against the plain version
+    k2, v2 = _proj_views(gen, 2, N, H, D), _proj_views(gen, 2, N, H, D)
+    o, lse = flash_attn_fwd_d128(q2, k2, v2, layout="bhnd", with_lse=True)
+    for h in (0, H - 2):
+        sl = (slice(None), slice(h, h + 2))
+        ro, rl = flash_attn_fwd_reference(q2[sl], k2[sl], v2[sl], "bhnd", True)
+        o_err, _, lse_err, ok = _check(o[sl], lse[sl], ro, rl)
+        if not ok:
+            fail(f"flash_attn_fwd_d128 disagrees at the Wan self shape with B = 2, heads {h}..")
+        k6_errs.append(o_err)
+        del ro, rl
+    log(f"[parity] K6 bf16 with LSE, Wan self shape at B = 2 bhnd (strided views), heads "
+        f"0-1 and {H - 2}-{H - 1} of both: max|dO| {max(k6_errs[2:]):.3e} ok")
+    del q, k, v, q2, k2, v2, o, lse
+    torch.cuda.empty_cache()
+    return max(errs), self_plain_ms, cross_plain_ms, max(k6_errs), k6_cross_plain_ms
+
+
+def _tiny_dpo_step(model, cfg, lora, batch, draws, compute_dtype, make_step=None):
     """Two train-step calls (accumulate 2, warmup 0) on one batch: the first
-    leaves the LoRA gradients in the accumulator, the second updates."""
+    leaves the LoRA gradients in the accumulator, the second updates.
+    ``make_step`` defaults to the CogVideoX ``make_dpo_train_step``."""
     import torch
 
     from videogpa_torch.train.trainer import (
         TrainerConfig, init_train_state, make_dpo_train_step)
+
+    make_dpo_train_step = make_step or make_dpo_train_step
 
     tcfg = TrainerConfig(learning_rate=1e-3, beta=1.0, warmup_steps=0, max_steps=20,
                          lora_rank=4, lora_alpha=8.0, accumulate_grad_batches=2,
@@ -595,20 +737,22 @@ def phase_slice_dpo() -> None:
         fail("the tiny DPO step on the card disagrees with the CPU reference")
 
 
-def _write_preference_dataset(root: str, cfg, seed: int = 0):
+def _write_preference_dataset(root: str, lat_shape, text_shape, image_latent_shape=None,
+                              seed: int = 0):
     """Two groups of two scored videos with full-size latents (C, F, H, W)
-    and a T5-shaped condition, in the metadata schema of train.dataset."""
+    and a text-encoder-shaped condition (plus, for TI2V, the clean first
+    frame's latent), in the metadata schema of train.dataset."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     os.makedirs(os.path.join(root, "latents"), exist_ok=True)
-    lat_shape = (cfg.vae_latent_channels, cfg.sample_frames, cfg.sample_height,
-                 cfg.sample_width)
     groups = []
     for g, scores in enumerate(((0.3, 0.7), (0.2, 0.6))):
         cond = f"latents/cond_{g}.npz"
-        np.savez(os.path.join(root, cond), encoder_hidden_states=rng.standard_normal(
-            (cfg.max_text_seq_length, cfg.text_embed_dim), dtype=np.float32))
+        arrays = {"encoder_hidden_states": rng.standard_normal(text_shape, dtype=np.float32)}
+        if image_latent_shape is not None:
+            arrays["image_latent"] = rng.standard_normal(image_latent_shape, dtype=np.float32)
+        np.savez(os.path.join(root, cond), **arrays)
         videos = []
         for i, score in enumerate(scores):
             lat = f"latents/lat_{g}_{i}.npz"
@@ -652,7 +796,10 @@ def phase_train(mini_steps: int = 4):
     train_step, eval_step = make_dpo_train_step(dit, cfg, tcfg)
 
     with tempfile.TemporaryDirectory(prefix="videogpa_smoke_") as root:
-        _write_preference_dataset(os.path.join(root, "data"), cfg)
+        _write_preference_dataset(
+            os.path.join(root, "data"),
+            (cfg.vae_latent_channels, cfg.sample_frames, cfg.sample_height, cfg.sample_width),
+            (cfg.max_text_seq_length, cfg.text_embed_dim))
         ds = DPODataset(os.path.join(root, "data"), os.path.join(root, "data", "meta_data.json"),
                         metric_name=recipe["metric_name"], metric_mode=recipe["metric_mode"],
                         min_gap=recipe["min_gap"], metric_threshold=recipe["metric_threshold"],
@@ -688,7 +835,7 @@ def phase_train(mini_steps: int = 4):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         L = cfg.num_layers
         want_fwd, want_bwd = mini_steps * 6 * L, mini_steps * 2 * L
-        want = {name: 0 for name in launches}
+        want = dict.fromkeys(launches, 0)
         want.update(flash_attn_fwd=want_fwd, flash_attn_bwd=want_bwd)
         log(f"[train] launches {json.dumps(launches)}; expected flash_attn_fwd {mini_steps} "
             f"mini-steps x 6 forwards (2 policy, 2 remat recomputes, 2 reference) x {L} layers "
@@ -1225,7 +1372,7 @@ def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
     want = {"flash_attn_fwd": cfg.depth, "flash_attn_bwd": 0,
             "flash_attn_short": cfg.backbone_depth + cfg.depth,
             "flash_attn_fwd_f32": cfg.camera_trunk_depth * cfg.camera_iterations,
-            "flash_attn_fwd_d128": 0, "scatter_min_u32": K}
+            "flash_attn_fwd_d128": 0, "flash_attn_bwd_d128": 0, "scatter_min_u32": K}
     log(f"[scorer] launches per batch {json.dumps(per_batch)}; expected {json.dumps(want)} "
         f"(K1: the {cfg.depth} global blocks; K4: {cfg.backbone_depth} DINOv2 + {cfg.depth} "
         f"frame blocks; K6 f32: {cfg.camera_trunk_depth} trunk blocks x "
@@ -1246,6 +1393,332 @@ def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
     return {"batch_ms": batch_ms, "clips_per_min": [K / (ms / 6e4) for ms in batch_ms],
             "peak_gb": peak_gb, "launches": launches, "per_batch": per_batch,
             "profile": profile}
+
+
+# [slice_wan]: a small Wan DiT that keeps the full model's head_dim (128, the
+# only one K6's bf16 kernel and K7 take) on the card in the path's dtypes (bf16
+# blocks, f32 modulation and norms) against the same weights in f32 on the
+# CPU. The plain versions in bf16 on the CPU differ from f32 by less than
+# 1e-2 in the rel-norm of the loop's latents, 3e-2 in the rel-norm of a LoRA
+# gradient and 2e-4 in the loss (near ln 2 at beta 1), which
+# tests/test_torch_wan.py::test_small_wan_of_the_smoke_run_in_bf16_plain_versions
+# holds on three seeds; the limits are about three times the first two, and
+# 2e-3 for the loss. The first AdamW update moves every element by about lr,
+# so a sign that flips under bf16 moves it by 2 x lr, as in the CogVideoX step.
+WAN_LOOP_REL, WAN_DPO_GRAD_REL, WAN_DPO_LOSS_ATOL = 3e-2, 8e-2, 2e-3
+
+
+def small_wan_config():
+    """2 layers, 2 heads x 128, text 32 x 64: every attention at head_dim 128."""
+    from videogpa_torch.models.wan import WanConfig
+
+    return WanConfig(num_layers=2, dim=256, ffn_dim=512, num_heads=2, in_channels=8,
+                     out_channels=8, text_dim=64, text_len=32, freq_dim=64, vae_z_dim=8)
+
+
+def small_wan_case(cfg, seed: int = 14):
+    """(f32 CPU model, LoRA with live B, DPO batch with image latents, draws,
+    denoise inputs) for the small Wan, all from one seed on the CPU."""
+    import torch
+
+    from videogpa_torch.models.wan import wan_init
+    from videogpa_torch.train.lora import lora_init
+
+    gen = torch.Generator().manual_seed(seed)
+    ref = wan_init(cfg, gen, device="cpu").requires_grad_(False)
+    lora = lora_init(cfg.num_layers, cfg.dim, 4, gen, device="cpu")
+    with torch.no_grad():
+        for ab in lora.values():
+            ab["lora_B"].normal_(0.0, 0.1, generator=gen)  # every adapter live
+    lat = (cfg.in_channels, 5, 16, 16)  # 5 x 8 x 8 = 320 tokens
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+
+    batch = {"x_win": rnd(2, *lat), "x_lose": rnd(2, *lat),
+             "prompt_emb": rnd(2, cfg.text_len, cfg.text_dim),
+             "image_latent": rnd(2, lat[0], 1, *lat[2:])}
+    draws = {"timesteps": torch.tensor([150, 800]), "noise": rnd(2, *lat)}
+    loop = {"context": rnd(1, cfg.text_len, cfg.text_dim),
+            "null_context": rnd(1, cfg.text_len, cfg.text_dim),
+            "latents": rnd(1, *lat), "image_latent": rnd(1, lat[0], 1, *lat[2:])}
+    return ref, lora, batch, draws, loop
+
+
+def small_wan_run(model, cfg, lora, batch, draws, loop, compute_dtype):
+    """3 UniPC steps with the TI2V first frame (guidance 3), then the two
+    calls of ``_tiny_dpo_step`` through the Wan train step."""
+    from videogpa_torch.models.wan import wan_denoise_loop
+    from videogpa_torch.train.wan_trainer import make_wan_dpo_train_step
+
+    lat = wan_denoise_loop(model, loop["context"], loop["null_context"],
+                           tuple(loop["latents"].shape), num_steps=3, guidance_scale=3.0,
+                           image_latent=loop["image_latent"], ti2v=True,
+                           compute_dtype=compute_dtype, latents=loop["latents"])
+    return lat.float().cpu(), _tiny_dpo_step(model, cfg, lora, batch, draws, compute_dtype,
+                                             make_step=make_wan_dpo_train_step)
+
+
+def phase_slice_wan() -> None:
+    """The small Wan at head_dim 128: bf16 on the card (K6 and K7) against f32
+    on the CPU, the denoise loop and one DPO step, with their launch counts."""
+    import torch
+
+    from videogpa_torch.models.wan import wan_init
+
+    cfg = small_wan_config()
+    ref, lora, batch, draws, loop = small_wan_case(cfg)
+    dev = wan_init(cfg, device="cuda", dtype=torch.bfloat16).requires_grad_(False)
+    dev.load_state_dict({k: v.to(torch.bfloat16) for k, v in ref.state_dict().items()})
+    lora_dev = {n: {k: t.detach().to("cuda", copy=True) for k, t in ab.items()}
+                for n, ab in lora.items()}
+
+    def cuda(d):
+        return {k: v.cuda() for k, v in d.items()}
+
+    lat_cpu, (m_cpu, g_cpu, l_cpu) = small_wan_run(ref, cfg, lora, batch, draws, loop,
+                                                   torch.float32)
+    zero_launches()
+    lat_dev, (m_dev, g_dev, l_dev) = small_wan_run(dev, cfg, lora_dev, cuda(batch), cuda(draws),
+                                                   cuda(loop), torch.bfloat16)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    L = cfg.num_layers
+    # loop: 3 forwards x (self + cross) x L; each of the 2 DPO calls: 2
+    # reference forwards, 2 policy forwards and their 2 recomputations
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attn_fwd_d128=3 * 2 * L + 2 * 6 * 2 * L, flash_attn_bwd_d128=2 * 2 * 2 * L)
+    loop_rel = ((lat_dev - lat_cpu).norm() / lat_cpu.norm()).item()
+    first_frame = torch.equal(lat_dev[:, :, :1], loop["image_latent"])
+    grad_rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_dev, g_cpu))
+    loss_err = abs(m_dev["loss"] - m_cpu["loss"])
+    upd_err = max((l_dev[n][k] - l_cpu[n][k]).abs().max().item()
+                  for n in l_cpu for k in l_cpu[n])
+    log(f"[slice] small Wan ({L} layers, {cfg.num_heads} x {cfg.head_dim} heads, 320 tokens, "
+        f"text {cfg.text_len}) bf16 on the card vs f32 on the CPU: 3 UniPC steps with ti2v "
+        f"rel-norm error {loop_rel:.3e} (limit {WAN_LOOP_REL}), first frame kept: "
+        f"{first_frame}; DPO step loss {m_dev['loss']:.6f} vs {m_cpu['loss']:.6f} (|d| "
+        f"{loss_err:.2e}, limit {WAN_DPO_LOSS_ATOL}), grad_norm {m_dev['grad_norm']:.4e} vs "
+        f"{m_cpu['grad_norm']:.4e}, LoRA gradients max rel-norm error {grad_rel:.3e} (limit "
+        f"{WAN_DPO_GRAD_REL}), updated LoRA max|d| {upd_err:.2e} (limit 2.5 x lr = 2.5e-3); "
+        f"launches {json.dumps(launches)}")
+    if launches != want:
+        fail(f"the small Wan did not reach K6 and K7 as expected {want}")
+    finite = all(math.isfinite(v) for v in m_dev.values()) and bool(lat_dev.isfinite().all())
+    if not (finite and first_frame and loop_rel <= WAN_LOOP_REL
+            and loss_err <= WAN_DPO_LOSS_ATOL and grad_rel <= WAN_DPO_GRAD_REL
+            and upd_err <= 2.5e-3):
+        fail("the small Wan on the card disagrees with the CPU reference")
+
+
+WAN_LATENT = (48, 21, 44, 80)  # 81 frames at 704 x 1280 -> 21 x 22 x 40 = 18,480 tokens
+
+
+def _wan_5b():
+    import torch
+
+    from videogpa_torch.models.wan import WanConfig, wan_init
+
+    cfg = WanConfig.ti2v_5b()
+    t0 = time.perf_counter()
+    model = wan_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                     dtype=torch.bfloat16).requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    return cfg, model, (f"Wan2.2-TI2V-5B DiT: {cfg.num_layers} layers (no depth cut), dim "
+                        f"{cfg.dim}, {cfg.num_heads}x{cfg.head_dim} heads, FFN {cfg.ffn_dim}, "
+                        f"text {cfg.text_len} x {cfg.text_dim}, {n_params / 1e9:.3f} B params "
+                        f"in bf16 on the card in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_wan(num_requests: int = 2, steps: int = 3):
+    """The Wan2.2-TI2V-5B denoise path at full width and depth: CFG pair,
+    UniPC, the clean first frame re-imposed and per-token timesteps."""
+    import torch
+
+    from videogpa_torch.models.wan import wan_denoise_loop
+
+    cfg, model, what = _wan_5b()
+    log(f"[wan] {what}")
+    latent_shape = (1,) + WAN_LATENT
+    torch.cuda.reset_peak_memory_stats()
+    request_s = []
+    zero_launches()
+    for r in range(num_requests):
+        gen = torch.Generator(device="cuda").manual_seed(200 + r)
+        text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device="cuda")
+        negative = torch.randn(text.shape, generator=gen, device="cuda")
+        image = torch.randn(1, WAN_LATENT[0], 1, *WAN_LATENT[2:], generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = wan_denoise_loop(model, text, negative, latent_shape, num_steps=steps,
+                               image_latent=image, ti2v=True, generator=gen)
+        torch.cuda.synchronize()
+        request_s.append(time.perf_counter() - t0)
+        if tuple(lat.shape) != latent_shape or not bool(torch.isfinite(lat).all()):
+            fail(f"wan request {r}: latents {tuple(lat.shape)} not finite or wrong shape")
+        if not torch.equal(lat[:, :, :1], image):
+            fail(f"wan request {r}: the first latent frame is not the image latent")
+        log(f"[wan] request {r}: {steps} UniPC steps (CFG pair, ti2v) in {request_s[-1]:.3f} "
+            f"s, latents {tuple(lat.shape)} finite, first frame kept, std of the rest "
+            f"{lat[:, :, 1:].std().item():.4f}")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = num_requests * steps * 2 * cfg.num_layers
+    want = dict.fromkeys(launches, 0)
+    want["flash_attn_fwd_d128"] = expected
+    log(f"[wan] launches {json.dumps(launches)}; expected flash_attn_fwd_d128 {num_requests} "
+        f"requests x {steps} steps x ({cfg.num_layers} self + {cfg.num_layers} cross) = "
+        f"{expected}, every other 0; peak allocated {peak_gb:.2f} GB")
+    if launches != want:
+        fail("the Wan denoise path did not run every attention through K6 alone")
+    profile = profile_device_time("one Wan denoise step (profiled)", lambda: wan_denoise_loop(
+        model, text, negative, latent_shape, num_steps=1, image_latent=image, ti2v=True,
+        generator=torch.Generator(device="cuda").manual_seed(5)))
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "request_s": request_s,
+            "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
+            "launches_per_step": 2 * cfg.num_layers, "profile": profile}
+
+
+def phase_wan_train(mini_steps: int = 4):
+    """The Wan2.2-TI2V-5B DPO LoRA train step at full width and depth."""
+    import tempfile
+
+    import torch
+
+    from videogpa_torch.train.dataset import DPODataset, collate
+    from videogpa_torch.train.lora import lora_init, lora_leaves
+    from videogpa_torch.train.recipes import default_config
+    from videogpa_torch.train.trainer import TrainerConfig, init_train_state
+    from videogpa_torch.train.wan_trainer import make_wan_dpo_train_step
+
+    recipe = default_config("Wan2.2-TI2V-5B")
+    tcfg = TrainerConfig(
+        learning_rate=recipe["learning_rate"], beta=recipe["beta"],
+        warmup_steps=recipe["warmup_steps"], max_steps=recipe["max_steps"],
+        accumulate_grad_batches=recipe["accumulate_grad_batches"],
+        lora_rank=recipe["lora_rank"], lora_alpha=recipe["lora_alpha"], remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, what = _wan_5b()
+    lora = lora_init(cfg.num_layers, cfg.dim, tcfg.lora_rank,
+                     torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    n_lora = sum(t.numel() for t in lora_leaves(lora))
+    state = init_train_state(lora, tcfg)
+    train_step, eval_step = make_wan_dpo_train_step(model, cfg, tcfg)
+
+    with tempfile.TemporaryDirectory(prefix="videogpa_smoke_") as root:
+        _write_preference_dataset(os.path.join(root, "data"), WAN_LATENT,
+                                  (cfg.text_len, cfg.text_dim),
+                                  image_latent_shape=(WAN_LATENT[0], 1, *WAN_LATENT[2:]))
+        ds = DPODataset(os.path.join(root, "data"), os.path.join(root, "data", "meta_data.json"),
+                        metric_name=recipe["metric_name"], metric_mode=recipe["metric_mode"],
+                        min_gap=recipe["min_gap"], metric_threshold=recipe["metric_threshold"],
+                        motion_threshold=recipe["motion_threshold"])
+        if len(ds) != 2:
+            fail(f"the synthetic preference dataset gave {len(ds)} pairs, expected 2")
+        batches = [collate([ds[i % len(ds)]]) for i in range(mini_steps + 1)]
+    if "image_latent" not in batches[0]:
+        fail("the Wan preference batches carry no image_latent")
+    log(f"[wan-train] {what}; recipe Wan2.2-TI2V-5B: batch {recipe['batch_size']}, accumulate "
+        f"{tcfg.accumulate_grad_batches}, LoRA r {tcfg.lora_rank} / alpha {tcfg.lora_alpha} "
+        f"({n_lora / 1e6:.2f} M f32 params), lr {tcfg.learning_rate}, warmup "
+        f"{tcfg.warmup_steps}, max {tcfg.max_steps}, clip {tcfg.gradient_clip_val}, beta "
+        f"{tcfg.beta}, remat {tcfg.remat}; {len(ds)} pairs, latents "
+        f"{tuple(batches[0]['x_win'].shape)}, image_latent "
+        f"{tuple(batches[0]['image_latent'].shape)}, prompt_emb "
+        f"{tuple(batches[0]['prompt_emb'].shape)}")
+
+    b_norms, step_ms, metrics_log = [], [], []
+    zero_launches()
+    for i in range(mini_steps):
+        gen = torch.Generator(device="cuda").manual_seed(20 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batches[i], generator=gen)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        m = {k: float(v) for k, v in metrics.items()}
+        metrics_log.append(m)
+        b_norms.append(sum(float(ab["lora_B"].detach().abs().max())
+                           for ab in state.lora.values()))
+        log(f"[wan-train] mini-step {i + 1}: {step_ms[-1]:.1f} ms, " + json.dumps(m)
+            + f", max|LoRA B| summed over targets {b_norms[-1]:.3e}")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L = cfg.num_layers
+    want_fwd, want_bwd = mini_steps * 6 * 2 * L, mini_steps * 2 * 2 * L
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attn_fwd_d128=want_fwd, flash_attn_bwd_d128=want_bwd)
+    log(f"[wan-train] launches {json.dumps(launches)}; expected flash_attn_fwd_d128 "
+        f"{mini_steps} mini-steps x 6 forwards (2 reference, 2 policy, 2 remat recomputes) x "
+        f"({L} self + {L} cross) = {want_fwd}, flash_attn_bwd_d128 {mini_steps} x 2 policy "
+        f"backwards x {2 * L} = {want_bwd}, every other 0; peak allocated {peak_gb:.2f} GB")
+    if not all(math.isfinite(v) for m in metrics_log for v in m.values()):
+        fail("non-finite Wan train metrics")
+    if set(metrics_log[0]) != {"loss", "reward_margin", "reward_accuracy", "grad_norm"}:
+        fail(f"the Wan train step returned metrics {sorted(metrics_log[0])}")
+    if not (b_norms[1] == 0.0 and b_norms[-1] > 0.0):
+        fail(f"LoRA B: expected zero after update 1 (lr schedule(0) = 0) and off zero "
+             f"after update 2, got {b_norms}")
+    if launches != want:
+        fail("the Wan train path did not run every attention through K6 and K7")
+    ev = eval_step(state, batches[0], generator=torch.Generator(device="cuda").manual_seed(3))
+    if not all(math.isfinite(float(v)) for v in ev.values()):
+        fail("non-finite Wan eval metrics")
+    profile = profile_device_time("one Wan train mini-step (profiled)", lambda: train_step(
+        state, batches[mini_steps], generator=torch.Generator(device="cuda").manual_seed(9)))
+    del model, state, lora
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms,
+            "update_ms": [step_ms[i] + step_ms[i + 1] for i in range(0, mini_steps - 1, 2)],
+            "peak_gb": peak_gb, "profile": profile, "metrics": metrics_log}
+
+
+def phase_timing_wan(wan_shape, text_len):
+    """K7 alone at the Wan self- and cross-attention shapes and K6 at the
+    cross shape, beside their bounds and SDPA on the same operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.attention import flash_attn_bwd_d128, flash_attn_fwd_d128
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    B, N, H, D = wan_shape
+    q = _proj_views(gen, B, N, H, D)
+    for tag, Nk, iters in (("self", N, 5), ("cross", text_len, 20)):
+        k, v = _proj_views(gen, B, Nk, H, D), _proj_views(gen, B, Nk, H, D)
+        if tag == "cross":  # K6 forward at the cross shape, no LSE (sampling)
+            out["k6_cross_ms"] = cuda_ms(
+                lambda: flash_attn_fwd_d128(q, k, v, layout="bhnd"), iters=iters)
+            out["k6_cross_library_ms"] = cuda_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v), iters=iters)
+            out["k6_cross_bound_ms"], out["k6_cross_bound_by"] = _bound(
+                4.0 * B * H * N * Nk * D, 2.0 * B * H * D * (2 * N + 2 * Nk), PEAK_BF16_FLOPS)
+        o, lse = flash_attn_fwd_d128(q, k, v, layout="bhnd", with_lse=True)
+        out[f"k6_{tag}_lse_ms"] = cuda_ms(
+            lambda: flash_attn_fwd_d128(q, k, v, layout="bhnd", with_lse=True), iters=iters)
+        do = _proj_views(gen, B, N, H, D).contiguous()
+        out[f"k7_{tag}_ms"] = cuda_ms(
+            lambda: flash_attn_bwd_d128(q, k, v, o, lse, do, layout="bhnd"), iters=iters)
+        # yardstick only: SDPA's backward on the same operands
+        qt, kt, vt = (x.detach().requires_grad_(True) for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        out[f"k7_{tag}_library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(ot, (qt, kt, vt), do, retain_graph=True), iters=iters)
+        # five Nq x Nk x D products per head: S, dV, dP, dQ, dK; q o dO dQ over
+        # Nq rows, k v dK dV over Nk rows, LSE and delta
+        flops = 10.0 * B * H * N * Nk * D
+        nbytes = 2.0 * B * H * D * (4 * N + 4 * Nk) + 4.0 * B * H * N * 2
+        out[f"k7_{tag}_bound_ms"], out[f"k7_{tag}_bound_by"] = _bound(flops, nbytes,
+                                                                      PEAK_BF16_FLOPS)
+        out[f"k7_{tag}_tflops"] = flops / out[f"k7_{tag}_ms"] / 1e9
+        del k, v, o, lse, do, qt, kt, vt, ot
+    del q
+    torch.cuda.empty_cache()
+    return out
 
 
 def _bound(flops, nbytes, peak_flops):
@@ -1354,7 +1827,12 @@ def main() -> int:
     vggt_shape = (4 * 10, n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
     vggt_global_shape = (4, 10 * n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
     cam_shape = (4, 10, vcfg.num_heads, vcfg.tokens_dim // vcfg.num_heads)
-    wan_shape = (1, 18480, 24, 128)  # Wan2.2 DiT attention, for K6's bf16 path
+    from videogpa_torch.models.wan import WanConfig
+
+    wcfg = WanConfig.ti2v_5b()
+    wan_tokens = math.prod(n // p for n, p in zip(WAN_LATENT[1:], wcfg.patch_size))
+    # Wan2.2 DiT self-attention, batch 1 per train forward: (1, 18480, 24, 128)
+    wan_shape = (1, wan_tokens, wcfg.num_heads, wcfg.head_dim)
 
     phase_build()
     fwd_err, fwd_plain_ms = phase_parity(dit_shape, vggt_global_shape)
@@ -1362,16 +1840,22 @@ def main() -> int:
     short_err, short_plain_ms = phase_parity_short(vggt_shape)
     d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(cam_shape,
                                                                                 wan_shape)
+    k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
+        phase_parity_bwd_d128(wan_shape, wcfg.text_len))
     zbuf_plain_ms = phase_parity_zbuffer()
     phase_slice()
     phase_slice_dpo()
     phase_slice_scorer()
     phase_slice_vggt_bf16()
+    phase_slice_wan()
     main_run = phase_main()
     train_run = phase_train()
     scorer_run = phase_scorer()
+    wan_run = phase_wan()
+    wan_train_run = phase_wan_train()
     timing = phase_timing(dit_shape, train_shape)
     timing.update(phase_timing_scorer(vggt_shape, cam_shape, wan_shape))
+    timing.update(phase_timing_wan(wan_shape, wcfg.text_len))
 
     attn_share = main_run["launches_per_step"] * timing["fwd_ms"] / main_run["step_ms"][-1]
     per_mini = (train_run["launches"]["flash_attn_fwd"] // 4,
@@ -1400,6 +1884,15 @@ def main() -> int:
         "flash_attn_bwd_sdpa_backward_ms": timing["bwd_library_ms"],
         "flash_attn_bwd_plain_ms_over_head_chunks": bwd_plain_ms,
         "scorer_k4_k6_k5": {k: v for k, v in timing.items() if k[:3] in ("k4_", "k5_", "k6_")},
+        "wan_denoise_step_ms": wan_run["step_ms"],
+        "wan_request_s": wan_run["request_s"],
+        "wan_denoise_peak_allocated_gb": wan_run["peak_gb"],
+        "wan_train_mini_step_ms": wan_train_run["step_ms"],
+        "wan_train_update_ms": wan_train_run["update_ms"],
+        "wan_train_peak_allocated_gb": wan_train_run["peak_gb"],
+        "wan_k7": {k: v for k, v in timing.items() if k.startswith("k7_")},
+        "wan_k7_plain_ms_over_head_chunks": {"self": k7_plain_ms, "cross": k7_cross_plain_ms},
+        "wan_k6_plain_ms_at_cross_shape": k6_cross_plain_ms,
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
@@ -1408,12 +1901,14 @@ def main() -> int:
         "vggt_global_attention_shape_bnhd": list(vggt_global_shape),
         "camera_head_attention_shape_bnhd": list(cam_shape),
         "wan_attention_shape_bnhd": list(wan_shape),
+        "wan_cross_attention_keys": wcfg.text_len,
         "card": card,
         "wall_s": time.perf_counter() - t_start,
     }))
     log(card)
     runs = {"denoise": main_run["launches"], "train": train_run["launches"],
-            "scorer": scorer_run["launches"]}
+            "scorer": scorer_run["launches"], "wan": wan_run["launches"],
+            "wan_train": wan_train_run["launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -1460,9 +1955,25 @@ def main() -> int:
          "source": "videogpa_torch/csrc/flash_attn_fwd_d128.cu",
          "replaces": "videogpa_tpu/ops/attention.py:65",
          **by_path("flash_attn_fwd_d128"),
-         "max_abs_err": d128_bf16_err, "ms": timing["k6_bf16_ms"], "plain_ms": wan_plain_ms,
+         "max_abs_err": max(d128_bf16_err, k6_wan_err), "ms": timing["k6_bf16_ms"],
+         "plain_ms": wan_plain_ms,
          "bound_ms": timing["k6_bf16_bound_ms"], "bound_by": timing["k6_bf16_bound_by"],
-         "library_ms": timing["k6_bf16_library_ms"]},
+         "library_ms": timing["k6_bf16_library_ms"],
+         "cross_shape": {"ms": timing["k6_cross_ms"], "plain_ms": k6_cross_plain_ms,
+                         "bound_ms": timing["k6_cross_bound_ms"],
+                         "bound_by": timing["k6_cross_bound_by"],
+                         "library_ms": timing["k6_cross_library_ms"]}},
+        {"name": "flash_attn_bwd_d128", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_bwd_d128.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:883,908",
+         **by_path("flash_attn_bwd_d128"),
+         "max_abs_err": k7_err, "ms": timing["k7_self_ms"], "plain_ms": k7_plain_ms,
+         "bound_ms": timing["k7_self_bound_ms"], "bound_by": timing["k7_self_bound_by"],
+         "library_ms": timing["k7_self_library_ms"],
+         "cross_shape": {"ms": timing["k7_cross_ms"], "plain_ms": k7_cross_plain_ms,
+                         "bound_ms": timing["k7_cross_bound_ms"],
+                         "bound_by": timing["k7_cross_bound_by"],
+                         "library_ms": timing["k7_cross_library_ms"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

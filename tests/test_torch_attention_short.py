@@ -153,9 +153,20 @@ def test_attention_routes_like_the_jax_package(monkeypatch, layout, D, Nk, H, dt
 
 
 def test_d128_backward_is_a_later_kernel():
+    """The backward at head_dim 128 is a kernel of its own, later than K3:
+    K7 (``flash_attn_bwd_d128``), behind K6 with LSE."""
     q = torch.randn(1, 10, 2, 128, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K7"):
-        tattn.attention(q, q, q, layout="bnhd")
+    k3, k7 = tattn.flash_attn_bwd.launches, tattn.flash_attn_bwd_d128.launches
+    o = tattn.attention(q, q, q, layout="bnhd")
+    assert type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    o.sum().backward()
+    want = tattn.flash_attn_bwd_d128(
+        q.detach(), q.detach(), q.detach(),
+        *tattn.flash_attn_fwd_d128(q.detach(), q.detach(), q.detach(), with_lse=True),
+        torch.ones_like(o), layout="bnhd")
+    torch.testing.assert_close(q.grad, sum(want), atol=0, rtol=0)
+    # CPU tensors: the plain versions, no launch counted on either backward
+    assert (tattn.flash_attn_bwd.launches, tattn.flash_attn_bwd_d128.launches) == (k3, k7)
 
 
 @pytest.mark.parametrize("nk,h,d,itemsize", [(1374, 16, 64, 2), (2048, 16, 64, 2),

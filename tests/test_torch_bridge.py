@@ -16,11 +16,14 @@ from videogpa_tpu.models.cogvideox import dit_init as jax_dit_init
 from videogpa_tpu.models.lpips import lpips_init as jax_lpips_init
 from videogpa_tpu.models.vggt import VGGTConfig as JaxVGGTConfig
 from videogpa_tpu.models.vggt import vggt_init as jax_vggt_init
+from videogpa_tpu.models.wan.config import WanConfig as JaxWanConfig
+from videogpa_tpu.models.wan.dit import wan_init as jax_wan_init
 from videogpa_tpu.ops import layers as JL
 from videogpa_torch.convert import load_jax_params, state_dict_from_jax
 from videogpa_torch.models.cogvideox import CogVideoXConfig, CogVideoXTransformer
 from videogpa_torch.models.lpips import LPIPS
 from videogpa_torch.models.vggt import VGGT, VGGTConfig
+from videogpa_torch.models.wan import WanConfig, WanTransformer
 
 torch.set_num_threads(2)
 
@@ -156,6 +159,8 @@ def _rebuilt(sd, path, leaf):
         if name == "kernel" and t.ndim == 4:  # transposed convs: (I, O, k, k) -> (k, k, I, O)
             return t.transpose(2, 3, 0, 1) if owner in ("resize0", "resize1") else \
                 t.transpose(2, 3, 1, 0)
+        if name == "kernel" and t.ndim == 5:  # (O, I, pt, ph, pw) -> DHWIO
+            return t.transpose(2, 3, 4, 1, 0)
         return t
 
     at = next((i for i, p in enumerate(module) if p in _STACKED), None)
@@ -208,3 +213,58 @@ def test_transposed_conv_layout_is_unflipped_in_out():
         with torch.no_grad():
             got = getattr(head, name)(torch.from_numpy(x))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("init", ["jax_init", "random_tree"])
+def test_wan_tree_round_trips_strictly(init):
+    """``wan_init(WanConfig.tiny())``: stacked blocks, the 5-D patch-embed
+    kernel, RMS-norm scales and the (1, 6, d) / (1, 2, d) modulations all land
+    and come back unchanged; loading is strict."""
+    cfg, jcfg = WanConfig.tiny(), JaxWanConfig.tiny()
+    if init == "jax_init":
+        params = jax.tree.map(np.asarray, jax_wan_init(jax.random.PRNGKey(0), jcfg))
+    else:
+        params = random_jax_tree(jax_wan_init, jcfg, seed=2)
+    model = load_jax_params(WanTransformer(cfg), params)
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    used = set()
+    for path, leaf in _leaves(params):
+        keys, back = _rebuilt(sd, path, leaf)
+        used.update(keys)
+        assert back.dtype == leaf.dtype and back.shape == leaf.shape, path
+        np.testing.assert_array_equal(back, leaf, err_msg=path)
+    assert used == set(sd), set(sd) ^ used
+    partial = {k: v for k, v in params.items() if k != "head"}
+    with pytest.raises(RuntimeError, match="head"):
+        load_jax_params(WanTransformer(cfg), partial)
+
+
+def test_wan_patch_kernel_and_modulation_land_where_stated():
+    cfg, jcfg = WanConfig.tiny(), JaxWanConfig.tiny()
+    params = random_jax_tree(jax_wan_init, jcfg, seed=4)
+    model = load_jax_params(WanTransformer(cfg), params)
+    kernel = params["patch_embedding"]["kernel"]  # DHWIO (pt, ph, pw, in, d)
+    pt, ph, pw = cfg.patch_size
+    assert kernel.shape == (pt, ph, pw, cfg.in_channels, cfg.dim)
+    w = model.patch_embedding.weight.detach().numpy()
+    assert w.shape == (cfg.dim, cfg.in_channels, pt, ph, pw)
+    np.testing.assert_array_equal(w, kernel.transpose(4, 3, 0, 1, 2))
+    for i, blk in enumerate(model.blocks):
+        assert blk.modulation.shape == (1, 6, cfg.dim)
+        np.testing.assert_array_equal(blk.modulation.detach().numpy(),
+                                      params["blocks"]["modulation"][i])
+        np.testing.assert_array_equal(blk.self_attn.norm_q.weight.detach().numpy(),
+                                      params["blocks"]["self_attn"]["norm_q"]["scale"][i])
+    np.testing.assert_array_equal(model.head.modulation.detach().numpy(),
+                                  params["head"]["modulation"])
+    # the patch embed as the port computes it is JAX's strided conv: tokens in
+    # (f, h, w) order
+    x = np.random.default_rng(5).standard_normal((1, cfg.in_channels, 2, 4, 6), dtype=np.float32)
+    want = jax.lax.conv_general_dilated(
+        jnp.asarray(x), jnp.asarray(kernel), window_strides=cfg.patch_size, padding="VALID",
+        dimension_numbers=("NCDHW", "DHWIO", "NCDHW"))
+    want = np.asarray(want + params["patch_embedding"]["bias"][None, :, None, None, None])
+    with torch.no_grad():
+        got = model.patch_embedding(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want.reshape(1, cfg.dim, -1).transpose(0, 2, 1),
+                               atol=1e-5, rtol=1e-5)

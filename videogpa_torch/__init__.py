@@ -4,10 +4,11 @@ The JAX package ``videogpa_tpu`` is the reference; this package keeps its
 module names so each function has an obvious counterpart:
 
 - ``videogpa_torch.ops``      — layers, RoPE, resize, the ViT block, attention
-  (hand-written CUDA kernels K1, K3, K4, K6)
-- ``videogpa_torch.models``   — CogVideoX DiT, scheduler, denoise loop; VGGT;
-  LPIPS
-- ``videogpa_torch.train``    — LoRA, the DPO loss and train step, dataset
+  (hand-written CUDA kernels K1, K3, K4, K6, K7)
+- ``videogpa_torch.models``   — CogVideoX DiT, scheduler, denoise loop; Wan2.2
+  DiT, flow matching, TI2V denoise loop; VGGT; LPIPS
+- ``videogpa_torch.train``    — LoRA, the DPO loss, the CogVideoX and Wan
+  train steps, dataset
 - ``videogpa_torch.geometry`` — poses, unprojection, z-buffer reprojection
   (hand-written CUDA scatter-min K5)
 - ``videogpa_torch.metrics``  — the scorer's metric functions and classes

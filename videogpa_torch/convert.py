@@ -5,17 +5,20 @@ The inverse of ``videogpa_tpu/convert.py:22-56`` (``t_linear``,
 
 - Linear:          kernel (in, out)           -> weight (out, in)
 - Conv2d:          kernel HWIO (kh, kw, I, O) -> weight OIHW (O, I, kh, kw)
+- Conv3d:          kernel DHWIO (pt, ph, pw, I, O) -> weight (O, I, pt, ph, pw)
+  (the Wan patch embed)
 - ConvTranspose2d: kernel HWIO (k, k, I, O)   -> weight (I, O, k, k), unflipped
   (the DPT's ``resize0`` / ``resize1``, applied by JAX as an einsum)
 - LayerNorm:       scale / bias               -> weight / bias
+- RMSNorm:         scale                      -> weight
 
 Leaves under a ``lax.scan``-stacked node (``blocks``, ``frame_blocks``,
 ``global_blocks``, the camera head's ``trunk``) carry every layer along a
 leading axis; they are unstacked into ``<node>.{i}.*``. List nodes
 (``projects``, ``layer_rn``, ``convs``, ``lins``) become ``<node>.{i}.*``.
-Tokens and tables (``_VERBATIM``) and LayerScale's ``ls1/ls2.gamma`` are
-copied as they are. Covers the CogVideoX DiT, ``vggt_init`` and
-``lpips_init`` trees. Any leaf the bridge cannot name raises, and loading is
+Tokens, tables and the Wan blocks' and head's ``modulation`` (``_VERBATIM``)
+and LayerScale's ``ls1/ls2.gamma`` are copied as they are. Covers the
+CogVideoX DiT, ``wan_init``, ``vggt_init`` and ``lpips_init`` trees. Any leaf the bridge cannot name raises, and loading is
 strict, so nothing is left unmapped on either side.
 """
 
@@ -29,7 +32,7 @@ import torch.nn as nn
 
 # leaves copied as they are, by name
 _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
-             "register_tokens", "pos_embed", "empty_pose_tokens")
+             "register_tokens", "pos_embed", "empty_pose_tokens", "modulation")
 _LAYER_SCALES = ("ls1", "ls2")
 # nodes whose leaves stack every layer along a leading axis
 _STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
@@ -61,6 +64,8 @@ def _torch_leaf(path: str, arr: np.ndarray):
         return f"{module}.weight", arr.transpose(2, 3, 0, 1)
     if name == "kernel" and arr.ndim == 4:
         return f"{module}.weight", arr.transpose(3, 2, 0, 1)
+    if name == "kernel" and arr.ndim == 5:
+        return f"{module}.weight", arr.transpose(4, 3, 0, 1, 2)
     if name == "scale" and arr.ndim == 1:
         return f"{module}.weight", arr
     if name == "bias" and arr.ndim == 1:

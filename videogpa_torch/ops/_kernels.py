@@ -26,6 +26,7 @@ SOURCES = {
     "flash_attn_bwd": _CSRC / "flash_attn_bwd.cu",
     "flash_attn_short": _CSRC / "flash_attn_short.cu",
     "flash_attn_fwd_d128": _CSRC / "flash_attn_fwd_d128.cu",
+    "flash_attn_bwd_d128": _CSRC / "flash_attn_bwd_d128.cu",
     "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
 }
 HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "flash_fwd_tile.cuh")
@@ -37,12 +38,12 @@ NVCC_FLAGS = [
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P]
 # entry point -> (source, C symbol, argtypes)
+_BWD_ARGS = [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P]
 _SIGNATURES = {
     "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
-    "flash_attn_bwd": (
-        "flash_attn_bwd", "videogpa_flash_attn_bwd",
-        [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P],
-    ),
+    "flash_attn_bwd": ("flash_attn_bwd", "videogpa_flash_attn_bwd", _BWD_ARGS),
+    "flash_attn_bwd_d128": (
+        "flash_attn_bwd_d128", "videogpa_flash_attn_bwd_d128", _BWD_ARGS),
     "flash_attn_short": (
         "flash_attn_short", "videogpa_flash_attn_short",
         [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],

@@ -12,7 +12,8 @@ the kernel or raises. There is no fallback from one to the other.
   rows of at most 2,048 keys, exact two-pass softmax, ``n_valid`` mask,
   inference only.
 - ``flash_attn_fwd_d128`` (K6, ``csrc/flash_attn_fwd_d128.cu``): bf16 at
-  head_dim 128 on tensor cores.
+  head_dim 128 on tensor cores, optional LSE.
+- ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
   head_dim 16-128 on CUDA cores, for short rows.
 
@@ -20,8 +21,9 @@ the kernel or raises. There is no fallback from one to the other.
 operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
 and rounding f32 operands would move the f32 heads away from the JAX
 package's.
-It differentiates through K1 and K3 with a ``torch.autograd.Function``
-whenever an operand requires grad.
+It differentiates with a ``torch.autograd.Function`` whenever an operand
+requires grad: through K1 and K3 at head_dim < 128, through K6 and K7 at
+head_dim 128.
 """
 
 from __future__ import annotations
@@ -196,6 +198,38 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd"):
     return grads
 
 
+def _launch_bwd(fn_name: str, entry: str, head_dims, q, k, v, o, lse, do, layout):
+    """Shared launch of a backward kernel with ``flash_attn_bwd``'s C interface."""
+    B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, head_dims=head_dims,
+                                      o=o, do=do)
+    if (lse.device != q.device or lse.dtype != torch.float32
+            or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
+        raise ValueError(f"{fn_name}: lse must be a contiguous ({B}, {H}, {Nq}) "
+                         f"float32 tensor on {q.device}")
+    delta = (o.float() * do.float()).sum(-1)
+    if layout == "bnhd":
+        delta = delta.transpose(1, 2)
+    delta = delta.contiguous()  # (B, H, Nq), as the LSE
+
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = []
+    for x in (q, k, v, do, dq, dk, dv):
+        strides += _dims(x, layout)[4:]
+    fn = _kernels.kernel(entry)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Nq, Nk, D, *strides, D ** -0.5, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    return dq, dk, dv
+
+
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                    lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd"):
     """Gradients (dQ, dK, dV) of ``flash_attn_fwd`` given its output O, its
@@ -214,35 +248,10 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
-
-    B, Nq, H, D, Nk = _check_operands("flash_attn_bwd", layout, q, k, v, o=o, do=do)
-    if (lse.device != q.device or lse.dtype != torch.float32
-            or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
-        raise ValueError(f"flash_attn_bwd: lse must be a contiguous ({B}, {H}, {Nq}) "
-                         f"float32 tensor on {q.device}")
-    delta = (o.float() * do.float()).sum(-1)
-    if layout == "bnhd":
-        delta = delta.transpose(1, 2)
-    delta = delta.contiguous()  # (B, H, Nq), as the LSE
-
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    strides = []
-    for x in (q, k, v, do, dq, dk, dv):
-        strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel("flash_attn_bwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Nq, Nk, D, *strides, D ** -0.5, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd: kernel launch failed with cudaError {rc}")
+    grads = _launch_bwd("flash_attn_bwd", "flash_attn_bwd", KERNEL_HEAD_DIMS,
+                        q, k, v, o, lse, do, layout)
     flash_attn_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 flash_attn_bwd.launches = 0
@@ -339,6 +348,31 @@ def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attn_fwd_d128.launches = 0
 
+
+def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd"):
+    """K3's function at head_dim 128 in bf16: gradients (dQ, dK, dV) of
+    ``flash_attn_fwd_d128`` given its output O, its natural-log LSE and dO.
+    Same arguments and results as ``flash_attn_bwd``; Nq may differ from Nk.
+
+    CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
+    tensors must be bf16 with D = 128; anything else raises. Each launch adds
+    one to ``flash_attn_bwd_d128.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.device.type == "cpu":
+        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
+    grads = _launch_bwd("flash_attn_bwd_d128", "flash_attn_bwd_d128", (128,),
+                        q, k, v, o, lse, do, layout)
+    flash_attn_bwd_d128.launches += 1
+    return grads
+
+
+flash_attn_bwd_d128.launches = 0
+
 F32_HEAD_DIMS = (16, 32, 64, 128)
 
 
@@ -372,12 +406,16 @@ flash_attn_fwd_f32.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """``flash_attn_fwd`` with ``flash_attn_bwd`` as its backward: the
-    counterpart of the JAX ``_flash`` and ``_attention_bnhd_vjp`` custom vjps."""
+    """A forward kernel with LSE and its backward kernel: ``flash_attn_fwd``
+    and ``flash_attn_bwd`` at head_dim < 128, ``flash_attn_fwd_d128`` and
+    ``flash_attn_bwd_d128`` at head_dim >= 128, as ``_flash_fwd`` and
+    ``_flash_bwd`` split in the JAX package. The counterpart of the JAX
+    ``_flash`` and ``_attention_bnhd_vjp`` custom vjps."""
 
     @staticmethod
     def forward(ctx, q, k, v, layout):
-        o, lse = flash_attn_fwd(q, k, v, layout=layout, with_lse=True)
+        fwd = flash_attn_fwd_d128 if q.shape[-1] >= 128 else flash_attn_fwd
+        o, lse = fwd(q, k, v, layout=layout, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.layout = layout
         return o
@@ -385,7 +423,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attn_bwd(q, k, v, o, lse, do.contiguous(), layout=ctx.layout)
+        bwd = flash_attn_bwd_d128 if q.shape[-1] >= 128 else flash_attn_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), layout=ctx.layout)
         return dq, dk, dv, None
 
 
@@ -402,9 +441,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Routing, as ``attention(impl="flash")`` in the JAX package for bf16:
 
-    - an operand requires grad (and grad is enabled): D < 128 ->
-      ``_FlashAttention`` (K1 with LSE, K3 backward); D >= 128 raises (its
-      backward is K7, a later slice);
+    - an operand requires grad (and grad is enabled) -> ``_FlashAttention``:
+      D < 128, K1 with LSE and K3 backward; D >= 128, K6
+      (``flash_attn_fwd_d128``) with LSE and K7 (``flash_attn_bwd_d128``);
     - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry), at any
       length; it suits the camera head's short rows, and long f32 rows run
       there far slower than bf16 rows on the tensor cores;
@@ -423,10 +462,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     D = q.shape[-1]
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if D >= 128:
-            raise NotImplementedError(
-                "attention backward at head_dim >= 128 is K7 (_dq_kernel/_dkv_kernel), "
-                "a later slice")
         return _FlashAttention.apply(q, k, v, layout)
     if q.dtype == torch.float32:
         return flash_attn_fwd_f32(q, k, v, layout=layout)[0]

@@ -46,6 +46,17 @@ def layernorm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
     return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
 
 
+def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor] = None,
+            eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) over the last dim in f32, times the optional
+    scale, cast back (``videogpa_tpu/ops/layers.py:105``)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    if weight is not None:
+        y = y * weight.float()
+    return y.to(x.dtype)
+
+
 def _full_f32_conv(x: torch.Tensor):
     """A float32 convolution on the card runs with cuDNN's TF32 off for the
     call (``torch.backends.cudnn.flags``), the other cuDNN flags as they are."""
@@ -74,6 +85,21 @@ def conv_transpose2d(x: torch.Tensor, weight: torch.Tensor,
     b = None if bias is None else bias.to(x.dtype)
     with _full_f32_conv(x):
         return F.conv_transpose2d(x, weight.to(x.dtype), b, stride=stride)
+
+
+def patch_conv3d(x: torch.Tensor, weight: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """NCDHW convolution whose stride equals its kernel and that has no
+    padding (a video patch embed), as one product over the unfolded patches,
+    so it accumulates in f32 and adds the bias before the cast, as ``linear``
+    does. x (B, C, F, H, W), weight (O, C, pt, ph, pw). Returns the tokens
+    (B, F/pt * H/ph * W/pw, O) in (f, h, w) order."""
+    B, C, F_, H, W = x.shape
+    O, _, pt, ph, pw = weight.shape
+    f, h, w = F_ // pt, H // ph, W // pw
+    patches = x[:, :, :f * pt, :h * ph, :w * pw].reshape(B, C, f, pt, h, ph, w, pw)
+    patches = patches.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, f * h * w, C * pt * ph * pw)
+    return linear(patches, weight.reshape(O, -1), bias)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -111,9 +137,36 @@ class LayerNorm(nn.LayerNorm):
         return layernorm(x, self.weight, self.bias, self.eps)
 
 
+class RMSNorm(nn.Module):
+    """Holder of ``rmsnorm``'s scale (the JAX tree's ``scale`` leaf)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rmsnorm(x, self.weight, self.eps)
+
+
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv2d(x, self.weight, self.bias, self.stride, self.padding)
+
+
+class PatchConv3d(nn.Module):
+    """Holder of a Conv3d weight (out, in, pt, ph, pw) and bias with
+    kernel_size == stride and padding 0; ``forward`` is ``patch_conv3d``."""
+
+    def __init__(self, in_channels: int, out_channels: int, patch_size, device=None,
+                 dtype=None):
+        super().__init__()
+        fk = {"device": device, "dtype": dtype}
+        self.weight = nn.Parameter(torch.empty((out_channels, in_channels, *patch_size), **fk))
+        self.bias = nn.Parameter(torch.empty((out_channels,), **fk))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return patch_conv3d(x, self.weight, self.bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

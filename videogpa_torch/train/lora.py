@@ -1,4 +1,4 @@
-"""LoRA adapters for the CogVideoX DiT attention projections
+"""LoRA adapters for the CogVideoX and Wan DiT attention projections
 (``videogpa_tpu/train/lora.py``).
 
 Training config: r=64, alpha=128 on to_q/to_k/to_v/to_out.0. Layout (PEFT):
@@ -70,10 +70,18 @@ def lora_delta(layer_lora: Optional[dict], name: str, x: torch.Tensor,
     return scaling * F.linear(F.linear(x, A), B)
 
 
+# per model family: (attention module of a block, {lora name -> linear name})
+_MERGE_LAYOUTS = {
+    "cogvideox": ("attn1", {"to_q": "to_q", "to_k": "to_k", "to_v": "to_v", "to_out": "to_out"}),
+    "wan": ("self_attn", {"to_q": "q", "to_k": "k", "to_v": "v", "to_out": "o"}),
+}
+
+
 @torch.no_grad()
 def merge_lora(model: nn.Module, lora: dict, rank: int, alpha: float, weight: float = 1.0,
-               absolute_scaling: Optional[float] = None) -> nn.Module:
-    """Merge LoRA into a CogVideoX DiT's attention weights, for sampling.
+               absolute_scaling: Optional[float] = None, layout: str = "cogvideox") -> nn.Module:
+    """Merge LoRA into a DiT's attention weights, for sampling; ``layout``
+    names the family ("cogvideox" or "wan").
 
     scaling = ``absolute_scaling`` if given (the CogVideoX1.5 convention),
     else ``weight * alpha / rank`` (PEFT's merge when weight is 1, the
@@ -81,9 +89,10 @@ def merge_lora(model: nn.Module, lora: dict, rank: int, alpha: float, weight: fl
     so a 5B model is never held twice, and returns it.
     """
     scaling = absolute_scaling if absolute_scaling is not None else weight * alpha / rank
+    attn_key, name_map = _MERGE_LAYOUTS[layout]
     for name, ab in lora.items():
         for i, blk in enumerate(model.blocks):
-            lin = getattr(blk.attn1, name)
+            lin = getattr(getattr(blk, attn_key), name_map.get(name, name))
             delta = (ab["lora_B"][i].float() @ ab["lora_A"][i].float()) * scaling
             lin.weight.add_(delta.to(device=lin.weight.device, dtype=lin.weight.dtype))
     return model

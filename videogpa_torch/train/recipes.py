@@ -114,5 +114,6 @@ def run_recipe(recipe: str, config: Dict) -> None:
         raise ValueError(f"unknown recipe {recipe!r}; choose from {RECIPES}")
     raise NotImplementedError(
         f"run_recipe({recipe!r}): cli/train_dpo and the checkpoint loader are not "
-        "ported yet (weights/loader slice); drive train.trainer.make_dpo_train_step directly"
+        "ported yet (weights/loader slice); drive train.trainer.make_dpo_train_step or "
+        "train.wan_trainer.make_wan_dpo_train_step directly"
     )
