@@ -62,6 +62,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
              update, and the launches of K6 (forward, with LSE under grad)
              and K7 (backward).
    profile — one more (profiled) Wan step and Wan mini-step.
+   int8    — the int8 inference mode (W8A8 linears from ``ops.quant`` and
+             ``attn_impl="flash_int8"``). parity: K8 and K9 against their plain
+             version on the same quantised operands at the DiT, VGGT-global
+             and Wan shapes and at edge cases; quantise + kernel against exact
+             f32 attention; ``quantize_qk_int8``, ``linear_w8a8`` and
+             ``int8_matmul`` on the card against the CPU. slice: the tiny DiT,
+             the tiny scorer and a small bf16 VGGT in int8 mode on the card
+             against the same mode on the CPU. main paths at full width:
+             CogVideoX-5B (2 requests x 2 DPM steps, K8 168 launches, against
+             the exact run's latents), the VGGT-1B scorer (3 batches; a batch
+             launches K8 24, K4 48, K6 f32 16, K5 4; drift of each score
+             against the exact scorer) and Wan2.2-TI2V-5B (1 request x 3
+             UniPC steps; head_dim 128 stays on K6). One profiled int8 denoise
+             step and scorer batch.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function.
@@ -82,6 +96,7 @@ import time
 
 # H100 SXM dense peaks (NVIDIA data sheet), the bound of each kernel
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 # bf16 output: rtol covers one bf16 ulp (<= 2^-7 relative) at any magnitude;
@@ -108,12 +123,22 @@ DPO_GRAD_REL, DPO_LOSS_ATOL = 5e-2, 1e-2
 
 
 def fail(msg: str) -> None:
-    print(f"chip_smoke: FAIL: {msg}", flush=True)
+    log(f"chip_smoke: FAIL: {msg}")
     raise SystemExit(1)
+
+
+# every line also goes to build/chip_smoke.log beside this script (the
+# directory the kernels are built into, which .gitignore lists): a caller that
+# keeps only the end of the output still finds the whole run there
+_LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "chip_smoke.log")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+    os.makedirs(os.path.dirname(_LOG_PATH), exist_ok=True)
+    with open(_LOG_PATH, "a") as f:
+        f.write(msg + "\n")
 
 
 def gpu_name_and_power() -> str:
@@ -143,11 +168,12 @@ def _wrappers():
     from videogpa_torch.geometry.zbuffer_kernel import scatter_min_u32
     from videogpa_torch.ops.attention import (
         flash_attn_bwd, flash_attn_bwd_d128, flash_attn_fwd, flash_attn_fwd_d128,
-        flash_attn_fwd_f32, flash_attn_short)
+        flash_attn_fwd_f32, flash_attn_int8, flash_attn_int8_d128, flash_attn_short)
 
     return {f.__name__: f for f in (flash_attn_fwd, flash_attn_bwd, flash_attn_short,
                                     flash_attn_fwd_f32, flash_attn_fwd_d128,
-                                    flash_attn_bwd_d128, scatter_min_u32)}
+                                    flash_attn_bwd_d128, scatter_min_u32,
+                                    flash_attn_int8, flash_attn_int8_d128)}
 
 
 def zero_launches() -> None:
@@ -328,7 +354,7 @@ def phase_main(num_requests: int = 2, steps: int = 2):
     latent_shape = (1, cfg.sample_frames, cfg.vae_latent_channels,
                     cfg.sample_height, cfg.sample_width)
     torch.cuda.reset_peak_memory_stats()
-    request_s = []
+    request_s, latents = [], []
     zero_launches()
     for r in range(num_requests):
         gen = torch.Generator(device="cuda").manual_seed(100 + r)
@@ -344,6 +370,7 @@ def phase_main(num_requests: int = 2, steps: int = 2):
             fail(f"request {r}: latents {tuple(lat.shape)} not finite or wrong shape")
         log(f"[main] request {r}: {steps} DPM steps in {request_s[-1]:.3f} s, latents "
             f"{tuple(lat.shape)} finite, std {lat.float().std().item():.4f}")
+        latents.append(lat.float().cpu())
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     expected = num_requests * steps * cfg.num_layers
@@ -362,10 +389,15 @@ def phase_main(num_requests: int = 2, steps: int = 2):
         "launches": launches, "request_s": request_s,
         "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
         "launches_per_step": expected // (num_requests * steps), "profile": profile,
+        "latents": latents,
     }
 
 
 def _kernel_group(name: str) -> str:
+    if "flash_int8::kernel<128>" in name:
+        return "K9 flash_attn_int8_d128"
+    if "flash_int8::kernel" in name:
+        return "K8 flash_attn_int8"
     if "attn_f32_kernel" in name:
         return "K6 flash_attn_fwd_f32"
     if "flash_fwd::kernel<128>" in name:
@@ -1356,23 +1388,25 @@ def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    batch_ms, results = [], None
+    batch_ms, results, all_results = [], None, []
     for b, clips in enumerate(batches):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         results = vp.process_frames_batch(clips, [0])
         torch.cuda.synchronize()
         batch_ms.append(1e3 * (time.perf_counter() - t0))
+        all_results.append(results)
         log(f"[scorer] batch {b} ({'cold' if b == 0 else 'warm'}): {batch_ms[-1]:.1f} ms, "
             f"{K / (batch_ms[-1] / 6e4):.1f} clips/min; clip 0: "
             + json.dumps({k: round(v, 6) for k, v in results[0][0].items()}))
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_batch = {k: v / num_batches for k, v in launches.items()}
-    want = {"flash_attn_fwd": cfg.depth, "flash_attn_bwd": 0,
-            "flash_attn_short": cfg.backbone_depth + cfg.depth,
-            "flash_attn_fwd_f32": cfg.camera_trunk_depth * cfg.camera_iterations,
-            "flash_attn_fwd_d128": 0, "flash_attn_bwd_d128": 0, "scatter_min_u32": K}
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attn_fwd": cfg.depth,
+                 "flash_attn_short": cfg.backbone_depth + cfg.depth,
+                 "flash_attn_fwd_f32": cfg.camera_trunk_depth * cfg.camera_iterations,
+                 "scatter_min_u32": K})
     log(f"[scorer] launches per batch {json.dumps(per_batch)}; expected {json.dumps(want)} "
         f"(K1: the {cfg.depth} global blocks; K4: {cfg.backbone_depth} DINOv2 + {cfg.depth} "
         f"frame blocks; K6 f32: {cfg.camera_trunk_depth} trunk blocks x "
@@ -1392,7 +1426,7 @@ def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
     torch.cuda.empty_cache()
     return {"batch_ms": batch_ms, "clips_per_min": [K / (ms / 6e4) for ms in batch_ms],
             "peak_gb": peak_gb, "launches": launches, "per_batch": per_batch,
-            "profile": profile}
+            "profile": profile, "results": all_results}
 
 
 # [slice_wan]: a small Wan DiT that keeps the full model's head_dim (128, the
@@ -1802,6 +1836,675 @@ def phase_timing_scorer(vggt_shape, cam_shape, wan_shape):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The int8 inference mode: K8, K9, W8A8 linears
+# ---------------------------------------------------------------------------
+
+# quantise + kernel against exact f32 attention: the JAX tests' limits
+# (tests/test_ops.py::test_int8_qk_close_to_reference)
+INT8_E2E_COS, INT8_E2E_REL = 0.999, 0.02
+# quantize_qk_int8 and the weight and activation quantisers on the card
+# against the CPU: the same f32 arithmetic with true divisions on both, but a
+# sum taken in another order (K's mean) or a product contracted into an fma
+# can move a value by an ulp and flip an integer at a rounding tie
+INT8_FLIP_SHARE = 1e-3
+
+
+def _int8_case(gen, B, Nq, Nk, H, D, layout, q_scale=1.0, k_shift=0.5):
+    """bf16 q, k, v with a non-zero mean in K (what the centring removes)."""
+    import torch
+
+    q, k, v = _attn_case(gen, B, Nq, Nk, H, D, layout, q_scale=q_scale)
+    return q, (k.float() + k_shift).to(torch.bfloat16), v
+
+
+def _int8_full(tag, label, fn, q, k, v, chunk: int = 4):
+    """An int8-QK kernel against its plain version on a full-size bnhd
+    problem, given the same quantised operands; the plain version needs an
+    (N, N) f32 score matrix per head, so it runs over chunks of ``chunk``
+    heads covering every head. Also returns the quantised path's distance to
+    exact f32 attention on the first chunk. Returns (max |dO|, plain ms
+    summed over the chunks)."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd_reference, flash_attn_int8_reference, quantize_qk_int8)
+
+    B, _, H, _ = q.shape
+    q8, sq, k8, sk = quantize_qk_int8(q, k, "bnhd")
+    o = fn(q8, sq, k8, sk, v, layout="bnhd")
+    plain_ms, worst, atols = 0.0, 0.0, []
+    for b in range(B):
+        for h in range(0, H, chunk):
+            sl = (slice(b, b + 1), slice(None), slice(h, h + chunk))
+            ro, ms = _timed(lambda: flash_attn_int8_reference(
+                q8[sl], sq[sl], k8[sl], sk[sl], v[sl], "bnhd"))
+            plain_ms += ms
+            err, atol, ok = _check_o(o[sl], ro)
+            atols.append(atol)
+            worst = max(worst, err)
+            if not ok:
+                fail(f"{fn.__name__} disagrees at the {label}, batch {b}, heads {h}..")
+            del ro
+    sl = (slice(0, 1), slice(None), slice(0, chunk))
+    exact, _ = flash_attn_fwd_reference(q[sl].float(), k[sl].float(), v[sl].float(), "bnhd")
+    cos, rel = _cos_rel(o[sl].float(), exact)
+    log(f"[parity-int8] {tag} {label} bnhd, all {B * H} heads in chunks of {chunk}: max|dO| "
+        f"{worst:.3e} (atol {min(atols):.2e}..{max(atols):.2e} + rtol {O_RTOL}) ok; plain "
+        f"version {plain_ms:.1f} ms over the chunks; heads 0-{chunk - 1} against exact f32 "
+        f"attention: cosine {cos:.6f}, rel-L2 {rel:.4f} (limits {INT8_E2E_COS}, {INT8_E2E_REL})")
+    if not (cos > INT8_E2E_COS and rel < INT8_E2E_REL):
+        fail(f"{fn.__name__} at the {label} is far from exact attention")
+    del o, q8, sq, k8, sk
+    torch.cuda.empty_cache()
+    return worst, plain_ms
+
+
+def _cos_rel(got, want):
+    a, b = got.double().ravel(), want.double().ravel()
+    return (a @ b / (a.norm() * b.norm())).item(), ((a - b).norm() / b.norm()).item()
+
+
+def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
+    """K8 and K9 against their plain version on the same quantised operands,
+    and quantise + kernel against exact f32 attention. Returns (K8 max |dO|,
+    K9 max |dO|, K8 plain ms at the DiT shape, K9 plain ms at the Wan shape)."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_int8, flash_attn_int8_d128, flash_attn_int8_reference, mha_reference,
+        quantize_qk_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    packed = (torch.randn(1, 640, 3, 4, 64, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16)
+    k8_cases = [
+        ("ragged N=300 bnhd D=64", "bnhd", _int8_case(gen, 2, 300, 300, 4, 64, "bnhd")),
+        ("cross Nq=300 Nk=777 bhnd D=64", "bhnd", _int8_case(gen, 1, 300, 777, 3, 64, "bhnd")),
+        ("cross Nq=1000 Nk=37 bnhd D=64", "bnhd", _int8_case(gen, 1, 1000, 37, 2, 64, "bnhd")),
+        ("D=16 N=517 bnhd", "bnhd", _int8_case(gen, 2, 517, 517, 2, 16, "bnhd")),
+        ("D=16 N=517 bhnd", "bhnd", _int8_case(gen, 2, 517, 517, 2, 16, "bhnd")),
+        ("D=32 N=517 bhnd", "bhnd", _int8_case(gen, 2, 517, 517, 2, 32, "bhnd")),
+        ("D=32 N=517 bnhd", "bnhd", _int8_case(gen, 2, 517, 517, 2, 32, "bnhd")),
+        ("K with mean 3 N=300 D=64", "bnhd",
+         _int8_case(gen, 1, 300, 300, 2, 64, "bnhd", k_shift=3.0)),
+        ("extreme logits q*1e3 N=300 D=64", "bnhd",
+         _int8_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3)),
+        ("strided views of packed qkv N=640", "bnhd", packed.unbind(2)),
+        ("strided (B, H, N, D) views of projections Nq=333 Nk=512 D=64", "bhnd",
+         (_proj_views(gen, 2, 333, 3, 64), _proj_views(gen, 2, 512, 3, 64),
+          _proj_views(gen, 2, 512, 3, 64))),
+    ]
+    k9_cases = [
+        ("ragged N=300 bnhd D=128", "bnhd", _int8_case(gen, 2, 300, 300, 3, 128, "bnhd")),
+        ("cross Nq=100 Nk=777 bhnd D=128", "bhnd", _int8_case(gen, 1, 100, 777, 2, 128, "bhnd")),
+        ("extreme logits q*1e3 N=300 D=128", "bnhd",
+         _int8_case(gen, 1, 300, 300, 2, 128, "bnhd", q_scale=1e3)),
+        ("strided (B, H, N, D) views of projections Nq=333 Nk=512 D=128", "bhnd",
+         (_proj_views(gen, 2, 333, 3, 128), _proj_views(gen, 2, 512, 3, 128),
+          _proj_views(gen, 2, 512, 3, 128))),
+    ]
+    errs = {"K8": [], "K9": []}
+    for tag, fn, cases in (("K8", flash_attn_int8, k8_cases), ("K9", flash_attn_int8_d128,
+                                                               k9_cases)):
+        for name, layout, (q, k, v) in cases:
+            ops = quantize_qk_int8(q, k, layout)
+            o = fn(*ops, v, layout=layout)
+            err, atol, ok = _check_o(o, flash_attn_int8_reference(*ops, v, layout))
+            line = (f"[parity-int8] {tag} {name}: max|dO| {err:.3e} (atol {atol:.2e} + rtol "
+                    f"{O_RTOL}) {'ok' if ok else 'MISMATCH'}")
+            if not name.startswith("extreme"):
+                # against exact attention; with q x 1e3 the softmax is one-hot
+                # and a quantised argmax may differ from the exact one
+                qq, kk, vv = ((x.transpose(1, 2) if layout == "bnhd" else x).float()
+                              for x in (q, k, v))
+                oo = o.transpose(1, 2) if layout == "bnhd" else o
+                cos, rel = _cos_rel(oo.float(), mha_reference(qq, kk, vv))
+                line += f"; against exact f32 attention cosine {cos:.6f}, rel-L2 {rel:.4f}"
+                ok = ok and cos > INT8_E2E_COS and rel < INT8_E2E_REL
+            log(line)
+            if not ok:
+                fail(f"{fn.__name__} disagrees on {name}")
+            errs[tag].append(err)
+    # int8 operands as strided views (q8 and k8 interleaved in one tensor)
+    q, k, v = _int8_case(gen, 2, 300, 300, 4, 64, "bnhd")
+    q8, sq, k8, sk = quantize_qk_int8(q, k, "bnhd")
+    q8v, k8v = torch.stack([q8, k8], dim=2).unbind(2)
+    sqv, skv = torch.stack([sq, sk], dim=-1).unbind(-1)
+    same = torch.equal(flash_attn_int8(q8v, sqv, k8v, skv, v, layout="bnhd"),
+                       flash_attn_int8(q8, sq, k8, sk, v, layout="bnhd"))
+    log(f"[parity-int8] K8 strided int8 operands and scales (views of interleaved tensors) "
+        f"equal to the dense ones bit for bit: {same}")
+    if not same:
+        fail("flash_attn_int8 reads strided int8 operands differently")
+    del k8_cases, k9_cases, packed, q, k, v, q8, sq, k8, sk, q8v, k8v, sqv, skv
+
+    # the main paths' shapes at full size
+    B, N, H, D = dit_shape
+    q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
+    worst, k8_plain_ms = _int8_full("K8", f"DiT shape {dit_shape}", flash_attn_int8, q, k, v)
+    errs["K8"].append(worst)
+    del q, k, v
+    B, N, H, D = vggt_global_shape
+    q, k, v = (torch.randn(B, N, 3, H, D, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16).unbind(2)
+    worst, _ = _int8_full("K8", f"VGGT global shape {vggt_global_shape} (v a strided view)",
+                          flash_attn_int8, q.contiguous(), k.contiguous(), v)
+    errs["K8"].append(worst)
+    del q, k, v
+    B, N, H, D = wan_shape
+    q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
+    worst, k9_plain_ms = _int8_full("K9", f"Wan shape {wan_shape}", flash_attn_int8_d128,
+                                    q, k, v)
+    errs["K9"].append(worst)
+    del q, k, v
+    torch.cuda.empty_cache()
+    return max(errs["K8"]), max(errs["K9"]), k8_plain_ms, k9_plain_ms
+
+
+def phase_parity_quant(dit_shape):
+    """The plain PyTorch passes of the int8 mode on the card against the CPU:
+    ``quantize_qk_int8``, ``linear_w8a8`` and ``int8_matmul`` (bit for bit
+    against int32 arithmetic), and the shapes the integer GEMM refuses."""
+    import torch
+
+    from videogpa_torch.ops.attention import quantize_qk_int8
+    from videogpa_torch.ops.quant import (
+        int8_matmul, linear_w8a8, quantize_activations, quantize_linear)
+
+    gen = torch.Generator(device="cuda").manual_seed(82)
+
+    def flips(a, b):
+        d = (a.cpu().int() - b.int()).abs()
+        return d.max().item(), (d != 0).float().mean().item()
+
+    # quantize_qk_int8: 4 heads of the DiT shape, both layouts
+    _, N, _, D = dit_shape
+    for layout in ("bnhd", "bhnd"):
+        q, k, _ = _int8_case(gen, 1, N, N, 4, D, layout)
+        dev, cpu = quantize_qk_int8(q, k, layout), quantize_qk_int8(q.cpu(), k.cpu(), layout)
+        (q_max, q_share), (k_max, k_share) = flips(dev[0], cpu[0]), flips(dev[2], cpu[2])
+        s_rel = max(((dev[i].cpu() - cpu[i]).abs() / cpu[i]).max().item() for i in (1, 3))
+        log(f"[parity-int8] quantize_qk_int8 (1, {N}, 4, {D}) {layout} card vs CPU: q8 differs "
+            f"on {q_share:.2e} of entries (max {q_max}), k8 on {k_share:.2e} (max {k_max}), "
+            f"limit {INT8_FLIP_SHARE} by at most 1; scales max rel {s_rel:.2e} (limit 1e-5)")
+        if max(q_max, k_max) > 1 or max(q_share, k_share) > INT8_FLIP_SHARE or s_rel > 1e-5:
+            fail("quantize_qk_int8 on the card disagrees with the CPU")
+
+    # int8_matmul against int32 arithmetic on the CPU, bit for bit
+    a = torch.randint(-127, 128, (300, 3072), generator=gen, device="cuda").to(torch.int8)
+    b = torch.randint(-127, 128, (1024, 3072), generator=gen, device="cuda").to(torch.int8)
+    a[0], b[0] = 127, -127  # the extreme sum
+    same = torch.equal(int8_matmul(a, b).cpu(), a.cpu().int() @ b.cpu().int().T)
+    log(f"[parity-int8] int8_matmul (300 x 3072) @ (1024 x 3072)^T on the card equals int32 "
+        f"arithmetic on the CPU bit for bit: {same}")
+    if not same:
+        fail("int8_matmul is not exact")
+    # what torch._int_mm refuses on the card, and that int8_matmul raises there
+    for what, (M, K, N_) in (("16 rows", (16, 64, 64)), ("inner width 60", (32, 60, 64)),
+                             ("output width 60", (32, 64, 60))):
+        x = torch.ones((M, K), dtype=torch.int8, device="cuda")
+        w = torch.ones((N_, K), dtype=torch.int8, device="cuda")
+        try:
+            torch._int_mm(x, w.t())
+            library = "accepts it"
+        except RuntimeError as e:
+            library = "refuses it (" + str(e).splitlines()[0][:90] + ")"
+        try:
+            int8_matmul(x, w)
+            fail(f"int8_matmul took {what} on the card")
+        except ValueError:
+            pass
+        log(f"[parity-int8] integer GEMM with {what}: torch._int_mm {library}; int8_matmul "
+            f"raises ValueError")
+    torch.cuda.synchronize()
+
+    # linear_w8a8 at a DiT projection's width on the card against the CPU
+    w = torch.randn(3072, 3072, generator=gen, device="cuda").to(torch.bfloat16) * 0.02
+    bias = torch.randn(3072, generator=gen, device="cuda").to(torch.bfloat16)
+    x = torch.randn(2, 500, 3072, generator=gen, device="cuda").to(torch.bfloat16)
+    w8, ws = quantize_linear(w)
+    w8c, wsc = quantize_linear(w.cpu())
+    qx, sx = quantize_activations(x)
+    qxc, sxc = quantize_activations(x.cpu())
+    (w_max, w_share), (x_max, x_share) = flips(w8, w8c), flips(qx, qxc)
+    y = linear_w8a8(x, w8, ws, bias)
+    yc = linear_w8a8(x.cpu(), w8c, wsc, bias.cpu())
+    err, atol, ok = _check_o(y.cpu(), yc)
+    exact = torch.nn.functional.linear(x.float(), w.float(), bias.float())
+    cos, rel = _cos_rel(y.float(), exact)
+    log(f"[parity-int8] linear_w8a8 (2, 500, 3072) -> 3072 bf16 card vs CPU: weights differ on "
+        f"{w_share:.2e} of entries (max {w_max}), activations on {x_share:.2e} (max {x_max}), "
+        f"limit {INT8_FLIP_SHARE} by at most 1; max|dy| {err:.3e} (atol {atol:.2e} + rtol "
+        f"{O_RTOL}); against the f32 layer cosine {cos:.6f}, rel-L2 {rel:.4f} (limits 0.9999, "
+        f"0.02)")
+    if not (ok and max(w_max, x_max) <= 1 and max(w_share, x_share) <= INT8_FLIP_SHARE
+            and cos > 0.9999 and rel < 0.02 and torch.allclose(ws.cpu(), wsc, rtol=1e-6)
+            and torch.allclose(sx.cpu(), sxc, rtol=1e-6)):
+        fail("linear_w8a8 on the card disagrees with the CPU")
+
+
+# [slice_int8]: the int8 mode on the card against the same mode on the CPU
+# with the same int8 weights. The tiny DiT runs bf16 on the card against f32
+# on the CPU, as phase_slice does (limit 5e-2 of the largest value): its
+# activations quantise from bf16 there, so integers differ as bf16 rounding
+# moves them, which stays inside bf16's own error. The tiny scorer runs f32 on
+# both; what differs is summation order and the few integers that flip at a
+# tie, each moving an output by ~1e-3 of its scale at these widths (32): pose
+# and dense outputs are held to INT8_SLICE_TOL, scores to the z-buffer flips
+# that follows from it.
+INT8_SLICE_TOL, INT8_SLICE_FLIPS = 2e-3, 50
+
+
+def _load_like(dev, ref) -> None:
+    """Copy ``ref``'s state into ``dev`` tensor by tensor in ``dev``'s dtypes,
+    so that both hold the same int8 weights and scales."""
+    dtypes = {k: v.dtype for k, v in dev.state_dict().items()}
+    dev.load_state_dict({k: v.to(dtypes[k]) for k, v in ref.state_dict().items()})
+
+
+def phase_slice_int8() -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.cogvideox import CogVideoXConfig, dit_forward, dit_init
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+    from videogpa_torch.ops.quant import quantize_dit_int8, quantize_scorer_params
+    from videogpa_torch.reward import VideoProcessor
+
+    # tiny DiT at head_dim 16: bhnd reaches K8, bnhd (80-key rows) K4
+    cfg = CogVideoXConfig.tiny()
+    ref = dit_init(cfg, torch.Generator().manual_seed(2), device="cpu").requires_grad_(False)
+    dev = dit_init(cfg, device="cuda", dtype=torch.bfloat16).requires_grad_(False)
+    dev.load_state_dict({k: v.to(torch.bfloat16) for k, v in ref.state_dict().items()})
+    ref.load_state_dict({k: v.float().cpu() for k, v in dev.state_dict().items()})
+    quantize_dit_int8(ref), quantize_dit_int8(dev)
+    _load_like(dev, ref)
+    same_w = all(torch.equal(a.cpu(), b) for (_, a), (_, b) in
+                 zip(sorted(dev.named_buffers()), sorted(ref.named_buffers())))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(2, cfg.sample_frames, cfg.in_channels, cfg.sample_height,
+                    cfg.sample_width, generator=gen)
+    txt = torch.randn(2, cfg.max_text_seq_length, cfg.text_embed_dim, generator=gen)
+    t = torch.tensor([100, 900])
+    for layout, kernel in (("bhnd", "flash_attn_int8"), ("bnhd", "flash_attn_short")):
+        want = dit_forward(ref, x, txt, t, compute_dtype=torch.float32, attn_layout=layout,
+                           attn_impl="flash_int8")
+        zero_launches()
+        got = dit_forward(dev, x.cuda(), txt.cuda(), t.cuda(), attn_layout=layout,
+                          attn_impl="flash_int8").cpu()
+        launches = read_launches()
+        expect = dict.fromkeys(launches, 0)
+        expect[kernel] = cfg.num_layers
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"[slice-int8] tiny DiT (head_dim {cfg.head_dim}) int8 mode, {layout}: bf16 on the "
+            f"card vs f32 on the CPU, int8 weights equal: {same_w}; max|d|/max|ref| {rel:.3e} "
+            f"(limit 5e-2); launches " + json.dumps({k: v for k, v in launches.items() if v}))
+        if launches != expect:
+            fail(f"the tiny int8 DiT ({layout}) did not launch {kernel} x {cfg.num_layers} alone")
+        if not (same_w and torch.isfinite(got).all() and rel < 5e-2):
+            fail("the tiny int8 DiT on the card disagrees with the CPU")
+
+    # tiny VGGT scorer, f32 on both, through process_frames_batch
+    vcfg = VGGTConfig.tiny()
+    vref = vggt_init(vcfg, torch.Generator().manual_seed(8), device="cpu").eval()
+    regular_camera_(vref)
+    vdev = vggt_init(vcfg, device="cuda").eval()
+    vdev.load_state_dict(vref.state_dict())
+    (vref, impl), (vdev, _) = (quantize_scorer_params("vggt", vref),
+                               quantize_scorer_params("vggt", vdev))
+    _load_like(vdev, vref)
+    lp_ref = lpips_init(torch.Generator().manual_seed(9), device="cpu")
+    lp_dev = lpips_init(device="cuda")
+    lp_dev.load_state_dict(lp_ref.state_dict())
+    clips = synthetic_frames(2, 4, vcfg.img_size, seed=10)
+    S, H, W = clips[0].shape[:3]
+    imgs = torch.from_numpy(np.stack(clips)).float().permute(0, 1, 4, 2, 3) / 255.0
+    with torch.no_grad():
+        want = vggt_forward(vref, imgs, compute_dtype=torch.float32, attn_impl=impl)
+        got = vggt_forward(vdev, imgs.cuda(), compute_dtype=torch.float32, attn_impl=impl)
+    pose_err = (got["pose_enc"].cpu() - want["pose_enc"]).abs().max().item()
+    dense = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+             for k in ("depth", "depth_conf")}
+    log(f"[slice-int8] tiny VGGT int8 mode f32 card vs CPU: max|d pose_enc| {pose_err:.2e}, "
+        f"depth {dense['depth']:.2e}, conf {dense['depth_conf']:.2e} relative to the largest "
+        f"value (limit {INT8_SLICE_TOL})")
+    if pose_err > INT8_SLICE_TOL or max(dense.values()) > INT8_SLICE_TOL:
+        fail("the tiny int8 VGGT forward on the card disagrees with the CPU")
+
+    def score(model, lp, device):
+        vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.float32,
+                            zbuffer_impl="packed", device=device, attn_impl=impl)
+        return vp.process_frames_batch(clips, [0])
+
+    got_s, want_s = score(vdev, lp_dev, "cuda"), score(vref, lp_ref, "cpu")
+    flip = INT8_SLICE_FLIPS / (S * H * W)
+    worst = {}
+    for g, w in zip(got_s, want_s):
+        for name, b in w[0].items():
+            a = g[0][name]
+            if name in ("MSE", "Consistency_Score"):
+                lim = flip + 1e-5
+            elif name == "PSNR":
+                lim = 10 * np.log10(1 + flip / max(w[0]["MSE"], 1e-12)) + 1e-4
+            else:
+                lim = {"SSIM": 2e-2, "LPIPS": 5e-3}.get(name, INT8_SLICE_TOL)
+            d = abs(a - b)
+            worst[name] = max(worst.get(name, 0.0), d)
+            if not (np.isfinite(a) and d <= lim):
+                fail(f"tiny int8 scorer {name}: card {a} vs CPU {b} (limit {lim:.2e})")
+    log(f"[slice-int8] tiny scorer int8 mode (2 clips x {S} frames at {H}^2) f32 card vs CPU, "
+        f"max |d| per score: " + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()})
+        + f"; MSE limit {INT8_SLICE_FLIPS} flipped pixels = {flip + 1e-5:.2e}")
+
+    # the small bf16 VGGT of phase_slice_vggt_bf16 in int8 mode: its 2,430-key
+    # global rows reach K8 at head_dim 64 inside the model
+    scfg = dataclasses.replace(VGGTConfig.tiny(), img_size=280, backbone_dim=128,
+                               backbone_heads=2, embed_dim=128, num_heads=2)
+    sdev = vggt_init(scfg, torch.Generator(device="cuda").manual_seed(12), device="cuda",
+                     dtype=torch.bfloat16).eval()
+    regular_camera_(sdev)
+    sdev.camera_head.float()
+    sref = vggt_init(scfg, device="cpu").eval()
+    sref.load_state_dict({k: v.float().cpu() for k, v in sdev.state_dict().items()})
+    quantize_scorer_params("vggt", sdev), quantize_scorer_params("vggt", sref)
+    _load_like(sdev, sref)
+    imgs = torch.from_numpy(np.stack(synthetic_frames(1, 6, scfg.img_size, seed=12))
+                            ).float().permute(0, 1, 4, 2, 3) / 255.0
+    with torch.no_grad():
+        want = vggt_forward(sref, imgs, compute_dtype=torch.float32, attn_impl=impl)
+        zero_launches()
+        got = vggt_forward(sdev, imgs.cuda(), compute_dtype=torch.bfloat16,
+                           dpt_dtype=torch.bfloat16, attn_impl=impl)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    expect = dict.fromkeys(launches, 0)
+    expect.update(flash_attn_int8=scfg.depth, flash_attn_short=scfg.backbone_depth + scfg.depth,
+                  flash_attn_fwd_f32=scfg.camera_trunk_depth * scfg.camera_iterations)
+    pose_err = (got["pose_enc"].float().cpu() - want["pose_enc"]).abs().max().item()
+    rel = {k: ((got[k].float().cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+           for k in ("depth", "depth_conf", "world_points", "world_points_conf")}
+    log(f"[slice-int8] small VGGT ({scfg.img_size}^2, 6 frames, blocks 2 x 64) int8 mode, bf16 "
+        f"trunk and DPT on the card vs f32 on the CPU: max|d pose_enc| {pose_err:.3e} (limit "
+        f"{BF16_POSE_ATOL}), max|d| / max|ref| "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+        + f" (limits {BF16_DENSE_RTOL}, world_points {BF16_POINTS_RTOL}); launches "
+        + json.dumps({k: v for k, v in launches.items() if v}))
+    if launches != expect:
+        fail(f"the small int8 VGGT did not reach K8, K4 and K6 as expected {expect}")
+    if not (pose_err <= BF16_POSE_ATOL and rel["world_points"] <= BF16_POINTS_RTOL
+            and max(v for k, v in rel.items() if k != "world_points") <= BF16_DENSE_RTOL):
+        fail("the small int8 VGGT on the card disagrees with the CPU")
+
+
+# [main-int8]: the int8 run's final latents against the exact run's, same
+# seeds, random weights. After 2 DPM steps most of a latent is the injected
+# noise, which both runs share, so the floor is loose on purpose: it catches a
+# broken int8 path (a wrong scale or a transposed weight gives cosine near 0
+# in the model's output), not a drift.
+MAIN_INT8_COS_FLOOR, MAIN_INT8_REL_CEIL = 0.99, 0.15
+
+
+def phase_main_int8(exact_latents, num_requests: int = 2, steps: int = 2):
+    """The CogVideoX-5B denoise path in int8 mode at full width and depth,
+    with phase_main's seeds."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import (
+        CogVideoXConfig, SamplerSettings, denoise_loop, dit_init)
+    from videogpa_torch.ops.quant import QuantLinear, quantize_dit_int8
+
+    cfg = CogVideoXConfig.cogvideox_5b()
+    dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                   dtype=torch.bfloat16).requires_grad_(False)
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_dit_int8(dit)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    after_gb = torch.cuda.memory_allocated() / 1e9
+    n_q = sum(isinstance(m, QuantLinear) for m in dit.modules())
+    log(f"[main-int8] quantize_dit_int8 in place: {n_q} linears (6 x {cfg.num_layers} layers) "
+        f"in {quant_s:.2f} s; allocated {before_gb:.2f} GB in bf16 -> {after_gb:.2f} GB, peak "
+        f"while quantising {quant_peak_gb:.2f} GB")
+    if n_q != 6 * cfg.num_layers:
+        fail("quantize_dit_int8 did not swap 6 linears a layer")
+
+    settings = SamplerSettings(num_inference_steps=steps, sampler="dpm")
+    latent_shape = (1, cfg.sample_frames, cfg.vae_latent_channels,
+                    cfg.sample_height, cfg.sample_width)
+    torch.cuda.reset_peak_memory_stats()
+    request_s, drift = [], []
+    zero_launches()
+    for r in range(num_requests):
+        gen = torch.Generator(device="cuda").manual_seed(100 + r)
+        text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim,
+                           generator=gen, device="cuda")
+        negative = torch.randn(text.shape, generator=gen, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lat = denoise_loop(dit, text, negative, settings, latent_shape, generator=gen,
+                           attn_impl="flash_int8")
+        torch.cuda.synchronize()
+        request_s.append(time.perf_counter() - t0)
+        if tuple(lat.shape) != latent_shape or not bool(torch.isfinite(lat).all()):
+            fail(f"int8 request {r}: latents {tuple(lat.shape)} not finite or wrong shape")
+        drift.append(_cos_rel(lat.float().cpu(), exact_latents[r]))
+        log(f"[main-int8] request {r}: {steps} DPM steps in {request_s[-1]:.3f} s, latents "
+            f"finite, std {lat.float().std().item():.4f}; against the exact run's latents: "
+            f"cosine {drift[-1][0]:.6f}, rel-L2 {drift[-1][1]:.4f} (floor "
+            f"{MAIN_INT8_COS_FLOOR}, ceiling {MAIN_INT8_REL_CEIL})")
+        if not (drift[-1][0] > MAIN_INT8_COS_FLOOR and drift[-1][1] < MAIN_INT8_REL_CEIL):
+            fail(f"int8 request {r} is far from the exact run")
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = num_requests * steps * cfg.num_layers
+    want = dict.fromkeys(launches, 0)
+    want["flash_attn_int8"] = expected
+    log(f"[main-int8] launches {json.dumps(launches)}; expected flash_attn_int8 {num_requests} "
+        f"requests x {steps} steps x {cfg.num_layers} layers = {expected}, every other 0 "
+        f"(flash_attn_fwd 0); peak allocated in the loop {peak_gb:.2f} GB")
+    if launches != want:
+        fail("the int8 denoise path did not run every attention through K8 alone")
+    settings1 = SamplerSettings(num_inference_steps=1, sampler="dpm")
+    profile = profile_device_time("one int8 denoise step (profiled)", lambda: denoise_loop(
+        dit, text, negative, settings1, latent_shape, attn_impl="flash_int8",
+        generator=torch.Generator(device="cuda").manual_seed(5)))
+    del dit
+    torch.cuda.empty_cache()
+    return {"launches": launches, "request_s": request_s,
+            "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
+            "quantise_peak_gb": quant_peak_gb, "quantise_s": quant_s,
+            "weights_gb": [before_gb, after_gb], "drift_cos_rel": drift, "profile": profile}
+
+
+def phase_scorer_int8(exact_results, num_batches: int = 3, K: int = 4, S: int = 10):
+    """The VGGT-1B scorer in int8 mode at full width, on phase_scorer's
+    weights and frames; prints each score's drift against the exact scorer."""
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_init
+    from videogpa_torch.ops.quant import QuantLinear, quantize_scorer_params
+    from videogpa_torch.reward import VideoProcessor
+
+    cfg = VGGTConfig()
+    model = vggt_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                      dtype=torch.bfloat16).eval()
+    regular_camera_(model)
+    model.camera_head.float()
+    model, impl = quantize_scorer_params("vggt", model)
+    lp = lpips_init(torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    n_q = sum(isinstance(m, QuantLinear) for m in model.modules())
+    log(f"[scorer-int8] quantize_scorer_params: {n_q} linears (4 x {2 * cfg.depth} frame and "
+        f"global blocks) int8, attn_impl {impl!r}; DINOv2, camera head, DPT and LPIPS as before")
+    if n_q != 4 * 2 * cfg.depth:
+        fail("quantize_vggt_int8 did not swap 4 linears a block")
+    vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.bfloat16,
+                        dpt_chunk=8, zbuffer_impl="packed", device="cuda", attn_impl=impl)
+    batches = [synthetic_frames(K, S, cfg.img_size, seed=100 + b) for b in range(num_batches)]
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    batch_ms, all_results = [], []
+    for b, clips in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_results.append(vp.process_frames_batch(clips, [0]))
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"[scorer-int8] batch {b} ({'cold' if b == 0 else 'warm'}): {batch_ms[-1]:.1f} ms, "
+            f"{K / (batch_ms[-1] / 6e4):.1f} clips/min; clip 0: "
+            + json.dumps({k: round(v, 6) for k, v in all_results[-1][0][0].items()}))
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_batch = {k: v / num_batches for k, v in launches.items()}
+    want = dict.fromkeys(launches, 0)
+    want.update({"flash_attn_int8": cfg.depth,
+                 "flash_attn_short": cfg.backbone_depth + cfg.depth,
+                 "flash_attn_fwd_f32": cfg.camera_trunk_depth * cfg.camera_iterations,
+                 "scatter_min_u32": K})
+    log(f"[scorer-int8] launches per batch {json.dumps(per_batch)}; expected "
+        f"{json.dumps(want)} (K8: the {cfg.depth} global blocks; K4: DINOv2 + frame blocks, "
+        f"short rows stay exact; K6 f32: the camera head at head_dim 128 stays exact; "
+        f"flash_attn_fwd 0); peak allocated {peak_gb:.2f} GB")
+    if per_batch != want:
+        fail("the int8 scorer did not run each attention and z-buffer through its kernel")
+    drift = {}
+    for got_b, want_b in zip(all_results, exact_results):
+        for g, w in zip(got_b, want_b):
+            for name, v in g[0].items():
+                if not math.isfinite(v):
+                    fail(f"non-finite int8 score {name} = {v}")
+                d = abs(v - w[0][name])
+                worst = drift.setdefault(name, {"max_abs": 0.0, "max_rel": 0.0})
+                worst["max_abs"] = max(worst["max_abs"], d)
+                worst["max_rel"] = max(worst["max_rel"], d / max(abs(w[0][name]), 1e-12))
+    log("[scorer-int8] drift of each score against the exact scorer on the same frames "
+        f"({num_batches * K} clips, random weights): "
+        + json.dumps({k: {a: float(f"{b:.3e}") for a, b in v.items()} for k, v in drift.items()}))
+    profile = profile_device_time("one int8 scorer batch (profiled)",
+                                  lambda: vp.process_frames_batch(batches[-1], [0]))
+    del vp, model, lp
+    torch.cuda.empty_cache()
+    return {"batch_ms": batch_ms, "clips_per_min": [K / (ms / 6e4) for ms in batch_ms],
+            "peak_gb": peak_gb, "launches": launches, "per_batch": per_batch, "drift": drift,
+            "profile": profile}
+
+
+def phase_wan_int8(steps: int = 3):
+    """The Wan2.2-TI2V-5B denoise path in int8 mode: W8A8 linears; at
+    head_dim 128 ``flash_int8`` takes the exact kernel K6, as in the JAX
+    package, so K9 is launched no time."""
+    import torch
+
+    from videogpa_torch.models.wan import wan_denoise_loop
+    from videogpa_torch.ops.quant import QuantLinear, quantize_wan_int8
+
+    cfg, model, _ = _wan_5b()
+    quantize_wan_int8(model)
+    torch.cuda.empty_cache()
+    n_q = sum(isinstance(m, QuantLinear) for m in model.modules())
+    if n_q != 10 * cfg.num_layers:
+        fail("quantize_wan_int8 did not swap 10 linears a layer")
+    latent_shape = (1,) + WAN_LATENT
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(200)
+    text = torch.randn(1, cfg.text_len, cfg.text_dim, generator=gen, device="cuda")
+    negative = torch.randn(text.shape, generator=gen, device="cuda")
+    image = torch.randn(1, WAN_LATENT[0], 1, *WAN_LATENT[2:], generator=gen, device="cuda")
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = wan_denoise_loop(model, text, negative, latent_shape, num_steps=steps,
+                           image_latent=image, ti2v=True, generator=gen,
+                           attn_impl="flash_int8")
+    torch.cuda.synchronize()
+    request_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(lat.shape) != latent_shape or not bool(torch.isfinite(lat).all()):
+        fail("int8 wan request: latents not finite or of the wrong shape")
+    if not torch.equal(lat[:, :, :1], image):
+        fail("int8 wan request: the first latent frame is not the image latent")
+    expected = steps * 2 * cfg.num_layers
+    want = dict.fromkeys(launches, 0)
+    want["flash_attn_fwd_d128"] = expected
+    log(f"[wan-int8] {n_q} linears int8 (10 x {cfg.num_layers} layers); {steps} UniPC steps "
+        f"(CFG pair, ti2v) in {request_s:.3f} s, latents finite, first frame kept; launches "
+        f"{json.dumps(launches)}; expected flash_attn_fwd_d128 {steps} x ({cfg.num_layers} "
+        f"self + {cfg.num_layers} cross) = {expected}, flash_attn_int8_d128 0; peak allocated "
+        f"{peak_gb:.2f} GB")
+    if launches != want:
+        fail("the int8 Wan path did not run every attention through K6 alone")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "request_s": request_s, "step_ms": 1e3 * request_s / steps,
+            "peak_gb": peak_gb}
+
+
+def _int8_bound(B, N, Nk, H, D):
+    """(bound ms, what bounds it) of the int8-QK forward: QK^T over the int8
+    peak plus PV over the bf16 peak, against q8 + k8 (1 byte), their f32
+    scales, V and O (2 bytes) once over the HBM rate."""
+    t_ops = 2.0 * B * H * N * Nk * D * (1 / PEAK_INT8_OPS + 1 / PEAK_BF16_FLOPS)
+    t_bytes = B * H * (N * (D + 4 + 2 * D) + Nk * (D + 4 + 2 * D)) / PEAK_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_timing_int8(dit_shape, vggt_global_shape, wan_shape):
+    """K8 and K9 alone at their shapes beside their bounds; the quantiser of
+    q and k; the W8A8 linear against the bf16 one at the DiT's fc1."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_int8, flash_attn_int8_d128, quantize_qk_int8)
+    from videogpa_torch.ops.quant import (
+        int8_matmul, linear_w8a8, quantize_activations, quantize_linear)
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(91)
+    for tag, fn, shape, iters in (("k8", flash_attn_int8, dit_shape, 10),
+                                  ("k8_vggt", flash_attn_int8, vggt_global_shape, 10),
+                                  ("k9", flash_attn_int8_d128, wan_shape, 5)):
+        B, N, H, D = shape
+        q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
+        ops = quantize_qk_int8(q, k, "bnhd")
+        out[f"{tag}_ms"] = cuda_ms(lambda: fn(*ops, v, layout="bnhd"), iters=iters)
+        out[f"{tag}_quantize_ms"] = cuda_ms(lambda: quantize_qk_int8(q, k, "bnhd"), iters=iters)
+        out[f"{tag}_bound_ms"], out[f"{tag}_bound_by"] = _int8_bound(B, N, N, H, D)
+        out[f"{tag}_tops"] = 4.0 * B * H * N * N * D / out[f"{tag}_ms"] / 1e9
+        del q, k, v, ops
+    torch.cuda.empty_cache()
+
+    # the DiT's fc1 on the CFG pair's tokens: (2 x 17,776, 3,072) -> 12,288
+    B, N, H, D = dit_shape
+    x = torch.randn(B, N, H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(4 * H * D, H * D, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    bias = torch.randn(4 * H * D, generator=gen, device="cuda").to(torch.bfloat16)
+    w8, ws = quantize_linear(w)
+    qx, _ = quantize_activations(x)
+    qx2 = qx.reshape(-1, qx.shape[-1])
+    out["fc1_shape"] = [B * N, H * D, 4 * H * D]
+    out["fc1_bf16_ms"] = cuda_ms(lambda: F.linear(x, w, bias), iters=10)
+    out["fc1_w8a8_ms"] = cuda_ms(lambda: linear_w8a8(x, w8, ws, bias), iters=10)
+    out["fc1_int8_matmul_ms"] = cuda_ms(lambda: int8_matmul(qx2, w8), iters=10)
+    out["fc1_quantize_activations_ms"] = cuda_ms(lambda: quantize_activations(x), iters=10)
+    del x, w, bias, w8, ws, qx, qx2
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1812,6 +2515,8 @@ def main() -> int:
     from videogpa_torch.models.vggt import VGGTConfig
 
     t_start = time.perf_counter()
+    if os.path.exists(_LOG_PATH):
+        os.remove(_LOG_PATH)
     card = gpu_name_and_power()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -1843,19 +2548,27 @@ def main() -> int:
     k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
         phase_parity_bwd_d128(wan_shape, wcfg.text_len))
     zbuf_plain_ms = phase_parity_zbuffer()
+    k8_err, k9_err, k8_plain_ms, k9_plain_ms = phase_parity_int8(dit_shape, vggt_global_shape,
+                                                                 wan_shape)
+    phase_parity_quant(dit_shape)
     phase_slice()
     phase_slice_dpo()
     phase_slice_scorer()
     phase_slice_vggt_bf16()
     phase_slice_wan()
+    phase_slice_int8()
     main_run = phase_main()
     train_run = phase_train()
     scorer_run = phase_scorer()
     wan_run = phase_wan()
     wan_train_run = phase_wan_train()
+    main_int8_run = phase_main_int8(main_run["latents"])
+    scorer_int8_run = phase_scorer_int8(scorer_run["results"])
+    wan_int8_run = phase_wan_int8()
     timing = phase_timing(dit_shape, train_shape)
     timing.update(phase_timing_scorer(vggt_shape, cam_shape, wan_shape))
     timing.update(phase_timing_wan(wan_shape, wcfg.text_len))
+    timing.update(phase_timing_int8(dit_shape, vggt_global_shape, wan_shape))
 
     attn_share = main_run["launches_per_step"] * timing["fwd_ms"] / main_run["step_ms"][-1]
     per_mini = (train_run["launches"]["flash_attn_fwd"] // 4,
@@ -1893,6 +2606,22 @@ def main() -> int:
         "wan_k7": {k: v for k, v in timing.items() if k.startswith("k7_")},
         "wan_k7_plain_ms_over_head_chunks": {"self": k7_plain_ms, "cross": k7_cross_plain_ms},
         "wan_k6_plain_ms_at_cross_shape": k6_cross_plain_ms,
+        "int8_denoise_step_ms": main_int8_run["step_ms"],
+        "int8_denoise_request_s": main_int8_run["request_s"],
+        "int8_denoise_peak_allocated_gb": main_int8_run["peak_gb"],
+        "int8_denoise_quantise_peak_gb": main_int8_run["quantise_peak_gb"],
+        "int8_denoise_quantise_s": main_int8_run["quantise_s"],
+        "int8_denoise_weights_gb_before_after": main_int8_run["weights_gb"],
+        "int8_denoise_cos_rel_vs_exact": main_int8_run["drift_cos_rel"],
+        "int8_scorer_batch_ms": scorer_int8_run["batch_ms"],
+        "int8_scorer_clips_per_min": scorer_int8_run["clips_per_min"],
+        "int8_scorer_peak_allocated_gb": scorer_int8_run["peak_gb"],
+        "int8_scorer_drift_vs_exact": scorer_int8_run["drift"],
+        "int8_wan_step_ms": wan_int8_run["step_ms"],
+        "int8_wan_peak_allocated_gb": wan_int8_run["peak_gb"],
+        "int8_k8_k9_w8a8": {k: v for k, v in timing.items()
+                            if k[:3] in ("k8_", "k9_", "fc1")},
+        "int8_plain_ms_over_head_chunks": {"k8": k8_plain_ms, "k9": k9_plain_ms},
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
@@ -1908,7 +2637,9 @@ def main() -> int:
     log(card)
     runs = {"denoise": main_run["launches"], "train": train_run["launches"],
             "scorer": scorer_run["launches"], "wan": wan_run["launches"],
-            "wan_train": wan_train_run["launches"]}
+            "wan_train": wan_train_run["launches"],
+            "denoise_int8": main_int8_run["launches"],
+            "scorer_int8": scorer_int8_run["launches"], "wan_int8": wan_int8_run["launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -1974,6 +2705,30 @@ def main() -> int:
                          "bound_ms": timing["k7_cross_bound_ms"],
                          "bound_by": timing["k7_cross_bound_by"],
                          "library_ms": timing["k7_cross_library_ms"]}},
+        # no PyTorch call computes int8-QK attention, so library_ms is null;
+        # the exact kernel's and SDPA's times at the same shape stand beside
+        {"name": "flash_attn_int8", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_int8.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:640",
+         **by_path("flash_attn_int8"),
+         "max_abs_err": k8_err, "ms": timing["k8_ms"], "plain_ms": k8_plain_ms,
+         "bound_ms": timing["k8_bound_ms"], "bound_by": timing["k8_bound_by"],
+         "library_ms": None, "quantize_qk_ms": timing["k8_quantize_ms"],
+         "exact_function": {"flash_attn_fwd_ms": timing["fwd_ms"],
+                            "sdpa_ms": timing["fwd_library_ms"]},
+         "vggt_global_shape": {"ms": timing["k8_vggt_ms"],
+                               "bound_ms": timing["k8_vggt_bound_ms"],
+                               "bound_by": timing["k8_vggt_bound_by"],
+                               "quantize_qk_ms": timing["k8_vggt_quantize_ms"]}},
+        {"name": "flash_attn_int8_d128", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_int8.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:766",
+         **by_path("flash_attn_int8_d128"),
+         "max_abs_err": k9_err, "ms": timing["k9_ms"], "plain_ms": k9_plain_ms,
+         "bound_ms": timing["k9_bound_ms"], "bound_by": timing["k9_bound_by"],
+         "library_ms": None, "quantize_qk_ms": timing["k9_quantize_ms"],
+         "exact_function": {"flash_attn_fwd_d128_ms": timing["k6_bf16_ms"],
+                            "sdpa_ms": timing["k6_bf16_library_ms"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

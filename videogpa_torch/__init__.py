@@ -4,7 +4,8 @@ The JAX package ``videogpa_tpu`` is the reference; this package keeps its
 module names so each function has an obvious counterpart:
 
 - ``videogpa_torch.ops``      — layers, RoPE, resize, the ViT block, attention
-  (hand-written CUDA kernels K1, K3, K4, K6, K7)
+  (hand-written CUDA kernels K1, K3, K4, K6, K7 and the int8-QK K8, K9), W8A8
+  quantised linears (``ops.quant``)
 - ``videogpa_torch.models``   — CogVideoX DiT, scheduler, denoise loop; Wan2.2
   DiT, flow matching, TI2V denoise loop; VGGT; LPIPS
 - ``videogpa_torch.train``    — LoRA, the DPO loss, the CogVideoX and Wan

@@ -11,6 +11,9 @@ The inverse of ``videogpa_tpu/convert.py:22-56`` (``t_linear``,
   (the DPT's ``resize0`` / ``resize1``, applied by JAX as an einsum)
 - LayerNorm:       scale / bias               -> weight / bias
 - RMSNorm:         scale                      -> weight
+- int8 Linear (``quantize_linear``): w_int8 (in, out) -> w_int8 (out, in),
+  w_scale (1, out) -> w_scale (out,); ``load_jax_params`` puts a
+  ``QuantLinear`` where the tree holds one
 
 Leaves under a ``lax.scan``-stacked node (``blocks``, ``frame_blocks``,
 ``global_blocks``, the camera head's ``trunk``) carry every layer along a
@@ -29,6 +32,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 import torch.nn as nn
+
+from videogpa_torch.ops.quant import QuantLinear
 
 # leaves copied as they are, by name
 _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
@@ -60,6 +65,10 @@ def _torch_leaf(path: str, arr: np.ndarray):
         return path, arr
     if name == "kernel" and arr.ndim == 2:
         return f"{module}.weight", arr.T
+    if name == "w_int8" and arr.ndim == 2:
+        return path, arr.T
+    if name == "w_scale" and arr.ndim == 2 and arr.shape[0] == 1:
+        return path, arr[0]
     if name == "kernel" and arr.ndim == 4 and owner in _TRANSPOSED_CONVS:
         return f"{module}.weight", arr.transpose(2, 3, 0, 1)
     if name == "kernel" and arr.ndim == 4:
@@ -91,6 +100,20 @@ def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
-    """Copy a JAX parameter tree into ``model`` (strict: every key on both sides)."""
-    model.load_state_dict(state_dict_from_jax(params), strict=True)
+    """Copy a JAX parameter tree into ``model`` (strict: every key on both
+    sides). Where the tree holds a quantised linear (``w_int8``), the
+    model's ``Linear`` at that place gives way to a ``QuantLinear`` first."""
+    sd = state_dict_from_jax(params)
+    for key, w in sd.items():
+        module, _, name = key.rpartition(".")
+        if name != "w_int8":
+            continue
+        parent_path, _, child = module.rpartition(".")
+        parent = model.get_submodule(parent_path)
+        old = getattr(parent, child)
+        if isinstance(old, nn.Linear):
+            setattr(parent, child, QuantLinear(
+                w.shape[1], w.shape[0], bias=f"{module}.bias" in sd,
+                device=old.weight.device, dtype=old.weight.dtype))
+    model.load_state_dict(sd, strict=True)
     return model

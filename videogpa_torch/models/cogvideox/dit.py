@@ -175,6 +175,7 @@ def _joint_attention(
     lora: Optional[dict] = None,
     lora_scaling: float = 1.0,
     attn_layout: str = "bhnd",
+    attn_impl: str = "auto",
 ):
     B, N_img, C = hidden.shape
     N_txt = encoder.shape[1]
@@ -213,7 +214,7 @@ def _joint_attention(
             k = torch.cat([k[:, :, :N_txt],
                            apply_rope_interleaved(k[:, :, N_txt:], cos, sin)], dim=2)
 
-    o = attention(q, k, v, layout=attn_layout)
+    o = attention(q, k, v, impl=attn_impl, layout=attn_layout)
     if attn_layout != "bnhd":
         o = o.transpose(1, 2)
     o = o.reshape(B, N_txt + N_img, C)
@@ -224,10 +225,10 @@ def _joint_attention(
 
 
 def _block_apply(p, hidden, encoder, temb, cfg, rope,
-                 lora=None, lora_scaling=1.0, attn_layout="bhnd"):
+                 lora=None, lora_scaling=1.0, attn_layout="bhnd", attn_impl="auto"):
     h_n, e_n, gate, e_gate = _adaln_zero(p.norm1, temb, hidden, encoder)
     attn_h, attn_e = _joint_attention(
-        p.attn1, h_n, e_n, cfg, rope, lora, lora_scaling, attn_layout,
+        p.attn1, h_n, e_n, cfg, rope, lora, lora_scaling, attn_layout, attn_impl,
     )
     hidden = hidden + gate * attn_h
     encoder = encoder + e_gate * attn_e
@@ -252,6 +253,7 @@ def dit_forward(
     lora_scaling: float = 1.0,
     attn_layout: str = "bhnd",
     remat: bool = False,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """CogVideoX DiT forward.
 
@@ -262,6 +264,8 @@ def dit_forward(
         lora: optional stacked LoRA tree (``videogpa_torch.train.lora``)
             applied to the attention projections of every block; gradients
             reach the stacked tensors through the per-layer slices.
+        attn_impl: ``ops.attention.attention``'s ``impl``; "flash_int8" is the
+            inference-only int8-QK mode and raises under grad.
         remat: keep only each block's inputs for the backward and recompute
             the block there (``torch.utils.checkpoint``), as the JAX
             package's ``jax.checkpoint`` of the scan body does.
@@ -313,7 +317,7 @@ def dit_forward(
     # 3. transformer blocks
     for i, blk in enumerate(model.blocks):
         args = (blk, x, encoder, temb, cfg, rope, layer_lora(lora, i), lora_scaling,
-                attn_layout)
+                attn_layout, attn_impl)
         if remat:
             x, encoder = checkpoint(_block_apply, *args, use_reentrant=False)
         else:

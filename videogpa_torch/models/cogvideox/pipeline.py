@@ -46,12 +46,14 @@ def denoise_loop(
     image_latents: Optional[torch.Tensor] = None,
     ofs: Optional[torch.Tensor] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """Run the full denoising loop on the DiT's device. latent_shape: (B, F, C, H, W).
 
     Draws the initial latents and each DPM step's noise from ``generator``
     (a generator on the DiT's device) unless ``init_latents`` / ``step_noise``
-    (one tensor per step) are given.
+    (one tensor per step) are given. ``attn_impl="flash_int8"`` with a DiT
+    quantised by ``ops.quant.quantize_dit_int8`` is the int8 inference mode.
     """
     device = next(dit.parameters()).device
     scheduler = CogVideoXScheduler()
@@ -76,7 +78,7 @@ def denoise_loop(
         t_b = torch.full((model_in.shape[0],), t, dtype=torch.int64, device=device)
         ofs_b = None if ofs is None else ofs.expand(model_in.shape[0])
         v = dit_forward(dit, model_in, embeds, t_b, ofs=ofs_b, compute_dtype=compute_dtype,
-                        attn_layout="bnhd")
+                        attn_layout="bnhd", attn_impl=attn_impl)
         v_uncond, v_text = v.chunk(2, dim=0)
         if settings.use_dynamic_cfg:
             g = _dynamic_cfg(settings.guidance_scale, t, n, scheduler.num_train_timesteps)

@@ -52,7 +52,8 @@ def slice_expand_and_flatten(token: torch.Tensor, B: int, S: int) -> torch.Tenso
 
 def aggregator_forward(model: Aggregator, images: torch.Tensor,
                        compute_dtype: torch.dtype = torch.float32,
-                       keep_layers: Optional[Sequence[int]] = None) -> Tuple[torch.Tensor, int]:
+                       keep_layers: Optional[Sequence[int]] = None,
+                       attn_impl: str = "auto") -> Tuple[torch.Tensor, int]:
     """images (B, S, 3, H, W) in [0, 1] -> ((L, B, S, P, 2C) layer outputs,
     patch_start_idx). ``keep_layers``: keep only those layers (sorted), so
     activation memory is O(len(keep)) and not O(depth); None keeps all."""
@@ -63,7 +64,7 @@ def aggregator_forward(model: Aggregator, images: torch.Tensor,
     images = (images - mean.reshape(1, 1, 3, 1, 1)) / std.reshape(1, 1, 3, 1, 1)
 
     flat = images.reshape(B * S, C_in, H, W).to(compute_dtype)
-    patch_tokens = dinov2_forward(model.patch_embed, flat)
+    patch_tokens = dinov2_forward(model.patch_embed, flat, attn_impl)
     P_patch, C = patch_tokens.shape[1:]
     camera = slice_expand_and_flatten(model.camera_token.to(compute_dtype), B, S)
     register = slice_expand_and_flatten(model.register_token.to(compute_dtype), B, S)
@@ -83,8 +84,9 @@ def aggregator_forward(model: Aggregator, images: torch.Tensor,
     keep = set(range(cfg.depth)) if keep_layers is None else set(keep_layers)
     outs = []
     for i in range(cfg.depth):
-        frame_inter = block_apply(model.frame_blocks[i], tokens, pos_frame)
-        t = block_apply(model.global_blocks[i], frame_inter.reshape(B, S * P, C), pos_global)
+        frame_inter = block_apply(model.frame_blocks[i], tokens, pos_frame, attn_impl)
+        t = block_apply(model.global_blocks[i], frame_inter.reshape(B, S * P, C), pos_global,
+                        attn_impl)
         tokens = t.reshape(B * S, P, C)
         if i in keep:
             outs.append(torch.cat([frame_inter, tokens], dim=-1).reshape(B, S, P, 2 * C))

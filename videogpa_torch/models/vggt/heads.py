@@ -80,7 +80,8 @@ class CameraHead(nn.Module):
                                    fc2=L.Linear(dim // 2, 9, **fk))
 
 
-def camera_head_forward(head: CameraHead, tokens_last: torch.Tensor) -> List[torch.Tensor]:
+def camera_head_forward(head: CameraHead, tokens_last: torch.Tensor,
+                        attn_impl: str = "auto") -> List[torch.Tensor]:
     """tokens_last (B, S, 2C) f32 camera tokens of the final layer -> one
     (B, S, 9) pose encoding per refinement iteration."""
     pose_tokens = head.token_norm(tokens_last)
@@ -95,7 +96,7 @@ def camera_head_forward(head: CameraHead, tokens_last: torch.Tensor) -> List[tor
         normed = L.layernorm(pose_tokens, eps=1e-6)  # AdaLN: no affine parameters
         x = gate * (normed * (1 + scale) + shift) + pose_tokens
         for blk in head.trunk:
-            x = block_apply(blk, x)
+            x = block_apply(blk, x, attn_impl=attn_impl)
         delta = L.mlp(head.pose_branch, head.trunk_norm(x))
         pred = delta if pred is None else pred + delta
         preds.append(activate_pose(pred))

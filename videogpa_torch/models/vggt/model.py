@@ -68,8 +68,8 @@ def vggt_init(cfg: VGGTConfig, generator: Optional[torch.Generator] = None, devi
 
 
 def vggt_forward(model: VGGT, images: torch.Tensor, compute_dtype: torch.dtype = torch.bfloat16,
-                 dpt_chunk: int = 8, dpt_dtype: torch.dtype = torch.float32
-                 ) -> Dict[str, torch.Tensor]:
+                 dpt_chunk: int = 8, dpt_dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "auto") -> Dict[str, torch.Tensor]:
     """images (B, S, 3, H, W) or (S, 3, H, W) in [0, 1] -> dict with pose_enc
     (B, S, 9), pose_enc_list, depth (B, S, H, W, 1), depth_conf (B, S, H, W),
     world_points (B, S, H, W, 3), world_points_conf (B, S, H, W), images."""
@@ -79,14 +79,15 @@ def vggt_forward(model: VGGT, images: torch.Tensor, compute_dtype: torch.dtype =
     H, W = images.shape[-2:]
     keep = tuple(sorted(set(cfg.dpt_intermediate_layers) | {cfg.depth - 1}))
     pos = {layer: i for i, layer in enumerate(keep)}
-    layer_outputs, _ = aggregator_forward(model.aggregator, images, compute_dtype, keep)
+    layer_outputs, _ = aggregator_forward(model.aggregator, images, compute_dtype, keep,
+                                          attn_impl)
     hcfg = dataclasses.replace(
         cfg, dpt_intermediate_layers=tuple(pos[l] for l in cfg.dpt_intermediate_layers))
 
     preds: Dict[str, torch.Tensor] = {"images": images}
     if model.camera_head is not None:
         cam_tokens = layer_outputs[pos[cfg.depth - 1]][:, :, 0].float()
-        pose_enc_list = camera_head_forward(model.camera_head, cam_tokens)
+        pose_enc_list = camera_head_forward(model.camera_head, cam_tokens, attn_impl)
         preds["pose_enc"] = pose_enc_list[-1]
         preds["pose_enc_list"] = pose_enc_list
     if model.depth_head is not None:

@@ -54,7 +54,8 @@ def interpolate_pos_embed(pos_embed: torch.Tensor, h_grid: int, w_grid: int) -> 
     return torch.cat([pos_embed[:, :1], patch], dim=1)
 
 
-def dinov2_forward(model: DinoV2, images: torch.Tensor) -> torch.Tensor:
+def dinov2_forward(model: DinoV2, images: torch.Tensor,
+                   attn_impl: str = "auto") -> torch.Tensor:
     """images (B, 3, H, W), ImageNet-normalised, in the compute dtype ->
     (B, num_patches, C) normed patch tokens."""
     cfg = model.cfg
@@ -69,6 +70,6 @@ def dinov2_forward(model: DinoV2, images: torch.Tensor) -> torch.Tensor:
     reg = model.register_tokens.to(x.dtype).expand(B, cfg.backbone_register_tokens, C)
     x = torch.cat([x[:, :1], reg, x[:, 1:]], dim=1)
     for blk in model.blocks:
-        x = block_apply(blk, x)
+        x = block_apply(blk, x, attn_impl=attn_impl)
     x = model.norm(x)
     return x[:, 1 + cfg.backbone_register_tokens:]

@@ -136,7 +136,8 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
 
 def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
                     rope: Tuple[torch.Tensor, torch.Tensor],
-                    lora: Optional[dict] = None, lora_scaling: float = 1.0) -> torch.Tensor:
+                    lora: Optional[dict] = None, lora_scaling: float = 1.0,
+                    attn_impl: str = "auto") -> torch.Tensor:
     H = cfg.num_heads
 
     def proj(name):
@@ -153,7 +154,7 @@ def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
     cos, sin = rope
     q = apply_rope_interleaved(_heads(q, H), cos, sin)
     k = apply_rope_interleaved(_heads(k, H), cos, sin)
-    o = _merge_heads(attention(q, k, _heads(v, H)))
+    o = _merge_heads(attention(q, k, _heads(v, H), impl=attn_impl))
     out = p.o(o)
     if lora is not None and "to_out" in lora:
         out = out + lora_delta(lora, "to_out", o, lora_scaling)
@@ -161,25 +162,26 @@ def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
 
 
 def _cross_attention(p: nn.Module, x: torch.Tensor, context: torch.Tensor,
-                     cfg: WanConfig) -> torch.Tensor:
+                     cfg: WanConfig, attn_impl: str = "auto") -> torch.Tensor:
     H = cfg.num_heads
     q = p.norm_q(p.q(x))
     k = p.norm_k(p.k(context))
     v = p.v(context)
-    return p.o(_merge_heads(attention(_heads(q, H), _heads(k, H), _heads(v, H))))
+    return p.o(_merge_heads(attention(_heads(q, H), _heads(k, H), _heads(v, H),
+                                      impl=attn_impl)))
 
 
 def _block_apply(p: nn.Module, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
                  cfg: WanConfig, rope, lora: Optional[dict] = None,
-                 lora_scaling: float = 1.0) -> torch.Tensor:
+                 lora_scaling: float = 1.0, attn_impl: str = "auto") -> torch.Tensor:
     """x: (B, L, d); e0: (B, L_or_1, 6, d) per-token modulation, f32."""
     e = (p.modulation.float()[:, None] + e0.float()).unbind(2)  # 6 x (B, L_or_1, d)
 
     h = _ln(x, cfg.eps).float() * (1 + e[1]) + e[0]
-    y = _self_attention(p.self_attn, h.to(x.dtype), cfg, rope, lora, lora_scaling)
+    y = _self_attention(p.self_attn, h.to(x.dtype), cfg, rope, lora, lora_scaling, attn_impl)
     x = x + (y.float() * e[2]).to(x.dtype)
 
-    x = x + _cross_attention(p.cross_attn, p.norm3(x), context, cfg)
+    x = x + _cross_attention(p.cross_attn, p.norm3(x), context, cfg, attn_impl)
 
     h = _ln(x, cfg.eps).float() * (1 + e[4]) + e[3]
     y = p.ffn.fc2(L.gelu_tanh(p.ffn.fc1(h.to(x.dtype))))
@@ -195,6 +197,7 @@ def wan_forward(
     compute_dtype: torch.dtype = torch.bfloat16,
     lora: Optional[dict] = None,
     lora_scaling: float = 1.0,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """WanModel forward.
 
@@ -207,6 +210,8 @@ def wan_forward(
             package's ``jax.checkpoint`` of the scan body does.
         lora: optional stacked LoRA tree (``videogpa_torch.train.lora``) on
             the self-attention projections of every block.
+        attn_impl: ``ops.attention.attention``'s ``impl``; at head_dim 128
+            "flash_int8" takes the exact kernel, as "flash" does.
 
     Returns:
         (B, out_channels, F, H, W) float32 velocity prediction.
@@ -236,7 +241,7 @@ def wan_forward(
                          device=h.device)
 
     for i, blk in enumerate(model.blocks):
-        args = (blk, h, e0, ctx, cfg, rope, layer_lora(lora, i), lora_scaling)
+        args = (blk, h, e0, ctx, cfg, rope, layer_lora(lora, i), lora_scaling, attn_impl)
         if remat:
             h = checkpoint(_block_apply, *args, use_reentrant=False)
         else:

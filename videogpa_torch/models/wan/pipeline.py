@@ -166,6 +166,7 @@ def wan_denoise_loop(
     solver: str = "unipc",
     generator: Optional[torch.Generator] = None,
     latents: Optional[torch.Tensor] = None,
+    attn_impl: str = "auto",
 ) -> torch.Tensor:
     """Run the denoise loop on the model's device. latent_shape:
     (B, C, F, H, W). Returns the final f32 latents.
@@ -201,7 +202,7 @@ def wan_denoise_loop(
         t_b = (s * cfg.num_train_timesteps).expand(2 * B)
         t_tok = ti2v_timestep_tokens(t_b, (F, H, W), cfg.patch_size) if ti2v else t_b
         v = wan_forward(model, torch.cat([lat, lat], dim=0), t_tok, ctx,
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype, attn_impl=attn_impl)
         v_uncond, v_text = v.chunk(2, dim=0)
         return v_uncond + guidance_scale * (v_text - v_uncond)
 

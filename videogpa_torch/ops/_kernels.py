@@ -28,6 +28,7 @@ SOURCES = {
     "flash_attn_fwd_d128": _CSRC / "flash_attn_fwd_d128.cu",
     "flash_attn_bwd_d128": _CSRC / "flash_attn_bwd_d128.cu",
     "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
+    "flash_attn_int8": _CSRC / "flash_attn_int8.cu",
 }
 HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "flash_fwd_tile.cuh")
 NVCC_FLAGS = [
@@ -39,6 +40,8 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P]
 # entry point -> (source, C symbol, argtypes)
 _BWD_ARGS = [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P]
+# q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream
+_INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
 _SIGNATURES = {
     "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
     "flash_attn_bwd": ("flash_attn_bwd", "videogpa_flash_attn_bwd", _BWD_ARGS),
@@ -53,6 +56,9 @@ _SIGNATURES = {
     "flash_attn_fwd_f32": ("flash_attn_fwd_d128", "videogpa_flash_attn_fwd_f32", _FWD_ARGS),
     "scatter_min_u32": (
         "zbuffer_scatter_min", "videogpa_scatter_min_u32", [_P, _P, _P, _LL, _P]),
+    "flash_attn_int8": ("flash_attn_int8", "videogpa_flash_attn_int8", _INT8_ARGS),
+    "flash_attn_int8_d128": (
+        "flash_attn_int8", "videogpa_flash_attn_int8_d128", _INT8_ARGS),
 }
 
 _loaded: Dict[str, Callable[..., int]] = {}

@@ -16,6 +16,9 @@ the kernel or raises. There is no fallback from one to the other.
 - ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
   head_dim 16-128 on CUDA cores, for short rows.
+- ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
+  ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
+  ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128.
 
 ``attention`` routes as the JAX package does for bf16, and sends float32
 operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
@@ -405,6 +408,167 @@ def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attn_fwd_f32.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# int8-QK forward (SageAttention-style, inference only)
+# ---------------------------------------------------------------------------
+#
+# K is centred on its mean over the keys (exact: a constant added to every
+# score of a query row leaves its softmax unchanged), q is prescaled by
+# log2(e) / sqrt(D), and both are quantised to int8 with one f32 scale per
+# row. S = int32(q8 k8^T) * sq * sk is then in the base-2 log domain; the
+# softmax stays f32 and PV takes P in V's dtype with f32 accumulation.
+
+def _seq_dim(layout: str) -> int:
+    return 1 if layout == "bnhd" else 2
+
+
+def quantize_qk_int8(q: torch.Tensor, k: torch.Tensor, layout: str = "bhnd"):
+    """The transform of ``_quantize_qk_int8``
+    (``videogpa_tpu/ops/attention.py:685``) on 4-D operands in ``layout``.
+
+    Returns (q8, sq, k8, sk): new int8 tensors shaped like q and k (dense,
+    in the memory order of the f32 images of q and k) and their f32 scales
+    shaped like them without the last dim. All arithmetic is f32 on the
+    operands as they are. The port never pads, so K's mean is over all of
+    its keys.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    seq = _seq_dim(layout)
+    D = q.shape[-1]
+    kf = k.float()
+    # divisors as 0-d tensors on the device: true IEEE divisions there, as on
+    # the CPU (with a Python scalar the CUDA kernel multiplies by a reciprocal)
+    n_keys, i127 = kf.new_full((), float(k.shape[seq])), kf.new_full((), 127.0)
+    kc = kf - kf.sum(dim=seq, keepdim=True) / n_keys
+    sk = kc.abs().amax(dim=-1, keepdim=True) / i127 + 1e-12
+    k8 = torch.round(kc.div_(sk)).to(torch.int8)
+    qf = q.float() * (D ** -0.5 * _LOG2E)
+    sq = qf.abs().amax(dim=-1, keepdim=True) / i127 + 1e-12
+    q8 = torch.round(qf.div_(sq)).to(torch.int8)
+    return q8, sq.squeeze(-1), k8, sk.squeeze(-1)
+
+
+def flash_attn_int8_reference(q8, sq, k8, sk, v, layout: str = "bnhd") -> torch.Tensor:
+    """Plain version of K8 and K9: the same function, the same layouts.
+
+    The integer scores are exact: an f32 product of int8 operands holds every
+    term (< 2^14) and every partial sum (< 2^24 up to head_dim 1,040) as an
+    integer. Then S = s * sq[row] * sk[col], exp2 against the row max, P cast
+    to V's dtype, PV in f32, divided by the f32 row sum. Returns O in
+    ``layout``, contiguous, in V's dtype."""
+    if q8.shape[-1] * 127 * 127 >= 2 ** 24:
+        raise ValueError("flash_attn_int8_reference: head_dim too large for exact f32 sums")
+    if layout == "bnhd":
+        q8, k8, v = (x.transpose(1, 2) for x in (q8, k8, v))
+        sq, sk = sq.transpose(1, 2), sk.transpose(1, 2)
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
+    s.mul_(sq[..., :, None]).mul_(sk[..., None, :])  # in place: (Nq, Nk) f32 per head
+    p = s.sub_(s.amax(dim=-1, keepdim=True)).exp2_()
+    l = p.sum(dim=-1, keepdim=True)
+    o = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(v.dtype)
+    if layout == "bnhd":
+        o = o.transpose(1, 2)
+    return o.contiguous()
+
+
+def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.Tensor:
+    """Both int8-QK wrappers: the plain version for CPU tensors; for CUDA
+    tensors validate the operands and launch the entry point ``fn_name`` (the
+    two share one C interface)."""
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q8.device.type == "cpu":
+        return flash_attn_int8_reference(q8, sq, k8, sk, v, layout)
+    if q8.device.type != "cuda":
+        raise ValueError(f"{fn_name}: unsupported device {q8.device}")
+    B, Nq, H, D, _, _, _ = _dims(q8, layout)
+    Bk, Nk, Hk, Dk, _, _, _ = _dims(k8, layout)
+    for name, x, dtype in (("q8", q8, torch.int8), ("k8", k8, torch.int8),
+                           ("sq", sq, torch.float32), ("sk", sk, torch.float32),
+                           ("v", v, torch.bfloat16)):
+        if x.device != q8.device:
+            raise ValueError(f"{fn_name}: {name} on {x.device}, q8 on {q8.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{fn_name}: {name} must be {dtype}, got {x.dtype}")
+    # the kernel copies 16-byte chunks of q8, k8 and v
+    for name, x, per16 in (("q8", q8, 16), ("k8", k8, 16), ("v", v, 8)):
+        if (x.stride(-1) != 1 or x.data_ptr() % 16
+                or any(st % per16 for st in x.stride()[:-1])):
+            raise ValueError(
+                f"{fn_name}: {name} needs a contiguous last dim, 16-byte alignment and "
+                f"(b, n, h) strides that are multiples of {per16} elements")
+    if ((Bk, Hk, Dk) != (B, H, D) or v.shape != k8.shape or sq.shape != q8.shape[:-1]
+            or sk.shape != k8.shape[:-1]):
+        shapes = {n: tuple(x.shape) for n, x in
+                  (("q8", q8), ("sq", sq), ("k8", k8), ("sk", sk), ("v", v))}
+        raise ValueError(f"{fn_name}: shapes {shapes} do not match")
+    if D not in head_dims:
+        raise NotImplementedError(f"{fn_name}: head_dim {D} not in {head_dims}")
+    if min(Nq, Nk) < 1 or B * H > 65535:
+        raise ValueError(f"{fn_name}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
+    o = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
+    strides = []
+    for x in (q8, sq.unsqueeze(-1), k8, sk.unsqueeze(-1), v, o):
+        strides += _dims(x, layout)[4:]
+    fn = _kernels.kernel(fn_name)
+    with torch.cuda.device(q8.device):
+        stream = torch.cuda.current_stream(q8.device).cuda_stream
+        rc = fn(q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
+                o.data_ptr(), B, H, Nq, Nk, D, *strides, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    return o
+
+
+def flash_attn_int8(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor, sk: torch.Tensor,
+                    v: torch.Tensor, layout: str = "bnhd") -> torch.Tensor:
+    """K8: softmax2(int32(q8 k8^T) * sq * sk) V at head_dim < 128, inference
+    only, on the operands of :func:`quantize_qk_int8`.
+
+    Args:
+        q8, k8: int8, (B, N, H, D) for ``layout="bnhd"`` or (B, H, N, D) for
+            "bhnd"; Nq may differ from Nk.
+        sq, sk: their f32 scales, shaped like them without the last dim.
+        v: shaped like k8. Any (b, n, h) strides as long as the last dim is
+            contiguous: no copy is made.
+
+    Returns:
+        O, a new contiguous tensor shaped like q8, in V's dtype.
+
+    CPU tensors take the plain version. CUDA tensors must have V in bf16 and
+    D in {16, 32, 64}; anything else raises. Each kernel launch adds one to
+    ``flash_attn_int8.launches``.
+    """
+    o = _int8_forward("flash_attn_int8", KERNEL_HEAD_DIMS, q8, sq, k8, sk, v, layout)
+    if q8.is_cuda:
+        flash_attn_int8.launches += 1
+    return o
+
+
+flash_attn_int8.launches = 0
+
+
+def flash_attn_int8_d128(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
+                         sk: torch.Tensor, v: torch.Tensor,
+                         layout: str = "bnhd") -> torch.Tensor:
+    """K9: :func:`flash_attn_int8` at head_dim 128 (the same kernel body).
+    ``attention`` does not dispatch it: ``impl="flash_int8"`` at head_dim 128
+    takes the exact kernel, as in the JAX package.
+
+    CPU tensors take the plain version. CUDA tensors must have V in bf16 and
+    D = 128; anything else raises. Each kernel launch adds one to
+    ``flash_attn_int8_d128.launches``.
+    """
+    o = _int8_forward("flash_attn_int8_d128", (128,), q8, sq, k8, sk, v, layout)
+    if q8.is_cuda:
+        flash_attn_int8_d128.launches += 1
+    return o
+
+
+flash_attn_int8_d128.launches = 0
+
+
 class _FlashAttention(torch.autograd.Function):
     """A forward kernel with LSE and its backward kernel: ``flash_attn_fwd``
     and ``flash_attn_bwd`` at head_dim < 128, ``flash_attn_fwd_d128`` and
@@ -436,8 +600,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q, k, v: (B, H, N, D), or (B, N, H, D) with ``layout="bnhd"`` (the
             projection-natural layout the models feed). k/v may be longer or
             shorter than q.
-        impl: "auto" or "flash" -> the kernels on CUDA, their plain versions
-            on CPU. Any other impl raises.
+        impl: "auto" or "flash" -> the exact kernels on CUDA, their plain
+            versions on CPU. "flash_int8" -> the int8-QK forward where it
+            applies (below), inference only. "ring" is not ported and raises.
 
     Routing, as ``attention(impl="flash")`` in the JAX package for bf16:
 
@@ -451,17 +616,39 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     - bnhd rows that are ``short_eligible`` -> ``flash_attn_short`` (K4);
     - otherwise -> ``flash_attn_fwd`` (K1).
 
+    ``impl="flash_int8"`` (``videogpa_tpu/ops/attention.py:1378-1401,
+    1437-1448``) raises if an operand requires grad (the int8 forward has no
+    backward), and otherwise differs from the above in one case only: D < 128
+    on rows that are not short bnhd rows goes through ``quantize_qk_int8``
+    and ``flash_attn_int8`` (K8). Short bnhd rows and D >= 128 take the exact
+    kernels above. On CUDA K8 takes bf16 operands; float32 ones raise there.
+
     Returns:
         Output in the operands' layout, dtype of q.
     """
-    if impl not in ("auto", "flash"):
+    if impl not in ("auto", "flash", "flash_int8"):
         raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (flash_int8 and ring are later slices)"
+            f"attention impl {impl!r} is not ported yet (ring attention is a later slice)"
         )
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     D = q.shape[-1]
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    needs_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if impl == "flash_int8":
+        if needs_grad:
+            raise RuntimeError("attention(impl='flash_int8') is inference only: it has no "
+                               "backward; use impl='flash' under grad")
+        seq = _seq_dim(layout)
+        short = layout == "bnhd" and short_eligible(k.shape[seq], q.shape[2], D,
+                                                    q.element_size())
+        if D < 128 and not short:
+            if q.is_cuda and q.dtype != torch.bfloat16:
+                raise NotImplementedError(
+                    f"attention(impl='flash_int8') on CUDA takes bf16 operands, got {q.dtype}")
+            q8, sq, k8, sk = quantize_qk_int8(q, k, layout)
+            return flash_attn_int8(q8, sq, k8, sk, v, layout).to(q.dtype)
+    if needs_grad:
         return _FlashAttention.apply(q, k, v, layout)
     if q.dtype == torch.float32:
         return flash_attn_fwd_f32(q, k, v, layout=layout)[0]

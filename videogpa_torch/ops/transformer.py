@@ -4,7 +4,8 @@ Pre-LN block with optional QK-norm, LayerScale and 2D RoPE:
     x = x + ls1 * attn(norm1(x));  x = x + ls2 * ffn(norm2(x))
 Attention runs in the (B, N, H, D) layout straight from the qkv projection
 (``attention(layout="bnhd")``), which reaches K4 for short rows, K1 for long
-ones and K6 at head_dim 128 or in f32.
+ones and K6 at head_dim 128 or in f32; with ``attn_impl="flash_int8"`` long
+rows at head_dim < 128 reach K8.
 """
 
 from __future__ import annotations
@@ -72,12 +73,14 @@ class Block(nn.Module):
         else:
             self.ls1 = self.ls2 = None
 
-    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return block_apply(self, x, pos)
+    def forward(self, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                attn_impl: str = "auto") -> torch.Tensor:
+        return block_apply(self, x, pos, attn_impl)
 
 
 def self_attention(attn: nn.Module, x: torch.Tensor, cfg: BlockConfig,
-                   pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   pos: Optional[torch.Tensor] = None,
+                   attn_impl: str = "auto") -> torch.Tensor:
     """x (B, N, C); pos optional (B, N, 2) integer (y, x) for 2D RoPE."""
     B, N, C = x.shape
     H = cfg.num_heads
@@ -88,13 +91,14 @@ def self_attention(attn: nn.Module, x: torch.Tensor, cfg: BlockConfig,
     if pos is not None and cfg.rope_base > 0:
         q = rope_2d(q, pos, cfg.rope_base, layout="bnhd")
         k = rope_2d(k, pos, cfg.rope_base, layout="bnhd")
-    o = attention(q, k, v, layout="bnhd").reshape(B, N, C)
+    o = attention(q, k, v, impl=attn_impl, layout="bnhd").reshape(B, N, C)
     return attn.proj(o)
 
 
-def block_apply(blk: Block, x: torch.Tensor, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+def block_apply(blk: Block, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
+                attn_impl: str = "auto") -> torch.Tensor:
     cfg = blk.cfg
-    h = self_attention(blk.attn, blk.norm1(x), cfg, pos)
+    h = self_attention(blk.attn, blk.norm1(x), cfg, pos, attn_impl)
     if blk.ls1 is not None:
         h = h * blk.ls1.gamma.to(h.dtype)
     x = x + h

@@ -49,6 +49,8 @@ class VideoProcessor:
             "sorted" (see ``geometry.projection``).
         dpt_dtype: DPT dtype; default VIDEOGPA_DPT_BF16 if set, else f32 for
             an f32 ``compute_dtype`` and bf16 otherwise.
+        attn_impl: the backbone's attention impl; "flash_int8" with a model
+            quantised by ``ops.quant.quantize_scorer_params`` is the int8 mode.
         device: where the scorer runs; ``None`` means ``cuda``.
     """
 
@@ -58,7 +60,8 @@ class VideoProcessor:
                  config: Optional[VGGTConfig] = None, model_name: Optional[str] = None,
                  backbone: Optional[str] = None, compute_dtype: torch.dtype = torch.bfloat16,
                  dpt_chunk: int = 8, zbuffer_impl: Optional[str] = None,
-                 dpt_dtype: Optional[torch.dtype] = None, device=None):
+                 dpt_dtype: Optional[torch.dtype] = None, device=None,
+                 attn_impl: str = "auto"):
         self.metrics = metrics
         self.backbone = self._resolve_backbone(backbone, model_name)
         if self.backbone == "da3":
@@ -67,6 +70,7 @@ class VideoProcessor:
         self.params = params
         self.config = config or (params.cfg if params is not None else VGGTConfig())
         self.compute_dtype = compute_dtype
+        self.attn_impl = attn_impl
         self.dpt_chunk = dpt_chunk
         self.zbuffer_impl = zbuffer_impl or os.environ.get("VIDEOGPA_ZBUFFER", "packed")
         if dpt_dtype is not None:
@@ -138,7 +142,8 @@ class VideoProcessor:
         images = images_u8.float().permute(0, 1, 4, 2, 3) / 255.0  # gt, (K, S, 3, H, W)
         H, W = images.shape[-2:]
         preds = vggt_forward(self.params, images, compute_dtype=self.compute_dtype,
-                             dpt_chunk=self.dpt_chunk, dpt_dtype=self.dpt_dtype)
+                             dpt_chunk=self.dpt_chunk, dpt_dtype=self.dpt_dtype,
+                             attn_impl=self.attn_impl)
         extr, intr = pose_encoding_to_extri_intri(preds["pose_enc"], (H, W))
         depth = preds["depth"][..., 0]
         conf = preds["depth_conf"]

@@ -46,6 +46,7 @@ class TrainerConfig:
     lora_alpha: float = 128.0
     compute_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
+    attn_impl: str = "auto"  # "flash_int8" is inference only and raises under grad
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -176,7 +177,8 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
         return dit_forward(model, latents_noisy, prompt_emb, timesteps,
                            compute_dtype=tcfg.compute_dtype, lora=lora,
                            lora_scaling=lora_scaling, attn_layout="bnhd",
-                           remat=tcfg.remat and lora is not None)
+                           remat=tcfg.remat and lora is not None,
+                           attn_impl=tcfg.attn_impl)
 
     def shared_step(lora, batch, generator, timesteps, noise):
         x_win = as_f32(batch["x_win"]).transpose(1, 2)  # -> (B, F, C, H, W)

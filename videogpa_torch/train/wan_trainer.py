@@ -58,7 +58,7 @@ def make_wan_dpo_train_step_unbound(cfg: WanConfig,
         return wan_forward(model, latents, t, context,
                            remat=tcfg.remat and lora is not None,
                            compute_dtype=tcfg.compute_dtype, lora=lora,
-                           lora_scaling=lora_scaling)
+                           lora_scaling=lora_scaling, attn_impl=tcfg.attn_impl)
 
     def shared_step(model, lora, batch, generator, timesteps, noise):
         device = next(model.parameters()).device
