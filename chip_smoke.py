@@ -78,7 +78,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              step and scorer batch.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
-             version and one PyTorch call computing the same function.
+             version and one PyTorch call computing the same function; for
+             the wgmma kernels K4 and K7 also the achieved TFLOP/s, the
+             registers a thread and the shared memory a CTA.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -509,9 +511,12 @@ def _bwd_cases(tag, fwd, bwd, cases, gen):
     return errs
 
 
-def _autograd_check(tag, fwd, bwd, qkv, gen):
+def _autograd_check(tag, fwd, bwd, qkv, gen, atomic_dq=False):
     """attention() on CUDA tensors that require grad: the autograd Function
-    runs ``fwd`` with LSE and ``bwd``, bit for bit the direct calls."""
+    runs ``fwd`` with LSE and ``bwd``, bit for bit the direct calls. With
+    ``atomic_dq`` (K7: dQ summed over key tiles by f32 atomics, whose last
+    bits vary from run to run) dQ is held to the direct call's by the
+    gradient tolerance of the parity cases, dK and dV still bit for bit."""
     import torch
 
     from videogpa_torch.ops.attention import attention
@@ -527,9 +532,15 @@ def _autograd_check(tag, fwd, bwd, qkv, gen):
         o2, lse = fwd(q, k, v, layout="bnhd", with_lse=True)
         direct = bwd(q, k, v, o2, lse, do, layout="bnhd")
     same = all(torch.equal(x.grad, d) for x, d in zip((q, k, v), direct))
+    note = ""
+    if atomic_dq:
+        dq_err, dq_atol, dq_ok = _grad_check(q.grad, direct[0])
+        same = dq_ok and all(torch.equal(x.grad, d) for x, d in zip((k, v), direct[1:]))
+        note = (f" (dK, dV bit for bit; dQ max|d| {dq_err:.3e}, atol {dq_atol:.2e} + rtol "
+                f"{GRAD_RTOL}: f32 atomics)")
     counted = (fwd.launches - fwd0, bwd.launches - bwd0) == (2, 2)
     log(f"[parity] attention() autograd on CUDA at D = {q.shape[-1]}: grad_fn "
-        f"_FlashAttentionBackward, q/k/v grads equal to direct {bwd.__name__}: {same}, "
+        f"_FlashAttentionBackward, q/k/v grads equal to direct {bwd.__name__}: {same}{note}, "
         f"launches counted: {counted}")
     if not (same and counted and torch.equal(o.detach(), o2)):
         fail(f"attention() autograd on CUDA did not yield {tag}'s gradients")
@@ -649,7 +660,7 @@ def phase_parity_bwd_d128(wan_shape, text_len):
     errs = _bwd_cases("K7", flash_attn_fwd_d128, flash_attn_bwd_d128, cases, gen)
     del cases
     _autograd_check("K7", flash_attn_fwd_d128, flash_attn_bwd_d128,
-                    _attn_case(gen, 1, 300, 300, 3, 128, "bnhd"), gen)
+                    _attn_case(gen, 1, 300, 300, 3, 128, "bnhd"), gen, atomic_dq=True)
 
     # the Wan self-attention shape at full size, operands as the DiT feeds them
     B, N, H, D = wan_shape
@@ -1712,11 +1723,14 @@ def phase_wan_train(mini_steps: int = 4):
 
 def phase_timing_wan(wan_shape, text_len):
     """K7 alone at the Wan self- and cross-attention shapes and K6 at the
-    cross shape, beside their bounds and SDPA on the same operands."""
+    cross shape, beside their bounds and SDPA on the same operands; K7's
+    achieved TFLOP/s, query splits, registers and shared memory."""
     import torch
     import torch.nn.functional as F
 
-    from videogpa_torch.ops.attention import flash_attn_bwd_d128, flash_attn_fwd_d128
+    from videogpa_torch.ops import _kernels
+    from videogpa_torch.ops.attention import (
+        bwd_d128_splits, flash_attn_bwd_d128, flash_attn_fwd_d128)
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(71)
@@ -1749,7 +1763,10 @@ def phase_timing_wan(wan_shape, text_len):
         out[f"k7_{tag}_bound_ms"], out[f"k7_{tag}_bound_by"] = _bound(flops, nbytes,
                                                                       PEAK_BF16_FLOPS)
         out[f"k7_{tag}_tflops"] = flops / out[f"k7_{tag}_ms"] / 1e9
+        out[f"k7_{tag}_query_splits"] = bwd_d128_splits(B * H, N, Nk)[0]
         del k, v, o, lse, do, qt, kt, vt, ot
+    attrs = _kernels.kernel_attrs("flash_attn_bwd_d128")
+    out["k7_registers_at_launch"], out["k7_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
     del q
     torch.cuda.empty_cache()
     return out
@@ -1764,7 +1781,8 @@ def _bound(flops, nbytes, peak_flops):
 
 def phase_timing_scorer(vggt_shape, cam_shape, wan_shape):
     """K4, K6 (f32 and bf16) and K5 alone at their main-path shapes, beside
-    their bounds and one PyTorch call computing the same function."""
+    their bounds and one PyTorch call computing the same function; K4's
+    achieved TFLOP/s, registers and shared memory."""
     import torch
     import torch.nn.functional as F
 
@@ -1784,6 +1802,11 @@ def phase_timing_scorer(vggt_shape, cam_shape, wan_shape):
     out["k4_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=20)
     out["k4_bound_ms"], out["k4_bound_by"] = _bound(4.0 * B * H * N * N * D,
                                                      2.0 * 4 * B * N * H * D, PEAK_BF16_FLOPS)
+    out["k4_tflops"] = 4.0 * B * H * N * N * D / out["k4_ms"] / 1e9
+    # the two-pass softmax K4 had before computed QK^T twice: 1.5x the operations
+    out["k4_two_pass_bound_ms"] = 1.5 * out["k4_bound_ms"]
+    attrs = _kernels.kernel_attrs("flash_attn_short", D)
+    out["k4_registers"], out["k4_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
     del q, k, v, qt, kt, vt
 
     # K6 f32 at the camera head's shape

@@ -8,12 +8,16 @@ OpenCV SIFT) comes with the decode slice: ``EpipolarMetric`` raises.
 
 from __future__ import annotations
 
+import os
 from abc import ABC, abstractmethod
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from videogpa_torch.checkpoint import load_pytree
+from videogpa_torch.convert import load_jax_params
+from videogpa_torch.device import resolve_device
 from videogpa_torch.metrics import functional as F
 from videogpa_torch.models.lpips import LPIPS, lpips_distance
 
@@ -76,11 +80,12 @@ class SSIMMetric(Metric):
 
 
 class LPIPSMetric(Metric):
-    """LPIPS with the given network; without one the distance is 0."""
+    """LPIPS with the given network, else ``_default_lpips(device)``; without
+    either the distance is 0."""
 
-    def __init__(self, lpips_params: Optional[LPIPS] = None, **_):
+    def __init__(self, lpips_params: Optional[LPIPS] = None, device=None, **_):
         super().__init__("lpips")
-        self.params = lpips_params
+        self.params = lpips_params if lpips_params is not None else _default_lpips(device)
 
     def compute(self, *, gt, rep, **kwargs) -> float:
         if self.params is None:
@@ -92,11 +97,12 @@ class LPIPSMetric(Metric):
 
 class ConsistencyScore(Metric):
     """MSE + ratio x LPIPS, with the camera-motion score returned beside it.
-    ratio defaults to 1, the reference signature's default that executes."""
+    ratio defaults to 1, the reference signature's default that executes.
+    Without a network (given, or ``_default_lpips(device)``) it is MSE only."""
 
-    def __init__(self, lpips_params: Optional[LPIPS] = None, **_):
+    def __init__(self, lpips_params: Optional[LPIPS] = None, device=None, **_):
         super().__init__("Consistency_Score")
-        self.params = lpips_params
+        self.params = lpips_params if lpips_params is not None else _default_lpips(device)
 
     def compute(self, *, gt, rep, extrinsics, ratio: float = 1, **kwargs):
         gt_t, rep_t = _tchw(gt), _tchw(rep)
@@ -140,16 +146,39 @@ def to_44(extr: torch.Tensor) -> torch.Tensor:
     return extr
 
 
-def build_metrics(lpips_params: Optional[LPIPS] = None) -> Dict[str, Metric]:
+_LPIPS_CACHE: Dict[str, Any] = {}
+
+
+def _default_lpips(device=None) -> Optional[LPIPS]:
+    """The LPIPS network whose converted tree ``VIDEOGPA_LPIPS_PATH`` names
+    (a ``save_pytree`` file of the JAX package's ``lpips_init`` tree), on
+    ``resolve_device(device)``: the card unless the caller asks for the CPU.
+    ``None`` when the variable is unset or names no file. The tree is read
+    once, as the JAX package's ``_default_lpips`` reads it; the module is
+    built once for each device."""
+    if "tree" not in _LPIPS_CACHE:
+        path = os.environ.get("VIDEOGPA_LPIPS_PATH")
+        _LPIPS_CACHE["tree"] = load_pytree(path) if path and os.path.exists(path) else None
+    if _LPIPS_CACHE["tree"] is None:
+        return None
+    dev = resolve_device(device)
+    if str(dev) not in _LPIPS_CACHE:
+        _LPIPS_CACHE[str(dev)] = load_jax_params(LPIPS(), _LPIPS_CACHE["tree"]).eval().to(dev)
+    return _LPIPS_CACHE[str(dev)]
+
+
+def build_metrics(lpips_params: Optional[LPIPS] = None, device=None) -> Dict[str, Metric]:
     """The scorer's metric set (reference ``replicate_scorer.py:63-74``)
-    without Epipolar, which is not ported yet. Without an LPIPS network the
-    LPIPS term is 0 (MSE-only consistency score), as in the JAX package when
-    no converted weights are found."""
+    without Epipolar, which is not ported yet. Without ``lpips_params`` the
+    network is ``_default_lpips(device)``, the converted weights that
+    ``VIDEOGPA_LPIPS_PATH`` names; where there are none the LPIPS term is 0
+    (MSE-only consistency score), as in the JAX package."""
+    lp = lpips_params if lpips_params is not None else _default_lpips(device)
     return {
         "MSE": MSEMetric(),
-        "Consistency_Score": ConsistencyScore(lpips_params),
+        "Consistency_Score": ConsistencyScore(lp),
         "MVCS": MVCSMetric(),
         "PSNR": PSNRMetric(),
         "SSIM": SSIMMetric(),
-        "LPIPS": LPIPSMetric(lpips_params),
+        "LPIPS": LPIPSMetric(lp),
     }

@@ -9,11 +9,12 @@ the kernel or raises. There is no fallback from one to the other.
   optional LSE.
 - ``flash_attn_bwd`` (K3, ``csrc/flash_attn_bwd.cu``): its backward.
 - ``flash_attn_short`` (K4, ``csrc/flash_attn_short.cu``): bf16 (B, N, H, D)
-  rows of at most 2,048 keys, exact two-pass softmax, ``n_valid`` mask,
-  inference only.
+  rows of at most 2,048 keys, one-pass online softmax on wgmma + TMA,
+  ``n_valid`` mask, inference only.
 - ``flash_attn_fwd_d128`` (K6, ``csrc/flash_attn_fwd_d128.cu``): bf16 at
   head_dim 128 on tensor cores, optional LSE.
-- ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward.
+- ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward,
+  on wgmma + TMA; computes delta = rowsum(O * dO) itself.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
   head_dim 16-128 on CUDA cores, for short rows.
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
@@ -85,6 +86,18 @@ def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int, int, int, i
     return B, N, H, D, sb, sn, sh
 
 
+def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
+    """The rule of TMA and of 16-byte copies: a base address and (b, n, h)
+    strides that are multiples of 16 bytes. Raises ``ValueError`` otherwise;
+    the kernels never copy an operand to meet it."""
+    if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+        raise ValueError(
+            f"{fn}: {name} must be 16-byte aligned with (b, n, h) strides that are "
+            f"multiples of 16 bytes, got strides {tuple(x.stride())} of {x.element_size()}-byte "
+            "elements"
+        )
+
+
 def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
                     head_dims=KERNEL_HEAD_DIMS, **like_q) -> Tuple[int, int, int, int, int]:
     """Validate CUDA kernel operands; ``like_q`` are named tensors shaped
@@ -99,12 +112,8 @@ def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
             raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
         if x.stride(-1) != 1:
             raise ValueError(f"{fn}: {name} needs a contiguous last dim")
-        if dtype == torch.bfloat16 and (x.data_ptr() % 16
-                                        or any(st % 8 for st in x.stride()[:-1])):
-            raise ValueError(
-                f"{fn}: {name} must be 16-byte aligned with (b, n, h) "
-                "strides that are multiples of 8 elements"
-            )
+        if dtype == torch.bfloat16:
+            check_16_bytes(fn, name, x)
     if ((Bk, Hk, Dk) != (B, H, D) or v.shape != k.shape
             or any(x.shape != q.shape for x in like_q.values())):
         shapes = {n: tuple(x.shape) for n, x in {"q": q, "k": k, "v": v, **like_q}.items()}
@@ -201,14 +210,22 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd"):
     return grads
 
 
-def _launch_bwd(fn_name: str, entry: str, head_dims, q, k, v, o, lse, do, layout):
-    """Shared launch of a backward kernel with ``flash_attn_bwd``'s C interface."""
+def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do):
+    """``_check_operands`` for a backward kernel, and its natural-log LSE.
+    Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, head_dims=head_dims,
                                       o=o, do=do)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
         raise ValueError(f"{fn_name}: lse must be a contiguous ({B}, {H}, {Nq}) "
                          f"float32 tensor on {q.device}")
+    return B, Nq, H, D, Nk
+
+
+def _launch_bwd(q, k, v, o, lse, do, layout):
+    """K3's launch: delta = rowsum(O * dO) is a PyTorch reduction."""
+    B, Nq, H, D, Nk = _check_bwd_operands("flash_attn_bwd", layout, KERNEL_HEAD_DIMS,
+                                          q, k, v, o, lse, do)
     delta = (o.float() * do.float()).sum(-1)
     if layout == "bnhd":
         delta = delta.transpose(1, 2)
@@ -220,7 +237,7 @@ def _launch_bwd(fn_name: str, entry: str, head_dims, q, k, v, o, lse, do, layout
     strides = []
     for x in (q, k, v, do, dq, dk, dv):
         strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel(entry)
+    fn = _kernels.kernel("flash_attn_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(
@@ -229,7 +246,7 @@ def _launch_bwd(fn_name: str, entry: str, head_dims, q, k, v, o, lse, do, layout
             B, H, Nq, Nk, D, *strides, D ** -0.5, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+        raise RuntimeError(f"flash_attn_bwd: kernel launch failed with cudaError {rc}")
     return dq, dk, dv
 
 
@@ -251,8 +268,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
-    grads = _launch_bwd("flash_attn_bwd", "flash_attn_bwd", KERNEL_HEAD_DIMS,
-                        q, k, v, o, lse, do, layout)
+    grads = _launch_bwd(q, k, v, o, lse, do, layout)
     flash_attn_bwd.launches += 1
     return grads
 
@@ -296,9 +312,10 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     softmax(Q K^T / sqrt(D)) V over keys [0, n_valid) (default: all Nk).
     CPU tensors take the plain version. CUDA tensors must be bf16 with D in
-    {16, 32, 64}, any (b, n, h) strides with a contiguous last dim, and
-    ``short_eligible`` key rows; anything else raises. Each kernel launch
-    adds one to ``flash_attn_short.launches``.
+    {16, 32, 64}, any (b, n, h) strides with a contiguous last dim that meet
+    TMA's 16-byte rule (``check_16_bytes``), and ``short_eligible`` key rows;
+    anything else raises. Each kernel launch adds one to
+    ``flash_attn_short.launches``.
     """
     n_valid = k.shape[1] if n_valid is None else int(n_valid)
     if not 1 <= n_valid <= k.shape[1]:
@@ -359,8 +376,12 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     Same arguments and results as ``flash_attn_bwd``; Nq may differ from Nk.
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
-    tensors must be bf16 with D = 128; anything else raises. Each launch adds
-    one to ``flash_attn_bwd_d128.launches``.
+    tensors must be bf16 with D = 128 and meet TMA's 16-byte rule
+    (``check_16_bytes``); anything else raises. The kernel computes delta =
+    rowsum(O * dO) itself. dK and dV are deterministic; dQ is summed over key
+    tiles by f32 reduce-adds in the order the CTAs reach them, so its last
+    bits vary from run to run. Each launch (a prologue, the main kernel and
+    an epilogue) adds one to ``flash_attn_bwd_d128.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -368,13 +389,81 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
-    grads = _launch_bwd("flash_attn_bwd_d128", "flash_attn_bwd_d128", (128,),
-                        q, k, v, o, lse, do, layout)
+    grads = _launch_bwd_d128(q, k, v, o, lse, do, layout)
     flash_attn_bwd_d128.launches += 1
     return grads
 
 
 flash_attn_bwd_d128.launches = 0
+
+# K7's tiles (csrc/flash_attn_bwd_d128.cu): a CTA per 128 keys walks the
+# query tiles of 64, one CTA an SM. Short key rows split the query range so
+# that the grid holds at least two CTAs for each of the H100's 132 SMs.
+BWD_D128_KEYS, BWD_D128_QUERIES, H100_SMS = 128, 64, 132
+BWD_D128_MIN_CTAS = 2 * H100_SMS
+
+
+def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
+    """(splits, query tiles per split) of K7's grid for B*H = ``bh`` heads.
+
+    One split when the (key tile, head) grid has ``BWD_D128_MIN_CTAS`` CTAs;
+    otherwise the split count, among those that reach that many CTAs (or
+    give every query tile its own split), with the least modelled time:
+    waves of 132 CTAs times the query tiles a CTA walks, plus two tiles'
+    worth for loading K and V and storing the partials. Every split is
+    non-empty and every query tile falls in exactly one."""
+    n_qt = -(-nq // BWD_D128_QUERIES)
+    ctas = -(-nk // BWD_D128_KEYS) * bh
+    if ctas >= BWD_D128_MIN_CTAS:
+        return 1, n_qt
+    best = None
+    for want in range(1, n_qt + 1):
+        if ctas * want < BWD_D128_MIN_CTAS and want < n_qt:
+            continue
+        per = -(-n_qt // want)
+        splits = -(-n_qt // per)
+        cost = -(-ctas * splits // H100_SMS) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return best[1], best[2]
+
+
+def _launch_bwd_d128(q, k, v, o, lse, do, layout):
+    """K7's launch: the kernel computes delta itself from O and dO, so O is
+    an operand; the wrapper allocates the kernel's f32 scratch (base-2 LSE
+    and delta padded to whole query tiles, the dQ accumulator, and dK / dV
+    partials when the query range is split)."""
+    fn_name = "flash_attn_bwd_d128"
+    B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, (128,), q, k, v, o, lse, do)
+    splits, per = bwd_d128_splits(B * H, Nq, Nk)
+    nq_pad = _round_up(Nq, BWD_D128_QUERIES)
+    nk_pad = _round_up(Nk, BWD_D128_KEYS)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    lse2, delta = torch.empty((B * H, nq_pad), **f32), torch.empty((B * H, nq_pad), **f32)
+    dq_acc = torch.empty((B * H, nq_pad, D), **f32)  # zeroed by the kernel's prologue
+    parts = ((torch.empty((splits, B * H, nk_pad, D), **f32) for _ in range(2)) if splits > 1
+             else (None, None))
+    dk_part, dv_part = parts
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = []
+    for x in (q, k, v, o, do, dq, dk, dv):
+        strides += _dims(x, layout)[4:]
+    fn = _kernels.kernel(fn_name)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
+            delta.data_ptr(), dq_acc.data_ptr(),
+            dk_part.data_ptr() if dk_part is not None else None,
+            dv_part.data_ptr() if dv_part is not None else None,
+            B, H, Nq, Nk, D, splits, per, *strides, D ** -0.5, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    return dq, dk, dv
 
 F32_HEAD_DIMS = (16, 32, 64, 128)
 
