@@ -193,11 +193,12 @@ def test_bwd_d128_rejects_bad_layout_and_stays_off_the_kernel_on_cpu(monkeypatch
 def test_k7_is_registered_with_k3s_c_interface():
     source, symbol, argtypes = _kernels._SIGNATURES["flash_attn_bwd_d128"]
     assert source == "flash_attn_bwd_d128" and symbol == "videogpa_flash_attn_bwd_d128"
-    # K3's interface with O and K7's f32 scratch among the pointers, the
-    # query split among the ints and O's strides among the strides
+    # one interface for K3 and K7: q, k, v, o, do, lse, dq, dk, dv and the f32
+    # scratch among the pointers, the query split among the ints, O's strides
+    # among the strides
     k3 = _kernels._SIGNATURES["flash_attn_bwd"][2]
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    assert k3 == [P] * 9 + [I] * 5 + [LL] * 21 + k3[-2:]
+    assert k3 == argtypes
     assert argtypes == [P] * (9 + 5) + [I] * (5 + 2) + [LL] * (21 + 3) + k3[-2:]
     assert _kernels.SOURCES[source].name == "flash_attn_bwd_d128.cu"
     assert _kernels.SOURCES[source].exists()

@@ -86,7 +86,8 @@ def test_k7_launch_raises_on_unaligned_operands_without_a_kernel(monkeypatch):
     x = torch.zeros(1, 70, 2, 136, dtype=torch.bfloat16)[..., 4:132]
     lse = torch.zeros(1, 2, 70)
     with pytest.raises(ValueError, match="16-byte aligned"):
-        tattn._launch_bwd_d128(x, x, x, x, lse, x, "bnhd")
+        tattn._launch_bwd("flash_attn_bwd_d128", (128,), tattn.BWD_D128_QUERIES,
+                          tattn.GRID_Y_MAX, x, x, x, x, lse, x, "bnhd")
 
 
 # ---- the prologue and the decomposition ----

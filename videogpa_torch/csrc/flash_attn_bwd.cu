@@ -1,402 +1,606 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, dK, dV of
-// O = softmax(Q K^T / sqrt(D)) V, non-causal, bf16 operands, f32 accumulation.
+// Flash-attention backward for Hopper (sm_90a) at head_dim 16, 32 and 64: dQ,
+// dK, dV of O = softmax(Q K^T / sqrt(D)) V, non-causal, bf16 operands, f32
+// accumulation.
 //
 // Replaces the TPU Pallas kernels videogpa_tpu/ops/attention.py
-// `_dq_kernel_T` and `_dkv_kernel_T` (the head_dim < 128 backward of
-// `_flash_bwd_T`). Same function, recomputed from the forward's natural-log
-// LSE and delta = rowsum(O * dO), which the caller computes:
+// `_dq_kernel_T` and `_dkv_kernel_T` (:951, :983, called at :1050, :1064 from
+// `_flash_bwd_T` :1022, the head_dim < 128 backward that CogVideoX-5B's
+// 48 x 64 heads train through). Same function, recomputed from the forward's
+// natural-log LSE:
 //   P  = exp(S - LSE),  S = Q K^T / sqrt(D)
 //   dV = P^T dO
-//   dS = P * (dO V^T - delta)
+//   dS = P * (dO V^T - delta),  delta = rowsum(O * dO)
 //   dQ = dS K / sqrt(D),  dK = dS^T Q / sqrt(D)
-// Keys >= Nk and queries >= Nq get P = 0, so they contribute nothing and their
-// gradient rows are never stored. P and dS are rounded to bf16 before their
-// products, as the TPU kernels round them.
+// P and dS are rounded to bf16 before their products, as the TPU kernels
+// round them. Nq may differ from Nk (cross-attention).
 //
-// Bound: tensor-core operations. The function needs five N x N x D products
-// per head, 10*B*H*Nq*Nk*D FLOPs; at the CogVideoX-5B training shape
-// (B=1, N=17,776, H=48, D=64) that is 9.71 TFLOP, 9.8 ms at the 989 TFLOP/s
-// bf16 dense peak, while its ~0.6 GB of operands and gradients need ~0.2 ms
-// at 3.35 TB/s.
-// Design: two kernels, as on the TPU, with no atomics, so the result is
-// deterministic. The dK/dV kernel runs one CTA of 4 warps per (b*h, 64-key
-// tile); each warp owns 16 keys, keeps their K and V fragments and its dK/dV
-// accumulators in registers, and loops over 64-query tiles of Q and dO
-// double-buffered in shared memory with cp.async. The dQ kernel runs one CTA
-// per (b*h, 64-query tile) and loops over 64-key tiles of K and V the same way.
-// Both recompute S and dP (7 products instead of 5): the cost of keeping
-// every accumulator in registers without atomics. Products run on mma.sync
-// m16n8k16 bf16 -> f32; accumulators are re-packed in registers as the A
-// operand of the next product; row-major tiles become B fragments through
-// ldmatrix.trans. The softmax is recomputed in the log2 domain with
-// D^-0.5*log2(e) folded into the exponent and the LSE converted to base 2 on
-// load. Operands are addressed through element strides for (b, n, h), so
-// (B, N, H, D) and (B, H, N, D) tensors go in without a copy.
+// Bound: tensor-core operations. Five Nq x Nk x D products per head,
+// 10*B*H*Nq*Nk*D FLOPs; at the CogVideoX-5B training shape (B=1, N=17,776,
+// H=48, D=64) that is 9.71 TFLOP, 9.8 ms at the 989 TFLOP/s bf16 dense peak,
+// against ~0.6 GB of operands and gradients (0.2 ms at 3.35 TB/s).
 //
-// Plain C interface (ctypes). Returns cudaGetLastError() after the launches.
+// Design (the FlashAttention-3 backward, as the head_dim 128 kernel K7 in
+// flash_attn_bwd_d128.cu, with the query tile doubled):
+//  - Prologue kernel: delta = rowsum(O * dO) in f32 and the base-2 LSE into
+//    (B*H, Nq padded to 128) buffers (padded rows: LSE2 = +inf, so P = 0
+//    there), and zeroes the f32 dQ accumulator.
+//  - Main kernel, one CTA per (128-key tile, b*h, query split) on a
+//    flattened 1-D grid (any B*H), with one producer warpgroup and two
+//    consumer warpgroups; setmaxnreg gives the consumers 232 registers and
+//    the producer 40. The producer loads the key tile's K and V once by TMA
+//    (they stay in shared memory) and keeps a 2-stage mbarrier ring of
+//    128-query tiles of Q and dO (TMA) with their LSE2 and delta (bulk
+//    copies). Consumer warpgroup w owns keys [64w, 64w + 64) of the tile; for
+//    each query tile:
+//      S^T = K Q^T and dP^T = V dO^T                 wgmma SS, K-major,
+//                                                    N = 128 queries
+//      P^T = exp2(S^T * D^-0.5 log2 e - LSE2), dS^T = P^T (dP^T - delta),
+//      exp2 as one flush-to-zero SFU instruction (exp2_ftz) and the key mask
+//      applied on the last key tile only: the softmax's SFU and ALU work runs
+//      while no product is in flight; exp2f's subnormal fix-up with a mask on
+//      every element spilled registers here and made the kernel 1.4x slower
+//      (PERF.md §6)
+//      dV += P^T dO, dK += dS^T Q                    wgmma RS: P^T and dS^T
+//                                                    repacked to bf16 in
+//                                                    registers
+//      dS^T to shared memory (bf16, [query half][key][64 queries], 128-byte
+//      swizzle); named barrier between the two warpgroups
+//      dQ[64w : 64w + 64] = dS[64w : 64w + 64] K     wgmma SS, MN-major,
+//                                                    over all 128 keys
+//      staged in shared memory (f32, in accumulator-fragment order) and
+//      added into the f32 dQ accumulator by one bulk reduce-add
+//      (cp.reduce.async.bulk .add.f32); the accumulator holds each (head,
+//      64-query block) as such a contiguous block.
+//    At head_dim 64 the registers that K7 spends on its 128-wide dK and dV
+//    accumulators pay for 128-query tiles here: every tile carries twice
+//    K7's products per barrier, and the two warpgroups split dQ by query
+//    rows, so each dQ element is reduce-added once per key tile. A 64-wide
+//    bf16 row is one 128-byte swizzle atom (32 and 64 bytes at head_dim 16
+//    and 32): one TMA box per tile.
+//    Keys >= Nk (rows TMA zero-fills) get P = 0 by a mask; queries >= Nq get
+//    P = 0 through their LSE2 = +inf.
+//  - Epilogue: dQ from f32 to bf16 with D^-0.5 applied, through the
+//    wrapper's strides. dK and dV are stored by the main kernel (scaled,
+//    bf16) when there is one query split; with several (short key rows, where
+//    the (key tile, head) grid would leave SMs idle), each split writes f32
+//    partials and the epilogue sums them in split order, so dK and dV stay
+//    deterministic.
+//  - dQ is not deterministic: the bulk reduce-adds sum the key tiles'
+//    partials in the order the CTAs reach them, so its last bits vary from
+//    run to run. The TPU kernels and this kernel's earlier two-kernel
+//    mma.sync design (seven products: S and dP recomputed) were
+//    deterministic.
+//  - Shared memory at head_dim 64, 1,024-byte aligned: K 16 KB + V 16 KB +
+//    Q and dO 2 x 2 x 16 KB + dS^T 2 x 32 KB (double-buffered, so one named
+//    barrier a tile suffices) + dQ staging 2 x 16 KB + LSE2 / delta = 195 KB:
+//    one CTA an SM.
+// Operands are addressed through rank-4 tensor maps over (D, N, H, B) with
+// element strides, so (B, N, H, D) and (B, H, N, D) views go in without a
+// copy.
+//
+// Plain C interface (ctypes), the same as K7's. Returns cudaGetLastError()
+// after the launches.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
-using namespace videogpa;
+using namespace videogpa::sm90;
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlock = 16 * kWarps;  // rows of every tile: queries or keys
-static_assert(kThreads == 2 * kBlock, "load_row_stats gives one thread per row and stat");
+constexpr int kBlockN = 128;  // keys per CTA, 64 per consumer warpgroup
+constexpr int kBlockM = 128;  // queries per tile, 64 per dQ half
+constexpr int kStages = 2;
+constexpr int kConsumers = 256;
+constexpr int kThreads = kConsumers + 128;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kHalfDS = kBlockN * 64 * 2;  // dS^T of 64 queries, [key][query]: 16 KB
+
+template <int D>
+struct Layout {
+  static constexpr int kRow = D * 2;      // bytes of one row of Q, dO, K or V
+  static constexpr int kAtom = 8 * kRow;  // 8 rows: SBO
+  static constexpr int kSwizzle = D == 64 ? kSwizzle128 : D == 32 ? kSwizzle64 : kSwizzle32;
+  static constexpr int kTileK = kBlockN * kRow;
+  static constexpr int kTileQ = kBlockM * kRow;
+  static constexpr int kTileDQ = 64 * D * 4;        // one warpgroup's dQ block, f32
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kTileK;
+  static constexpr int kQ = kV + kTileK;
+  static constexpr int kDO = kQ + kStages * kTileQ;
+  static constexpr int kDS = kDO + kStages * kTileQ;
+  static constexpr int kDQ = kDS + 2 * 2 * kHalfDS;
+  static constexpr int kLse = kDQ + 2 * kTileDQ;
+  static constexpr int kDelta = kLse + kStages * kBlockM * 4;
+  static constexpr int kBar = kDelta + kStages * kBlockM * 4;
+  // barriers: K/V full, Q/dO full[kStages], Q/dO empty[kStages]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr uint32_t kTxKV = 2 * kTileK;
+  static constexpr uint32_t kTxQ = 2 * kTileQ + 2 * kBlockM * 4;
+};
 
 struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;
-  const float* lse;    // (B*H, Nq) natural-log logsumexp of the scaled scores
-  const float* delta;  // (B*H, Nq) rowsum(O * dO)
-  __nv_bfloat16* dq;
+  const float* lse2;   // (B*H, Nq_pad) base-2 LSE, +inf on padded rows
+  const float* delta;  // (B*H, Nq_pad)
+  float* dq_acc;       // (B*H, Nq_pad / 64, 64 * D) f32 blocks in fragment
+                       // order (dq_block_offset), zeroed by the prologue
+  float* dk_part;      // (splits, B*H, Nk_pad, D) f32 when splits > 1
+  float* dv_part;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  int H, Nq, Nk;
-  long long q_sb, q_sn, q_sh;
-  long long k_sb, k_sn, k_sh;
-  long long v_sb, v_sn, v_sh;
-  long long do_sb, do_sn, do_sh;
-  long long dq_sb, dq_sn, dq_sh;
+  int H, BH, Nq, Nk, Nq_pad, Nk_pad, n_kt, splits, tiles_per_split;
   long long dk_sb, dk_sn, dk_sh;
   long long dv_sb, dv_sn, dv_sh;
   float scale;       // D^-0.5
   float scale_log2;  // D^-0.5 * log2(e)
 };
 
-// LSE (as base 2) and delta of query rows [row0, row0 + kBlock) into shared
-// memory; rows >= n_rows read as zero.
-__device__ __forceinline__ void load_row_stats(float* s_lse2, float* s_delta, const float* lse,
-                                               const float* delta, int row0, int n_rows) {
-  const int t = threadIdx.x % kBlock;
-  const int row = row0 + t;
-  if (threadIdx.x < kBlock) {
-    s_lse2[t] = row < n_rows ? lse[row] * kLog2e : 0.f;
-  } else {
-    s_delta[t] = row < n_rows ? delta[row] : 0.f;
+// Q, dO, K or V (rows of D bf16, swizzled to the row width) read K-major
+// (the reduction over D) or MN-major (the reduction over rows); 8-row atoms
+// kAtom bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return make_desc(addr, 16, Layout<D>::kAtom, Layout<D>::kSwizzle);
+}
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr) {
+  return make_desc(addr, Layout<D>::kAtom, Layout<D>::kAtom, Layout<D>::kSwizzle);
+}
+// dS^T, rows of 64 queries (128 bytes), read MN-major as the A operand of dQ
+__device__ __forceinline__ uint64_t desc_ds(uint32_t addr) {
+  return make_desc(addr, kHalfDS, 1024, kSwizzle128);
+}
+
+// Offset (floats) of element (row, col) within one 64 x D dQ block: the order
+// in which a warpgroup's threads hold the accumulator, so that each thread
+// stages float2s at consecutive addresses (j: 8-column group, w: warp, r: row
+// half, lane). Four columns from a multiple of 4 are four consecutive floats.
+__host__ __device__ __forceinline__ int dq_block_offset(int row, int col) {
+  const int w = row / 16, r = (row % 16) / 8, g = row % 8;
+  const int j = col / 8, t = (col % 8) / 2, e = col % 2;
+  return ((((j * 4 + w) * 2 + r) * 32 + 4 * g + t) * 2) + e;
+}
+
+// ---- prologue: delta, LSE2, dQ accumulator; one warp a row ----
+template <int D>
+__global__ void __launch_bounds__(256) flash_attn_bwd_prologue(
+    const __nv_bfloat16* o, const __nv_bfloat16* dout, const float* lse, float* lse2,
+    float* delta, float* dq_acc, int H, int Nq, int Nq_pad, long long o_sb, long long o_sn,
+    long long o_sh, long long do_sb, long long do_sn, long long do_sh) {
+  const int lane = threadIdx.x % 32;
+  const long long row = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int bh = static_cast<int>(row / Nq_pad);
+  const int q = static_cast<int>(row % Nq_pad);
+  const int b = bh / H;
+  const int h = bh % H;
+  float d = 0.f;
+  if (q < Nq && 2 * lane < D) {
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        o + b * o_sb + q * o_sn + h * o_sh + 2 * lane));
+    const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        dout + b * do_sb + q * do_sn + h * do_sh + 2 * lane));
+    d = fmaf(a.x, c.x, a.y * c.y);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (lane == 0) {
+    lse2[row] = q < Nq ? lse[static_cast<long long>(bh) * Nq + q] * kLog2e : INFINITY;
+    delta[row] = d;
+  }
+  if (2 * lane < D) {
+    reinterpret_cast<float2*>(dq_acc + row * D)[lane] = make_float2(0.f, 0.f);
   }
 }
 
-// A fragments (16 rows of this warp x D) of a padded shared tile.
-template <int D, int kStride>
-__device__ __forceinline__ void load_a_frags(uint32_t (&f)[D / 16][4],
-                                             const __nv_bfloat16 (*tile)[kStride], int r0,
-                                             int tig) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + tig * 2;
-    f[kk][0] = lds32(&tile[r0][c]);
-    f[kk][1] = lds32(&tile[r0 + 8][c]);
-    f[kk][2] = lds32(&tile[r0][c + 8]);
-    f[kk][3] = lds32(&tile[r0 + 8][c + 8]);
-  }
-}
+// ---- main kernel ----
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attn_bwd_main(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo, const Params p) {
+  using L = Layout<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + kStages;
 
-// acc (16 x 64) = A (16 x D, fragments) * tile^T, tile = 64 rows x D in shared.
-template <int D, int kStride>
-__device__ __forceinline__ void mma_a_tileT(float (&acc)[kBlock / 8][4],
-                                            const uint32_t (&a)[D / 16][4],
-                                            const __nv_bfloat16 (*tile)[kStride], int g,
-                                            int tig) {
+  // flattened grid: key tile fastest, then b*h, then the query split
+  const int k_tile = static_cast<int>(blockIdx.x % p.n_kt);
+  const int rest = static_cast<int>(blockIdx.x / p.n_kt);
+  const int bh = rest % p.BH;
+  const int split = rest / p.BH;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k0 = k_tile * kBlockN;
+  const int n_qt = p.Nq_pad / kBlockM;
+  const int qt_begin = split * p.tiles_per_split;
+  const int qt_end = min(n_qt, qt_begin + p.tiles_per_split);
+  const int n_it = max(0, qt_end - qt_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every copy ----
+    reg_dealloc<40>();
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&tq);
+      tma_prefetch(&tk);
+      tma_prefetch(&tv);
+      tma_prefetch(&tdo);
+      mbar_arrive_expect_tx(kv_full, L::kTxKV);
+      tma_load_4d(smem + L::kK, &tk, kv_full, 0, k0, h, b);
+      tma_load_4d(smem + L::kV, &tv, kv_full, 0, k0, h, b);
+      for (int it = 0; it < n_it; ++it) {
+        const int s = it % kStages;
+        const int q0 = (qt_begin + it) * kBlockM;
+        if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+        mbar_arrive_expect_tx(&full[s], L::kTxQ);
+        tma_load_4d(smem + L::kQ + s * L::kTileQ, &tq, &full[s], 0, q0, h, b);
+        tma_load_4d(smem + L::kDO + s * L::kTileQ, &tdo, &full[s], 0, q0, h, b);
+        const long long stat = static_cast<long long>(bh) * p.Nq_pad + q0;
+        bulk_load(smem + L::kLse + s * kBlockM * 4, p.lse2 + stat, kBlockM * 4, &full[s]);
+        bulk_load(smem + L::kDelta + s * kBlockM * 4, p.delta + stat, kBlockM * 4, &full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  reg_alloc<232>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int row = 16 * warp + lane / 4;  // rows row, row + 8 of this warpgroup's 64
+  const int col = 2 * (lane % 4);        // columns col, col + 1 of every 8
+  const int key_lo = 64 * wg + row;      // this thread's keys in the tile: key_lo, key_lo + 8
+  const bool key_ok[2] = {k0 + key_lo < p.Nk, k0 + key_lo + 8 < p.Nk};
+  const bool last_tile = k0 + kBlockN > p.Nk;  // the only tile with keys to mask
+
+  const uint32_t k_addr = smem_u32(smem + L::kK);
+  const uint32_t v_addr = smem_u32(smem + L::kV);
+
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int nt = 0; nt < kBlock / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % kStages;
+    mbar_wait(&full[s], (it / kStages) & 1);
+    const uint32_t q_addr = smem_u32(smem + L::kQ + s * L::kTileQ);
+    const uint32_t do_addr = smem_u32(smem + L::kDO + s * L::kTileQ);
+    const float* s_lse2 = reinterpret_cast<const float*>(smem + L::kLse + s * kBlockM * 4);
+    const float* s_delta = reinterpret_cast<const float*>(smem + L::kDelta + s * kBlockM * 4);
+
+    // S^T = K Q^T and dP^T = V dO^T: this warpgroup's 64 keys x 128 queries
+    float st[kBlockM / 2], dpt[kBlockM / 2];
+    const uint32_t own = wg * 64 * L::kRow;
+    wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const int c = kk * 16 + tig * 2;
-      const uint32_t b0 = lds32(&tile[nt * 8 + g][c]);
-      const uint32_t b1 = lds32(&tile[nt * 8 + g][c + 8]);
-      mma_16816(acc[nt], a[kk], b0, b1);
+      wgmma_ss<kBlockM, 0, 0>(st, desc_k<D>(k_addr + own + kk * 32), desc_k<D>(q_addr + kk * 32),
+                              kk > 0);
     }
-  }
-}
-
-// out (16 x D) += bf16(x) (16 x 64, accumulator layout) * tile (64 x D).
-template <int D, int kStride>
-__device__ __forceinline__ void mma_acc_tile(float (&out)[D / 8][4],
-                                             const float (&x)[kBlock / 8][4],
-                                             const __nv_bfloat16 (*tile)[kStride], int lane) {
-  const int mi = lane / 8;
-  const int mr = lane % 8;
 #pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack_bf16x2(x[2 * kk][0], x[2 * kk][1]);
-    a[1] = pack_bf16x2(x[2 * kk][2], x[2 * kk][3]);
-    a[2] = pack_bf16x2(x[2 * kk + 1][0], x[2 * kk + 1][1]);
-    a[3] = pack_bf16x2(x[2 * kk + 1][2], x[2 * kk + 1][3]);
-#pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
-      uint32_t bt[4];
-      ldmatrix_x4_trans(bt, &tile[kk * 16 + mr + 8 * (mi & 1)][dp * 16 + 8 * (mi >> 1)]);
-      mma_16816(out[2 * dp], a, bt[0], bt[1]);
-      mma_16816(out[2 * dp + 1], a, bt[2], bt[3]);
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss<kBlockM, 0, 0>(dpt, desc_k<D>(v_addr + own + kk * 32),
+                              desc_k<D>(do_addr + kk * 32), kk > 0);
     }
-  }
-}
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
 
-// Rows `row` and `row + 8` of a 16 x D accumulator, times `mul`, as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base, long long row_stride,
-                                           const float (&acc)[D / 8][4], int row, int n_rows,
-                                           int tig, float mul) {
+    // P^T and dS^T; columns are queries of the tile
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row + 8 * i;
-    if (r >= n_rows) continue;
-    __nv_bfloat16* out = base + r * row_stride;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + dt * 8 + tig * 2) =
-          pack_bf16x2(acc[dt][2 * i] * mul, acc[dt][2 * i + 1] * mul);
+    for (int i = 0; i < kBlockM / 2; ++i) {
+      const int c = 8 * (i / 4) + col + (i & 1);
+      const float e = exp2_ftz(fmaf(st[i], p.scale_log2, -s_lse2[c]));
+      const float pe = last_tile && !key_ok[(i >> 1) & 1] ? 0.f : e;
+      st[i] = pe;
+      dpt[i] = pe * (dpt[i] - s_delta[c]);
     }
-  }
-}
+    uint32_t pa[kBlockM / 16][4], dsa[kBlockM / 16][4];
+    acc_to_a<kBlockM>(pa, st);
+    acc_to_a<kBlockM>(dsa, dpt);
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attn_bwd_dkv_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // +16 bytes per row: conflict-free fragment loads
-  __shared__ __align__(16) __nv_bfloat16 sQ[2][kBlock][kStride];
-  __shared__ __align__(16) __nv_bfloat16 sdO[2][kBlock][kStride];
-  __shared__ float sLse2[2][kBlock];
-  __shared__ float sDelta[2][kBlock];
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int k0 = blockIdx.x * kBlock;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int r0 = warp * 16 + g;  // this thread's keys in the tile: r0, r0 + 8
-
-  const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.Nq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.Nq;
-  const int n_q = (p.Nq + kBlock - 1) / kBlock;
-
-  // prologue: this CTA's K and V tiles go through buffer 1, which is free
-  // until the first prefetch; query tile 0 goes to buffer 0
-  load_tile<D, kStride, kBlock, kThreads>(sQ[1], k, p.k_sn, k0, p.Nk);
-  load_tile<D, kStride, kBlock, kThreads>(sdO[1], v, p.v_sn, k0, p.Nk);
-  load_tile<D, kStride, kBlock, kThreads>(sQ[0], q, p.q_sn, 0, p.Nq);
-  load_tile<D, kStride, kBlock, kThreads>(sdO[0], dout, p.do_sn, 0, p.Nq);
-  cp_async_commit();
-  load_row_stats(sLse2[0], sDelta[0], lse, delta, 0, p.Nq);
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t kf[D / 16][4];
-  uint32_t vf[D / 16][4];
-  load_a_frags<D, kStride>(kf, sQ[1], r0, tig);
-  load_a_frags<D, kStride>(vf, sdO[1], r0, tig);
-  __syncthreads();  // buffer 1 is refilled by the first prefetch
-
-  float dk[D / 8][4];
-  float dv[D / 8][4];
+    // dV += P^T dO, dK += dS^T Q: B operands MN-major (rows are queries)
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    dk[i][0] = dk[i][1] = dk[i][2] = dk[i][3] = 0.f;
-    dv[i][0] = dv[i][1] = dv[i][2] = dv[i][3] = 0.f;
-  }
-  const bool key_ok[2] = {k0 + r0 < p.Nk, k0 + r0 + 8 < p.Nk};
-
-  for (int i = 0; i < n_q; ++i) {
-    const int st = i & 1;
-    if (i + 1 < n_q) {
-      load_tile<D, kStride, kBlock, kThreads>(sQ[st ^ 1], q, p.q_sn, (i + 1) * kBlock, p.Nq);
-      load_tile<D, kStride, kBlock, kThreads>(sdO[st ^ 1], dout, p.do_sn, (i + 1) * kBlock,
-                                              p.Nq);
-      load_row_stats(sLse2[st ^ 1], sDelta[st ^ 1], lse, delta, (i + 1) * kBlock, p.Nq);
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      wgmma_rs<D, 1>(dv, pa[kk], desc_mn<D>(do_addr + kk * 16 * L::kRow), 1);
     }
-    cp_async_commit();   // possibly empty: keeps the group count uniform
-    cp_async_wait<1>();  // everything but the prefetch has landed
-    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      wgmma_rs<D, 1>(dk, dsa[kk], desc_mn<D>(q_addr + kk * 16 * L::kRow), 1);
+    }
+    wgmma_commit();
 
-    // P^T = exp2(S^T * scale * log2(e) - LSE2), S^T = K Q^T: 16 keys x 64 queries
-    float s[kBlock / 8][4];
-    mma_a_tileT<D, kStride>(s, kf, sQ[st], g, tig);
-    const int qbase = i * kBlock;
+    // dS^T (bf16) into shared memory as [query half][key][query % 64], 128-byte
+    // swizzled
+    uint8_t* ds_tile = smem + L::kDS + (it & 1) * 2 * kHalfDS;
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
+    for (int j = 0; j < kBlockM / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + tig * 2 + (e & 1);
-        const bool ok = key_ok[e >> 1] && qbase + col < p.Nq;
-        s[nt][e] = ok ? exp2f(fmaf(s[nt][e], p.scale_log2, -sLse2[st][col])) : 0.f;
+      for (int r = 0; r < 2; ++r) {
+        const int key = key_lo + 8 * r;
+        const int chunk = (j % 8) ^ (key & 7);
+        *reinterpret_cast<uint32_t*>(ds_tile + (j / 8) * kHalfDS + key * 128 + chunk * 16 +
+                                     col * 2) = dsa[j / 2][(j & 1) * 2 + r];
       }
     }
-    // dV += P^T dO
-    mma_acc_tile<D, kStride>(dv, s, sdO[st], lane);
-    // dS^T = P^T * (dP^T - delta), dP^T = V dO^T
-    float dpt[kBlock / 8][4];
-    mma_a_tileT<D, kStride>(dpt, vf, sdO[st], g, tig);
+    fence_proxy_async();
+    named_barrier_sync<kConsumers>(1);
+
+    // dQ[64 wg : 64 wg + 64] = dS[64 wg : 64 wg + 64] K over the tile's 128
+    // keys: A = dS read MN-major from its dS^T half, B = K read MN-major
+    float dq[D / 2];
+    const uint32_t ds_addr = smem_u32(ds_tile + wg * kHalfDS);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      wgmma_ss<D, 1, 1>(dq, desc_ds(ds_addr + kk * 16 * 128),
+                        desc_mn<D>(k_addr + kk * 16 * L::kRow), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    fence_regs(dk);
+    fence_regs(dv);
+    mbar_arrive(&empty[s]);  // Q, dO, LSE2 and delta of this stage are read
+
+    // stage dQ (f32) and add it into this (64-query block) of the accumulator
+    // with one bulk reduce-add
+    float* stage = reinterpret_cast<float*>(smem + L::kDQ + wg * L::kTileDQ);
+    if (threadIdx.x % 128 == 0) bulk_wait_all<true>();  // the last reduce read the stage
+    named_barrier_sync<128>(2 + wg);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= dpt[nt][e] - sDelta[st][nt * 8 + tig * 2 + (e & 1)];
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        *reinterpret_cast<float2*>(stage + dq_block_offset(row + 8 * r, 8 * j + col)) =
+            make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]);
       }
     }
-    // dK += dS^T Q (scaled by D^-0.5 at the store)
-    mma_acc_tile<D, kStride>(dk, s, sQ[st], lane);
-    __syncthreads();  // buffer st is refilled by the next iteration's prefetch
+    fence_proxy_async();
+    named_barrier_sync<128>(2 + wg);
+    if (threadIdx.x % 128 == 0) {
+      const long long block =
+          static_cast<long long>(bh) * (p.Nq_pad / 64) + 2 * (qt_begin + it) + wg;
+      bulk_reduce_add_f32(p.dq_acc + block * (64 * D), stage, L::kTileDQ);
+    }
   }
+  if (threadIdx.x % 128 == 0) bulk_wait_all<false>();
 
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, k0 + r0, p.Nk, tig, p.scale);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, k0 + r0, p.Nk, tig, 1.f);
+  // dK (scaled) and dV: bf16 through the strides, or f32 partials of this split
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = k0 + key_lo + 8 * r;
+    if (key >= p.Nk) continue;
+    if (p.splits == 1) {
+      __nv_bfloat16* dkr = p.dk + b * p.dk_sb + key * p.dk_sn + h * p.dk_sh;
+      __nv_bfloat16* dvr = p.dv + b * p.dv_sb + key * p.dv_sn + h * p.dv_sh;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * j + col) =
+            pack_bf16(dk[4 * j + 2 * r] * p.scale, dk[4 * j + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * j + col) =
+            pack_bf16(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    } else {
+      const long long off =
+          ((static_cast<long long>(split) * p.BH + bh) * p.Nk_pad + key) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(p.dk_part + off + 8 * j + col) =
+            make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+        *reinterpret_cast<float2*>(p.dv_part + off + 8 * j + col) =
+            make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// ---- epilogue: one thread per four columns of a row ----
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 x, float mul) {
+  uint2 v;
+  v.x = pack_bf16(x.x * mul, x.y * mul);
+  v.y = pack_bf16(x.z * mul, x.w * mul);
+  *reinterpret_cast<uint2*>(dst) = v;
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attn_bwd_dq_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  __shared__ __align__(16) __nv_bfloat16 sK[2][kBlock][kStride];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][kBlock][kStride];
-
-  const int bh = blockIdx.y;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlock;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int tig = lane % 4;
-  const int r0 = warp * 16 + g;  // this thread's queries in the tile: r0, r0 + 8
-
-  const __nv_bfloat16* q = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* v = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dout = p.dout + b * p.do_sb + h * p.do_sh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.Nq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.Nq;
-  const int n_kv = (p.Nk + kBlock - 1) / kBlock;
-
-  // prologue: this CTA's Q and dO tiles go through buffer 1, key tile 0 to
-  // buffer 0
-  load_tile<D, kStride, kBlock, kThreads>(sK[1], q, p.q_sn, q0, p.Nq);
-  load_tile<D, kStride, kBlock, kThreads>(sV[1], dout, p.do_sn, q0, p.Nq);
-  load_tile<D, kStride, kBlock, kThreads>(sK[0], k, p.k_sn, 0, p.Nk);
-  load_tile<D, kStride, kBlock, kThreads>(sV[0], v, p.v_sn, 0, p.Nk);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-  uint32_t df[D / 16][4];
-  load_a_frags<D, kStride>(qf, sK[1], r0, tig);
-  load_a_frags<D, kStride>(df, sV[1], r0, tig);
-  __syncthreads();
-
-  float lse2[2];
-  float dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + 8 * i;
-    lse2[i] = row < p.Nq ? lse[row] * kLog2e : 0.f;
-    dl[i] = row < p.Nq ? delta[row] : 0.f;
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_kv) {
-      load_tile<D, kStride, kBlock, kThreads>(sK[st ^ 1], k, p.k_sn, (j + 1) * kBlock, p.Nk);
-      load_tile<D, kStride, kBlock, kThreads>(sV[st ^ 1], v, p.v_sn, (j + 1) * kBlock, p.Nk);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-
-    // P = exp2(S * scale * log2(e) - LSE2), S = Q K^T: 16 queries x 64 keys
-    float s[kBlock / 8][4];
-    mma_a_tileT<D, kStride>(s, qf, sK[st], g, tig);
-    const int key0 = j * kBlock;
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = key0 + nt * 8 + tig * 2 + (e & 1);
-        s[nt][e] = key < p.Nk ? exp2f(fmaf(s[nt][e], p.scale_log2, -lse2[e >> 1])) : 0.f;
-      }
-    }
-    // dS = P * (dP - delta), dP = dO V^T
-    float dpm[kBlock / 8][4];
-    mma_a_tileT<D, kStride>(dpm, df, sV[st], g, tig);
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] *= dpm[nt][e] - dl[e >> 1];
-    }
-    // dQ += dS K (scaled by D^-0.5 at the store)
-    mma_acc_tile<D, kStride>(acc, s, sK[st], lane);
-    __syncthreads();
-  }
-
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, q0 + r0, p.Nq, tig, p.scale);
+__global__ void __launch_bounds__(256)
+    flash_attn_bwd_dq(const float* dq_acc, __nv_bfloat16* dq, int H, int Nq, int Nq_pad,
+                      long long rows, long long sb, long long sn, long long sh, float scale) {
+  const long long t = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = t / (D / 4);
+  if (row >= rows) return;
+  const int c = 4 * static_cast<int>(t % (D / 4));
+  const int bh = static_cast<int>(row / Nq);
+  const int q = static_cast<int>(row % Nq);
+  const long long block = static_cast<long long>(bh) * (Nq_pad / 64) + q / 64;
+  const float4 x =
+      *reinterpret_cast<const float4*>(dq_acc + block * (64 * D) + dq_block_offset(q % 64, c));
+  store4(dq + (bh / H) * sb + q * sn + (bh % H) * sh + c, x, scale);
 }
 
 template <int D>
-cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
-  const dim3 grid_dkv((p.Nk + kBlock - 1) / kBlock, B * p.H);
-  flash_attn_bwd_dkv_kernel<D><<<grid_dkv, kThreads, 0, stream>>>(p);
-  const cudaError_t err = cudaGetLastError();
+__global__ void __launch_bounds__(256) flash_attn_bwd_dkv_sum(
+    const float* dk_part, const float* dv_part, __nv_bfloat16* dk, __nv_bfloat16* dv, int H,
+    int Nk, int Nk_pad, int splits, long long rows, long long dk_sb, long long dk_sn,
+    long long dk_sh, long long dv_sb, long long dv_sn, long long dv_sh, float scale) {
+  const long long t = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const long long row = t / (D / 4);
+  if (row >= rows) return;
+  const int c = 4 * static_cast<int>(t % (D / 4));
+  const int bh = static_cast<int>(row / Nk);
+  const int key = static_cast<int>(row % Nk);
+  const long long split_stride = rows / Nk * Nk_pad * D;
+  const long long off = (static_cast<long long>(bh) * Nk_pad + key) * D + c;
+  float4 sk = make_float4(0.f, 0.f, 0.f, 0.f), sv = sk;
+  for (int z = 0; z < splits; ++z) {  // fixed order: deterministic
+    const float4 a = *reinterpret_cast<const float4*>(dk_part + z * split_stride + off);
+    const float4 e = *reinterpret_cast<const float4*>(dv_part + z * split_stride + off);
+    sk.x += a.x; sk.y += a.y; sk.z += a.z; sk.w += a.w;
+    sv.x += e.x; sv.y += e.y; sv.z += e.z; sv.w += e.w;
+  }
+  const int b = bh / H;
+  const int h = bh % H;
+  store4(dk + b * dk_sb + key * dk_sn + h * dk_sh + c, sk, scale);
+  store4(dv + b * dv_sb + key * dv_sn + h * dv_sh + c, sv, 1.f);
+}
+
+unsigned int blocks_for(long long threads) {
+  return static_cast<unsigned int>((threads + 255) / 256);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* dq, void* lse2, void* delta, Params p, int B,
+                   long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+                   long long k_sn, long long k_sh, long long v_sb, long long v_sn,
+                   long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+                   long long do_sb, long long do_sn, long long do_sh, long long dq_sb,
+                   long long dq_sn, long long dq_sh, cudaStream_t st) {
+  using L = Layout<D>;
+  const CUtensorMapSwizzle swz = D == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t err = make_tensor_map(&tq, q, D, p.Nq, p.H, B, q_sn, q_sh, q_sb, D, kBlockM, swz);
+  if (err == cudaSuccess)
+    err = make_tensor_map(&tdo, dout, D, p.Nq, p.H, B, do_sn, do_sh, do_sb, D, kBlockM, swz);
+  if (err == cudaSuccess)
+    err = make_tensor_map(&tk, k, D, p.Nk, p.H, B, k_sn, k_sh, k_sb, D, kBlockN, swz);
+  if (err == cudaSuccess)
+    err = make_tensor_map(&tv, v, D, p.Nk, p.H, B, v_sn, v_sh, v_sb, D, kBlockN, swz);
   if (err != cudaSuccess) return err;
-  const dim3 grid_dq((p.Nq + kBlock - 1) / kBlock, B * p.H);
-  flash_attn_bwd_dq_kernel<D><<<grid_dq, kThreads, 0, stream>>>(p);
+
+  const long long pro_rows = static_cast<long long>(p.BH) * p.Nq_pad;
+  flash_attn_bwd_prologue<D><<<static_cast<unsigned int>(pro_rows / 8), 256, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(lse2), static_cast<float*>(delta),
+      p.dq_acc, p.H, p.Nq, p.Nq_pad, o_sb, o_sn, o_sh, do_sb, do_sn, do_sh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(flash_attn_bwd_main<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::kBytes);
+  if (err != cudaSuccess) return err;
+  const long long ctas = static_cast<long long>(p.n_kt) * p.BH * p.splits;
+  flash_attn_bwd_main<D><<<static_cast<unsigned int>(ctas), kThreads, L::kBytes, st>>>(
+      tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long long dq_rows = static_cast<long long>(p.BH) * p.Nq;
+  flash_attn_bwd_dq<D><<<blocks_for(dq_rows * (D / 4)), 256, 0, st>>>(
+      p.dq_acc, static_cast<__nv_bfloat16*>(dq), p.H, p.Nq, p.Nq_pad, dq_rows, dq_sb, dq_sn,
+      dq_sh, p.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+
+  const long long kv_rows = static_cast<long long>(p.BH) * p.Nk;
+  flash_attn_bwd_dkv_sum<D><<<blocks_for(kv_rows * (D / 4)), 256, 0, st>>>(
+      p.dk_part, p.dv_part, p.dk, p.dv, p.H, p.Nk, p.Nk_pad, p.splits, kv_rows, p.dk_sb,
+      p.dk_sn, p.dk_sh, p.dv_sb, p.dv_sn, p.dv_sh, p.scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int videogpa_flash_attn_bwd(
-    const void* q, const void* k, const void* v, const void* dout, const void* lse,
-    const void* delta, void* dq, void* dk, void* dv, int B, int H, int Nq, int Nk, int D,
-    long long q_sb, long long q_sn, long long q_sh, long long k_sb, long long k_sn,
-    long long k_sh, long long v_sb, long long v_sn, long long v_sh, long long do_sb,
-    long long do_sn, long long do_sh, long long dq_sb, long long dq_sn, long long dq_sh,
-    long long dk_sb, long long dk_sn, long long dk_sh, long long dv_sb, long long dv_sn,
-    long long dv_sh, float scale, void* stream) {
+    const void* q, const void* k, const void* v, const void* o, const void* dout,
+    const void* lse, void* dq, void* dk, void* dv, void* lse2, void* delta, void* dq_acc,
+    void* dk_part, void* dv_part, int B, int H, int Nq, int Nk, int D, int splits,
+    int tiles_per_split, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn, long long v_sh,
+    long long o_sb, long long o_sn, long long o_sh, long long do_sb, long long do_sn,
+    long long do_sh, long long dq_sb, long long dq_sn, long long dq_sh, long long dk_sb,
+    long long dk_sn, long long dk_sh, long long dv_sb, long long dv_sn, long long dv_sh,
+    float scale, void* stream) {
+  if (splits < 1 || B < 1 || H < 1 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  const int n_qt = (Nq + kBlockM - 1) / kBlockM;
+  const int n_kt = (Nk + kBlockN - 1) / kBlockN;
+  if (static_cast<long long>(splits - 1) * tiles_per_split >= n_qt ||
+      static_cast<long long>(splits) * tiles_per_split < n_qt) {
+    return cudaErrorInvalidValue;  // every split non-empty, every query tile covered
+  }
+  if (static_cast<long long>(n_kt) * B * H * splits > 0x7fffffffLL) return cudaErrorInvalidValue;
+
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
+  p.lse2 = static_cast<const float*>(lse2);
   p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dq_acc = static_cast<float*>(dq_acc);
+  p.dk_part = static_cast<float*>(dk_part);
+  p.dv_part = static_cast<float*>(dv_part);
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.H = H;
+  p.BH = B * H;
   p.Nq = Nq;
   p.Nk = Nk;
-  p.q_sb = q_sb; p.q_sn = q_sn; p.q_sh = q_sh;
-  p.k_sb = k_sb; p.k_sn = k_sn; p.k_sh = k_sh;
-  p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
-  p.do_sb = do_sb; p.do_sn = do_sn; p.do_sh = do_sh;
-  p.dq_sb = dq_sb; p.dq_sn = dq_sn; p.dq_sh = dq_sh;
+  p.Nq_pad = n_qt * kBlockM;
+  p.Nk_pad = n_kt * kBlockN;
+  p.n_kt = n_kt;
+  p.splits = splits;
+  p.tiles_per_split = tiles_per_split;
   p.dk_sb = dk_sb; p.dk_sn = dk_sn; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_sn = dv_sn; p.dv_sh = dv_sh;
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VIDEOGPA_BWD_LAUNCH(DIM)                                                                \
+  launch<DIM>(q, k, v, o, dout, lse, dq, lse2, delta, p, B, q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, \
+              v_sb, v_sn, v_sh, o_sb, o_sn, o_sh, do_sb, do_sn, do_sh, dq_sb, dq_sn, dq_sh, st)
   switch (D) {
-    case 16: return launch<16>(p, B, s);
-    case 32: return launch<32>(p, B, s);
-    case 64: return launch<64>(p, B, s);
+    case 16: return VIDEOGPA_BWD_LAUNCH(16);
+    case 32: return VIDEOGPA_BWD_LAUNCH(32);
+    case 64: return VIDEOGPA_BWD_LAUNCH(64);
     default: return cudaErrorInvalidValue;
   }
+#undef VIDEOGPA_BWD_LAUNCH
+}
+
+// The main kernel's registers a thread at launch (ptxas; setmaxnreg then
+// moves the consumers to 232) and its dynamic shared memory a CTA at head_dim
+// D, for reports.
+extern "C" int videogpa_flash_attn_bwd_attrs(int D, int* regs, int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      err = cudaFuncGetAttributes(&a, flash_attn_bwd_main<16>);
+      *smem_bytes = Layout<16>::kBytes;
+      break;
+    case 32:
+      err = cudaFuncGetAttributes(&a, flash_attn_bwd_main<32>);
+      *smem_bytes = Layout<32>::kBytes;
+      break;
+    case 64:
+      err = cudaFuncGetAttributes(&a, flash_attn_bwd_main<64>);
+      *smem_bytes = Layout<64>::kBytes;
+      break;
+    default: break;
+  }
+  if (err == cudaSuccess) *regs = a.numRegs;
+  return err;
 }

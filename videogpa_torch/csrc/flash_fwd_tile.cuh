@@ -1,6 +1,5 @@
-// The tensor-core flash-attention forward shared by K1 (flash_attn_fwd.cu,
-// head_dim 16/32/64) and K6's bf16 path (flash_attn_fwd_d128.cu, head_dim
-// 128): O = softmax(Q K^T / sqrt(D)) V, non-causal, bf16 operands, f32
+// K1's tensor-core flash-attention forward (flash_attn_fwd.cu, head_dim
+// 16/32/64): O = softmax(Q K^T / sqrt(D)) V, non-causal, bf16 operands, f32
 // accumulation, optional natural-log LSE.
 //
 // Design: one CTA of 4 warps per (b*h, 64-row Q tile); each warp owns 16 query
@@ -219,11 +218,7 @@ __global__ void __launch_bounds__(kThreads) kernel(const Params p) {
 template <int D>
 cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<D>();
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-  }
+  static_assert(bytes <= 48 * 1024, "dynamic shared memory above 48 KB needs an opt-in");
   const dim3 grid((p.Nq + kBlockM - 1) / kBlockM, B * p.H);
   kernel<D><<<grid, kThreads, bytes, stream>>>(p);
   return cudaGetLastError();

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (flash_attn_bwd_d128.cu, flash_attn_short.cu): shared-memory matrix
+// (flash_attn_bwd.cu, flash_attn_bwd_d128.cu, flash_attn_fwd_d128.cu,
+// flash_attn_short.cu): shared-memory matrix
 // descriptors and the bf16 -> f32 `wgmma.mma_async` products (A from shared
-// memory or from registers), wgmma fence / commit / wait, mbarrier init /
+// memory or from registers), wgmma fence / commit / wait, a flush-to-zero
+// exp2, mbarrier init /
 // arrive / expect-tx / wait, TMA tile and bulk loads, bulk f32 reduce-add,
 // setmaxnreg, named
 // barriers, and on the host a rank-4 tensor map over (D, N, H, B) built with
@@ -224,6 +226,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 32) wgmma_rs_n32<TB>(d, a, db, scale_d);
   if constexpr (N == 64) wgmma_rs_n64<TB>(d, a, db, scale_d);
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
+}
+
+// 2^x as one ex2.approx.ftz on the special-function unit: a result below
+// 2^-126 flushes to 0. exp2f (no fast-math) wraps the same instruction in a
+// subnormal fix-up, which in flash_attn_bwd.cu's softmax cost a tenth of
+// the kernel.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -38,19 +38,17 @@ NVCC_FLAGS = [
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P]
-# entry point -> (source, C symbol, argtypes)
-_BWD_ARGS = [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P]
-# K7: q, k, v, o, do, lse, dq, dk, dv and its f32 scratch (lse2, delta, dq_acc,
-# dk_part, dv_part); B, H, Nq, Nk, D, splits, query tiles per split; (b, n, h)
-# strides of q, k, v, o, do, dq, dk, dv; scale; stream
-_BWD_D128_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
+# K3 and K7: q, k, v, o, do, lse, dq, dk, dv and the f32 scratch (lse2, delta,
+# dq_acc, dk_part, dv_part); B, H, Nq, Nk, D, splits, query tiles per split;
+# (b, n, h) strides of q, k, v, o, do, dq, dk, dv; scale; stream
+_BWD_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
 # q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream
 _INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
+# entry point -> (source, C symbol, argtypes)
 _SIGNATURES = {
     "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
     "flash_attn_bwd": ("flash_attn_bwd", "videogpa_flash_attn_bwd", _BWD_ARGS),
-    "flash_attn_bwd_d128": (
-        "flash_attn_bwd_d128", "videogpa_flash_attn_bwd_d128", _BWD_D128_ARGS),
+    "flash_attn_bwd_d128": ("flash_attn_bwd_d128", "videogpa_flash_attn_bwd_d128", _BWD_ARGS),
     "flash_attn_short": (
         "flash_attn_short", "videogpa_flash_attn_short",
         [_P] * 4 + [_I] * 5 + [_LL] * 12 + [_F, _P],
@@ -66,6 +64,9 @@ _SIGNATURES = {
         "flash_attn_short", "videogpa_flash_attn_short_attrs", [_I, _P, _P]),
     "flash_attn_bwd_d128_attrs": (
         "flash_attn_bwd_d128", "videogpa_flash_attn_bwd_d128_attrs", [_P, _P]),
+    "flash_attn_bwd_attrs": ("flash_attn_bwd", "videogpa_flash_attn_bwd_attrs", [_I, _P, _P]),
+    "flash_attn_fwd_d128_attrs": (
+        "flash_attn_fwd_d128", "videogpa_flash_attn_fwd_d128_attrs", [_P, _P]),
     "flash_attn_int8_d128": (
         "flash_attn_int8", "videogpa_flash_attn_int8_d128", _INT8_ARGS),
 }
@@ -138,7 +139,8 @@ def kernel(name: str) -> Callable[..., int]:
 
 def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
-    report entry (``flash_attn_short`` at head dim ``args[0]``,
+    report entry (``flash_attn_short`` and ``flash_attn_bwd`` at head dim
+    ``args[0]``, ``flash_attn_fwd_d128`` (its bf16 kernel),
     ``flash_attn_bwd_d128``), as the card reports them."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = kernel(f"{name}_attrs")(*args, ctypes.byref(regs), ctypes.byref(smem))

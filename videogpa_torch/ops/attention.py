@@ -7,12 +7,13 @@ the kernel or raises. There is no fallback from one to the other.
 
 - ``flash_attn_fwd`` (K1, ``csrc/flash_attn_fwd.cu``): bf16, head_dim < 128,
   optional LSE.
-- ``flash_attn_bwd`` (K3, ``csrc/flash_attn_bwd.cu``): its backward.
+- ``flash_attn_bwd`` (K3, ``csrc/flash_attn_bwd.cu``): its backward, on
+  wgmma + TMA; computes delta = rowsum(O * dO) itself.
 - ``flash_attn_short`` (K4, ``csrc/flash_attn_short.cu``): bf16 (B, N, H, D)
   rows of at most 2,048 keys, one-pass online softmax on wgmma + TMA,
   ``n_valid`` mask, inference only.
 - ``flash_attn_fwd_d128`` (K6, ``csrc/flash_attn_fwd_d128.cu``): bf16 at
-  head_dim 128 on tensor cores, optional LSE.
+  head_dim 128 on wgmma + TMA, a persistent grid, optional LSE.
 - ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward,
   on wgmma + TMA; computes delta = rowsum(O * dO) itself.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
@@ -98,11 +99,18 @@ def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
         )
 
 
+# CUDA's grid y limit: a kernel that puts b*h on blockIdx.y takes at most
+# this many heads. K3 and K6's bf16 kernel flatten their grids and take any.
+GRID_Y_MAX = 65535
+
+
 def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
-                    head_dims=KERNEL_HEAD_DIMS, **like_q) -> Tuple[int, int, int, int, int]:
+                    head_dims=KERNEL_HEAD_DIMS, max_bh: Optional[int] = GRID_Y_MAX,
+                    **like_q) -> Tuple[int, int, int, int, int]:
     """Validate CUDA kernel operands; ``like_q`` are named tensors shaped
     like q. bf16 kernels copy 16-byte chunks, so their operands must be
-    16-byte aligned. Returns (B, Nq, H, D, Nk)."""
+    16-byte aligned. ``max_bh``: the most B*H the kernel's grid takes (None:
+    any). Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, _, _, _ = _dims(q, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k, layout)
     for name, x in {"q": q, "k": k, "v": v, **like_q}.items():
@@ -120,31 +128,38 @@ def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
         raise ValueError(f"{fn}: shapes {shapes} do not match")
     if D not in head_dims:
         raise NotImplementedError(f"{fn}: head_dim {D} not in {head_dims} for {dtype}")
-    if min(Nq, Nk) < 1 or B * H > 65535:
+    if min(Nq, Nk) < 1 or (max_bh is not None and B * H > max_bh):
         raise ValueError(f"{fn}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
     return B, Nq, H, D, Nk
 
 
-def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims):
+def _call(fn_name: str, entry: str, device: torch.device, *args) -> None:
+    """Launch the C entry point ``entry`` on ``device``'s current stream (the
+    stream is its last argument); raises if the launch failed."""
+    fn = _kernels.kernel(entry)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return x.data_ptr() if x is not None else None
+
+
+def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims,
+                max_bh: Optional[int] = GRID_Y_MAX):
     """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface."""
     B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
-                                      head_dims=head_dims)
+                                      head_dims=head_dims, max_bh=max_bh)
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     strides = []
     for x in (q, k, v, o):
         strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel(entry)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr() if lse is not None else None,
-            B, H, Nq, Nk, D, *strides, D ** -0.5 * _LOG2E, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    _call(fn_name, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+          _ptr(lse), B, H, Nq, Nk, D, *strides, D ** -0.5 * _LOG2E)
     return o, lse
 
 
@@ -210,44 +225,17 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd"):
     return grads
 
 
-def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do):
+def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do,
+                        max_bh: Optional[int] = GRID_Y_MAX):
     """``_check_operands`` for a backward kernel, and its natural-log LSE.
     Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, head_dims=head_dims,
-                                      o=o, do=do)
+                                      max_bh=max_bh, o=o, do=do)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
         raise ValueError(f"{fn_name}: lse must be a contiguous ({B}, {H}, {Nq}) "
                          f"float32 tensor on {q.device}")
     return B, Nq, H, D, Nk
-
-
-def _launch_bwd(q, k, v, o, lse, do, layout):
-    """K3's launch: delta = rowsum(O * dO) is a PyTorch reduction."""
-    B, Nq, H, D, Nk = _check_bwd_operands("flash_attn_bwd", layout, KERNEL_HEAD_DIMS,
-                                          q, k, v, o, lse, do)
-    delta = (o.float() * do.float()).sum(-1)
-    if layout == "bnhd":
-        delta = delta.transpose(1, 2)
-    delta = delta.contiguous()  # (B, H, Nq), as the LSE
-
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    strides = []
-    for x in (q, k, v, do, dq, dk, dv):
-        strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel("flash_attn_bwd")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Nq, Nk, D, *strides, D ** -0.5, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_bwd: kernel launch failed with cudaError {rc}")
-    return dq, dk, dv
 
 
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -257,10 +245,13 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
 
     q, o and do share q's layout and shape; k, v as in ``flash_attn_fwd``.
     The gradients are new contiguous tensors in ``layout``. CPU tensors take
-    the plain version. CUDA tensors must be bf16 with D in {16, 32, 64}, with
-    the strides ``flash_attn_fwd`` takes; anything else raises. delta =
-    rowsum(O * dO) is a PyTorch reduction, as in the JAX package. Each kernel
-    launch adds one to ``flash_attn_bwd.launches``.
+    the plain version. CUDA tensors must be bf16 with D in {16, 32, 64} and
+    meet TMA's 16-byte rule (``check_16_bytes``), at any B*H; anything else
+    raises. The kernel computes delta = rowsum(O * dO) itself. dK and dV are
+    deterministic; dQ is summed over key tiles by f32 reduce-adds in the
+    order the CTAs reach them, so its last bits vary from run to run. Each
+    launch (a prologue, the main kernel and an epilogue) adds one to
+    ``flash_attn_bwd.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -268,7 +259,8 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
-    grads = _launch_bwd(q, k, v, o, lse, do, layout)
+    grads = _launch_bwd("flash_attn_bwd", KERNEL_HEAD_DIMS, BWD_QUERIES, None,
+                        q, k, v, o, lse, do, layout)
     flash_attn_bwd.launches += 1
     return grads
 
@@ -331,13 +323,8 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = []
     for x in (q, k, v, o):
         strides += _dims(x, "bnhd")[4:]
-    fn = _kernels.kernel("flash_attn_short")
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                B, H, Nq, n_valid, D, *strides, D ** -0.5 * _LOG2E, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_short: kernel launch failed with cudaError {rc}")
+    _call("flash_attn_short", "flash_attn_short", q.device, q.data_ptr(), k.data_ptr(),
+          v.data_ptr(), o.data_ptr(), B, H, Nq, n_valid, D, *strides, D ** -0.5 * _LOG2E)
     flash_attn_short.launches += 1
     return o
 
@@ -347,11 +334,12 @@ flash_attn_short.launches = 0
 
 def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         layout: str = "bnhd", with_lse: bool = False):
-    """K1's function at head_dim 128 in bf16 (the tensor-core tile of K1 at
-    D = 128). Same arguments and results as ``flash_attn_fwd``.
+    """K1's function at head_dim 128 in bf16 (a persistent wgmma + TMA
+    kernel). Same arguments and results as ``flash_attn_fwd``.
 
     CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
-    tensors must be bf16 with D = 128; anything else raises. Each launch adds
+    tensors must be bf16 with D = 128 and meet TMA's 16-byte rule
+    (``check_16_bytes``), at any B*H; anything else raises. Each launch adds
     one to ``flash_attn_fwd_d128.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
@@ -361,7 +349,7 @@ def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_fwd_d128: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", q, k, v, layout,
-                      with_lse, torch.bfloat16, (128,))
+                      with_lse, torch.bfloat16, (128,), max_bh=None)
     flash_attn_fwd_d128.launches += 1
     return out
 
@@ -389,36 +377,40 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
-    grads = _launch_bwd_d128(q, k, v, o, lse, do, layout)
+    grads = _launch_bwd("flash_attn_bwd_d128", (128,), BWD_D128_QUERIES, GRID_Y_MAX,
+                        q, k, v, o, lse, do, layout)
     flash_attn_bwd_d128.launches += 1
     return grads
 
 
 flash_attn_bwd_d128.launches = 0
 
-# K7's tiles (csrc/flash_attn_bwd_d128.cu): a CTA per 128 keys walks the
-# query tiles of 64, one CTA an SM. Short key rows split the query range so
-# that the grid holds at least two CTAs for each of the H100's 132 SMs.
-BWD_D128_KEYS, BWD_D128_QUERIES, H100_SMS = 128, 64, 132
-BWD_D128_MIN_CTAS = 2 * H100_SMS
+# The wgmma backward kernels' tiles: a CTA per 128 keys walks the query
+# tiles, 128 queries a tile in K3 (csrc/flash_attn_bwd.cu) and 64 in K7
+# (csrc/flash_attn_bwd_d128.cu), one CTA an SM. Short key rows split the
+# query range so that the grid holds at least two CTAs for each of the H100's
+# 132 SMs.
+BWD_KEYS, BWD_QUERIES, BWD_D128_QUERIES, H100_SMS = 128, 128, 64, 132
+BWD_MIN_CTAS = 2 * H100_SMS
 
 
-def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
-    """(splits, query tiles per split) of K7's grid for B*H = ``bh`` heads.
+def bwd_splits(bh: int, nq: int, nk: int, q_tile: int) -> Tuple[int, int]:
+    """(splits, query tiles per split) of a wgmma backward kernel's grid for
+    B*H = ``bh`` heads and query tiles of ``q_tile``.
 
-    One split when the (key tile, head) grid has ``BWD_D128_MIN_CTAS`` CTAs;
+    One split when the (key tile, head) grid has ``BWD_MIN_CTAS`` CTAs;
     otherwise the split count, among those that reach that many CTAs (or
     give every query tile its own split), with the least modelled time:
     waves of 132 CTAs times the query tiles a CTA walks, plus two tiles'
     worth for loading K and V and storing the partials. Every split is
     non-empty and every query tile falls in exactly one."""
-    n_qt = -(-nq // BWD_D128_QUERIES)
-    ctas = -(-nk // BWD_D128_KEYS) * bh
-    if ctas >= BWD_D128_MIN_CTAS:
+    n_qt = -(-nq // q_tile)
+    ctas = -(-nk // BWD_KEYS) * bh
+    if ctas >= BWD_MIN_CTAS:
         return 1, n_qt
     best = None
     for want in range(1, n_qt + 1):
-        if ctas * want < BWD_D128_MIN_CTAS and want < n_qt:
+        if ctas * want < BWD_MIN_CTAS and want < n_qt:
             continue
         per = -(-n_qt // want)
         splits = -(-n_qt // per)
@@ -428,16 +420,22 @@ def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
     return best[1], best[2]
 
 
-def _launch_bwd_d128(q, k, v, o, lse, do, layout):
-    """K7's launch: the kernel computes delta itself from O and dO, so O is
-    an operand; the wrapper allocates the kernel's f32 scratch (base-2 LSE
-    and delta padded to whole query tiles, the dQ accumulator, and dK / dV
-    partials when the query range is split)."""
-    fn_name = "flash_attn_bwd_d128"
-    B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, (128,), q, k, v, o, lse, do)
-    splits, per = bwd_d128_splits(B * H, Nq, Nk)
-    nq_pad = _round_up(Nq, BWD_D128_QUERIES)
-    nk_pad = _round_up(Nk, BWD_D128_KEYS)
+def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
+    """K7's ``bwd_splits`` (64-query tiles)."""
+    return bwd_splits(bh, nq, nk, BWD_D128_QUERIES)
+
+
+def _launch_bwd(fn_name: str, head_dims, q_tile: int, max_bh: Optional[int],
+                q, k, v, o, lse, do, layout):
+    """K3's and K7's launch (one C interface): the kernel computes delta
+    itself from O and dO, so O is an operand; the wrapper allocates the
+    kernel's f32 scratch (base-2 LSE and delta padded to whole query tiles,
+    the dQ accumulator, and dK / dV partials when the query range is split)."""
+    B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, head_dims, q, k, v, o, lse, do,
+                                          max_bh=max_bh)
+    splits, per = bwd_splits(B * H, Nq, Nk, q_tile)
+    nq_pad = _round_up(Nq, q_tile)
+    nk_pad = _round_up(Nk, BWD_KEYS)
     f32 = dict(dtype=torch.float32, device=q.device)
     lse2, delta = torch.empty((B * H, nq_pad), **f32), torch.empty((B * H, nq_pad), **f32)
     dq_acc = torch.empty((B * H, nq_pad, D), **f32)  # zeroed by the kernel's prologue
@@ -450,20 +448,11 @@ def _launch_bwd_d128(q, k, v, o, lse, do, layout):
     strides = []
     for x in (q, k, v, o, do, dq, dk, dv):
         strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel(fn_name)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse2.data_ptr(),
-            delta.data_ptr(), dq_acc.data_ptr(),
-            dk_part.data_ptr() if dk_part is not None else None,
-            dv_part.data_ptr() if dv_part is not None else None,
-            B, H, Nq, Nk, D, splits, per, *strides, D ** -0.5, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    _call(fn_name, fn_name, q.device, *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv)),
+          lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), _ptr(dk_part), _ptr(dv_part),
+          B, H, Nq, Nk, D, splits, per, *strides, D ** -0.5)
     return dq, dk, dv
+
 
 F32_HEAD_DIMS = (16, 32, 64, 128)
 
@@ -594,19 +583,14 @@ def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.T
         raise ValueError(f"{fn_name}: shapes {shapes} do not match")
     if D not in head_dims:
         raise NotImplementedError(f"{fn_name}: head_dim {D} not in {head_dims}")
-    if min(Nq, Nk) < 1 or B * H > 65535:
+    if min(Nq, Nk) < 1 or B * H > GRID_Y_MAX:
         raise ValueError(f"{fn_name}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
     o = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
     strides = []
     for x in (q8, sq.unsqueeze(-1), k8, sk.unsqueeze(-1), v, o):
         strides += _dims(x, layout)[4:]
-    fn = _kernels.kernel(fn_name)
-    with torch.cuda.device(q8.device):
-        stream = torch.cuda.current_stream(q8.device).cuda_stream
-        rc = fn(q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
-                o.data_ptr(), B, H, Nq, Nk, D, *strides, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
+    _call(fn_name, fn_name, q8.device, q8.data_ptr(), sq.data_ptr(), k8.data_ptr(),
+          sk.data_ptr(), v.data_ptr(), o.data_ptr(), B, H, Nq, Nk, D, *strides)
     return o
 
 
