@@ -10,12 +10,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. parity  — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it and at edge cases (ragged and
              cross lengths, every supported head dim, extreme logits,
-             strided views, B*H past CUDA's grid y limit for K3 and K6):
+             strided views, B*H past CUDA's grid y limit for K1, K3 and K6):
              K1 forward (the DiT's and the VGGT global blocks' shapes) and
              K3 backward (and ``attention()`` autograd on CUDA yielding K3's
              gradients); K4 short-row attention (n_valid mask with NaN in
-             the masked rows, the VGGT frame shape); K6 in f32 (camera head)
-             and bf16 (the Wan shapes); K7 (the Wan shapes);
+             the masked rows, the VGGT frame shape); K6 in f32 (camera head,
+             the f32 scorer's frame and global rows) and bf16 (the Wan
+             shapes); K7 (the Wan shapes);
              K5 scatter-min bit for bit on a real packed z-buffer stream,
              sentinel-only, one-slot and random streams.
 3. slice   — the tiny CogVideoX DiT, and one tiny DPO train step, on the
@@ -80,9 +81,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
-             the wgmma kernels K3, K4, K6 (bf16, without and with LSE in
+             the wgmma kernels K1 (also at the train shape with LSE and the
+             VGGT global shape), K3, K4, K6 (bf16, without and with LSE in
              turns) and K7 also the achieved TFLOP/s, the registers a thread
-             and the shared memory a CTA.
+             and the shared memory a CTA; for K6 f32 its device time a call
+             beside its time a call at the camera head, and its time at the
+             f32 scorer's frame and global rows.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -247,6 +251,9 @@ def phase_parity(dit_shape, vggt_global_shape):
          _attn_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3)),
         # strided operands: views of one packed (B, N, 3, H, D) tensor, no copy
         ("strided views of packed qkv N=640", "bnhd", packed.unbind(2)),
+        # past CUDA's grid y limit of 65,535: K1's persistent grid takes any B*H
+        ("B*H = 2 x 33,000 = 66,000 N=40 bnhd D=64", "bnhd",
+         _attn_case(gen, 2, 40, 40, 33000, 64, "bnhd")),
     ]
     errs = []
     for name, layout, (q, k, v) in cases:
@@ -407,7 +414,7 @@ def _kernel_group(name: str) -> str:
         return "K6 flash_attn_fwd_f32"
     if "flash_attn_fwd_d128" in name:
         return "K6 flash_attn_fwd_d128"
-    if "flash_fwd::kernel" in name:
+    if "flash_attn_fwd_kernel" in name:
         return "K1 flash_attn_fwd"
     if "flash_attn_bwd_d128" in name:
         return "K7 flash_attn_bwd_d128"
@@ -591,17 +598,6 @@ def _bwd_full(tag, label, fwd, bwd, q, k, v, layout, gen, chunk=4):
     return worst, plain_ms
 
 
-def flash_attn_fwd_bh(q, k, v, layout, with_lse):
-    """K1's O and LSE, or the plain version's past K1's B*H limit (K1's grid
-    still puts b*h on blockIdx.y): the residuals of a backward parity case."""
-    from videogpa_torch.ops.attention import (
-        GRID_Y_MAX, flash_attn_fwd, flash_attn_fwd_reference)
-
-    B, H = (q.shape[0], q.shape[2]) if layout == "bnhd" else q.shape[:2]
-    fwd = flash_attn_fwd if B * H <= GRID_Y_MAX else flash_attn_fwd_reference
-    return fwd(q, k, v, layout=layout, with_lse=with_lse)
-
-
 def phase_parity_bwd(train_shape):
     """K3 against its plain version, and attention() autograd through it;
     returns (max gradient error over the element-wise cases, plain ms at
@@ -629,7 +625,7 @@ def phase_parity_bwd(train_shape):
         ("B*H = 2 x 33,000 = 66,000 N=40 bnhd D=64", "bnhd",
          _attn_case(gen, 2, 40, 40, 33000, 64, "bnhd")),
     ]
-    errs = _bwd_cases("K3", flash_attn_fwd_bh, flash_attn_bwd, cases, gen)
+    errs = _bwd_cases("K3", flash_attn_fwd, flash_attn_bwd, cases, gen)
     del cases, packed
     _autograd_check("K3", flash_attn_fwd, flash_attn_bwd,
                     _attn_case(gen, 1, 300, 300, 4, 64, "bnhd"), gen, atomic_dq=True)
@@ -943,10 +939,17 @@ def phase_train(mini_steps: int = 4):
             "checkpoint_s": [save_s, restore_s]}
 
 
-def phase_timing(dit_shape, train_shape):
-    """K1 at the DiT's and the train shape, K3 at the train shape, beside
-    their bounds and SDPA on the same operands; K3's achieved TFLOP/s,
-    registers and shared memory."""
+def _fwd_bound(B, Nq, Nk, H, D):
+    """(bound ms, what bounds it) of a bf16 attention forward: 4 B H Nq Nk D
+    operations against q, k, v read and O written once."""
+    return _bound(4.0 * B * H * Nq * Nk * D, 2.0 * B * H * D * (2 * Nq + 2 * Nk),
+                  PEAK_BF16_FLOPS)
+
+
+def phase_timing(dit_shape, train_shape, vggt_global_shape):
+    """K1 at the DiT's, the train and the VGGT global blocks' shapes, K3 at
+    the train shape, beside their bounds and SDPA on the same operands; K1's
+    and K3's achieved TFLOP/s, registers and shared memory."""
     import torch
     import torch.nn.functional as F
 
@@ -962,17 +965,36 @@ def phase_timing(dit_shape, train_shape):
     # yardstick only: the port never calls SDPA
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     out["fwd_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
-    flops = 4.0 * B * H * N * N * D
-    nbytes = 2.0 * B * H * D * 4 * N
-    out["fwd_bound_ms"] = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-    out["fwd_bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-    out["fwd_tflops"] = flops / out["fwd_ms"] / 1e9
+    out["fwd_bound_ms"], out["fwd_bound_by"] = _fwd_bound(B, N, N, H, D)
+    out["fwd_tflops"] = 4.0 * B * H * N * N * D / out["fwd_ms"] / 1e9
+    attrs = _kernels.kernel_attrs("flash_attn_fwd", D)
+    out["fwd_registers_at_launch"], out["fwd_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
+    del q, k, v, qt, kt, vt
+
+    # the VGGT global blocks: q and k as the QK-norm outputs, v a view of the
+    # packed projection
+    B, N, H, D = vggt_global_shape
+    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    q, k = q.contiguous(), k.contiguous()
+    out["fwd_vggt_ms"] = cuda_ms(lambda: flash_attn_fwd(q, k, v, layout="bnhd"), iters=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["fwd_vggt_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                         iters=10)
+    out["fwd_vggt_bound_ms"], out["fwd_vggt_bound_by"] = _fwd_bound(B, N, N, H, D)
+    out["fwd_vggt_tflops"] = 4.0 * B * H * N * N * D / out["fwd_vggt_ms"] / 1e9
     del q, k, v, qt, kt, vt
 
     B, N, H, D = train_shape
     q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
     out["fwd_ms_train_shape"] = cuda_ms(
         lambda: flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True), iters=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    out["fwd_train_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                          iters=10)
+    out["fwd_train_bound_ms"], _ = _fwd_bound(B, N, N, H, D)
+    out["fwd_train_tflops"] = 4.0 * B * H * N * N * D / out["fwd_ms_train_shape"] / 1e9
+    del qt, kt, vt
     o, lse = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
     out["bwd_ms"] = cuda_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do, layout="bnhd"), iters=5)
@@ -1078,10 +1100,12 @@ def phase_parity_short(vggt_shape):
     return max(errs), plain_ms
 
 
-def phase_parity_d128(cam_shape, wan_shape):
-    """K6 against its plain version: the float32 entry (camera head, and every
-    head dim it takes) and bf16 at head_dim 128; returns (max |dO| f32, max
-    |dO| bf16, plain ms at the camera-head shape, plain ms at the Wan shape)."""
+def phase_parity_d128(cam_shape, wan_shape, f32_long_shapes):
+    """K6 against its plain version: the float32 entry (camera head, every
+    head dim it takes, B*H past the grid y limit and the f32 scorer's frame
+    and global rows ``f32_long_shapes``) and bf16 at head_dim 128; returns
+    (max |dO| f32, max |dO| bf16, plain ms at the camera-head shape, plain ms
+    at the Wan shape)."""
     import torch
 
     from videogpa_torch.ops.attention import (
@@ -1102,22 +1126,47 @@ def phase_parity_d128(cam_shape, wan_shape):
         ("f32 D=64 N=300 bnhd", "bnhd", f32(1, 300, 300, 2, 64, "bnhd")),
         ("f32 D=32 N=50 bhnd", "bhnd", f32(1, 50, 50, 2, 32, "bhnd")),
     ]
+    # base addresses off 16 bytes: the kernel stages rows by 4-byte copies
+    f32_cases.append(("f32 operands 4 bytes off 16-byte alignment N=70 bnhd D=64", "bnhd",
+                      tuple(torch.randn(70 * 2 * 64 + 1, generator=gen, device="cuda")[1:]
+                            .view(1, 70, 2, 64) for _ in range(3))))
+    # past CUDA's grid y limit of 65,535: the f32 kernel's grid is flat
+    f32_cases.append(("f32 B*H = 2 x 33,000 = 66,000 N=24 bnhd D=64", "bnhd",
+                      f32(2, 24, 24, 33000, 64, "bnhd")))
+    # the f32 scorer's frame and global rows (bnhd, as the blocks feed them);
+    # the plain version over chunks of heads (a (N, N) f32 score matrix each)
+    for label, (B, N, H, D) in zip(("frame", "global"), f32_long_shapes):
+        f32_cases.append((f"f32 scorer {label} rows {(B, N, H, D)} bnhd", "bnhd",
+                          f32(B, N, N, H, D, "bnhd")))
     f32_errs, cam_plain_ms = [], None
     for name, layout, (q, k, v) in f32_cases:
         o, lse = flash_attn_fwd_f32(q, k, v, layout=layout, with_lse=True)
-        (ro, rl), ms = _timed(lambda: flash_attn_fwd_reference(q, k, v, layout, True))
-        if cam_plain_ms is None:
-            cam_plain_ms = ms
-        d_o, d_l = (o - ro).abs(), (lse - rl).abs()
-        ok = bool((d_o <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all()
-                  and (d_l <= F32_LSE_ATOL + F32_LSE_RTOL * rl.abs()).all()
-                  and torch.isfinite(o).all())
-        log(f"[parity] K6 {name}: max|dO| {d_o.max().item():.3e} (atol {F32_O_ATOL} + rtol "
-            f"{F32_O_RTOL}), max|dLSE| {d_l.max().item():.3e} (atol {F32_LSE_ATOL} + rtol "
-            f"{F32_LSE_RTOL}) {'ok' if ok else 'MISMATCH'}")
+        B, Nq, H = (q.shape[:3] if layout == "bnhd" else
+                    (q.shape[0], q.shape[2], q.shape[1]))
+        Nk = k.shape[1] if layout == "bnhd" else k.shape[2]
+        chunk = max(1, 2 ** 30 // (4 * B * Nq * Nk))  # heads a 1 GB score matrix holds
+        worst_o = worst_l = 0.0
+        ok = True
+        for h in range(0, H, chunk):
+            hs = slice(h, h + chunk)
+            sl = (slice(None), slice(None), hs) if layout == "bnhd" else (slice(None), hs)
+            (ro, rl), ms = _timed(lambda: flash_attn_fwd_reference(q[sl], k[sl], v[sl], layout,
+                                                                   True))
+            if cam_plain_ms is None:
+                cam_plain_ms = ms
+            d_o, d_l = (o[sl] - ro).abs(), (lse[:, hs] - rl).abs()
+            ok = ok and bool((d_o <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all()
+                             and (d_l <= F32_LSE_ATOL + F32_LSE_RTOL * rl.abs()).all()
+                             and torch.isfinite(o[sl]).all())
+            worst_o, worst_l = max(worst_o, d_o.max().item()), max(worst_l, d_l.max().item())
+            del ro, rl, d_o, d_l
+        log(f"[parity] K6 {name}: max|dO| {worst_o:.3e} (atol {F32_O_ATOL} + rtol "
+            f"{F32_O_RTOL}), max|dLSE| {worst_l:.3e} (atol {F32_LSE_ATOL} + rtol "
+            f"{F32_LSE_RTOL}), heads in chunks of {min(chunk, H)} {'ok' if ok else 'MISMATCH'}")
         if not ok:
             fail(f"flash_attn_fwd_f32 disagrees with its plain version on {name}")
-        f32_errs.append(d_o.max().item())
+        f32_errs.append(worst_o)
+        del q, k, v, o, lse
 
     bf16_cases = [
         ("bf16 ragged N=300 bnhd D=128", "bnhd", _attn_case(gen, 2, 300, 300, 3, 128, "bnhd")),
@@ -1823,10 +1872,32 @@ def _bound(flops, nbytes, peak_flops):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_timing_scorer(vggt_shape, cam_shape):
+def _device_ms_per_call(fn, calls: int, name_part: str) -> float:
+    """Device time a call of ``fn`` spent in kernels whose name holds
+    ``name_part`` ("" for all), by torch.profiler over ``calls`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and name_part in evt.key:
+            t = getattr(evt, "self_device_time_total", None)
+            us += evt.self_cuda_time_total if t is None else t
+    return us / 1e3 / calls
+
+
+def phase_timing_scorer(vggt_shape, cam_shape, vggt_global_shape):
     """K4, K6 (f32) and K5 alone at their main-path shapes, beside their
     bounds and one PyTorch call computing the same function; K4's achieved
-    TFLOP/s, registers and shared memory."""
+    TFLOP/s, registers and shared memory; K6 f32's device time a call beside
+    its time a call, and its time at the f32 scorer's frame and global
+    rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1852,16 +1923,46 @@ def phase_timing_scorer(vggt_shape, cam_shape):
     out["k4_registers"], out["k4_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
     del q, k, v, qt, kt, vt
 
-    # K6 f32 at the camera head's shape
+    # K6 f32 at the camera head's shape: the time a call (1,000 back-to-back
+    # calls, the wrapper's host path included, in turns with SDPA f32) and
+    # the kernel's own device time (torch.profiler over 200 more calls)
     B, N, H, D = cam_shape
     q, k, v = (torch.randn(B, N, H, D, generator=gen, device="cuda") for _ in range(3))
-    out["k6_f32_ms"] = cuda_ms(lambda: flash_attn_fwd_f32(q, k, v), iters=200)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    out["k6_f32_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                                       iters=200)
+
+    def k6_f32():
+        return flash_attn_fwd_f32(q, k, v)
+
+    def sdpa_f32():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    turns = [cuda_ms(f, iters=1000) for f in (k6_f32, sdpa_f32, sdpa_f32, k6_f32)]
+    out["k6_f32_per_call_ms"], out["k6_f32_library_per_call_ms"] = turns[::3], turns[1:3]
+    out["k6_f32_ms"] = sum(turns[::3]) / 2
+    out["k6_f32_library_ms"] = sum(turns[1:3]) / 2
+    out["k6_f32_device_ms"] = _device_ms_per_call(k6_f32, 200, "attn_f32_kernel")
+    out["k6_f32_library_device_ms"] = _device_ms_per_call(sdpa_f32, 200, "")
     out["k6_f32_bound_ms"], out["k6_f32_bound_by"] = _bound(
         4.0 * B * H * N * N * D, 4.0 * 4 * B * N * H * D, PEAK_F32_FLOPS)
+    attrs = _kernels.kernel_attrs("flash_attn_fwd_f32", D)
+    out["k6_f32_registers"], out["k6_f32_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
     del q, k, v, qt, kt, vt
+
+    # K6 f32 at the f32 scorer's frame and global rows
+    for tag, (B, N, H, D), iters in (("frame", vggt_shape, 5), ("global", vggt_global_shape, 2)):
+        q, k, v = (torch.randn(B, N, H, D, generator=gen, device="cuda") for _ in range(3))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        out[f"k6_f32_{tag}_ms"] = cuda_ms(lambda: flash_attn_fwd_f32(q, k, v), iters=iters,
+                                          warmup=1)
+        out[f"k6_f32_{tag}_library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=iters, warmup=1)
+        out[f"k6_f32_{tag}_bound_ms"], out[f"k6_f32_{tag}_bound_by"] = _bound(
+            4.0 * B * H * N * N * D, 4.0 * 4 * B * N * H * D, PEAK_F32_FLOPS)
+        out[f"k6_f32_{tag}_tflops"] = 4.0 * B * H * N * N * D / out[f"k6_f32_{tag}_ms"] / 1e9
+        del q, k, v, qt, kt, vt
+    attrs = _kernels.kernel_attrs("flash_attn_fwd_f32", D)
+    out["k6_f32_d64_registers"], out["k6_f32_d64_smem_bytes"] = (attrs["registers"],
+                                                               attrs["smem_bytes"])
 
     # K5 on one clip's packed-key stream: the kernel alone (fill + launch, on
     # int32 images of the keys), the wrapper, and scatter_reduce_ "amin"
@@ -2598,8 +2699,8 @@ def main() -> int:
     fwd_err, fwd_plain_ms = phase_parity(dit_shape, vggt_global_shape)
     bwd_err, bwd_plain_ms = phase_parity_bwd(train_shape)
     short_err, short_plain_ms = phase_parity_short(vggt_shape)
-    d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(cam_shape,
-                                                                                wan_shape)
+    d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(
+        cam_shape, wan_shape, (vggt_shape, vggt_global_shape))
     k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
         phase_parity_bwd_d128(wan_shape, wcfg.text_len))
     zbuf_plain_ms = phase_parity_zbuffer()
@@ -2620,8 +2721,8 @@ def main() -> int:
     main_int8_run = phase_main_int8(main_run["latents"])
     scorer_int8_run = phase_scorer_int8(scorer_run["results"])
     wan_int8_run = phase_wan_int8()
-    timing = phase_timing(dit_shape, train_shape)
-    timing.update(phase_timing_scorer(vggt_shape, cam_shape))
+    timing = phase_timing(dit_shape, train_shape, vggt_global_shape)
+    timing.update(phase_timing_scorer(vggt_shape, cam_shape, vggt_global_shape))
     timing.update(phase_timing_wan(wan_shape, wcfg.text_len))
     timing.update(phase_timing_int8(dit_shape, vggt_global_shape, wan_shape))
 
@@ -2646,6 +2747,12 @@ def main() -> int:
         "flash_attn_fwd_sdpa_ms": timing["fwd_library_ms"],
         "flash_attn_fwd_plain_ms_over_head_chunks": fwd_plain_ms,
         "flash_attn_fwd_ms_at_train_shape_with_lse": timing["fwd_ms_train_shape"],
+        "flash_attn_fwd_train_shape_sdpa_ms_tflops": [timing["fwd_train_library_ms"],
+                                                      timing["fwd_train_tflops"]],
+        "flash_attn_fwd_vggt_global": {k: v for k, v in timing.items()
+                                       if k.startswith("fwd_vggt_")},
+        "flash_attn_fwd_registers_smem": [timing["fwd_registers_at_launch"],
+                                          timing["fwd_smem_bytes"]],
         "flash_attn_bwd_ms_at_train_shape": timing["bwd_ms"],
         "flash_attn_bwd_tflops": timing["bwd_tflops"],
         "flash_attn_bwd_bound_ms": timing["bwd_bound_ms"],
@@ -2714,7 +2821,14 @@ def main() -> int:
          **by_path("flash_attn_fwd"),
          "max_abs_err": fwd_err, "ms": timing["fwd_ms"], "plain_ms": fwd_plain_ms,
          "bound_ms": timing["fwd_bound_ms"], "bound_by": timing["fwd_bound_by"],
-         "library_ms": timing["fwd_library_ms"]},
+         "library_ms": timing["fwd_library_ms"],
+         "train_shape_with_lse": {"ms": timing["fwd_ms_train_shape"],
+                                  "bound_ms": timing["fwd_train_bound_ms"],
+                                  "library_ms": timing["fwd_train_library_ms"]},
+         "vggt_global_shape": {"ms": timing["fwd_vggt_ms"],
+                               "bound_ms": timing["fwd_vggt_bound_ms"],
+                               "bound_by": timing["fwd_vggt_bound_by"],
+                               "library_ms": timing["fwd_vggt_library_ms"]}},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:951,983",
@@ -2742,7 +2856,14 @@ def main() -> int:
          **by_path("flash_attn_fwd_f32"),
          "max_abs_err": d128_f32_err, "ms": timing["k6_f32_ms"], "plain_ms": cam_plain_ms,
          "bound_ms": timing["k6_f32_bound_ms"], "bound_by": timing["k6_f32_bound_by"],
-         "library_ms": timing["k6_f32_library_ms"]},
+         "library_ms": timing["k6_f32_library_ms"],
+         "device_ms": timing["k6_f32_device_ms"],
+         "library_device_ms": timing["k6_f32_library_device_ms"],
+         **{f"{tag}_rows": {"ms": timing[f"k6_f32_{tag}_ms"],
+                            "bound_ms": timing[f"k6_f32_{tag}_bound_ms"],
+                            "bound_by": timing[f"k6_f32_{tag}_bound_by"],
+                            "library_ms": timing[f"k6_f32_{tag}_library_ms"]}
+            for tag in ("frame", "global")}},
         {"name": "flash_attn_fwd_d128", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_fwd_d128.cu",
          "replaces": "videogpa_tpu/ops/attention.py:65",

@@ -7,7 +7,7 @@ query splits with dK / dV partials summed in split order, keys past Nk
 masked, padded queries given LSE2 = +inf) against the JAX package's
 ``_flash_bwd_T`` in Pallas interpret mode, and the B*H limits of the
 wrappers (CUDA's grid y limit binds the kernels that still put b*h on
-``blockIdx.y``; K3 and K6's bf16 kernel take any B*H).
+``blockIdx.y``; K1, K3 and both K6 entries take any B*H).
 
 Tolerances: f32 on both sides, atol 5e-4 as ``test_torch_attention_grad``
 holds K3's plain version to ``_flash_bwd_T``; the emulation against the
@@ -225,12 +225,12 @@ def _record_launches(monkeypatch):
 
 
 @pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
-def test_k3_and_k6_launch_at_70000_heads_and_k1_raises(monkeypatch, layout):
+def test_k1_k3_and_k6_launch_at_70000_heads_and_k7_raises(monkeypatch, layout):
     calls = _record_launches(monkeypatch)
 
-    def operands(D, n=8):
+    def operands(D, n=8, dtype=torch.bfloat16):
         shape = (2, n, 35000, D) if layout == "bnhd" else (2, 35000, n, D)
-        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     x = operands(64)
     lse = torch.empty((2, 35000, 8), device="meta")
@@ -239,15 +239,20 @@ def test_k3_and_k6_launch_at_70000_heads_and_k1_raises(monkeypatch, layout):
     assert dq.shape == dk.shape == dv.shape == x.shape
     y = operands(128)
     o, lse128 = tattn._launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", y, y, y,
-                                  layout, True, torch.bfloat16, (128,), max_bh=None)
+                                  layout, True, torch.bfloat16, (128,))
     assert o.shape == y.shape and lse128.shape == (2, 35000, 8)
-    assert calls == ["flash_attn_bwd", "flash_attn_fwd_d128_bf16"]
-    # K1, K6's f32 entry and K7 keep b*h on blockIdx.y
-    with pytest.raises(ValueError, match="B\\*H=70000"):
-        tattn._launch_fwd("flash_attn_fwd", "flash_attn_fwd", x, x, x, layout, True,
-                          torch.bfloat16, tattn.KERNEL_HEAD_DIMS)
+    # K1 (persistent grid) and K6's f32 entry (flat grid) take any B*H too
+    o1, lse1 = tattn._launch_fwd("flash_attn_fwd", "flash_attn_fwd", x, x, x, layout, True,
+                                 torch.bfloat16, tattn.KERNEL_HEAD_DIMS)
+    assert o1.shape == x.shape and lse1.shape == (2, 35000, 8)
+    z = operands(128, dtype=torch.float32)
+    o32, _ = tattn._launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", z, z, z, layout,
+                               False, torch.float32, tattn.F32_HEAD_DIMS)
+    assert o32.shape == z.shape and o32.dtype == torch.float32
+    want = ["flash_attn_bwd", "flash_attn_fwd_d128_bf16", "flash_attn_fwd", "flash_attn_fwd_f32"]
+    assert calls == want
+    # K7 keeps b*h on blockIdx.y
     with pytest.raises(ValueError, match="B\\*H=70000"):
         tattn._launch_bwd("flash_attn_bwd_d128", (128,), tattn.BWD_D128_QUERIES,
                           tattn.GRID_Y_MAX, y, y, y, y, lse, y, layout)
-    assert calls == ["flash_attn_bwd", "flash_attn_fwd_d128_bf16"]
-
+    assert calls == want

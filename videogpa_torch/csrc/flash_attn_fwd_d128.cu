@@ -46,16 +46,24 @@
 //
 // 2. float32, head_dim 16/32/64/128: the VGGT camera head's trunk
 //    (dim 2048, 16 heads of 128) runs in f32, and so does the scorer's
-//    reference-exact f32 mode, so the operands are never rounded to bf16 or
-//    TF32. CUDA cores only: one warp per query row, each lane holding
-//    ceil(D/32) strided elements of q, the O accumulator and the running
-//    max/sum; for each key the warp reduces q.k with shuffles and updates an
-//    exact online softmax in the log2 domain. At the camera head's shape
-//    (B=4, 10 tokens, 16 heads, 128) a call moves 0.33 MB and does 1.3 MFLOP:
-//    bound by bytes (0.1 us at 3.35 TB/s) and in practice by the launch.
-//    The per-key warp reduction makes it slow for long rows: it is the
-//    kernel for short f32 rows, not for the bf16 DiTs.
-//
+//    reference-exact f32 mode (every attention of `VideoProcessor(
+//    compute_dtype=float32)`, frame rows of 1,374 keys and global rows of
+//    13,740), so the operands are never rounded to bf16 or TF32: f32 FMAs on
+//    the CUDA cores only. Bound: 4*B*H*Nq*Nk*D over the 67 TFLOP/s f32 peak
+//    for long rows (46 ms at (4, 13,740, 16, 64)); at the camera head's shape
+//    (4, 10, 16, 128) a call moves 0.33 MB and does 1.3 MFLOP, bound by bytes.
+//    Design: a flat 1-D grid of CTAs over (64-query tile, b*h), so any B*H
+//    fits; 256 threads, 16 row groups of 4 queries x 16 column groups. Q's
+//    tile is staged once into shared memory, K and V tiles of 64 keys are
+//    double-buffered by cp.async (rows padded by 16 bytes, so the float4
+//    reads of a quarter-warp hit every bank once; rows past Nq and Nk are
+//    not loaded, and the products skip them). S = Q K^T is a register-blocked 4 x 4 micro-tile a thread
+//    (4 rows x keys cg + 16 j), its operands float4s broadcast from shared
+//    memory; an exact online softmax in the log2 domain reduces each row's
+//    max and sum over the 16 lanes of a half-warp; P goes through shared
+//    memory as P^T, and O += P V is a 4 x D/16 micro-tile a thread. The
+//    camera head's rows fit one tile: one CTA a head.
+
 // Plain C interface (ctypes). Each entry returns cudaGetLastError() after
 // its launch.
 
@@ -64,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 #include "wgmma_sm90.cuh"
 
@@ -293,16 +303,31 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// ---- float32, head_dim 16-128: CUDA cores ----
-constexpr int kWarpsF32 = 4;  // query rows per CTA in the f32 kernel
+// ---- float32, head_dim 16-128: CUDA cores, tiled ----
+constexpr int kF32Block = 64;     // queries a CTA, keys a tile
+constexpr int kF32Threads = 256;  // 16 row groups of 4 queries x 16 column groups
+constexpr int kF32PStride = kF32Block + 4;  // floats a row of P^T in shared memory
+
+template <int D>
+struct LayoutF32 {
+  static constexpr int kStride = D + 4;  // floats a row of Q, K or V in shared memory
+  static constexpr int kTile = kF32Block * kStride;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kTile;          // two K buffers
+  static constexpr int kV = kK + 2 * kTile;      // two V buffers
+  static constexpr int kP = kV + 2 * kTile;      // P^T of the tile, [key][query]
+  static constexpr int kBytes = (kP + kF32Block * kF32PStride) * 4;
+  static constexpr int kW = D >= 64 ? 4 : D / 16;  // O columns a thread holds per chunk
+  static constexpr int kChunks = D / 16 / kW;     // chunks of kW columns, 16 * kW apart
+};
 
 struct ParamsF32 {
   const float* q;
   const float* k;
   const float* v;
   float* o;
-  float* lse;  // (B, H, Nq) or nullptr
-  int H, Nq, Nk;
+  float* lse;  // (B*H, Nq) or nullptr
+  int H, Nq, Nk, n_qt, vec4;
   long long q_sb, q_sn, q_sh;
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -310,67 +335,244 @@ struct ParamsF32 {
   float scale_log2;
 };
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The rows [row0, min(row0 + 64, n)) of an f32 operand (row stride sn, D
+// contiguous floats) into shared memory rows of kStride floats. Rows past n
+// are not written: the kernel reads no key or value row past Nk and stores
+// no query row past Nq. 16-byte copies when every row starts on 16 bytes
+// (vec4), else 4-byte.
 template <int D>
-__global__ void __launch_bounds__(kWarpsF32 * 32) attn_f32_kernel(const ParamsF32 p) {
-  constexpr int E = (D + 31) / 32;  // elements of the head dim per lane
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarpsF32 + warp;
-  if (row >= p.Nq) return;  // the whole warp leaves together
-  const int bh = blockIdx.y;
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src, long long sn,
+                                              int row0, int n, bool vec4) {
+  constexpr int kStride = LayoutF32<D>::kStride;
+  const int rows = min(kF32Block, n - row0);
+  src += static_cast<long long>(row0) * sn;
+  if (vec4) {
+    for (int c = threadIdx.x; c < rows * (D / 4); c += kF32Threads) {
+      const int r = c / (D / 4);
+      const int d = 4 * (c % (D / 4));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                       smem_u32(dst + r * kStride + d)),
+                   "l"(src + r * sn + d)
+                   : "memory");
+    }
+  } else {
+    for (int c = threadIdx.x; c < rows * D; c += kF32Threads) {
+      const int r = c / D;
+      const int d = c % D;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_u32(dst + r * kStride + d)),
+                   "l"(src + r * sn + d)
+                   : "memory");
+    }
+  }
+}
+
+// One CTA per (64-query tile, b*h) on a flat grid, item = b*h * n_q_tiles +
+// query tile. Thread t holds rows 4 (t / 16) + 0..3 of the tile; for S the
+// keys t % 16 + 16 j (j < 4) of the key tile, for O the columns
+// kW (t % 16) + 16 kW c + 0..kW-1 (c < kChunks). K and V tiles of 64 keys are
+// double-buffered by cp.async; P goes through shared memory as P^T. A tile
+// with fewer than 64 live queries or keys (the camera head's 10 tokens, the
+// ragged last tiles) skips the products of the rows and keys it does not
+// have: rows past Nq are never stored, scores of keys past Nk are masked to
+// -inf before they are read, and P V stops at the tile's last key.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads) attn_f32_kernel(const ParamsF32 p) {
+  using L = LayoutF32<D>;
+  extern __shared__ __align__(16) float smf[];
+  const int item = blockIdx.x;
+  const int bh = item / p.n_qt;
+  const int q0 = (item % p.n_qt) * kF32Block;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const float* q = p.q + b * p.q_sb + h * p.q_sh + row * p.q_sn;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
   const float* k = p.k + b * p.k_sb + h * p.k_sh;
   const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  const bool vec4 = p.vec4 != 0;
+  const int rg = threadIdx.x / 16;
+  const int cg = threadIdx.x % 16;
+  const int n_kt = (p.Nk + kF32Block - 1) / kF32Block;
+  const bool rows_live = 4 * rg < p.Nq - q0;  // this row group holds a query < Nq
 
-  float qv[E], acc[E];
+  load_rows_f32<D>(smf + L::kQ, q, p.q_sn, q0, p.Nq, vec4);
+  load_rows_f32<D>(smf + L::kK, k, p.k_sn, 0, p.Nk, vec4);
+  load_rows_f32<D>(smf + L::kV, v, p.v_sn, 0, p.Nk, vec4);
+  cp_async_commit();
+
+  float acc[4][L::kChunks * L::kW];
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int d = lane + 32 * e;
-    qv[e] = d < D ? q[d] * p.scale_log2 : 0.f;
-    acc[e] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int e = 0; e < L::kChunks * L::kW; ++e) acc[i][e] = 0.f;
   }
-  float m = -INFINITY;  // running max, log2 domain
-  float l = 0.f;        // running sum
-  for (int j = 0; j < p.Nk; ++j) {
-    const float* kr = k + j * p.k_sn;
-    float s = 0.f;
+  float m[4], l[4];  // running max (log2 domain), this thread's share of the row sums
 #pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int d = lane + 32 * e;
-      if (d < D) s = fmaf(qv[e], kr[d], s);
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  const float* sq = smf + L::kQ + 4 * rg * L::kStride;
+  float* sp = smf + L::kP;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int buf = j & 1;
+    if (j + 1 < n_kt) {
+      load_rows_f32<D>(smf + L::kK + (buf ^ 1) * L::kTile, k, p.k_sn, (j + 1) * kF32Block, p.Nk,
+                       vec4);
+      load_rows_f32<D>(smf + L::kV + (buf ^ 1) * L::kTile, v, p.v_sn, (j + 1) * kF32Block, p.Nk,
+                       vec4);
+    }
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();  // everything but the prefetch has landed
+    __syncthreads();
+
+    // S = Q K^T: 4 rows x 4 keys a thread, float4 steps along D
+    const int key0 = j * kF32Block;
+    const int kn = min(kF32Block, p.Nk - key0);  // live keys in this tile
+    const float* sk = smf + L::kK + buf * L::kTile + cg * L::kStride;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+    }
+    if (rows_live && cg < kn) {
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {
+        float4 qa[4], kb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = *reinterpret_cast<const float4*>(sq + i * L::kStride + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          kb[c] = *reinterpret_cast<const float4*>(sk + 16 * c * L::kStride + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[i][c] = fmaf(qa[i].x, kb[c].x, s[i][c]);
+            s[i][c] = fmaf(qa[i].y, kb[c].y, s[i][c]);
+            s[i][c] = fmaf(qa[i].z, kb[c].z, s[i][c]);
+            s[i][c] = fmaf(qa[i].w, kb[c].w, s[i][c]);
+          }
+        }
+      }
+    }
+
+    // online softmax in the log2 domain; keys >= Nk at -inf; each row's 64
+    // keys are spread over the 16 lanes of one half-warp
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mt = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = key0 + cg + 16 * c < p.Nk ? s[i][c] * p.scale_log2 : -INFINITY;
+        mt = fmaxf(mt, s[i][c]);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      const float mnew = fmaxf(m[i], mt);  // finite: key0 < Nk is in every row's tile
+      alpha[i] = exp2f(m[i] - mnew);  // 0 on the first tile
+      m[i] = mnew;
+      float rs = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = exp2f(s[i][c] - mnew);
+        rs += s[i][c];
+      }
+      l[i] = l[i] * alpha[i] + rs;
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    const float m_new = fmaxf(m, s);
-    const float alpha = exp2f(m - m_new);  // 0 on the first key
-    const float pe = exp2f(s - m_new);
-    l = l * alpha + pe;
-    m = m_new;
-    const float* vr = v + j * p.v_sn;
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int d = lane + 32 * e;
-      acc[e] = acc[e] * alpha + (d < D ? pe * vr[d] : 0.f);
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kF32PStride + 4 * rg) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
     }
-  }
-  const float inv = 1.f / l;
-  float* o = p.o + b * p.o_sb + h * p.o_sh + row * p.o_sn;
+    __syncthreads();
+
+    // O = O * alpha + P V: P^T rows broadcast to the row group, V rows read
+    // kW columns at a time
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int d = lane + 32 * e;
-    if (d < D) o[d] = acc[e] * inv;
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < L::kChunks * L::kW; ++e) acc[i][e] *= alpha[i];
+    }
+    const float* sv = smf + L::kV + buf * L::kTile + L::kW * cg;
+#pragma unroll 4
+    for (int key = 0; key < (rows_live ? kn : 0); ++key) {
+      const float4 pk = *reinterpret_cast<const float4*>(sp + key * kF32PStride + 4 * rg);
+      const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
+#pragma unroll
+      for (int c = 0; c < L::kChunks; ++c) {
+        float vv[L::kW];
+        const float* vrow = sv + key * L::kStride + 16 * L::kW * c;
+        if constexpr (L::kW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow);
+          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+        } else if constexpr (L::kW == 2) {
+          const float2 x = *reinterpret_cast<const float2*>(vrow);
+          vv[0] = x.x; vv[1] = x.y;
+        } else {
+          vv[0] = vrow[0];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < L::kW; ++e) {
+            acc[i][c * L::kW + e] = fmaf(pr[i], vv[e], acc[i][c * L::kW + e]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer buf and P^T are rewritten by the next tile
   }
-  if (p.lse != nullptr && lane == 0) {
-    p.lse[static_cast<long long>(bh) * p.Nq + row] = (m + log2f(l)) * kLn2;
+
+  // epilogue: the row sums over the half-warp, O / l through the strides, LSE
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + 4 * rg + i;
+    if (row >= p.Nq) continue;
+    const float inv = 1.f / l[i];
+    float* orow = o + row * p.o_sn + L::kW * cg;
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+#pragma unroll
+      for (int e = 0; e < L::kW; ++e) orow[16 * L::kW * c + e] = acc[i][c * L::kW + e] * inv;
+    }
+    if (p.lse != nullptr && cg == 0) {
+      p.lse[static_cast<long long>(bh) * p.Nq + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_f32(const ParamsF32& p, int B, cudaStream_t stream) {
-  const dim3 grid((p.Nq + kWarpsF32 - 1) / kWarpsF32, B * p.H);
-  attn_f32_kernel<D><<<grid, kWarpsF32 * 32, 0, stream>>>(p);
+  constexpr int bytes = LayoutF32<D>::kBytes;
+  const long long items = static_cast<long long>(B) * p.H * p.n_qt;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // the shared-memory opt-in once a device: the camera head's launches are
+  // a few microseconds, so the wrapper's host path is what they cost
+  static bool opted_in[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && (device >= 64 || !opted_in[device])) {
+    err = cudaFuncSetAttribute(attn_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bytes);
+    if (err == cudaSuccess && device < 64) opted_in[device] = true;
+  }
+  if (err != cudaSuccess) return err;
+  attn_f32_kernel<D><<<static_cast<unsigned int>(items), kF32Threads, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -436,6 +638,15 @@ extern "C" int videogpa_flash_attn_fwd_f32(
   p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
   p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  p.n_qt = (Nq + kF32Block - 1) / kF32Block;
+  // 16-byte copies when every row of q, k and v starts on 16 bytes
+  bool vec4 = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+               reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (long long st : {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh}) {
+    vec4 = vec4 && st % 4 == 0;
+  }
+  p.vec4 = vec4 ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch_f32<16>(p, B, s);
@@ -456,5 +667,33 @@ extern "C" int videogpa_flash_attn_fwd_d128_attrs(int* regs, int* smem_bytes) {
     *regs = a.numRegs;
     *smem_bytes = kSmemBytes;
   }
+  return err;
+}
+
+// The f32 kernel's registers a thread and dynamic shared memory a CTA at
+// head_dim D, for reports.
+extern "C" int videogpa_flash_attn_fwd_f32_attrs(int D, int* regs, int* smem_bytes) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (D) {
+    case 16:
+      err = cudaFuncGetAttributes(&a, attn_f32_kernel<16>);
+      *smem_bytes = LayoutF32<16>::kBytes;
+      break;
+    case 32:
+      err = cudaFuncGetAttributes(&a, attn_f32_kernel<32>);
+      *smem_bytes = LayoutF32<32>::kBytes;
+      break;
+    case 64:
+      err = cudaFuncGetAttributes(&a, attn_f32_kernel<64>);
+      *smem_bytes = LayoutF32<64>::kBytes;
+      break;
+    case 128:
+      err = cudaFuncGetAttributes(&a, attn_f32_kernel<128>);
+      *smem_bytes = LayoutF32<128>::kBytes;
+      break;
+    default: break;
+  }
+  if (err == cudaSuccess) *regs = a.numRegs;
   return err;
 }

@@ -21,18 +21,18 @@
 // CogVideoX-5B DiT shape (B=2, N=17,776, H=48, D=64) 1.96 + 3.93 = 5.89 ms,
 // against ~0.2 ms for its ~0.65 GB of operands and output at 3.35 TB/s.
 //
-// Design: K1's tile (flash_fwd_tile.cuh). One CTA of 4 warps per (b*h, 64-row
-// Q tile); each warp owns 16 query rows and keeps O, the running max and the
-// running sum in registers. K (int8), its scales and V (bf16) tiles of 64 keys
-// are double-buffered in dynamic shared memory with cp.async; int8 tiles are
+// Design: one CTA of 4 warps per (b*h, 64-row Q tile) on mma.sync; each warp
+// owns 16 query rows and keeps O, the running max and the running sum in
+// registers. K (int8), its scales and V (bf16) tiles of 64 keys are
+// double-buffered in dynamic shared memory with cp.async; int8 tiles are
 // half the bytes of bf16 ones. QK^T runs on the integer tensor cores
 // (mma.sync m16n8k32 s8 x s8 -> s32; m16n8k16 at head_dim 16), whose s32
 // accumulator fragment has the m16n8 layout of the f32 one, so the
 // dequantisation (one convert and two multiplies per score), the ragged-tail
-// mask, the online softmax, the repack of P as the bf16 A operand of PV
-// (mma.sync m16n8k16 bf16 -> f32, V through ldmatrix.trans) follow K1. Rows of
-// int8 tiles are padded by 16 bytes so fragment loads are free of bank
-// conflicts at head_dim >= 32. All operands go in by element strides for
+// mask, the online softmax and the repack of P as the bf16 A operand of PV
+// (mma.sync m16n8k16 bf16 -> f32, V through ldmatrix.trans) work on the same
+// fragments. Rows of int8 tiles are padded by 16 bytes so fragment loads
+// are free of bank conflicts at head_dim >= 32. All operands go in by element strides for
 // (b, n, h), in either layout, Nq may differ from Nk, and nothing is padded
 // on the host: keys past Nk are zero-filled by cp.async and masked to -inf.
 //

@@ -1,6 +1,7 @@
-// Warp-level primitives shared by the port's flash-attention kernels
-// (sm_90a): 16-byte cp.async copies with zero fill, mma.sync m16n8k16
-// bf16 -> f32, ldmatrix.trans, bf16 packing and a padded tile loader.
+// Warp-level primitives of the port's int8-QK flash-attention kernels K8 and
+// K9 (flash_attn_int8.cu, sm_90a): 16-byte cp.async copies with zero fill,
+// mma.sync m16n8k16 bf16 -> f32, ldmatrix.trans, bf16 packing and a padded
+// tile loader.
 
 #pragma once
 

@@ -30,7 +30,7 @@ SOURCES = {
     "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
     "flash_attn_int8": _CSRC / "flash_attn_int8.cu",
 }
-HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "flash_fwd_tile.cuh", _CSRC / "wgmma_sm90.cuh")
+HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "wgmma_sm90.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,6 +60,9 @@ _SIGNATURES = {
         "zbuffer_scatter_min", "videogpa_scatter_min_u32", [_P, _P, _P, _LL, _P]),
     "flash_attn_int8": ("flash_attn_int8", "videogpa_flash_attn_int8", _INT8_ARGS),
     # reports, not kernels: registers a thread and dynamic shared memory a CTA
+    "flash_attn_fwd_attrs": ("flash_attn_fwd", "videogpa_flash_attn_fwd_attrs", [_I, _P, _P]),
+    "flash_attn_fwd_f32_attrs": (
+        "flash_attn_fwd_d128", "videogpa_flash_attn_fwd_f32_attrs", [_I, _P, _P]),
     "flash_attn_short_attrs": (
         "flash_attn_short", "videogpa_flash_attn_short_attrs", [_I, _P, _P]),
     "flash_attn_bwd_d128_attrs": (
@@ -139,9 +142,10 @@ def kernel(name: str) -> Callable[..., int]:
 
 def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
-    report entry (``flash_attn_short`` and ``flash_attn_bwd`` at head dim
-    ``args[0]``, ``flash_attn_fwd_d128`` (its bf16 kernel),
-    ``flash_attn_bwd_d128``), as the card reports them."""
+    report entry (``flash_attn_fwd``, ``flash_attn_fwd_f32``,
+    ``flash_attn_short`` and ``flash_attn_bwd`` at head dim ``args[0]``,
+    ``flash_attn_fwd_d128`` (its bf16 kernel), ``flash_attn_bwd_d128``), as
+    the card reports them."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = kernel(f"{name}_attrs")(*args, ctypes.byref(regs), ctypes.byref(smem))
     if rc != 0:

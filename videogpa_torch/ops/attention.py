@@ -5,8 +5,8 @@ is bidirectional (non-causal). Each kernel wrapper dispatches on the device
 of its operands: a CPU tensor takes the plain version, a CUDA tensor launches
 the kernel or raises. There is no fallback from one to the other.
 
-- ``flash_attn_fwd`` (K1, ``csrc/flash_attn_fwd.cu``): bf16, head_dim < 128,
-  optional LSE.
+- ``flash_attn_fwd`` (K1, ``csrc/flash_attn_fwd.cu``): bf16 at head_dim
+  16-64 on wgmma + TMA, a persistent grid, optional LSE.
 - ``flash_attn_bwd`` (K3, ``csrc/flash_attn_bwd.cu``): its backward, on
   wgmma + TMA; computes delta = rowsum(O * dO) itself.
 - ``flash_attn_short`` (K4, ``csrc/flash_attn_short.cu``): bf16 (B, N, H, D)
@@ -17,7 +17,8 @@ the kernel or raises. There is no fallback from one to the other.
 - ``flash_attn_bwd_d128`` (K7, ``csrc/flash_attn_bwd_d128.cu``): its backward,
   on wgmma + TMA; computes delta = rowsum(O * dO) itself.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
-  head_dim 16-128 on CUDA cores, for short rows.
+  head_dim 16-128 on CUDA cores, tiled (64-query CTAs on a flat grid, K and
+  V staged in shared memory by 64-key tiles), for short and long rows.
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
   ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128.
@@ -78,13 +79,10 @@ def flash_attn_fwd_reference(q, k, v, layout: str = "bnhd", with_lse: bool = Fal
 
 def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int, int, int, int]:
     """(B, N, H, D) and element strides (b, n, h) of a 4-D operand."""
+    (B, n1, n2, D), (sb, s1, s2, _) = x.shape, x.stride()
     if layout == "bnhd":
-        B, N, H, D = x.shape
-        sb, sn, sh = x.stride(0), x.stride(1), x.stride(2)
-    else:
-        B, H, N, D = x.shape
-        sb, sh, sn = x.stride(0), x.stride(1), x.stride(2)
-    return B, N, H, D, sb, sn, sh
+        return B, n1, n2, D, sb, s1, s2
+    return B, n2, n1, D, sb, s2, s1
 
 
 def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
@@ -100,7 +98,8 @@ def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
 
 
 # CUDA's grid y limit: a kernel that puts b*h on blockIdx.y takes at most
-# this many heads. K3 and K6's bf16 kernel flatten their grids and take any.
+# this many heads. K1, K3 and both K6 entries flatten their grids and take
+# any.
 GRID_Y_MAX = 65535
 
 
@@ -113,8 +112,9 @@ def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
     any). Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, _, _, _ = _dims(q, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k, layout)
+    device = q.get_device()
     for name, x in {"q": q, "k": k, "v": v, **like_q}.items():
-        if x.device != q.device:
+        if x.get_device() != device:
             raise ValueError(f"{fn}: {name} on {x.device}, q on {q.device}")
         if x.dtype != dtype:
             raise TypeError(f"{fn}: {name} must be {dtype}, got {x.dtype}")
@@ -135,10 +135,18 @@ def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
 
 def _call(fn_name: str, entry: str, device: torch.device, *args) -> None:
     """Launch the C entry point ``entry`` on ``device``'s current stream (the
-    stream is its last argument); raises if the launch failed."""
+    stream is its last argument); raises if the launch failed. The C entry
+    works on the current device: the wrapper switches to ``device`` only when
+    it is another. The stream is read as a raw handle, as PyTorch's own
+    Triton launcher reads it: ``current_stream().cuda_stream`` builds a
+    Stream object on every call, which a short kernel's launch feels."""
     fn = _kernels.kernel(entry)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    index = device.index
+    if index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
 
@@ -147,19 +155,44 @@ def _ptr(x: Optional[torch.Tensor]):
     return x.data_ptr() if x is not None else None
 
 
-def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims,
-                max_bh: Optional[int] = GRID_Y_MAX):
-    """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface."""
-    B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
-                                      head_dims=head_dims, max_bh=max_bh)
-    o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, Nq), dtype=torch.float32, device=q.device)
-           if with_lse else None)
-    strides = []
-    for x in (q, k, v, o):
-        strides += _dims(x, layout)[4:]
+# Launch geometry of the forward wrappers by their operands' geometry (entry,
+# layout, dtypes, devices, shapes, strides): operands whose geometry passed
+# ``_check_operands`` once pass it again, so a hit skips the checks and the
+# stride arithmetic and checks only the base addresses anew (TMA's 16-byte
+# rule). The geometry is kept as ctypes values of the C entry's argument
+# types, which a call passes without converting them. The camera head's f32
+# attention is a few microseconds on the card, so its wrapper's host path is
+# what a launch costs.
+_FWD_GEOMETRY: dict = {}
+_FWD_GEOMETRY_MAX = 256
+_FWD_GEOMETRY_TYPES = _kernels._FWD_ARGS[5:-1]  # B, H, Nq, Nk, D, 12 strides, scale
+
+
+def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims):
+    """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface
+    (K1, K6 bf16, K6 f32: flat or persistent grids, any B*H)."""
+    key = (entry, layout, q.dtype, k.dtype, v.dtype, q.get_device(), k.get_device(),
+           v.get_device(), q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride())
+    geo = _FWD_GEOMETRY.get(key)
+    if geo is None:
+        B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
+                                          head_dims=head_dims, max_bh=None)
+        # O is contiguous in the layout: its (b, n, h) strides follow from the shape
+        o_strides = (Nq * H * D, H * D, D) if layout == "bnhd" else (H * Nq * D, D, Nq * D)
+        args = (B, H, Nq, Nk, D, *_dims(q, layout)[4:], *_dims(k, layout)[4:],
+                *_dims(v, layout)[4:], *o_strides, D ** -0.5 * _LOG2E)
+        geo = ((B, H, Nq), tuple(t(x) for t, x in zip(_FWD_GEOMETRY_TYPES, args)))
+        if len(_FWD_GEOMETRY) >= _FWD_GEOMETRY_MAX:
+            _FWD_GEOMETRY.clear()
+        _FWD_GEOMETRY[key] = geo
+    elif dtype == torch.bfloat16:
+        for name, x in (("q", q), ("k", k), ("v", v)):
+            check_16_bytes(fn_name, name, x)
+    lse_shape, args = geo
+    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = q.new_empty(lse_shape, dtype=torch.float32) if with_lse else None
     _call(fn_name, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          _ptr(lse), B, H, Nq, Nk, D, *strides, D ** -0.5 * _LOG2E)
+          _ptr(lse), *args)
     return o, lse
 
 
@@ -177,14 +210,15 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         (O, LSE or None); O is a new contiguous tensor in ``layout``.
 
     CPU tensors take the plain version. CUDA tensors must be bf16 with
-    D in {16, 32, 64}; anything else raises. Each kernel launch adds one to
+    D in {16, 32, 64} and meet TMA's 16-byte rule (``check_16_bytes``), at
+    any B*H; anything else raises. Each kernel launch adds one to
     ``flash_attn_fwd.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd", "flash_attn_fwd", q, k, v, layout, with_lse,
                       torch.bfloat16, KERNEL_HEAD_DIMS)
@@ -344,12 +378,12 @@ def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"flash_attn_fwd_d128: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", q, k, v, layout,
-                      with_lse, torch.bfloat16, (128,), max_bh=None)
+                      with_lse, torch.bfloat16, (128,))
     flash_attn_fwd_d128.launches += 1
     return out
 
@@ -461,21 +495,23 @@ def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        layout: str = "bnhd", with_lse: bool = False):
     """K1's function on float32 operands at head_dim 16-128, kept in f32 end
     to end on CUDA cores (the VGGT camera head's trunk runs in f32 at head_dim
-    128). Same arguments and results as ``flash_attn_fwd``.
+    128, and so does every attention of the f32 scorer). Same arguments and
+    results as ``flash_attn_fwd``.
 
-    Built for the camera head's rows of a few tokens: each warp walks the keys
-    one at a time, so rows of thousands of keys run far below the tensor-core
-    kernels' rates.
+    A tiled kernel: one CTA a 64-query tile of a head stages Q once and walks
+    64-key tiles of K and V through shared memory, so long rows run at a
+    share of the f32 FMA rate; f32 rows stay far slower than bf16 rows on the
+    tensor cores.
 
     CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
-    tensors must be float32 with D in ``F32_HEAD_DIMS``; anything else
-    raises. Each launch adds one to ``flash_attn_fwd_f32.launches``.
+    tensors must be float32 with D in ``F32_HEAD_DIMS``, at any B*H; anything
+    else raises. Each launch adds one to ``flash_attn_fwd_f32.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if q.device.type != "cuda":
+    if not q.is_cuda:
         raise ValueError(f"flash_attn_fwd_f32: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", q, k, v, layout, with_lse,
                       torch.float32, F32_HEAD_DIMS)
@@ -682,9 +718,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     - an operand requires grad (and grad is enabled) -> ``_FlashAttention``:
       D < 128, K1 with LSE and K3 backward; D >= 128, K6
       (``flash_attn_fwd_d128``) with LSE and K7 (``flash_attn_bwd_d128``);
-    - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry), at any
-      length; it suits the camera head's short rows, and long f32 rows run
-      there far slower than bf16 rows on the tensor cores;
+    - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry, tiled on
+      the CUDA cores), at any length: the camera head's short rows and the
+      f32 scorer's long ones, which run far slower than bf16 rows on the
+      tensor cores;
     - D >= 128 -> ``flash_attn_fwd_d128`` (K6);
     - bnhd rows that are ``short_eligible`` -> ``flash_attn_short`` (K4);
     - otherwise -> ``flash_attn_fwd`` (K1).
