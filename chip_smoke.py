@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. parity  — each kernel against its plain PyTorch version on the card, at
              the shapes the main paths give it and at edge cases (ragged and
              cross lengths, every supported head dim, extreme logits,
-             strided views, B*H past CUDA's grid y limit for K1, K3 and K6):
+             strided views, B*H past CUDA's grid y limit for every attention
+             kernel):
              K1 forward (the DiT's and the VGGT global blocks' shapes) and
              K3 backward (and ``attention()`` autograd on CUDA yielding K3's
              gradients); K4 short-row attention (n_valid mask with NaN in
@@ -67,7 +68,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    int8    — the int8 inference mode (W8A8 linears from ``ops.quant`` and
              ``attn_impl="flash_int8"``). parity: K8 and K9 against their plain
              version on the same quantised operands at the DiT, VGGT-global
-             and Wan shapes and at edge cases; quantise + kernel against exact
+             and Wan shapes and at edge cases (B*H = 66,000 among them);
+             quantise + kernel against exact
              f32 attention; ``quantize_qk_int8``, ``linear_w8a8`` and
              ``int8_matmul`` on the card against the CPU. slice: the tiny DiT,
              the tiny scorer and a small bf16 VGGT in int8 mode on the card
@@ -83,10 +85,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
              version and one PyTorch call computing the same function; for
              the wgmma kernels K1 (also at the train shape with LSE and the
              VGGT global shape), K3, K4, K6 (bf16, without and with LSE in
-             turns) and K7 also the achieved TFLOP/s, the registers a thread
-             and the shared memory a CTA; for K6 f32 its device time a call
-             beside its time a call at the camera head, and its time at the
-             f32 scorer's frame and global rows.
+             turns), K7, K8 and K9 also the achieved TFLOP/s, the registers a
+             thread and the shared memory a CTA; K8 and K9 in turns with the
+             exact kernel at the same shape (K1, K6 bf16); for K6 f32 its
+             device time a call beside its time a call at the camera head,
+             and its time at the f32 scorer's frame and global rows.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -406,9 +409,9 @@ def phase_main(num_requests: int = 2, steps: int = 2):
 
 
 def _kernel_group(name: str) -> str:
-    if "flash_int8::kernel<128>" in name:
+    if "flash_attn_int8_kernel<128>" in name:
         return "K9 flash_attn_int8_d128"
-    if "flash_int8::kernel" in name:
+    if "flash_attn_int8_kernel" in name:
         return "K8 flash_attn_int8"
     if "attn_f32_kernel" in name:
         return "K6 flash_attn_fwd_f32"
@@ -672,6 +675,9 @@ def phase_parity_bwd_d128(wan_shape, text_len):
         # one-hot P: dS = P (dP - delta) cancels
         ("extreme logits q*1e3 N=300 D=128", "bnhd",
          _attn_case(gen, 1, 300, 300, 2, 128, "bnhd", q_scale=1e3)),
+        # past CUDA's grid y limit of 65,535: K7's grid is flat
+        ("B*H = 2 x 33,000 = 66,000 N=24 bnhd D=128", "bnhd",
+         _attn_case(gen, 2, 24, 24, 33000, 128, "bnhd")),
     ]
     errs = _bwd_cases("K7", flash_attn_fwd_d128, flash_attn_bwd_d128, cases, gen)
     del cases
@@ -1070,6 +1076,9 @@ def phase_parity_short(vggt_shape):
         ("extreme logits q*1e3 N=300 D=64",
          _attn_case(gen, 1, 300, 300, 2, 64, "bnhd", q_scale=1e3), None),
         ("strided views of packed qkv N=640", packed.unbind(2), None),
+        # past CUDA's grid y limit of 65,535: K4's grid is flat
+        ("B*H = 33,000 x 2 = 66,000 N=40 D=64", _attn_case(gen, 33000, 40, 40, 2, 64, "bnhd"),
+         None),
     ]
     errs = []
     for name, (q, k, v), n_valid in cases:
@@ -2090,6 +2099,9 @@ def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
         ("strided (B, H, N, D) views of projections Nq=333 Nk=512 D=64", "bhnd",
          (_proj_views(gen, 2, 333, 3, 64), _proj_views(gen, 2, 512, 3, 64),
           _proj_views(gen, 2, 512, 3, 64))),
+        # past CUDA's grid y limit of 65,535: K8's persistent grid takes any B*H
+        ("B*H = 2 x 33,000 = 66,000 N=40 bnhd D=64", "bnhd",
+         _int8_case(gen, 2, 40, 40, 33000, 64, "bnhd")),
     ]
     k9_cases = [
         ("ragged N=300 bnhd D=128", "bnhd", _int8_case(gen, 2, 300, 300, 3, 128, "bnhd")),
@@ -2099,6 +2111,8 @@ def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
         ("strided (B, H, N, D) views of projections Nq=333 Nk=512 D=128", "bhnd",
          (_proj_views(gen, 2, 333, 3, 128), _proj_views(gen, 2, 512, 3, 128),
           _proj_views(gen, 2, 512, 3, 128))),
+        ("B*H = 2 x 33,000 = 66,000 N=24 bnhd D=128", "bnhd",
+         _int8_case(gen, 2, 24, 24, 33000, 128, "bnhd")),
     ]
     errs = {"K8": [], "K9": []}
     for tag, fn, cases in (("K8", flash_attn_int8, k8_cases), ("K9", flash_attn_int8_d128,
@@ -2618,28 +2632,48 @@ def _int8_bound(B, N, Nk, H, D):
 
 
 def phase_timing_int8(dit_shape, vggt_global_shape, wan_shape):
-    """K8 and K9 alone at their shapes beside their bounds; the quantiser of
-    q and k; the W8A8 linear against the bf16 one at the DiT's fc1."""
+    """K8 and K9 alone at their shapes beside their bounds, and beside the
+    exact kernel at the same shape in the same phase (K1 for K8, K6 bf16 for
+    K9), in turns exact / int8 / int8 / exact; TFLOP/s counting QK^T and PV,
+    registers and shared memory; the quantiser of q and k; the W8A8 linear
+    against the bf16 one at the DiT's fc1."""
     import torch
     import torch.nn.functional as F
 
+    from videogpa_torch.ops import _kernels
     from videogpa_torch.ops.attention import (
-        flash_attn_int8, flash_attn_int8_d128, quantize_qk_int8)
+        flash_attn_fwd, flash_attn_fwd_d128, flash_attn_int8, flash_attn_int8_d128,
+        quantize_qk_int8)
     from videogpa_torch.ops.quant import (
         int8_matmul, linear_w8a8, quantize_activations, quantize_linear)
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(91)
-    for tag, fn, shape, iters in (("k8", flash_attn_int8, dit_shape, 10),
-                                  ("k8_vggt", flash_attn_int8, vggt_global_shape, 10),
-                                  ("k9", flash_attn_int8_d128, wan_shape, 5)):
+    for tag, fn, exact, shape, iters in (
+            ("k8", flash_attn_int8, flash_attn_fwd, dit_shape, 10),
+            ("k8_vggt", flash_attn_int8, flash_attn_fwd, vggt_global_shape, 10),
+            ("k9", flash_attn_int8_d128, flash_attn_fwd_d128, wan_shape, 5)):
         B, N, H, D = shape
         q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
         ops = quantize_qk_int8(q, k, "bnhd")
-        out[f"{tag}_ms"] = cuda_ms(lambda: fn(*ops, v, layout="bnhd"), iters=iters)
+        t = [cuda_ms(f, iters=iters) for f in (
+            lambda: exact(q, k, v, layout="bnhd"), lambda: fn(*ops, v, layout="bnhd"),
+            lambda: fn(*ops, v, layout="bnhd"), lambda: exact(q, k, v, layout="bnhd"))]
+        out[f"{tag}_ms"] = 0.5 * (t[1] + t[2])
+        out[f"{tag}_turns_ms"] = t[1:3]
+        out[f"{tag}_exact_kernel_turns_ms"] = [t[0], t[3]]
         out[f"{tag}_quantize_ms"] = cuda_ms(lambda: quantize_qk_int8(q, k, "bnhd"), iters=iters)
         out[f"{tag}_bound_ms"], out[f"{tag}_bound_by"] = _int8_bound(B, N, N, H, D)
-        out[f"{tag}_tops"] = 4.0 * B * H * N * N * D / out[f"{tag}_ms"] / 1e9
+        out[f"{tag}_tflops"] = 4.0 * B * H * N * N * D / out[f"{tag}_ms"] / 1e9
+        attrs = _kernels.kernel_attrs("flash_attn_int8", D)
+        out[f"{tag}_registers_at_launch"] = attrs["registers"]
+        out[f"{tag}_smem_bytes"] = attrs["smem_bytes"]
+        log(f"[timing] {'K9' if D == 128 else 'K8'} at {shape}: "
+            f"{t[1]:.3f}, {t[2]:.3f} ms (bound {out[f'{tag}_bound_ms']:.3f}, "
+            f"{out[f'{tag}_bound_by']}; {out[f'{tag}_tflops']:.0f} TFLOP/s) against the exact "
+            f"{exact.__name__} {t[0]:.3f}, {t[3]:.3f} ms in turns; quantize_qk_int8 "
+            f"{out[f'{tag}_quantize_ms']:.3f} ms; {attrs['registers']} registers at launch, "
+            f"{attrs['smem_bytes']} B smem")
         del q, k, v, ops
     torch.cuda.empty_cache()
 
@@ -2897,12 +2931,18 @@ def main() -> int:
          "max_abs_err": k8_err, "ms": timing["k8_ms"], "plain_ms": k8_plain_ms,
          "bound_ms": timing["k8_bound_ms"], "bound_by": timing["k8_bound_by"],
          "library_ms": None, "quantize_qk_ms": timing["k8_quantize_ms"],
+         "turns_ms": timing["k8_turns_ms"], "tflops": timing["k8_tflops"],
+         "registers_smem": [timing["k8_registers_at_launch"], timing["k8_smem_bytes"]],
          "exact_function": {"flash_attn_fwd_ms": timing["fwd_ms"],
+                            "flash_attn_fwd_same_phase_turns_ms":
+                                timing["k8_exact_kernel_turns_ms"],
                             "sdpa_ms": timing["fwd_library_ms"]},
          "vggt_global_shape": {"ms": timing["k8_vggt_ms"],
                                "bound_ms": timing["k8_vggt_bound_ms"],
                                "bound_by": timing["k8_vggt_bound_by"],
-                               "quantize_qk_ms": timing["k8_vggt_quantize_ms"]}},
+                               "quantize_qk_ms": timing["k8_vggt_quantize_ms"],
+                               "flash_attn_fwd_same_phase_turns_ms":
+                                   timing["k8_vggt_exact_kernel_turns_ms"]}},
         {"name": "flash_attn_int8_d128", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_int8.cu",
          "replaces": "videogpa_tpu/ops/attention.py:766",
@@ -2910,7 +2950,11 @@ def main() -> int:
          "max_abs_err": k9_err, "ms": timing["k9_ms"], "plain_ms": k9_plain_ms,
          "bound_ms": timing["k9_bound_ms"], "bound_by": timing["k9_bound_by"],
          "library_ms": None, "quantize_qk_ms": timing["k9_quantize_ms"],
+         "turns_ms": timing["k9_turns_ms"], "tflops": timing["k9_tflops"],
+         "registers_smem": [timing["k9_registers_at_launch"], timing["k9_smem_bytes"]],
          "exact_function": {"flash_attn_fwd_d128_ms": timing["k6_self_ms"],
+                            "flash_attn_fwd_d128_same_phase_turns_ms":
+                                timing["k9_exact_kernel_turns_ms"],
                             "sdpa_ms": timing["k6_self_library_ms"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {

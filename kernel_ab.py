@@ -1,24 +1,27 @@
 #!/usr/bin/env python3
 """Time the port's wgmma kernels K1 (``flash_attn_fwd``), K3
 (``flash_attn_bwd``), K4 (``flash_attn_short``), K6 (``flash_attn_fwd_d128``,
-bf16) and K7 (``flash_attn_bwd_d128``), and K6's float32 entry
-(``flash_attn_fwd_f32``), against another checkout's on one NVIDIA GPU, in
-one process.
+bf16), K7 (``flash_attn_bwd_d128``), K8 (``flash_attn_int8``) and K9
+(``flash_attn_int8_d128``), and K6's float32 entry (``flash_attn_fwd_f32``),
+against another checkout's on one NVIDIA GPU, in one process.
 
     python3 kernel_ab.py OTHER_CHECKOUT
     python3 kernel_ab.py --variant NAME DEST   # a copy of this tree's kernels
                                                # with one design choice reverted
 
 Builds OTHER_CHECKOUT/videogpa_torch/csrc/{flash_attn_fwd, flash_attn_bwd,
-flash_attn_short, flash_attn_fwd_d128, flash_attn_bwd_d128}.cu with this
-checkout's nvcc flags into build/ab/ (all at once), then times each kernel at
-its main-path shapes in turns, other / this / this / other, with CUDA events
-on the same operands: K1 at the CogVideoX-5B denoise shape (2, 17,776, 48,
-64), its train shape with LSE and the VGGT-1B global blocks' shape (4,
-13,740, 16, 64); K3 at the CogVideoX-5B training shape (1, 17,776, 48, 64);
-K4 at VGGT's frame attention (40, 1,374, 16, 64) from strided views of a
-packed projection; K6 without and with LSE and K7 at the Wan2.2-TI2V-5B self-
-and cross-attention shapes from strided projection views; K6 f32 at the
+flash_attn_short, flash_attn_fwd_d128, flash_attn_bwd_d128,
+flash_attn_int8}.cu with this checkout's nvcc flags into build/ab/ (all at
+once), then times each kernel at its main-path shapes in turns, other /
+this / this / other, with CUDA events on the same operands: K1 at the
+CogVideoX-5B denoise shape (2, 17,776, 48, 64), its train shape with LSE and
+the VGGT-1B global blocks' shape (4, 13,740, 16, 64); K3 at the CogVideoX-5B
+training shape (1, 17,776, 48, 64); K4 at VGGT's frame attention (40, 1,374,
+16, 64) from strided views of a packed projection; K6 without and with LSE
+and K7 at the Wan2.2-TI2V-5B self- and cross-attention shapes from strided
+projection views; K8 at the CogVideoX-5B denoise and VGGT-1B global shapes
+and K9 at the Wan self-attention shape, on the same ``quantize_qk_int8``
+operands; K6 f32 at the
 camera head (4, 10, 16, 128), a call through this checkout's wrapper with
 the other's C entry (and the kernel's own device time a call, by
 torch.profiler), and at the f32 scorer's frame and global rows. When
@@ -65,6 +68,16 @@ VARIANTS = {
     # K1 with a two-stage K/V ring instead of four stages
     "k1_two_stages": ("flash_attn_fwd", [
         (r"constexpr int kStages = \d+;", "constexpr int kStages = 2;")]),
+    # K8 / K9 converting the s32 scores by the integer-add trick (the bits
+    # 0x4B400000 + s are the float 1.5 * 2^23 + s, exact for |s| < 2^22)
+    # instead of one I2F
+    "int8_magic": ("flash_attn_int8", [
+        (r"static_cast<float>\(si\[4 \* c \+ e\]\)",
+         "(__int_as_float(si[4 * c + e] + 0x4B400000) - 12582912.f)")]),
+    # K8 with two consumer warpgroups (128-query items, 232 registers)
+    # instead of three (192-query items, 160 registers)
+    "int8_two_consumer_wgs": ("flash_attn_int8", [
+        (r"constexpr int kConsumerWGs = \d+;", "constexpr int kConsumerWGs = 2;")]),
     # K6 f32 computing whole 64 x 64 tiles: no skip of rows past Nq or keys
     # past Nk (those rows are loaded as copies of the last live row, so their
     # values stay finite)
@@ -166,7 +179,7 @@ def main() -> int:
     other = sys.argv[1]
     cs.log(cs.gpu_name_and_power())
     names = ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_short", "flash_attn_fwd_d128",
-             "flash_attn_bwd_d128")
+             "flash_attn_bwd_d128", "flash_attn_int8")
     libs = _build_all(other, names)
     old = {}
     for name in names:
@@ -177,6 +190,10 @@ def main() -> int:
                                                _kernels._FWD_ARGS)
         elif name == "flash_attn_fwd":
             symbol, argtypes = "videogpa_flash_attn_fwd", _kernels._FWD_ARGS
+        elif name == "flash_attn_int8":
+            symbol, argtypes = "videogpa_flash_attn_int8", _kernels._INT8_ARGS
+            old["flash_attn_int8_d128"] = _entry(libs[name], "videogpa_flash_attn_int8_d128",
+                                                 _kernels._INT8_ARGS)
         else:
             symbol = f"videogpa_{name}"
             # the older backward interface has no O: its kernel does not take delta itself
@@ -334,6 +351,34 @@ def main() -> int:
         turns(f"k7_{tag}", bwd_old("flash_attn_bwd_d128", "bhnd", q, k, v, o, lse, do),
               lambda: A.flash_attn_bwd_d128(q, k, v, o, lse, do, layout="bhnd"), iters)
         del k, v, o, lse, do
+    del q
+    torch.cuda.empty_cache()
+
+    # K8 at the CogVideoX-5B denoise and VGGT-1B global shapes, K9 at the
+    # Wan self-attention shape: the other checkout's C entry (same interface)
+    # on the same quantised operands
+    for tag, entry, fn, (B, N, H, D), iters in (
+            ("k8_cogvideox_denoise", old["flash_attn_int8"][0], A.flash_attn_int8,
+             (2, 17776, 48, 64), 10),
+            ("k8_vggt_global", old["flash_attn_int8"][0], A.flash_attn_int8,
+             (4, 13740, 16, 64), 10),
+            ("k9_wan_self", old["flash_attn_int8_d128"], A.flash_attn_int8_d128,
+             (1, 18480, 24, 128), 5)):
+        q, k, v = cs._int8_case(gen, B, N, N, H, D, "bnhd")
+        ops = A.quantize_qk_int8(q, k, "bnhd")
+
+        def int8_old(entry=entry, ops=ops, v=v, B=B, N=N, H=H, D=D):
+            q8, sq, k8, sk = ops
+            o = torch.empty(q8.shape, dtype=v.dtype, device="cuda")
+            rc = entry(q8.data_ptr(), sq.data_ptr(), k8.data_ptr(), sk.data_ptr(), v.data_ptr(),
+                       o.data_ptr(), B, H, N, N, D,
+                       *_strides("bnhd", q8, sq.unsqueeze(-1), k8, sk.unsqueeze(-1), v, o),
+                       stream)
+            assert rc == 0, rc
+            return (o,)
+
+        turns(tag, int8_old, lambda fn=fn, ops=ops, v=v: (fn(*ops, v, layout="bnhd"),), iters)
+        del q, k, v, ops
     cs.log("[ab] " + json.dumps(res))
     return 0
 

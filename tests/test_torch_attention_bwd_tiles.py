@@ -5,9 +5,9 @@ base-2 LSE prologue, a plain emulation of the kernel's decomposition
 64-query half over the tile's 128 keys and summed over the key tiles in f32,
 query splits with dK / dV partials summed in split order, keys past Nk
 masked, padded queries given LSE2 = +inf) against the JAX package's
-``_flash_bwd_T`` in Pallas interpret mode, and the B*H limits of the
-wrappers (CUDA's grid y limit binds the kernels that still put b*h on
-``blockIdx.y``; K1, K3 and both K6 entries take any B*H).
+``_flash_bwd_T`` in Pallas interpret mode, and that the wrappers of K1,
+K3, K4, both K6 entries and K7 launch past CUDA's grid y limit of 65,535
+(none puts b*h on ``blockIdx.y``).
 
 Tolerances: f32 on both sides, atol 5e-4 as ``test_torch_attention_grad``
 holds K3's plain version to ``_flash_bwd_T``; the emulation against the
@@ -225,7 +225,7 @@ def _record_launches(monkeypatch):
 
 
 @pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
-def test_k1_k3_and_k6_launch_at_70000_heads_and_k7_raises(monkeypatch, layout):
+def test_k1_k3_k4_k6_and_k7_launch_at_70000_heads(monkeypatch, layout):
     calls = _record_launches(monkeypatch)
 
     def operands(D, n=8, dtype=torch.bfloat16):
@@ -235,7 +235,7 @@ def test_k1_k3_and_k6_launch_at_70000_heads_and_k7_raises(monkeypatch, layout):
     x = operands(64)
     lse = torch.empty((2, 35000, 8), device="meta")
     dq, dk, dv = tattn._launch_bwd("flash_attn_bwd", tattn.KERNEL_HEAD_DIMS, tattn.BWD_QUERIES,
-                                   None, x, x, x, x, lse, x, layout)
+                                   x, x, x, x, lse, x, layout)
     assert dq.shape == dk.shape == dv.shape == x.shape
     y = operands(128)
     o, lse128 = tattn._launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", y, y, y,
@@ -249,10 +249,12 @@ def test_k1_k3_and_k6_launch_at_70000_heads_and_k7_raises(monkeypatch, layout):
     o32, _ = tattn._launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", z, z, z, layout,
                                False, torch.float32, tattn.F32_HEAD_DIMS)
     assert o32.shape == z.shape and o32.dtype == torch.float32
-    want = ["flash_attn_bwd", "flash_attn_fwd_d128_bf16", "flash_attn_fwd", "flash_attn_fwd_f32"]
-    assert calls == want
-    # K7 keeps b*h on blockIdx.y
-    with pytest.raises(ValueError, match="B\\*H=70000"):
-        tattn._launch_bwd("flash_attn_bwd_d128", (128,), tattn.BWD_D128_QUERIES,
-                          tattn.GRID_Y_MAX, y, y, y, y, lse, y, layout)
-    assert calls == want
+    # K7 and K4 flatten their grids too: b*h is not on blockIdx.y
+    g7 = tattn._launch_bwd("flash_attn_bwd_d128", (128,), tattn.BWD_D128_QUERIES,
+                           y, y, y, y, lse, y, layout)
+    assert all(g.shape == y.shape for g in g7)
+    # K4 takes (B, N, H, D) rows that are short: 35,000 x 2 heads of 40 keys
+    s4 = torch.empty((35000, 40, 2, 64), dtype=torch.bfloat16, device="meta")
+    assert tattn._launch_short(s4, s4, s4, 40).shape == s4.shape
+    assert calls == ["flash_attn_bwd", "flash_attn_fwd_d128_bf16", "flash_attn_fwd",
+                     "flash_attn_fwd_f32", "flash_attn_bwd_d128", "flash_attn_short"]

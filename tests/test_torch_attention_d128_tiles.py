@@ -87,7 +87,7 @@ def test_k7_launch_raises_on_unaligned_operands_without_a_kernel(monkeypatch):
     lse = torch.zeros(1, 2, 70)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tattn._launch_bwd("flash_attn_bwd_d128", (128,), tattn.BWD_D128_QUERIES,
-                          tattn.GRID_Y_MAX, x, x, x, x, lse, x, "bnhd")
+                          x, x, x, x, lse, x, "bnhd")
 
 
 # ---- the prologue and the decomposition ----

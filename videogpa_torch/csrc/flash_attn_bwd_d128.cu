@@ -23,9 +23,10 @@
 //  - Prologue kernel: delta = rowsum(O * dO) in f32 and the base-2 LSE into
 //    (B*H, Nq padded to 64) buffers (padded rows: LSE2 = +inf, so P = 0
 //    there), and zeroes the f32 dQ accumulator.
-//  - Main kernel, one CTA per (128-key tile, b*h, query split) with one
-//    producer warpgroup and two consumer warpgroups; setmaxnreg gives the
-//    consumers 232 registers and the producer 40. The producer loads the
+//  - Main kernel, one CTA per (128-key tile, b*h, query split) on a flat
+//    grid (key tile fastest, so any B*H fits) with one producer warpgroup
+//    and two consumer warpgroups; setmaxnreg gives the consumers 232
+//    registers and the producer 40. The producer loads the
 //    key tile's K and V once by TMA (they stay in shared memory) and keeps a
 //    2-stage mbarrier ring of 64-query tiles of Q and dO (TMA) with their
 //    LSE2 and delta (bulk copies). Consumer warpgroup w owns keys
@@ -116,7 +117,7 @@ struct Params {
   float* dv_part;
   __nv_bfloat16* dk;
   __nv_bfloat16* dv;
-  int H, Nq, Nk, Nq_pad, Nk_pad, tiles_per_split;
+  int H, BH, Nq, Nk, Nq_pad, Nk_pad, n_kt, splits, tiles_per_split;
   long long dk_sb, dk_sn, dk_sh;
   long long dv_sb, dv_sn, dv_sh;
   float scale;       // D^-0.5
@@ -190,13 +191,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int k_tile = blockIdx.x;
-  const int bh = blockIdx.y;
+  // flattened grid: key tile fastest, then b*h, then the query split
+  const int k_tile = static_cast<int>(blockIdx.x % p.n_kt);
+  const int rest = static_cast<int>(blockIdx.x / p.n_kt);
+  const int bh = rest % p.BH;
+  const int split = rest / p.BH;
   const int b = bh / p.H;
   const int h = bh % p.H;
   const int k0 = k_tile * kBlockN;
   const int n_qt = p.Nq_pad / kBlockM;
-  const int qt_begin = blockIdx.z * p.tiles_per_split;
+  const int qt_begin = split * p.tiles_per_split;
   const int qt_end = min(n_qt, qt_begin + p.tiles_per_split);
   const int n_it = max(0, qt_end - qt_begin);
 
@@ -375,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int r = 0; r < 2; ++r) {
     const int key = k0 + key_lo + 8 * r;
     if (key >= p.Nk) continue;
-    if (gridDim.z == 1) {
+    if (p.splits == 1) {
       __nv_bfloat16* dkr = p.dk + b * p.dk_sb + key * p.dk_sn + h * p.dk_sh;
       __nv_bfloat16* dvr = p.dv + b * p.dv_sb + key * p.dv_sn + h * p.dv_sh;
 #pragma unroll
@@ -387,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       const long long off =
-          ((static_cast<long long>(blockIdx.z) * gridDim.y + bh) * p.Nk_pad + key) * kD;
+          ((static_cast<long long>(split) * p.BH + bh) * p.Nk_pad + key) * kD;
 #pragma unroll
       for (int j = 0; j < kD / 8; ++j) {
         *reinterpret_cast<float2*>(p.dk_part + off + 8 * j + col) =
@@ -481,10 +485,13 @@ extern "C" int videogpa_flash_attn_bwd_d128(
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
   p.H = H;
+  p.BH = BH;
   p.Nq = Nq;
   p.Nk = Nk;
   p.Nq_pad = n_qt * kBlockM;
   p.Nk_pad = n_kt * kBlockN;
+  p.n_kt = n_kt;
+  p.splits = splits;
   p.tiles_per_split = tiles_per_split;
   p.dk_sb = dk_sb; p.dk_sn = dk_sn; p.dk_sh = dk_sh;
   p.dv_sb = dv_sb; p.dv_sn = dv_sn; p.dv_sh = dv_sh;
@@ -513,8 +520,10 @@ extern "C" int videogpa_flash_attn_bwd_d128(
   err = cudaFuncSetAttribute(flash_attn_bwd_d128_main,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return err;
-  flash_attn_bwd_d128_main<<<dim3(n_kt, BH, splits), kThreads, kSmemBytes, st>>>(tq, tk, tv, tdo,
-                                                                                 p);
+  const long long ctas = static_cast<long long>(n_kt) * BH * splits;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attn_bwd_d128_main<<<static_cast<unsigned int>(ctas), kThreads, kSmemBytes, st>>>(
+      tq, tk, tv, tdo, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 

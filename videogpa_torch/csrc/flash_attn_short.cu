@@ -23,7 +23,7 @@
 // operands and output need 0.13 ms at 3.35 TB/s). The two-pass softmax this
 // kernel had before did 1.5x those operations (bound 0.47 ms).
 //
-// Design: one CTA per (128-query tile, b*h): two consumer warpgroups of 64
+// Design: one CTA per (128-query tile, b*h) on a flat grid: two consumer warpgroups of 64
 // query rows each and one producer warp. The producer loads the CTA's Q tile
 // once and streams 128-key tiles of K and V through a 2-stage ring of
 // shared-memory buffers with TMA (rank-4 tensor maps over (D, N, H, B) with
@@ -58,7 +58,7 @@ constexpr int kStages = 2;
 
 struct Params {
   __nv_bfloat16* o;
-  int H, Nq, n_valid;
+  int H, Nq, n_valid, n_qt;
   long long o_sb, o_sn, o_sh;
   float scale_log2;  // D^-0.5 * log2(e)
 };
@@ -90,10 +90,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int bh = blockIdx.y;
+  // flat grid, query tile fastest: the tiles of one head are neighbours, so
+  // its K and V rows stay in L2, and any B*H fits
+  const int bh = static_cast<int>(blockIdx.x / p.n_qt);
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockM;
+  const int q0 = static_cast<int>(blockIdx.x % p.n_qt) * kBlockM;
   const int n_kv = (p.n_valid + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == 0) {
@@ -252,8 +254,10 @@ cudaError_t launch(const Params& p, const void* q, const void* k, const void* v,
   err = cudaFuncSetAttribute(flash_attn_short_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.Nq + kBlockM - 1) / kBlockM, B * p.H);
-  flash_attn_short_kernel<D><<<grid, kThreads, L::kBytes, stream>>>(tq, tk, tv, p);
+  const long long ctas = static_cast<long long>(p.n_qt) * B * p.H;
+  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_attn_short_kernel<D><<<static_cast<unsigned int>(ctas), kThreads, L::kBytes, stream>>>(
+      tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -269,6 +273,7 @@ extern "C" int videogpa_flash_attn_short(
   p.H = H;
   p.Nq = Nq;
   p.n_valid = n_valid;
+  p.n_qt = (Nq + kBlockM - 1) / kBlockM;
   p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
   p.scale_log2 = scale_log2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

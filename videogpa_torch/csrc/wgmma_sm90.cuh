@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (flash_attn_bwd.cu, flash_attn_bwd_d128.cu, flash_attn_fwd_d128.cu,
-// flash_attn_short.cu): shared-memory matrix
-// descriptors and the bf16 -> f32 `wgmma.mma_async` products (A from shared
-// memory or from registers), wgmma fence / commit / wait, a flush-to-zero
-// exp2, mbarrier init /
-// arrive / expect-tx / wait, TMA tile and bulk loads, bulk f32 reduce-add,
-// setmaxnreg, named
-// barriers, and on the host a rank-4 tensor map over (D, N, H, B) built with
+// (flash_attn_fwd.cu, flash_attn_bwd.cu, flash_attn_bwd_d128.cu,
+// flash_attn_fwd_d128.cu, flash_attn_short.cu, flash_attn_int8.cu):
+// shared-memory matrix descriptors, the bf16 -> f32 `wgmma.mma_async`
+// products (A from shared memory or from registers) and the s8 -> s32 one,
+// wgmma fence / commit / wait, a flush-to-zero exp2, mbarrier init / arrive /
+// expect-tx / wait, 4-byte cp.async copies that arrive on an mbarrier, TMA
+// tile and bulk loads, bulk f32 reduce-add, setmaxnreg, named barriers, and
+// on the host a rank-4 tensor map over (D, N, H, B) built with
 // cuTensorMapEncodeTiled, which is reached through cudaGetDriverEntryPoint so
 // that nothing links against libcuda.
 //
@@ -72,6 +72,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d (64 x N, f32) = or += A (64 x 16) * B (16 x N), bf16; A and B from shared
@@ -228,6 +233,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 128) wgmma_rs_n128<TB>(d, a, db, scale_d);
 }
 
+// d (64 x 128, s32) = or += A (64 x 32) * B (32 x 128), s8; both operands
+// K-major in shared memory (8-bit types have no transpose). One k32 step is
+// 32 bytes of a row, as one k16 step of bf16, so the descriptors are those
+// of a bf16 operand of half the width. The accumulator has the f32 one's
+// layout. scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t da, uint64_t db,
+                                                 int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // 2^x as one ex2.approx.ftz on the special-function unit: a result below
 // 2^-126 flushes to 0. exp2f (no fast-math) wraps the same instruction in a
 // subnormal fix-up, which in flash_attn_bwd.cu's softmax cost a tenth of
@@ -291,6 +321,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 bytes from global to shared memory (both 4-byte aligned); valid = false
+// reads nothing and writes zeros.
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+// One arrival on `bar` once this thread's earlier cp.async copies have
+// landed; the arrival counts against the barrier's initial count (noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 template <int kCount>
@@ -376,13 +420,15 @@ static inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A rank-4 bf16 map over (D, N, H, B) of the operand at `base` with element
+// A rank-4 map over (D, N, H, B) of the operand at `base` with element
 // strides (sn, sh, sb) for (n, h, b) and a contiguous d; boxes of
-// (box_d, box_n, 1, 1). Returns cudaSuccess, or cudaErrorInvalidValue after
-// printing the driver's error.
+// (box_d, box_n, 1, 1); bf16 elements, or bytes with int8 = true (a box wider
+// than D reads zeros past it). Returns cudaSuccess, or cudaErrorInvalidValue
+// after printing the driver's error.
 static inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, int D, int N, int H,
                                           int B, long long sn, long long sh, long long sb,
-                                          int box_d, int box_n, CUtensorMapSwizzle swizzle) {
+                                          int box_d, int box_n, CUtensorMapSwizzle swizzle,
+                                          bool int8 = false) {
   // the driver call needs a current context; a thread that has made no
   // runtime call yet (PyTorch's autograd thread) has none: bind the device's
   // primary context to it
@@ -396,11 +442,14 @@ static inline cudaError_t make_tensor_map(CUtensorMap* map, const void* base, in
   }
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * 2, static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint64_t es = int8 ? 1 : 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sn) * es, static_cast<cuuint64_t>(sh) * es,
+                                 static_cast<cuuint64_t>(sb) * es};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_n), 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+  const CUtensorMapDataType type =
+      int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUresult r = fn(map, type, 4, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) {

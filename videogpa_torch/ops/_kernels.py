@@ -30,7 +30,7 @@ SOURCES = {
     "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
     "flash_attn_int8": _CSRC / "flash_attn_int8.cu",
 }
-HEADERS = (_CSRC / "mma_sm90.cuh", _CSRC / "wgmma_sm90.cuh")
+HEADERS = (_CSRC / "wgmma_sm90.cuh",)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,7 +42,8 @@ _FWD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I] + [_LL] * 12 + [_F, _P]
 # dq_acc, dk_part, dv_part); B, H, Nq, Nk, D, splits, query tiles per split;
 # (b, n, h) strides of q, k, v, o, do, dq, dk, dv; scale; stream
 _BWD_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
-# q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream
+# q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream.
+# The kernel needs every query scale sq > 0, as quantize_qk_int8 makes them.
 _INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
 # entry point -> (source, C symbol, argtypes)
 _SIGNATURES = {
@@ -70,6 +71,7 @@ _SIGNATURES = {
     "flash_attn_bwd_attrs": ("flash_attn_bwd", "videogpa_flash_attn_bwd_attrs", [_I, _P, _P]),
     "flash_attn_fwd_d128_attrs": (
         "flash_attn_fwd_d128", "videogpa_flash_attn_fwd_d128_attrs", [_P, _P]),
+    "flash_attn_int8_attrs": ("flash_attn_int8", "videogpa_flash_attn_int8_attrs", [_I, _P, _P]),
     "flash_attn_int8_d128": (
         "flash_attn_int8", "videogpa_flash_attn_int8_d128", _INT8_ARGS),
 }
@@ -143,7 +145,8 @@ def kernel(name: str) -> Callable[..., int]:
 def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
     report entry (``flash_attn_fwd``, ``flash_attn_fwd_f32``,
-    ``flash_attn_short`` and ``flash_attn_bwd`` at head dim ``args[0]``,
+    ``flash_attn_short``, ``flash_attn_bwd`` and ``flash_attn_int8`` (K8 and
+    K9) at head dim ``args[0]``,
     ``flash_attn_fwd_d128`` (its bf16 kernel), ``flash_attn_bwd_d128``), as
     the card reports them."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)

@@ -21,7 +21,8 @@ the kernel or raises. There is no fallback from one to the other.
   V staged in shared memory by 64-key tiles), for short and long rows.
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
-  ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128.
+  ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128; QK^T
+  on int8 wgmma, PV on bf16 wgmma, TMA, a persistent grid.
 
 ``attention`` routes as the JAX package does for bf16, and sends float32
 operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
@@ -97,19 +98,12 @@ def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
         )
 
 
-# CUDA's grid y limit: a kernel that puts b*h on blockIdx.y takes at most
-# this many heads. K1, K3 and both K6 entries flatten their grids and take
-# any.
-GRID_Y_MAX = 65535
-
-
 def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
-                    head_dims=KERNEL_HEAD_DIMS, max_bh: Optional[int] = GRID_Y_MAX,
-                    **like_q) -> Tuple[int, int, int, int, int]:
+                    head_dims=KERNEL_HEAD_DIMS, **like_q) -> Tuple[int, int, int, int, int]:
     """Validate CUDA kernel operands; ``like_q`` are named tensors shaped
     like q. bf16 kernels copy 16-byte chunks, so their operands must be
-    16-byte aligned. ``max_bh``: the most B*H the kernel's grid takes (None:
-    any). Returns (B, Nq, H, D, Nk)."""
+    16-byte aligned. Every kernel's grid takes any B*H. Returns (B, Nq, H,
+    D, Nk)."""
     B, Nq, H, D, _, _, _ = _dims(q, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k, layout)
     device = q.get_device()
@@ -128,7 +122,7 @@ def _check_operands(fn: str, layout: str, q, k, v, dtype=torch.bfloat16,
         raise ValueError(f"{fn}: shapes {shapes} do not match")
     if D not in head_dims:
         raise NotImplementedError(f"{fn}: head_dim {D} not in {head_dims} for {dtype}")
-    if min(Nq, Nk) < 1 or (max_bh is not None and B * H > max_bh):
+    if min(Nq, Nk) < 1:
         raise ValueError(f"{fn}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
     return B, Nq, H, D, Nk
 
@@ -176,7 +170,7 @@ def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head
     geo = _FWD_GEOMETRY.get(key)
     if geo is None:
         B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
-                                          head_dims=head_dims, max_bh=None)
+                                          head_dims=head_dims)
         # O is contiguous in the layout: its (b, n, h) strides follow from the shape
         o_strides = (Nq * H * D, H * D, D) if layout == "bnhd" else (H * Nq * D, D, Nq * D)
         args = (B, H, Nq, Nk, D, *_dims(q, layout)[4:], *_dims(k, layout)[4:],
@@ -259,12 +253,11 @@ def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd"):
     return grads
 
 
-def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do,
-                        max_bh: Optional[int] = GRID_Y_MAX):
+def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do):
     """``_check_operands`` for a backward kernel, and its natural-log LSE.
     Returns (B, Nq, H, D, Nk)."""
     B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, head_dims=head_dims,
-                                      max_bh=max_bh, o=o, do=do)
+                                      o=o, do=do)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
         raise ValueError(f"{fn_name}: lse must be a contiguous ({B}, {H}, {Nq}) "
@@ -293,7 +286,7 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
-    grads = _launch_bwd("flash_attn_bwd", KERNEL_HEAD_DIMS, BWD_QUERIES, None,
+    grads = _launch_bwd("flash_attn_bwd", KERNEL_HEAD_DIMS, BWD_QUERIES,
                         q, k, v, o, lse, do, layout)
     flash_attn_bwd.launches += 1
     return grads
@@ -339,8 +332,8 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax(Q K^T / sqrt(D)) V over keys [0, n_valid) (default: all Nk).
     CPU tensors take the plain version. CUDA tensors must be bf16 with D in
     {16, 32, 64}, any (b, n, h) strides with a contiguous last dim that meet
-    TMA's 16-byte rule (``check_16_bytes``), and ``short_eligible`` key rows;
-    anything else raises. Each kernel launch adds one to
+    TMA's 16-byte rule (``check_16_bytes``), and ``short_eligible`` key rows,
+    at any B*H; anything else raises. Each kernel launch adds one to
     ``flash_attn_short.launches``.
     """
     n_valid = k.shape[1] if n_valid is None else int(n_valid)
@@ -350,6 +343,13 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_short_reference(q, k, v, n_valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_short: unsupported device {q.device}")
+    o = _launch_short(q, k, v, n_valid)
+    flash_attn_short.launches += 1
+    return o
+
+
+def _launch_short(q, k, v, n_valid: int) -> torch.Tensor:
+    """Validate K4's operands and launch it (a flat grid: any B*H)."""
     B, Nq, H, D, Nk = _check_operands("flash_attn_short", "bnhd", q, k, v)
     if not short_eligible(Nk, H, D, q.element_size()):
         raise ValueError(f"flash_attn_short: key row of {Nk} x {H} heads x {D} is not short")
@@ -359,7 +359,6 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         strides += _dims(x, "bnhd")[4:]
     _call("flash_attn_short", "flash_attn_short", q.device, q.data_ptr(), k.data_ptr(),
           v.data_ptr(), o.data_ptr(), B, H, Nq, n_valid, D, *strides, D ** -0.5 * _LOG2E)
-    flash_attn_short.launches += 1
     return o
 
 
@@ -399,11 +398,12 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
     tensors must be bf16 with D = 128 and meet TMA's 16-byte rule
-    (``check_16_bytes``); anything else raises. The kernel computes delta =
-    rowsum(O * dO) itself. dK and dV are deterministic; dQ is summed over key
-    tiles by f32 reduce-adds in the order the CTAs reach them, so its last
-    bits vary from run to run. Each launch (a prologue, the main kernel and
-    an epilogue) adds one to ``flash_attn_bwd_d128.launches``.
+    (``check_16_bytes``), at any B*H; anything else raises. The kernel
+    computes delta = rowsum(O * dO) itself. dK and dV are deterministic; dQ
+    is summed over key tiles by f32 reduce-adds in the order the CTAs reach
+    them, so its last bits vary from run to run. Each launch (a prologue,
+    the main kernel and an epilogue) adds one to
+    ``flash_attn_bwd_d128.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -411,7 +411,7 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
-    grads = _launch_bwd("flash_attn_bwd_d128", (128,), BWD_D128_QUERIES, GRID_Y_MAX,
+    grads = _launch_bwd("flash_attn_bwd_d128", (128,), BWD_D128_QUERIES,
                         q, k, v, o, lse, do, layout)
     flash_attn_bwd_d128.launches += 1
     return grads
@@ -459,14 +459,12 @@ def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
     return bwd_splits(bh, nq, nk, BWD_D128_QUERIES)
 
 
-def _launch_bwd(fn_name: str, head_dims, q_tile: int, max_bh: Optional[int],
-                q, k, v, o, lse, do, layout):
+def _launch_bwd(fn_name: str, head_dims, q_tile: int, q, k, v, o, lse, do, layout):
     """K3's and K7's launch (one C interface): the kernel computes delta
     itself from O and dO, so O is an operand; the wrapper allocates the
     kernel's f32 scratch (base-2 LSE and delta padded to whole query tiles,
     the dQ accumulator, and dK / dV partials when the query range is split)."""
-    B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, head_dims, q, k, v, o, lse, do,
-                                          max_bh=max_bh)
+    B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, head_dims, q, k, v, o, lse, do)
     splits, per = bwd_splits(B * H, Nq, Nk, q_tile)
     nq_pad = _round_up(Nq, q_tile)
     nk_pad = _round_up(Nk, BWD_KEYS)
@@ -587,15 +585,20 @@ def flash_attn_int8_reference(q8, sq, k8, sk, v, layout: str = "bnhd") -> torch.
 
 
 def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.Tensor:
-    """Both int8-QK wrappers: the plain version for CPU tensors; for CUDA
-    tensors validate the operands and launch the entry point ``fn_name`` (the
-    two share one C interface)."""
+    """Both int8-QK wrappers: the plain version for CPU tensors, the entry
+    point ``fn_name`` for CUDA tensors."""
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     if q8.device.type == "cpu":
         return flash_attn_int8_reference(q8, sq, k8, sk, v, layout)
     if q8.device.type != "cuda":
         raise ValueError(f"{fn_name}: unsupported device {q8.device}")
+    return _launch_int8(fn_name, head_dims, q8, sq, k8, sk, v, layout)
+
+
+def _launch_int8(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.Tensor:
+    """Validate the int8-QK operands and launch the entry point ``fn_name``
+    (K8 and K9 share one C interface), at any B*H."""
     B, Nq, H, D, _, _, _ = _dims(q8, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k8, layout)
     for name, x, dtype in (("q8", q8, torch.int8), ("k8", k8, torch.int8),
@@ -605,13 +608,11 @@ def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.T
             raise ValueError(f"{fn_name}: {name} on {x.device}, q8 on {q8.device}")
         if x.dtype != dtype:
             raise TypeError(f"{fn_name}: {name} must be {dtype}, got {x.dtype}")
-    # the kernel copies 16-byte chunks of q8, k8 and v
-    for name, x, per16 in (("q8", q8, 16), ("k8", k8, 16), ("v", v, 8)):
-        if (x.stride(-1) != 1 or x.data_ptr() % 16
-                or any(st % per16 for st in x.stride()[:-1])):
-            raise ValueError(
-                f"{fn_name}: {name} needs a contiguous last dim, 16-byte alignment and "
-                f"(b, n, h) strides that are multiples of {per16} elements")
+    # TMA's rule for q8, k8 and v (``check_16_bytes``)
+    for name, x in (("q8", q8), ("k8", k8), ("v", v)):
+        if x.stride(-1) != 1:
+            raise ValueError(f"{fn_name}: {name} needs a contiguous last dim")
+        check_16_bytes(fn_name, name, x)
     if ((Bk, Hk, Dk) != (B, H, D) or v.shape != k8.shape or sq.shape != q8.shape[:-1]
             or sk.shape != k8.shape[:-1]):
         shapes = {n: tuple(x.shape) for n, x in
@@ -619,7 +620,7 @@ def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.T
         raise ValueError(f"{fn_name}: shapes {shapes} do not match")
     if D not in head_dims:
         raise NotImplementedError(f"{fn_name}: head_dim {D} not in {head_dims}")
-    if min(Nq, Nk) < 1 or B * H > GRID_Y_MAX:
+    if min(Nq, Nk) < 1:
         raise ValueError(f"{fn_name}: unsupported sizes B*H={B * H}, Nq={Nq}, Nk={Nk}")
     o = torch.empty(q8.shape, dtype=v.dtype, device=v.device)
     strides = []
@@ -639,15 +640,20 @@ def flash_attn_int8(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor, sk: to
         q8, k8: int8, (B, N, H, D) for ``layout="bnhd"`` or (B, H, N, D) for
             "bhnd"; Nq may differ from Nk.
         sq, sk: their f32 scales, shaped like them without the last dim.
+            The kernel needs every sq > 0 (it takes the row max of the
+            scores before the row scale), as ``quantize_qk_int8`` makes
+            them; the plain version takes any sq.
         v: shaped like k8. Any (b, n, h) strides as long as the last dim is
             contiguous: no copy is made.
 
     Returns:
         O, a new contiguous tensor shaped like q8, in V's dtype.
 
-    CPU tensors take the plain version. CUDA tensors must have V in bf16 and
-    D in {16, 32, 64}; anything else raises. Each kernel launch adds one to
-    ``flash_attn_int8.launches``.
+    CPU tensors take the plain version. CUDA tensors must have V in bf16,
+    D in {16, 32, 64} and q8, k8, v that meet TMA's 16-byte rule
+    (``check_16_bytes``), at any B*H; anything else raises. A CUDA sq <= 0
+    is not checked (that would cost a sync) and gives undefined rows. Each kernel
+    launch adds one to ``flash_attn_int8.launches``.
     """
     o = _int8_forward("flash_attn_int8", KERNEL_HEAD_DIMS, q8, sq, k8, sk, v, layout)
     if q8.is_cuda:
@@ -665,8 +671,9 @@ def flash_attn_int8_d128(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
     ``attention`` does not dispatch it: ``impl="flash_int8"`` at head_dim 128
     takes the exact kernel, as in the JAX package.
 
-    CPU tensors take the plain version. CUDA tensors must have V in bf16 and
-    D = 128; anything else raises. Each kernel launch adds one to
+    CPU tensors take the plain version. CUDA tensors must have V in bf16,
+    D = 128, every sq > 0 (as for K8) and q8, k8, v that meet TMA's 16-byte
+    rule, at any B*H; anything else raises or, for sq <= 0, is undefined. Each kernel launch adds one to
     ``flash_attn_int8_d128.launches``.
     """
     o = _int8_forward("flash_attn_int8_d128", (128,), q8, sq, k8, sk, v, layout)
