@@ -80,6 +80,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
              against the exact scorer) and Wan2.2-TI2V-5B (1 request x 3
              UniPC steps; head_dim 128 stays on K6). One profiled int8 denoise
              step and scorer batch.
+   slice-sampling — the tiny VAE and a small one (channels 32-128, 2
+             resnets a block) with the generator's bf16 weights and f32
+             activations: encode with injected posterior noise, decode,
+             tiled decode and tiled encode; a small T5 with shared and with
+             per-layer bias, one prompt padded; each on the card against the
+             CPU on the same weights.
+   sample  — the sampling path at full width with [main]'s CogVideoX-5B
+             DiT: T5-v1.1-XXL (f32) encodes 2 x 226 ids; ``sample_t2v``
+             runs 2 DPM steps at 49f@480x720 and ``decode_latents`` decodes
+             the (1, 13, 16, 60, 90) latents through the bf16 VAE with the
+             DiT, T5 and VAE resident; ``video_to_uint8``. Prints T5 ms,
+             step ms, decode ms and the tile it settled on, peak GB and K1's
+             launches (42 a step; T5 and the VAE launch none); one profiled
+             decode tile; which operations take a tensor above 2^31
+             elements. Then ``sample_i2v`` with the CogVideoX-5B-I2V DiT
+             (VAE encode of one 480x720 frame, 2 DPM steps, decode).
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -398,9 +414,8 @@ def phase_main(num_requests: int = 2, steps: int = 2):
     profile = profile_device_time("one denoise step (profiled)", lambda: denoise_loop(
         dit, text, negative, settings1, latent_shape,
         generator=torch.Generator(device="cuda").manual_seed(5)))
-    del dit
-    torch.cuda.empty_cache()
     return {
+        "dit": dit,  # the [sample] phase reuses it, then frees it
         "launches": launches, "request_s": request_s,
         "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
         "launches_per_step": expected // (num_requests * steps), "profile": profile,
@@ -1341,6 +1356,12 @@ def synthetic_frames(K: int, S: int, size: int, seed: int):
     return clips
 
 
+def device_metrics(metrics: dict) -> dict:
+    """The metric set without Epipolar: its SIFT matching needs OpenCV on the
+    host, which the card's machine lacks; the CPU tests hold it."""
+    return {name: m for name, m in metrics.items() if name != "Epipolar"}
+
+
 def phase_slice_scorer() -> None:
     """The tiny VGGT scorer through process_frames_batch, f32 on the card
     against the same weights and frames in f32 on the CPU."""
@@ -1377,7 +1398,7 @@ def phase_slice_scorer() -> None:
         fail("the tiny VGGT forward on the card disagrees with the CPU")
 
     def score(model, lp, device):
-        vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.float32,
+        vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model, compute_dtype=torch.float32,
                             zbuffer_impl="packed", device=device)
         return vp.process_frames_batch(clips, [0])
 
@@ -1489,7 +1510,7 @@ def phase_scorer(num_batches: int = 3, K: int = 4, S: int = 10):
         f"{cfg.tokens_dim} x {cfg.camera_iterations} iterations (f32), DPT {cfg.dpt_features}; "
         f"{n_params / 1e9:.3f} B params (trunk and DPT bf16), LPIPS VGG16 f32; built in "
         f"{time.perf_counter() - t0:.1f} s")
-    vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.bfloat16,
+    vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model, compute_dtype=torch.bfloat16,
                         dpt_chunk=8, zbuffer_impl="packed", device="cuda")
     batches = [synthetic_frames(K, S, cfg.img_size, seed=100 + b) for b in range(num_batches)]
 
@@ -2347,7 +2368,7 @@ def phase_slice_int8() -> None:
         fail("the tiny int8 VGGT forward on the card disagrees with the CPU")
 
     def score(model, lp, device):
-        vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.float32,
+        vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model, compute_dtype=torch.float32,
                             zbuffer_impl="packed", device=device, attn_impl=impl)
         return vp.process_frames_batch(clips, [0])
 
@@ -2519,7 +2540,7 @@ def phase_scorer_int8(exact_results, num_batches: int = 3, K: int = 4, S: int = 
         f"global blocks) int8, attn_impl {impl!r}; DINOv2, camera head, DPT and LPIPS as before")
     if n_q != 4 * 2 * cfg.depth:
         fail("quantize_vggt_int8 did not swap 4 linears a block")
-    vp = VideoProcessor(build_metrics(lp), params=model, compute_dtype=torch.bfloat16,
+    vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model, compute_dtype=torch.bfloat16,
                         dpt_chunk=8, zbuffer_impl="packed", device="cuda", attn_impl=impl)
     batches = [synthetic_frames(K, S, cfg.img_size, seed=100 + b) for b in range(num_batches)]
 
@@ -2695,6 +2716,331 @@ def phase_timing_int8(dit_shape, vggt_global_shape, wan_shape):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sampling: the 3D-causal VAE, T5 and sample_t2v / sample_i2v
+# ---------------------------------------------------------------------------
+
+# VAE on the card against the CPU, both in the path's dtypes (bf16 weights as
+# the generator loads them, f32 activations from the f32 latents and image):
+# the same arithmetic up to summation order through ~60 convolutions
+VAE_REL = 1e-3
+# T5 in f32 on both (the generator keeps it as loaded): summation order only
+T5_REL = 1e-4
+
+
+def small_vae_config():
+    """The VAE at a quarter of CogVideoX-5B's widths and 2 resnets a block,
+    with its latent channels, groups and compression."""
+    import dataclasses
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+
+    return dataclasses.replace(CogVideoXConfig.cogvideox_5b(),
+                               vae_block_out_channels=(32, 64, 64, 128),
+                               vae_layers_per_block=2)
+
+
+def _rel(got, want) -> float:
+    return ((got.float().cpu() - want.float()).norm() / want.float().norm()).item()
+
+
+def phase_slice_sampling() -> None:
+    """The tiny and a small VAE (encode with injected posterior noise,
+    decode, tiled decode and tiled encode) and a small T5 (shared and
+    per-layer bias, padded) on the card against the CPU on the same weights."""
+    import dataclasses
+
+    import torch
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+    from videogpa_torch.models.cogvideox import vae as V
+    from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
+
+    zero_launches()
+    for name, cfg, T, H, W, tile in (("tiny", CogVideoXConfig.tiny(), 9, 64, 96, 4),
+                                     ("small", small_vae_config(), 9, 128, 192, 8)):
+        gen = torch.Generator().manual_seed(40)
+        ref = V.vae_init(cfg, gen, device="cpu")
+        # the generator's bf16 weights, held in f32 on the CPU
+        ref.load_state_dict({k: v.to(torch.bfloat16).float() for k, v in ref.state_dict().items()})
+        dev = V.vae_init(cfg, device="cuda", dtype=torch.bfloat16)
+        dev.load_state_dict({k: v.to(torch.bfloat16) for k, v in ref.state_dict().items()})
+        video = torch.rand(1, 3, T, H, W, generator=gen) * 2 - 1
+        t_lat = (T - 1) // cfg.temporal_compression_ratio + 1
+        h, w = H // 8, W // 8
+        noise = torch.randn(1, cfg.vae_latent_channels, t_lat, h, w, generator=gen)
+        lat = torch.randn(1, cfg.vae_latent_channels, t_lat, h, w, generator=gen)
+        px = H // 2  # the tiled encode's pixel tile, overlap px // 2
+        n_tiles = len({p // 8 for p in V._tile_positions(H, px, px // 2)}) * len(
+            {p // 8 for p in V._tile_positions(W, px, px // 2)})
+        tile_noise = [torch.randn(1, cfg.vae_latent_channels, t_lat, px // 8, px // 8,
+                                  generator=gen) for _ in range(n_tiles)]
+        cases = {
+            "encode": lambda m, d: V.vae_encode(m, video.to(d), cfg, noise=noise.to(d)),
+            "decode": lambda m, d: V.vae_decode(m, lat.to(d), cfg),
+            f"tiled decode (tile {tile})": lambda m, d: V.vae_decode_tiled(
+                m, lat.to(d), cfg, tile_latent=tile, overlap_latent=tile // 2),
+            f"tiled encode (tile {px} px)": lambda m, d: V.vae_encode_tiled(
+                m, video.to(d), cfg, noise=[n.to(d) for n in tile_noise],
+                tile_pixels=px, overlap_pixels=px // 2),
+        }
+        errs = {}
+        for case, fn in cases.items():
+            want = fn(ref, "cpu")
+            got = fn(dev, "cuda")
+            torch.cuda.synchronize()
+            errs[case] = _rel(got, want)
+            if not (bool(torch.isfinite(got).all()) and got.shape == want.shape
+                    and errs[case] <= VAE_REL):
+                fail(f"the {name} VAE's {case} on the card disagrees with the CPU: "
+                     f"rel-norm error {errs[case]:.3e}")
+        log(f"[slice-sampling] {name} VAE (channels {cfg.vae_block_out_channels}, "
+            f"{cfg.vae_layers_per_block} resnets a block, {T}f@{H}x{W}), bf16 weights and f32 "
+            f"activations on the card vs the CPU: rel-norm errors "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {VAE_REL})")
+    for per_layer in (False, True):
+        cfg = dataclasses.replace(T5Config.tiny(per_layer), d_model=256, d_kv=32, d_ff=640,
+                                  num_layers=4, num_heads=8, vocab_size=1000)
+        ref = t5_encoder_init(cfg, torch.Generator().manual_seed(41), device="cpu")
+        dev = t5_encoder_init(cfg, device="cuda")
+        dev.load_state_dict(ref.state_dict())
+        gen = torch.Generator().manual_seed(42)
+        ids = torch.randint(0, cfg.vocab_size, (2, 226), generator=gen)
+        mask = torch.ones(2, 226, dtype=torch.long)
+        mask[1, 150:] = 0
+        want = t5_encode(ref, ids, mask)
+        got = t5_encode(dev, ids.cuda(), mask.cuda())
+        err = _rel(got, want)
+        log(f"[slice-sampling] small T5 ({cfg.num_layers} layers, d_model {cfg.d_model}, "
+            f"{'per-layer' if per_layer else 'shared'} bias, 2 x 226 ids, one padded) f32 on the "
+            f"card vs the CPU: rel-norm error {err:.2e} (limit {T5_REL})")
+        if not (bool(torch.isfinite(got).all()) and err <= T5_REL):
+            fail("T5 on the card disagrees with the CPU")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"the VAE and T5 launched an attention kernel: {launches}")
+
+
+def decode_conv_tflop(cfg, latents_shape, tile: int) -> dict:
+    """Convolution TFLOP of ``decode_latents`` on (B, F, C, h, w) latents at
+    ``tile``, counted by ``torch.utils.flop_counter`` over the decode on
+    ``meta`` tensors (shapes only): one tile, the tile grid, and untiled."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from videogpa_torch.models.cogvideox import vae as V
+
+    B, F_, C, h, w = latents_shape
+    model = V.CogVideoXVAE(cfg, device="meta", dtype=torch.float32)
+
+    def tflop(hh, ww):
+        with FlopCounterMode(display=False) as counter:
+            V.vae_decode(model, torch.empty(B, C, F_, hh, ww, device="meta"), cfg)
+        return counter.get_total_flops() / 1e12
+
+    n_tiles = len(V._tile_grid(h, w, min(tile, h), min(tile, w), 8)[2])
+    per_tile = tflop(min(tile, h), min(tile, w))
+    return {"per_tile": per_tile, "tiles": n_tiles, "tiled": n_tiles * per_tile,
+            "untiled": tflop(h, w)}
+
+
+def probe_int32_limits() -> dict:
+    """Does each operation of an untiled 49f@480x720 decode take a tensor of
+    more than 2^31 elements on the card, and compute it right? Each runs
+    once near (1, 256, 49, 480, 720) f32 (4.34 G elements) and is checked on
+    its last frames against the same operation on a slice of them."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.layers import _full_f32_conv
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    shape = (1, 256, 49, 480, 720)
+
+    def attempt(name, fn):
+        try:
+            out[name] = "ok" if fn() else "WRONG VALUES"
+        except RuntimeError as e:  # a refusal is this probe's finding
+            out[name] = f"raises: {str(e).splitlines()[0][:160]}"
+        torch.cuda.empty_cache()
+
+    def conv(cin, cout):
+        x = torch.randn((1, cin) + shape[2:], generator=gen, device="cuda")
+        w = torch.randn(cout, cin, 3, 3, 3, generator=gen, device="cuda") * 0.05
+        with _full_f32_conv(x):
+            y = F.conv3d(x, w, padding=(0, 1, 1))
+            tail = F.conv3d(x[:, :, -5:], w, padding=(0, 1, 1))
+        return bool(torch.allclose(y[:, :, -3:], tail, rtol=1e-4, atol=1e-4))
+
+    def group_norm():
+        x = torch.randn(shape, generator=gen, device="cuda")
+        y = F.group_norm(x, 32)
+        last = x[:, -8:]
+        want = (last - last.mean()) / torch.sqrt(last.var(unbiased=False) + 1e-5)
+        return bool(torch.allclose(y[:, -8:, -1], want[:, :, -1], rtol=1e-3, atol=1e-3))
+
+    def nearest():
+        x = torch.randn(49, 256, 240, 360, generator=gen, device="cuda")
+        y = x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+        return bool(torch.equal(y[-1, -1, -2:, -2:], x[-1, -1, -1:, -1:].expand(2, 2)))
+
+    attempt("conv3d input 4.34 G (256 -> 8 channels)", lambda: conv(256, 8))
+    attempt("conv3d output 4.16 G (8 -> 256 channels)", lambda: conv(8, 256))
+    attempt("group_norm 4.34 G", group_norm)
+    attempt("nearest 2x (repeat_interleave) output 4.34 G", nearest)
+    log("[sample] tensors above 2^31 elements on the card: " + json.dumps(out))
+    return out
+
+
+def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
+    """The sampling path at full width: T5-XXL (f32, as the generator keeps
+    it) encodes a prompt and the empty negative, 2 x 226 ids; ``sample_t2v``
+    runs ``steps`` DPM steps of the [main] phase's CogVideoX-5B DiT at
+    49f@480x720 and ``decode_latents`` decodes the (1, 13, 16, 60, 90)
+    latents through the bf16 VAE with the DiT, T5 and VAE resident; then
+    ``video_to_uint8``. Then, with the T2V DiT and T5 freed, ``sample_i2v``
+    with the I2V DiT (``i2v_layers`` of 42 layers): the VAE encodes one
+    480x720 frame, ``steps`` DPM steps, decode."""
+    import dataclasses
+
+    import torch
+
+    from videogpa_torch.models.cogvideox import (
+        CogVideoXConfig, SamplerSettings, dit_init, pipeline, sample_i2v, sample_t2v,
+        vae_decode, vae_init, video_to_uint8)
+    from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
+
+    cfg = CogVideoXConfig.cogvideox_5b()
+    t5_cfg = T5Config.t5_v1_1_xxl()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t5 = t5_encoder_init(t5_cfg, torch.Generator(device="cuda").manual_seed(44), device="cuda")
+    vae = vae_init(cfg, torch.Generator(device="cuda").manual_seed(45), device="cuda",
+                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    n_vae = sum(p.numel() for p in vae.parameters())
+    log(f"[sample] T5-v1.1-XXL ({t5_cfg.num_layers} layers, d_model {t5_cfg.d_model}, "
+        f"{n_t5 / 1e9:.3f} B params, f32) and the VAE ({n_vae / 1e6:.1f} M params, bf16) "
+        f"on the card in {time.perf_counter() - t0:.1f} s, beside the DiT")
+    gen = torch.Generator().manual_seed(46)
+    ids = torch.randint(0, t5_cfg.vocab_size, (2, cfg.max_text_seq_length), generator=gen)
+    ids[1, 1:] = 0  # the empty negative prompt: EOS then padding, as the tokenizer gives it
+    zero_launches()
+    with torch.no_grad():
+        t5_encode(t5, ids.cuda())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = t5_encode(t5, ids.cuda())
+        torch.cuda.synchronize()
+    t5_ms = 1e3 * (time.perf_counter() - t0)
+    if emb.shape != (2, cfg.max_text_seq_length, t5_cfg.d_model) or not bool(
+            torch.isfinite(emb).all()):
+        fail(f"T5 embeddings {tuple(emb.shape)} not finite or wrong shape")
+    log(f"[sample] t5_encode 2 x {cfg.max_text_seq_length} ids: {t5_ms:.1f} ms, "
+        f"embeddings {tuple(emb.shape)} finite")
+
+    timing = {}
+    real_decode = pipeline.decode_latents
+
+    def timed_decode(vae_, latents, cfg_):
+        """sample_t2v's decode, timed apart from its denoise loop."""
+        torch.cuda.synchronize()
+        timing["denoise_s"] = time.perf_counter() - timing["t0"]
+        timing["latents"] = tuple(latents.shape)
+        t1 = time.perf_counter()
+        out = real_decode(vae_, latents, cfg_, log=timing.setdefault("tile_log", []).append)
+        torch.cuda.synchronize()
+        timing["decode_s"] = time.perf_counter() - t1
+        return out
+
+    settings = SamplerSettings(num_inference_steps=steps, sampler="dpm")
+    pipeline.decode_latents = timed_decode
+    try:
+        torch.cuda.synchronize()
+        timing["t0"] = time.perf_counter()
+        video = sample_t2v(dit, vae, emb[:1], emb[1:], cfg, num_frames=49, height=480,
+                           width=720, settings=settings,
+                           generator=torch.Generator(device="cuda").manual_seed(47))
+        torch.cuda.synchronize()
+    finally:
+        pipeline.decode_latents = real_decode
+    total_s = time.perf_counter() - timing["t0"]
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = video_to_uint8(video)
+    want = dict.fromkeys(launches, 0)
+    want["flash_attn_fwd"] = steps * cfg.num_layers
+    step_ms = 1e3 * timing["denoise_s"] / steps
+    log(f"[sample] sample_t2v 49f@480x720: {steps} DPM steps in {timing['denoise_s']:.3f} s "
+        f"({step_ms:.1f} ms a step), latents {timing['latents']}, decode_latents "
+        f"{1e3 * timing['decode_s']:.1f} ms ({'; '.join(timing['tile_log'])}), total "
+        f"{total_s:.3f} s; "
+        f"video {tuple(video.shape)} {video.dtype}, uint8 frames {frames.shape}; peak "
+        f"{peak_gb:.2f} GB with the DiT, T5 and VAE resident; launches {json.dumps(launches)}")
+    if (tuple(video.shape) != (1, 3, 49, 480, 720) or not bool(torch.isfinite(video).all())
+            or float(video.abs().max()) > 1.0 or frames.shape != (1, 49, 480, 720, 3)):
+        fail("sample_t2v's video is not finite in [-1, 1] at 49f@480x720")
+    if launches != want:
+        fail(f"the sampling path's launches {launches} are not K1's {want['flash_attn_fwd']} "
+             "alone (T5 and the VAE launch none)")
+    tile = int(timing["tile_log"][-1].split()[2].rstrip(":"))  # "decode tile N: ..."
+    conv_tflop = decode_conv_tflop(cfg, timing["latents"], tile)
+    log(f"[sample] decode convolutions: {conv_tflop['tiled']:.1f} TFLOP tiled "
+        f"({conv_tflop['tiles']} tiles of {conv_tflop['per_tile']:.2f}), "
+        f"{conv_tflop['untiled']:.1f} untiled; {conv_tflop['tiled'] / timing['decode_s']:.1f} "
+        f"TFLOP/s achieved over the whole decode, bound {1e12 * conv_tflop['tiled'] / PEAK_F32_FLOPS:.2f} s at "
+        f"the f32 peak of {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s")
+    profile = profile_device_time(
+        f"one decode tile ({tile}^2 latents, f32 activations)",
+        lambda: vae_decode(vae, torch.randn(1, 16, 13, tile, tile, device="cuda"), cfg))
+    del dit, t5, emb, video
+    torch.cuda.empty_cache()
+    probe = probe_int32_limits()
+
+    # I2V at full width; the T2V DiT and T5 are freed
+    icfg = dataclasses.replace(CogVideoXConfig.cogvideox_5b_i2v(), num_layers=i2v_layers)
+    t0 = time.perf_counter()
+    idit = dit_init(icfg, torch.Generator(device="cuda").manual_seed(48), device="cuda",
+                    dtype=torch.bfloat16).requires_grad_(False)
+    torch.cuda.synchronize()
+    log(f"[sample] CogVideoX-5B-I2V DiT: {icfg.num_layers} of 42 layers, in_channels "
+        f"{icfg.in_channels}, learned positions, bf16, in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(49)
+    image = torch.rand(1, 3, 480, 720, generator=gen, device="cuda") * 2 - 1
+    text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim, generator=gen,
+                       device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivideo = sample_i2v(idit, vae, text, torch.zeros_like(text), image, icfg, num_frames=49,
+                        settings=settings, generator=gen)
+    torch.cuda.synchronize()
+    i2v_s = time.perf_counter() - t0
+    i2v_launches = read_launches()
+    i2v_peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(i2v_launches, 0)
+    want["flash_attn_fwd"] = steps * icfg.num_layers
+    log(f"[sample] sample_i2v 49f@480x720 (VAE encode of one 480x720 frame, {steps} DPM "
+        f"steps, decode): {i2v_s:.3f} s, video {tuple(ivideo.shape)}, peak {i2v_peak:.2f} GB; "
+        f"launches {json.dumps(i2v_launches)}")
+    if (tuple(ivideo.shape) != (1, 3, 49, 480, 720) or not bool(torch.isfinite(ivideo).all())
+            or float(ivideo.abs().max()) > 1.0):
+        fail("sample_i2v's video is not finite in [-1, 1] at 49f@480x720")
+    if i2v_launches != want:
+        fail(f"the I2V path's launches {i2v_launches} are not K1's alone")
+    del idit, vae, ivideo
+    torch.cuda.empty_cache()
+    return {"launches": launches, "i2v_launches": i2v_launches, "t5_ms": t5_ms,
+            "decode_conv_tflop": conv_tflop,
+            "step_ms": step_ms, "denoise_s": timing["denoise_s"],
+            "decode_ms": 1e3 * timing["decode_s"], "tile": tile, "total_s": total_s,
+            "peak_gb": peak_gb, "i2v_s": i2v_s, "i2v_peak_gb": i2v_peak,
+            "i2v_layers": icfg.num_layers, "decode_profile": profile, "int32_probe": probe}
+
+
 def main() -> int:
     import torch
 
@@ -2747,7 +3093,9 @@ def main() -> int:
     phase_slice_vggt_bf16()
     phase_slice_wan()
     phase_slice_int8()
+    phase_slice_sampling()
     main_run = phase_main()
+    sample_run = phase_sample(main_run.pop("dit"))
     train_run = phase_train()
     scorer_run = phase_scorer()
     wan_run = phase_wan()
@@ -2824,6 +3172,17 @@ def main() -> int:
         "int8_k8_k9_w8a8": {k: v for k, v in timing.items()
                             if k[:3] in ("k8_", "k9_", "fc1")},
         "int8_plain_ms_over_head_chunks": {"k8": k8_plain_ms, "k9": k9_plain_ms},
+        "sample_t5_encode_ms": sample_run["t5_ms"],
+        "sample_denoise_step_ms": sample_run["step_ms"],
+        "sample_decode_ms": sample_run["decode_ms"],
+        "sample_decode_tile": sample_run["tile"],
+        "sample_decode_conv_tflop": sample_run["decode_conv_tflop"],
+        "sample_t2v_s": sample_run["total_s"],
+        "sample_peak_allocated_gb": sample_run["peak_gb"],
+        "sample_i2v_s": sample_run["i2v_s"],
+        "sample_i2v_layers": sample_run["i2v_layers"],
+        "sample_i2v_peak_allocated_gb": sample_run["i2v_peak_gb"],
+        "sample_int32_probe": sample_run["int32_probe"],
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
@@ -2841,7 +3200,8 @@ def main() -> int:
             "scorer": scorer_run["launches"], "wan": wan_run["launches"],
             "wan_train": wan_train_run["launches"],
             "denoise_int8": main_int8_run["launches"],
-            "scorer_int8": scorer_int8_run["launches"], "wan_int8": wan_int8_run["launches"]}
+            "scorer_int8": scorer_int8_run["launches"], "wan_int8": wan_int8_run["launches"],
+            "sample": sample_run["launches"], "sample_i2v": sample_run["i2v_launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""

@@ -57,7 +57,7 @@ def _jax_scorer(weights, zbuffer_impl):
     vggt, lp, _, _ = weights
     metrics = {"MSE": jm.MSEMetric(), "Consistency_Score": jm.ConsistencyScore(lp),
                "MVCS": jm.MVCSMetric(), "PSNR": jm.PSNRMetric(), "SSIM": jm.SSIMMetric(),
-               "LPIPS": jm.LPIPSMetric(lp)}
+               "LPIPS": jm.LPIPSMetric(lp), "Epipolar": jm.EpipolarMetric()}
     return JaxVideoProcessor(metrics, params=vggt, config=JaxVGGTConfig.tiny(),
                              compute_dtype=jnp.float32, attn_impl="xla",
                              zbuffer_impl=zbuffer_impl)
@@ -124,14 +124,14 @@ def test_fused_schema_keys(weights, clips):
 def test_unported_paths_raise(weights, clips):
     with pytest.raises(NotImplementedError, match="DA3"):
         VideoProcessor({}, backbone="da3", device="cpu")
-    with pytest.raises(NotImplementedError, match="Epipolar"):
-        tm.EpipolarMetric()
+    with pytest.raises(NotImplementedError, match="LightGlue"):
+        tm.EpipolarMetric(descriptor_type="lightglue")
     vp = _port_scorer(weights, "packed")
     with pytest.raises(NotImplementedError, match="decode slice"):
         vp.process_frames_batch([clips[0][:, :, :40]], [0])  # not square
     with pytest.raises(NotImplementedError, match="decode slice"):
         vp.process_frames(clips[0], [0], save_visuals=True)
-    vp.metrics = {"Epipolar": object()}
+    vp.metrics = {"Reprojection_Error": object()}  # outside the fused set
     with pytest.raises(NotImplementedError, match="per-metric"):
         vp.process_frames_batch(clips, [0])
 
@@ -199,4 +199,4 @@ def test_metric_classes_match_jax(weights):
     want = jm.ConsistencyScore(lp).compute(gt=gt, rep=rep, extrinsics=extr)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
     assert tm.LPIPSMetric(None).compute(gt=gt, rep=rep) == 0.0
-    assert set(tm.build_metrics(model)) == set(jm.build_metrics(lp)) - {"Epipolar"}
+    assert set(tm.build_metrics(model)) == set(jm.build_metrics(lp))

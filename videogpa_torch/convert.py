@@ -21,8 +21,11 @@ leading axis; they are unstacked into ``<node>.{i}.*``. List nodes
 (``projects``, ``layer_rn``, ``convs``, ``lins``) become ``<node>.{i}.*``.
 Tokens, tables and the Wan blocks' and head's ``modulation`` (``_VERBATIM``)
 and LayerScale's ``ls1/ls2.gamma`` are copied as they are. Covers the
-CogVideoX DiT, ``wan_init``, ``vggt_init`` and ``lpips_init`` trees. Any leaf the bridge cannot name raises, and loading is
-strict, so nothing is left unmapped on either side.
+CogVideoX DiT and VAE (5-D conv kernels, GroupNorm ``scale``/``bias``, the
+``down``/``up``/``resnets`` lists), ``t5_encoder_init`` (``embed`` and
+``rel_bias`` copied), ``wan_init``, ``vggt_init`` and ``lpips_init`` trees.
+Any leaf the bridge cannot name raises, and loading is strict, so nothing is
+left unmapped on either side.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ from videogpa_torch.ops.quant import QuantLinear
 
 # leaves copied as they are, by name
 _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
-             "register_tokens", "pos_embed", "empty_pose_tokens", "modulation")
+             "register_tokens", "pos_embed", "empty_pose_tokens", "modulation",
+             "embed", "rel_bias")
 _LAYER_SCALES = ("ls1", "ls2")
 # nodes whose leaves stack every layer along a leading axis
 _STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
@@ -117,3 +121,17 @@ def load_jax_params(model: nn.Module, params: Mapping[str, Any]) -> nn.Module:
                 device=old.weight.device, dtype=old.weight.dtype))
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A checkpoint file (.safetensors, or torch .pt/.bin) as numpy; bf16
+    tensors widen to f32 (``videogpa_tpu/convert.py::load_torch_state_dict``)."""
+    if path.endswith(".safetensors"):
+        from videogpa_torch.utils.safetensors_np import load_file
+
+        return load_file(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v.float().numpy() if v.dtype == torch.bfloat16 else v.numpy()
+            for k, v in sd.items()}

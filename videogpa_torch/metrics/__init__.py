@@ -1,4 +1,4 @@
-"""Metric suite of the scorer: MSE/PSNR/SSIM/LPIPS/Consistency/MVCS.
+"""Metric suite of the scorer: MSE/PSNR/SSIM/LPIPS/Consistency/MVCS/Epipolar.
 
 - ``videogpa_torch.metrics.functional`` — tensor functions over whole clips.
 - ``videogpa_torch.metrics.api`` — the reference-compatible classes and

@@ -2,8 +2,8 @@
 ``metric.compute(gt=..., rep=..., **kw) -> float`` over whole clips, with the
 same input-range and layout coercions.
 
-These are the metrics the scorer fuses on the device. Epipolar (host-side
-OpenCV SIFT) comes with the decode slice: ``EpipolarMetric`` raises.
+The scorer fuses all but Epipolar on the device; Epipolar (host OpenCV SIFT
+matching on the ground-truth frames, ``metrics.epipolar``) runs on the host.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from videogpa_torch.checkpoint import load_pytree
 from videogpa_torch.convert import load_jax_params
 from videogpa_torch.device import resolve_device
 from videogpa_torch.metrics import functional as F
+from videogpa_torch.metrics.epipolar import SIFTMatcher, epipolar_error
 from videogpa_torch.models.lpips import LPIPS, lpips_distance
 
 
@@ -129,13 +130,22 @@ class MVCSMetric(Metric):
 
 
 class EpipolarMetric(Metric):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the Epipolar metric (host-side OpenCV SIFT, find_fundamental, "
-            "sampson_distance) is not ported yet: it comes with the decode slice")
+    """Mean Sampson distance of the ground-truth clip's consecutive frames.
+    ``descriptor_type="lightglue"`` (SuperPoint + LightGlue) is not ported."""
 
-    def compute(self, *, gt, rep, **kwargs) -> float:  # pragma: no cover
-        raise NotImplementedError
+    def __init__(self, descriptor_type: str = "sift", ratio_thresh: float = 0.75,
+                 min_matches: int = 20, **_):
+        super().__init__("Epipolar")
+        if descriptor_type == "sift":
+            self.matcher = SIFTMatcher(ratio_thresh, min_matches)
+        elif descriptor_type == "lightglue":
+            raise NotImplementedError("the LightGlue matcher is not ported yet")
+        else:
+            raise ValueError(f"Unsupported descriptor type: {descriptor_type}")
+
+    def compute(self, *, gt, rep, **kwargs) -> float:
+        # reference computes temporal consistency of gt only
+        return epipolar_error(np.asarray(gt), self.matcher)
 
 
 def to_44(extr: torch.Tensor) -> torch.Tensor:
@@ -167,12 +177,13 @@ def _default_lpips(device=None) -> Optional[LPIPS]:
     return _LPIPS_CACHE[str(dev)]
 
 
-def build_metrics(lpips_params: Optional[LPIPS] = None, device=None) -> Dict[str, Metric]:
-    """The scorer's metric set (reference ``replicate_scorer.py:63-74``)
-    without Epipolar, which is not ported yet. Without ``lpips_params`` the
-    network is ``_default_lpips(device)``, the converted weights that
-    ``VIDEOGPA_LPIPS_PATH`` names; where there are none the LPIPS term is 0
-    (MSE-only consistency score), as in the JAX package."""
+def build_metrics(lpips_params: Optional[LPIPS] = None, device=None,
+                  descriptor_type: str = "sift") -> Dict[str, Metric]:
+    """The scorer's metric set (reference ``replicate_scorer.py:63-74``).
+    Without ``lpips_params`` the network is ``_default_lpips(device)``, the
+    converted weights that ``VIDEOGPA_LPIPS_PATH`` names; where there are
+    none the LPIPS term is 0 (MSE-only consistency score), as in the JAX
+    package. Epipolar matches with ``descriptor_type`` ("sift")."""
     lp = lpips_params if lpips_params is not None else _default_lpips(device)
     return {
         "MSE": MSEMetric(),
@@ -181,4 +192,5 @@ def build_metrics(lpips_params: Optional[LPIPS] = None, device=None) -> Dict[str
         "PSNR": PSNRMetric(),
         "SSIM": SSIMMetric(),
         "LPIPS": LPIPSMetric(lp),
+        "Epipolar": EpipolarMetric(descriptor_type=descriptor_type),
     }

@@ -2,11 +2,14 @@
 
 MSE/PSNR with the reference's range handling, SSIM (gaussian 11/1.5 with the
 official downsampling), the camera-motion score and the multi-view depth
-consistency score (MVCS). ``find_fundamental`` and ``sampson_distance`` come
-with the Epipolar metric in a later slice.
+consistency score (MVCS), and the Epipolar metric's geometry: the normalised
+8-point fundamental matrix (``find_fundamental``, SVDs in f32) and the Sampson
+distance.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -136,3 +139,53 @@ def mvcs(depths: torch.Tensor, intrinsics: torch.Tensor, extrinsics: torch.Tenso
     n_valid = valids.sum()
     avg = torch.where(valids, errs, 0.0).sum() / torch.clamp(n_valid, min=1)
     return torch.where(n_valid > 0, torch.exp(-avg), torch.zeros_like(avg))
+
+
+# ---------------------------------------------------------------------------
+# Epipolar geometry (8-point fundamental + Sampson distance)
+# ---------------------------------------------------------------------------
+
+def _normalize_points(pts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Hartley normalisation: centroid to origin, mean distance sqrt(2)."""
+    mean = pts.mean(dim=0)
+    d = torch.linalg.norm(pts - mean, dim=1)
+    scale = (2.0 ** 0.5) / torch.clamp(d.mean(), min=1e-8)
+    zero, one = torch.zeros_like(scale), torch.ones_like(scale)
+    T = torch.stack([
+        torch.stack([scale, zero, -scale * mean[0]]),
+        torch.stack([zero, scale, -scale * mean[1]]),
+        torch.stack([zero, zero, one]),
+    ])
+    return (pts - mean) * scale, T
+
+
+def find_fundamental(pts1: torch.Tensor, pts2: torch.Tensor) -> torch.Tensor:
+    """Normalised 8-point least-squares fundamental matrix, unit Frobenius
+    norm, in f32. pts: (N, 2). Defined up to sign, as any SVD null vector."""
+    p1, T1 = _normalize_points(pts1.float())
+    p2, T2 = _normalize_points(pts2.float())
+    x1, y1 = p1[:, 0], p1[:, 1]
+    x2, y2 = p2[:, 0], p2[:, 1]
+    A = torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1,
+                     torch.ones_like(x1)], dim=-1)
+    _, _, vt = torch.linalg.svd(A, full_matrices=False)
+    F = vt[-1].reshape(3, 3)
+    # rank-2 enforcement
+    u, s, vt2 = torch.linalg.svd(F)
+    s = torch.cat([s[:2], s.new_zeros(1)])
+    F = T2.T @ ((u * s[None]) @ vt2) @ T1
+    return F / torch.clamp(torch.linalg.norm(F), min=1e-12)
+
+
+def sampson_distance(pts1: torch.Tensor, pts2: torch.Tensor, F: torch.Tensor,
+                     squared: bool = True) -> torch.Tensor:
+    """Sampson epipolar distance per correspondence. pts: (N, 2)."""
+    ones = pts1.new_ones((pts1.shape[0], 1))
+    x1 = torch.cat([pts1, ones], dim=1)
+    x2 = torch.cat([pts2, ones], dim=1)
+    Fx1 = x1 @ F.T  # (N, 3) = F @ x1
+    Ftx2 = x2 @ F  # (N, 3) = F^T @ x2
+    num = (x2 * Fx1).sum(dim=1) ** 2
+    den = Fx1[:, 0] ** 2 + Fx1[:, 1] ** 2 + Ftx2[:, 0] ** 2 + Ftx2[:, 1] ** 2
+    d2 = num / torch.clamp(den, min=1e-12)
+    return d2 if squared else torch.sqrt(d2 + 1e-8)

@@ -1,22 +1,29 @@
-"""CogVideoX denoising loop (``videogpa_tpu/models/cogvideox/pipeline.py:30-125``).
+"""CogVideoX sampling pipelines, T2V and I2V (``videogpa_tpu/models/cogvideox/pipeline.py``).
 
-Both CFG branches run as one batch-2 forward per step. The loop is a plain
-Python loop over the precomputed timesteps. Random draws come from a
-``torch.Generator``; ``init_latents`` and ``step_noise`` may be injected
-instead, so a test can feed the JAX package's draws. ``sample_t2v``,
-``sample_i2v`` and ``decode_latents`` come with the VAE slice.
+Parity targets: the diffusers pipelines of the reference CLIs (50 DPM steps,
+cfg 6.0, 49 frames; dynamic cfg for 1.5; I2V first-frame latent
+conditioning). Both CFG branches run as one batch-2 forward per step. The
+loop is a plain Python loop over the precomputed timesteps. Random draws come
+from a ``torch.Generator``; ``init_latents``, ``step_noise`` and the I2V
+``posterior_noise`` may be injected instead, so a test can feed the JAX
+package's draws. ``decode_latents`` decodes through overlapping VAE tiles
+and shrinks the tile on a CUDA out-of-memory error.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from videogpa_torch.models.cogvideox.config import CogVideoXConfig
 from videogpa_torch.models.cogvideox.dit import CogVideoXTransformer, dit_forward
 from videogpa_torch.models.cogvideox.scheduler import CogVideoXScheduler
+from videogpa_torch.models.cogvideox.vae import CogVideoXVAE, vae_decode_tiled, vae_encode
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +105,114 @@ def denoise_loop(
                 old_x0=old_x0 if second else None, timestep_back=back_ts[i])
             lat = prev2 if second else prev1
     return lat
+
+
+def sample_t2v(
+    dit: CogVideoXTransformer,
+    vae: CogVideoXVAE,
+    text_embeds: torch.Tensor,
+    negative_embeds: torch.Tensor,
+    cfg: CogVideoXConfig,
+    num_frames: int = 49,
+    height: int = 480,
+    width: int = 720,
+    settings: Optional[SamplerSettings] = None,
+    generator: Optional[torch.Generator] = None,
+    init_latents: Optional[torch.Tensor] = None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Text-to-video: the decoded video (B, 3, T, H, W) in [-1, 1], f32.
+    Draws as ``denoise_loop``'s."""
+    settings = settings or SamplerSettings()
+    B = text_embeds.shape[0]
+    F = (num_frames - 1) // cfg.temporal_compression_ratio + 1
+    if cfg.patch_size_t is not None:
+        F += cfg.patch_size_t - (F % cfg.patch_size_t or cfg.patch_size_t)  # 1.5: round up
+    shape = (B, F, cfg.vae_latent_channels, height // cfg.spatial_compression_ratio,
+             width // cfg.spatial_compression_ratio)
+    latents = denoise_loop(dit, text_embeds, negative_embeds, settings, shape,
+                           generator=generator, init_latents=init_latents,
+                           step_noise=step_noise, compute_dtype=compute_dtype,
+                           attn_impl=attn_impl)
+    return decode_latents(vae, latents, cfg)
+
+
+@torch.no_grad()
+def sample_i2v(
+    dit: CogVideoXTransformer,
+    vae: CogVideoXVAE,
+    text_embeds: torch.Tensor,
+    negative_embeds: torch.Tensor,
+    image: torch.Tensor,
+    cfg: CogVideoXConfig,
+    num_frames: int = 49,
+    settings: Optional[SamplerSettings] = None,
+    generator: Optional[torch.Generator] = None,
+    posterior_noise: Optional[torch.Tensor] = None,
+    init_latents: Optional[torch.Tensor] = None,
+    step_noise: Optional[Sequence[torch.Tensor]] = None,
+    compute_dtype: torch.dtype = torch.bfloat16,
+    attn_impl: str = "auto",
+) -> torch.Tensor:
+    """Image-to-video. image: (B, 3, H, W) in [-1, 1]. The first frame's
+    sampled posterior (``posterior_noise``, (B, z, 1, H/8, W/8), or a draw
+    from ``generator`` first) conditions every step through the DiT's image
+    channels, zero-padded over the other latent frames."""
+    settings = settings or SamplerSettings()
+    device = next(dit.parameters()).device
+    B, _, H, W = image.shape
+    F = (num_frames - 1) // cfg.temporal_compression_ratio + 1
+    img_latent = vae_encode(vae, image.to(device)[:, :, None], cfg, generator=generator,
+                            noise=posterior_noise, sample=True)  # (B, z, 1, h, w)
+    img_latent = img_latent.transpose(1, 2)  # (B, 1, z, h, w)
+    pad = img_latent.new_zeros((B, F - 1) + img_latent.shape[2:])
+    image_latents = torch.cat([img_latent, pad], dim=1)
+    shape = (B, F, cfg.vae_latent_channels, H // 8, W // 8)
+    latents = denoise_loop(dit, text_embeds, negative_embeds, settings, shape,
+                           generator=generator, init_latents=init_latents,
+                           step_noise=step_noise, image_latents=image_latents,
+                           compute_dtype=compute_dtype, attn_impl=attn_impl)
+    return decode_latents(vae, latents, cfg)
+
+
+def decode_tile_sizes() -> Tuple[int, ...]:
+    """Latent tile sizes ``decode_latents`` tries in turn: the one that
+    ``VIDEOGPA_VAE_TILE`` names, else 32, 16, 8."""
+    env = os.environ.get("VIDEOGPA_VAE_TILE")
+    return (int(env),) if env else (32, 16, 8)
+
+
+@torch.no_grad()
+def decode_latents(vae: CogVideoXVAE, latents: torch.Tensor, cfg: CogVideoXConfig,
+                   log=print) -> torch.Tensor:
+    """(B, F, C, h, w) latents -> (B, 3, T, H, W) video in [-1, 1], in the
+    latents' dtype (f32 for ``denoise_loop``'s), through overlapping tiles.
+
+    Decoding usually runs with the 5B DiT still resident; if a tile does not
+    fit beside it (``torch.cuda.OutOfMemoryError``), the cache is emptied and
+    the decode retries with the next smaller tile. Every other error is
+    raised. ``log`` gets the tile the decode settled on."""
+    z = latents.transpose(1, 2)
+    sizes = decode_tile_sizes()
+    for i, tile in enumerate(sizes):
+        try:
+            out = vae_decode_tiled(vae, z, cfg, tile_latent=tile)
+        except torch.cuda.OutOfMemoryError:
+            if i == len(sizes) - 1:
+                raise
+        else:
+            log(f"decode tile {tile}: {z.shape[-2]}x{z.shape[-1]} latents")
+            return torch.clamp(out, -1.0, 1.0)
+        # outside the handler, so the failed attempt's tensors are released
+        torch.cuda.empty_cache()
+        log(f"decode tile {tile} out of memory; retrying with {sizes[i + 1]}")
+    raise AssertionError("unreachable")
+
+
+def video_to_uint8(video: torch.Tensor) -> np.ndarray:
+    """(B, 3, T, H, W) [-1, 1] -> (B, T, H, W, 3) uint8 on the host."""
+    v = video.detach().float().cpu().numpy()
+    v = ((v + 1.0) * 127.5).clip(0, 255).astype(np.uint8)
+    return v.transpose(0, 2, 3, 4, 1)

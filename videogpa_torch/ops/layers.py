@@ -186,12 +186,12 @@ def group(**children: nn.Module) -> nn.Module:
 
 @torch.no_grad()
 def kaiming_uniform_init_(module: nn.Module, generator: torch.Generator) -> None:
-    """Re-draw every Linear/Conv2d/ConvTranspose2d/LayerNorm under ``module``
-    with the JAX initialisers' bounds (``videogpa_tpu/ops/layers.py:29-77``):
-    weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); layer norms
-    ones/zeros."""
+    """Re-draw every Linear/Conv2d/Conv3d/ConvTranspose2d/LayerNorm/GroupNorm
+    under ``module`` with the JAX initialisers' bounds
+    (``videogpa_tpu/ops/layers.py:29-77``, the VAE's ``conv3d_init``):
+    weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)); norms ones/zeros."""
     for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             # JAX builds the transposed conv with conv2d_init(in, out, k)
             fan_in = (m.weight.shape[0] * m.weight[0, 0].numel()
                       if isinstance(m, nn.ConvTranspose2d) else m.weight[0].numel())
@@ -199,6 +199,6 @@ def kaiming_uniform_init_(module: nn.Module, generator: torch.Generator) -> None
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
                 m.bias.uniform_(-bound, bound, generator=generator)
-        elif isinstance(m, nn.LayerNorm) and m.weight is not None:
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm)) and m.weight is not None:
             m.weight.fill_(1.0)
             m.bias.zero_()

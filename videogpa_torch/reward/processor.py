@@ -10,8 +10,10 @@ frames to the metric scalars runs on the device; only (K,) scores and the
 
 The entry point is ``process_frames_batch`` on decoded, square uint8 frames
 of the model's size (518^2 for VGGT-1B): what ``cli/score.py`` hands over
-after its decode thread. Decode, host preprocessing of other frame sizes,
-the per-metric host path and Epipolar come with a later slice and raise here.
+after its decode thread. Epipolar, where the metric set holds it, is
+computed on the host from those frames (SIFT matching). Decode, host
+preprocessing of other frame sizes and the per-metric host path come with a
+later slice and raise here.
 """
 
 from __future__ import annotations
@@ -113,11 +115,14 @@ class VideoProcessor:
                 "the port scores square uint8 frames of the model's size "
                 f"({self.config.img_size}); host preprocessing of other frames "
                 "(preprocess_images_vggt) comes with the decode slice")
+        # Epipolar needs only the host gt frames, so it rides the fused path
+        allowed = set(self.FUSABLE_METRICS) | {"Epipolar"}
         if os.environ.get("VIDEOGPA_NO_FUSED_METRICS") == "1" or any(
-                n not in self.FUSABLE_METRICS for n in self.metrics):
+                n not in allowed for n in self.metrics):
             raise NotImplementedError(
                 "the port computes the fused on-device metrics "
-                f"{self.FUSABLE_METRICS}; the per-metric host path comes with a later slice")
+                f"{self.FUSABLE_METRICS} and Epipolar; the per-metric host path "
+                "comes with a later slice")
         if self.params is None:
             raise RuntimeError("VideoProcessor needs backbone params (videogpa_torch."
                                "models.vggt.vggt_init or converted weights)")
@@ -180,9 +185,13 @@ class VideoProcessor:
             scores["MVCS"] = per_clip(lambda i: F.mvcs(depth[i], intr[i], to_44(extr[i])))
         return scores, extr
 
-    def _assemble_fused(self, host: Dict[str, np.ndarray], i: int) -> Dict[str, float]:
+    def _assemble_fused(self, host: Dict[str, np.ndarray], i: int,
+                        gt_frames: np.ndarray) -> Dict[str, float]:
         r: Dict[str, float] = {}
-        for name in self.metrics:
+        for name, metric in self.metrics.items():
+            if name == "Epipolar":
+                r[name] = metric.compute(gt=gt_frames, rep=None)
+                continue
             r[name] = float(host[name][i])
             if name == "Consistency_Score":
                 r["motion_norm"] = float(host["motion_norm"][i])
@@ -205,7 +214,7 @@ class VideoProcessor:
             host = {k: v.cpu().numpy() for k, v in scores.items()}
             extr_np = extr.cpu().numpy()
             for i, r in enumerate(results):
-                r[th] = self._assemble_fused(host, i)
+                r[th] = self._assemble_fused(host, i, all_frames[i])
                 r["_extrinsic"] = extr_np[i].tolist()
         return results
 
@@ -233,7 +242,7 @@ class VideoProcessor:
             for th, scores, extr in pending:
                 host = {k: v.cpu().numpy() for k, v in scores.items()}
                 extr_np = extr.cpu().numpy()[0]
-                results[th] = self._assemble_fused(host, 0)
+                results[th] = self._assemble_fused(host, 0, frames_np)
             results["_extrinsic"] = extr_np.tolist() if extr_np is not None else None
             return results
 

@@ -4,8 +4,9 @@
 Shared noise and timestep for the win/lose pair, velocity targets, the DPO
 loss against a frozen reference, AdamW with a warmup-cosine schedule, a
 global-norm clip and optional gradient accumulation. Models with image
-channels get the zero conditioning of ``trainer.py:175-176``; the
-VAE-encoded first frame (``_i2v_condition``) comes with the VAE.
+channels are conditioned on the VAE-encoded first frame (``_i2v_condition``)
+where the batch holds ``image_emb`` and a frozen VAE is given, else on zeros
+(``trainer.py:171-176``).
 
 The frozen reference is the policy's own base weights with no LoRA, so the
 5B weights live on the card once. Only the LoRA tensors require grad: the
@@ -14,7 +15,8 @@ policy forwards run with grad (recomputing each block in the backward when
 optimiser reproduces the JAX package's optax chain in plain tensor code and
 updates the LoRA tensors in place. Timesteps and noise come from a
 ``torch.Generator`` on the model's device, drawn in the JAX step's order
-(timesteps, then noise), or are injected, so a test can feed the JAX draws.
+(timesteps, noise, then the first frame's posterior noise), or are
+injected, so a test can feed the JAX draws.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import torch
 from videogpa_torch.models.cogvideox.config import CogVideoXConfig
 from videogpa_torch.models.cogvideox.dit import CogVideoXTransformer, dit_forward
 from videogpa_torch.models.cogvideox.scheduler import CogVideoXScheduler
+from videogpa_torch.models.cogvideox.vae import CogVideoXVAE, vae_encode
+from videogpa_torch.ops.resize import resize_bilinear
 from videogpa_torch.train.lora import lora_leaves
 from videogpa_torch.train.loss import DPOLoss
 
@@ -147,17 +151,37 @@ def init_train_state(lora: dict, tcfg: TrainerConfig) -> TrainState:
     return TrainState(lora=lora, opt_state=make_optimizer(tcfg).init(lora_leaves(lora)))
 
 
+@torch.no_grad()
+def _i2v_condition(vae: CogVideoXVAE, image_emb: torch.Tensor, latents: torch.Tensor,
+                   cfg: CogVideoXConfig, generator: Optional[torch.Generator] = None,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encode the first-frame image and zero-pad it over time (reference
+    ``03_train.py:121-130``): resize the image to 8x the latent grid,
+    VAE-encode with a sampled posterior (``noise`` or a ``generator`` draw),
+    pad F - 1 zero frames. latents (B, F, C, h, w) -> (B, F, z, h, w)."""
+    B, F = latents.shape[:2]
+    H, W = latents.shape[3] * 8, latents.shape[4] * 8
+    img = resize_bilinear(image_emb, (H, W), align_corners=False)
+    lat = vae_encode(vae, img[:, :, None], cfg, generator=generator, noise=noise, sample=True)
+    lat = lat.transpose(1, 2)  # (B, 1, z, h, w)
+    return torch.cat([lat, lat.new_zeros((B, F - 1) + lat.shape[2:])], dim=1)
+
+
 def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
-                        tcfg: TrainerConfig) -> Tuple[Callable, Callable]:
+                        tcfg: TrainerConfig,
+                        vae: Optional[CogVideoXVAE] = None) -> Tuple[Callable, Callable]:
     """Build ``(train_step, eval_step)`` over ``model``'s base weights.
 
-    ``train_step(state, batch, generator=None, timesteps=None, noise=None)``
-    returns ``(state, metrics)``; ``eval_step`` with the same arguments
-    returns metrics and changes nothing. ``batch`` holds ``x_win``/``x_lose``
-    (B, C, F, H, W) latents and ``prompt_emb`` (B, L, D), as tensors or numpy
-    arrays (``train.dataset.collate``). Draws come from ``generator`` (on the
-    model's device; None means the default generator) unless ``timesteps``
-    (B,) and ``noise`` (B, F, C, H, W) are given. Metrics are 0-d f32
+    ``train_step(state, batch, generator=None, timesteps=None, noise=None,
+    posterior_noise=None)`` returns ``(state, metrics)``; ``eval_step`` with
+    the same arguments returns metrics and changes nothing. ``batch`` holds
+    ``x_win``/``x_lose`` (B, C, F, H, W) latents, ``prompt_emb`` (B, L, D)
+    and, for I2V, ``image_emb`` (B, 3, H, W) in [-1, 1], as tensors or numpy
+    arrays (``train.dataset.collate``). With ``image_emb`` and the frozen
+    ``vae`` the image channels carry the encoded first frame, else zeros.
+    Draws come from ``generator`` (on the model's device; None means the
+    default generator) unless ``timesteps`` (B,), ``noise`` (B, F, C, H, W)
+    and ``posterior_noise`` (B, z, 1, H/8, W/8) are given. Metrics are 0-d f32
     tensors on the model's device: loss, reward_margin, reward_accuracy,
     winner_reward, loser_reward and, from ``train_step``, grad_norm (the
     unclipped global norm of this call's gradients).
@@ -180,7 +204,7 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
                            remat=tcfg.remat and lora is not None,
                            attn_impl=tcfg.attn_impl)
 
-    def shared_step(lora, batch, generator, timesteps, noise):
+    def shared_step(lora, batch, generator, timesteps, noise, posterior_noise):
         x_win = as_f32(batch["x_win"]).transpose(1, 2)  # -> (B, F, C, H, W)
         x_lose = as_f32(batch["x_lose"]).transpose(1, 2)
         if cfg.patch_size_t is not None:
@@ -204,7 +228,13 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
         timesteps = torch.as_tensor(timesteps, device=device).long()
         noise = as_f32(noise)
 
-        img_cond = torch.zeros_like(x_win) if cfg.in_channels > cfg.out_channels else None
+        if "image_emb" in batch and vae is not None:
+            img_cond = _i2v_condition(vae, as_f32(batch["image_emb"]), x_win, cfg,
+                                      generator=generator, noise=posterior_noise).float()
+        elif cfg.in_channels > cfg.out_channels:
+            img_cond = torch.zeros_like(x_win)
+        else:
+            img_cond = None
 
         def with_cond(x):
             noisy = scheduler.add_noise(x, noise, timesteps)
@@ -237,9 +267,11 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
 
     def train_step(state: TrainState, batch: Dict[str, object], generator: Optional[torch.Generator] = None,
                    timesteps: Optional[torch.Tensor] = None,
-                   noise: Optional[torch.Tensor] = None):
+                   noise: Optional[torch.Tensor] = None,
+                   posterior_noise: Optional[torch.Tensor] = None):
         params = lora_leaves(state.lora)
-        loss, metrics = shared_step(state.lora, batch, generator, timesteps, noise)
+        loss, metrics = shared_step(state.lora, batch, generator, timesteps, noise,
+                                    posterior_noise)
         grads = torch.autograd.grad(loss, params)
         metrics["grad_norm"] = global_norm(grads)
         optimizer.update(grads, state.opt_state, params)
@@ -249,7 +281,8 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, object], generator: Optional[torch.Generator] = None,
                   timesteps: Optional[torch.Tensor] = None,
-                  noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        return shared_step(state.lora, batch, generator, timesteps, noise)[1]
+                  noise: Optional[torch.Tensor] = None,
+                  posterior_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        return shared_step(state.lora, batch, generator, timesteps, noise, posterior_noise)[1]
 
     return train_step, eval_step

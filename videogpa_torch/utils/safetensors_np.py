@@ -3,6 +3,8 @@
 A file is a little-endian u64 header length N, N bytes of JSON mapping each
 tensor name to its dtype, shape and [begin, end) byte offsets (and an
 optional ``__metadata__`` string map), then the raw little-endian bytes.
+``load_file`` also reads BF16 tensors (numpy has no bfloat16), widened to
+float32 exactly: each value's 16 bits are the top half of its float32.
 Files written here are byte for byte those of ``safetensors.numpy.save_file``:
 tensors ordered by dtype rank (largest first, the library's order), then by
 name; compact JSON in that order; the header padded with spaces to a
@@ -69,7 +71,16 @@ def load_file(path: str) -> Dict[str, np.ndarray]:
         if name == "__metadata__":
             continue
         begin, end = info["data_offsets"]
+        if info["dtype"] == "BF16":
+            out[name] = bf16_bits_to_f32(
+                np.frombuffer(data[begin:end], dtype="<u2")).reshape(info["shape"])
+            continue
         dtype = _TYPE[info["dtype"]]
         out[name] = np.frombuffer(data[begin:end], dtype=dtype).astype(
             dtype.newbyteorder("="), copy=True).reshape(info["shape"])
     return out
+
+
+def bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """Raw bfloat16 bits (uint16) -> the float32 values they encode."""
+    return (bits.astype(np.uint32) << 16).view(np.float32)
