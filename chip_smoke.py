@@ -96,6 +96,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
              decode tile; which operations take a tensor above 2^31
              elements. Then ``sample_i2v`` with the CogVideoX-5B-I2V DiT
              (VAE encode of one 480x720 frame, 2 DPM steps, decode).
+   parity_headdim — ``attention()`` at head dims 8, 40, 80 and 96 (zero-
+             padded to the next kernel width with the original scale): bf16
+             forward on long and short rows and autograd, f32 forward and
+             autograd, ``impl="flash_int8"`` at 40 and 80, each against the
+             plain version; the launch counters show K1, K3, K4, K6 (bf16 and
+             f32), K7, K8, K9 and the f32 backward ran.
+   parity_f32_bwd — the f32 entry of K3/K7 against its plain version at the
+             camera head, the frame rows, one long row and B*H = 66,000, two
+             runs bit-equal, ``attention()`` autograd in f32; its ms beside
+             its bound and SDPA's f32 backward.
+   score_files — random VGGT-1B weights written in the upstream key layout
+             as safetensors and read by ``load_vggt`` (same outputs as the
+             module written); ``cli.score.main`` on 3 groups x 4 clips of 10
+             frames at 518^2 at batch 4, batch 1 (async) and ``--int8``,
+             frames from memory (the machine has no video decoder); scores
+             against ``process_frames_batch``, a resumed run, the per-metric
+             path against the fused one on 2 clips.
+   train_files — pair metadata from [score_files]'s JSON with 49f@480x720
+             latents and T5 embeddings as .npz; ``run_recipe("CogVideoX-5B")``
+             for 2 steps with validation and a checkpoint, then a resume to
+             step 3; the exported PEFT LoRA against the last checkpoint.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -194,13 +215,15 @@ def _wrappers():
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from videogpa_torch.geometry.zbuffer_kernel import scatter_min_u32
     from videogpa_torch.ops.attention import (
-        flash_attn_bwd, flash_attn_bwd_d128, flash_attn_fwd, flash_attn_fwd_d128,
-        flash_attn_fwd_f32, flash_attn_int8, flash_attn_int8_d128, flash_attn_short)
+        flash_attn_bwd, flash_attn_bwd_d128, flash_attn_bwd_f32, flash_attn_fwd,
+        flash_attn_fwd_d128, flash_attn_fwd_f32, flash_attn_int8, flash_attn_int8_d128,
+        flash_attn_short)
 
     return {f.__name__: f for f in (flash_attn_fwd, flash_attn_bwd, flash_attn_short,
                                     flash_attn_fwd_f32, flash_attn_fwd_d128,
                                     flash_attn_bwd_d128, scatter_min_u32,
-                                    flash_attn_int8, flash_attn_int8_d128)}
+                                    flash_attn_int8, flash_attn_int8_d128,
+                                    flash_attn_bwd_f32)}
 
 
 def zero_launches() -> None:
@@ -3041,6 +3064,534 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
             "i2v_layers": icfg.num_layers, "decode_profile": profile, "int32_probe": probe}
 
 
+# float32 gradients of the f32 backward against the plain version (same O,
+# LSE and dO, both f32 with no TF32): the two sum the same products in other
+# orders, so an element differs by the rounding of its sums, which near
+# cancellation in dS is judged against the gradient's RMS; a fault in the
+# kernel moves gradients by their own size
+F32_GRAD_ATOL_RMS_FRAC, F32_GRAD_RTOL = 1e-3, 1e-4
+
+
+def _f32_grad_check(got, want):
+    """(max |d|, atol, ok) of one f32 gradient against the plain version."""
+    import torch
+
+    atol = F32_GRAD_ATOL_RMS_FRAC * want.square().mean().sqrt().item()
+    d = (got - want).abs()
+    ok = bool((d <= atol + F32_GRAD_RTOL * want.abs()).all() and torch.isfinite(got).all())
+    return d.max().item(), atol, ok
+
+
+def _bwd_f32_bound(B, Nq, Nk, H, D):
+    """The f32 backward's least time: five Nq x Nk x D products a head over
+    the f32 peak, or q, o, dO, LSE, k, v read and dQ, dK, dV written once."""
+    flops = 10.0 * B * H * Nq * Nk * D
+    nbytes = 4.0 * B * H * (Nq * D * 4 + Nq + Nk * D * 4)
+    return _bound(flops, nbytes, PEAK_F32_FLOPS)
+
+
+def phase_parity_f32_bwd(cam_shape, vggt_shape):
+    """The f32 entry of K3/K7 (``flash_attn_bwd_f32``) against its plain
+    version at the camera head, the frame rows, one long row and B*H =
+    66,000; two runs bit-equal; ``attention()`` autograd in f32 through K6's
+    f32 entry and this one. Times the kernel, the plain version (over chunks
+    of heads) and SDPA's f32 backward at each shape. Returns a dict."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops import _kernels
+    from videogpa_torch.ops.attention import (
+        attention, flash_attn_bwd_f32, flash_attn_bwd_reference, flash_attn_fwd_f32)
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    shapes = [("camera head", cam_shape, 200), ("frame rows", vggt_shape, 3),
+              ("long row", (1, 4096, 16, 64), 5),
+              ("B*H = 2 x 33,000 = 66,000", (2, 24, 33000, 64), 5)]
+    out = {"shapes": {}, "max_abs_err": 0.0}
+    for label, (B, N, H, D), iters in shapes:
+        q, k, v, do = (torch.randn((B, N, H, D), generator=gen, device="cuda") for _ in range(4))
+        o, lse = flash_attn_fwd_f32(q, k, v, layout="bnhd", with_lse=True)
+        grads = flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd")
+        again = flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd")
+        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+        del again
+        chunk = max(1, 2 ** 29 // (4 * B * N * N))  # heads a 0.5 GB score matrix holds
+        plain_ms, worst, atols = 0.0, [0.0, 0.0, 0.0], []
+        for h in range(0, H, chunk):
+            hs = slice(h, h + chunk)
+            sl = (slice(None), slice(None), hs)
+            want, ms = _timed(lambda: flash_attn_bwd_reference(
+                q[sl], k[sl], v[sl], o[sl], lse[:, hs].contiguous(), do[sl], layout="bnhd"))
+            plain_ms += ms
+            for i, (g, w) in enumerate(zip(grads, want)):
+                err, atol, ok = _f32_grad_check(g[sl], w)
+                worst[i] = max(worst[i], err)
+                atols.append(atol)
+                if not ok:
+                    fail(f"flash_attn_bwd_f32 disagrees with its plain version at the {label}, "
+                         f"heads {h}.., gradient {'QKV'[i]}")
+            del want
+        if not bit_equal:
+            fail(f"flash_attn_bwd_f32: two runs differ at the {label}")
+        ms = cuda_ms(lambda: flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd"), iters=iters)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
+                         iters=iters)
+        bound_ms, bound_by = _bwd_f32_bound(B, N, N, H, D)
+        out["shapes"][label] = {
+            "shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms,
+            "tflops": 10.0 * B * H * N * N * D / ms / 1e9, "max_abs_err": max(worst)}
+        out["max_abs_err"] = max(out["max_abs_err"], max(worst))
+        log(f"[parity_f32_bwd] {label} {(B, N, H, D)} bnhd, heads in chunks of {min(chunk, H)}: "
+            f"max|dQ| {worst[0]:.3e}, max|dK| {worst[1]:.3e}, max|dV| {worst[2]:.3e} (atol "
+            f"{min(atols):.2e}..{max(atols):.2e} + rtol {F32_GRAD_RTOL}) ok; two runs bit-equal; "
+            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.1f} ms, "
+            f"SDPA f32 backward {lib_ms:.4f} ms")
+        del q, k, v, do, o, lse, grads, qt, kt, vt, ot, dot
+        torch.cuda.empty_cache()
+    attrs = _kernels.kernel_attrs("flash_attn_bwd_f32", 128)
+    out["registers_smem_d128"] = [attrs["registers"], attrs["smem_bytes"]]
+    attrs = _kernels.kernel_attrs("flash_attn_bwd_f32", 64)
+    out["registers_smem_d64"] = [attrs["registers"], attrs["smem_bytes"]]
+
+    # attention() under grad in f32: K6's f32 entry with LSE, then this entry
+    q, k, v, do = (torch.randn(cam_shape, generator=gen, device="cuda") for _ in range(4))
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    f0, b0 = flash_attn_fwd_f32.launches, flash_attn_bwd_f32.launches
+    o = attention(q, k, v, layout="bnhd")
+    if type(o.grad_fn).__name__ != "_FlashAttentionBackward":
+        fail(f"attention() on f32 CUDA tensors that require grad has grad_fn {o.grad_fn}")
+    o.backward(do)
+    with torch.no_grad():
+        o2, lse = flash_attn_fwd_f32(q, k, v, layout="bnhd", with_lse=True)
+        direct = flash_attn_bwd_f32(q, k, v, o2, lse, do, layout="bnhd")
+    same = torch.equal(o.detach(), o2) and all(
+        torch.equal(x.grad, d) for x, d in zip((q, k, v), direct))
+    counted = (flash_attn_fwd_f32.launches - f0, flash_attn_bwd_f32.launches - b0) == (2, 2)
+    log(f"[parity_f32_bwd] attention() autograd in f32 at {tuple(cam_shape)}: grad_fn "
+        f"_FlashAttentionBackward, O and q/k/v grads bit-equal to the direct K6 f32 + "
+        f"flash_attn_bwd_f32 calls: {same}, launches counted: {counted}")
+    if not (same and counted):
+        fail("attention() autograd in f32 did not go through K6 f32 and flash_attn_bwd_f32")
+    return out
+
+
+HEADDIM_F32_ATOL, HEADDIM_F32_RTOL = 2e-5, 1e-5  # f32 O: as K6 f32's parity (F32_O_*)
+
+
+def phase_parity_headdim():
+    """``attention()`` on CUDA at head dims no kernel takes (8, 40, 80, 96):
+    zero-padded to the next kernel width with the original D's scale. bf16
+    forward (long rows: K1 / K6; short bnhd rows: K4) and autograd (K1 + K3 /
+    K6 + K7), f32 forward (K6 f32) and autograd (K6 f32 + the f32 backward),
+    ``impl="flash_int8"`` at D = 40 (K8 at width 64) and 80 (K9's entry at
+    128), each against the plain version at the original D. Checks from the
+    launch counters that each of those kernels ran."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        attention, flash_attn_bwd_reference, flash_attn_fwd_reference,
+        flash_attn_int8_reference, flash_attn_short_reference, quantize_qk_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    zero_launches()
+    for D in (8, 40, 80, 96):
+        # bf16 forward, long bhnd rows and short bnhd rows
+        q, k, v = _attn_case(gen, 2, 1000, 1100, 4, D, "bhnd")
+        err, atol, ok = _check_o(attention(q, k, v), flash_attn_fwd_reference(q, k, v, "bhnd")[0])
+        if not ok:
+            fail(f"attention() bf16 at head_dim {D} disagrees with the plain version")
+        qs, ks, vs = _attn_case(gen, 40, 300, 300, 2, D, "bnhd")
+        err_s, atol_s, ok = _check_o(attention(qs, ks, vs, layout="bnhd"),
+                                     flash_attn_short_reference(qs, ks, vs))
+        if not ok:
+            fail(f"attention() bf16 short rows at head_dim {D} disagree with the plain version")
+        # bf16 autograd against the plain forward + backward at D
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+        attention(qg, kg, vg).backward(do)
+        ro, rl = flash_attn_fwd_reference(q, k, v, "bhnd", with_lse=True)
+        want = flash_attn_bwd_reference(q, k, v, ro, rl, do, layout="bhnd")
+        g_errs = []
+        for name, x, w in zip("QKV", (qg, kg, vg), want):
+            g_err, _, ok = _grad_check(x.grad, w)
+            g_errs.append(g_err)
+            if not ok:
+                fail(f"attention() bf16 autograd at head_dim {D}: d{name} disagrees")
+        # f32 forward and autograd
+        qf, kf, vf, dof = (torch.randn((2, 4, 700, D), generator=gen, device="cuda")
+                           for _ in range(4))
+        of = attention(qf, kf, vf)
+        rof, rlf = flash_attn_fwd_reference(qf, kf, vf, "bhnd", with_lse=True)
+        d_f = (of - rof).abs()
+        if not bool((d_f <= HEADDIM_F32_ATOL + HEADDIM_F32_RTOL * rof.abs()).all()):
+            fail(f"attention() f32 at head_dim {D} disagrees with the plain version")
+        qg, kg, vg = (x.clone().requires_grad_(True) for x in (qf, kf, vf))
+        attention(qg, kg, vg).backward(dof)
+        want = flash_attn_bwd_reference(qf, kf, vf, rof, rlf, dof, layout="bhnd")
+        f_errs = []
+        for name, x, w in zip("QKV", (qg, kg, vg), want):
+            g_err, _, ok = _f32_grad_check(x.grad, w)
+            f_errs.append(g_err)
+            if not ok:
+                fail(f"attention() f32 autograd at head_dim {D}: d{name} disagrees")
+        log(f"[parity_headdim] D = {D}: bf16 O max|d| {err:.3e} (atol {atol:.2e}), short rows "
+            f"{err_s:.3e} (atol {atol_s:.2e}), bf16 grads max|d| "
+            f"{', '.join(f'{e:.3e}' for e in g_errs)} (atol {GRAD_ATOL_RMS_FRAC} RMS + rtol "
+            f"{GRAD_RTOL}); f32 O max|d| {d_f.max().item():.3e} (atol {HEADDIM_F32_ATOL} + rtol "
+            f"{HEADDIM_F32_RTOL}), f32 grads max|d| {', '.join(f'{e:.3e}' for e in f_errs)} "
+            f"(atol {F32_GRAD_ATOL_RMS_FRAC} RMS + rtol {F32_GRAD_RTOL}) ok")
+        del q, k, v, qs, ks, vs, do, qg, kg, vg, ro, rl, want, qf, kf, vf, dof, of, rof, rlf
+    for D in (40, 80):
+        # the int8 route, against the plain int8 function on unpadded operands
+        q, k, v = _attn_case(gen, 2, 3000, 3000, 4, D, "bnhd")
+        o = attention(q, k, v, impl="flash_int8", layout="bnhd")
+        ro = flash_attn_int8_reference(*quantize_qk_int8(q, k, "bnhd"), v, "bnhd")
+        err, atol, ok = _check_o(o, ro)
+        log(f"[parity_headdim] int8 D = {D} (2, 3000, 4, {D}) bnhd: max|dO| {err:.3e} "
+            f"(atol {atol:.2e} + rtol {O_RTOL}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"attention(impl='flash_int8') at head_dim {D} disagrees with the plain version")
+        del q, k, v, o, ro
+    launches = read_launches()
+    log(f"[parity_headdim] launches: {json.dumps(launches)}")
+    missing = [n for n in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_short",
+                           "flash_attn_fwd_d128", "flash_attn_bwd_d128", "flash_attn_fwd_f32",
+                           "flash_attn_bwd_f32", "flash_attn_int8", "flash_attn_int8_d128")
+               if launches[n] == 0]
+    if missing:
+        fail(f"attention() at padded head dims launched no {missing}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+SCORE_FILES_GROUPS, SCORE_FILES_CLIPS, SCORE_FILES_FRAMES = 3, 4, 10
+
+
+def phase_score_files():
+    """The score leg from files at VGGT-1B's full width: random VGGT-1B
+    weights written as a facebook/VGGT-1B-layout safetensors checkpoint
+    (``export_vggt`` + ``save_file``) and read back by ``load_vggt``; then
+    ``cli.score.main`` on a prompt-group JSON of 3 groups x 4 clips of 10
+    frames at 518^2 at batch 4, at batch 1 (the async path) and with
+    ``--int8``. The card's machine has no video decoder, so
+    ``data.video_io.sample_uniform_frames`` is replaced by an in-memory frame
+    source for the phase. Checks failed == 0, the scores against
+    ``process_frames_batch`` on the same frames, a resumed run, and the
+    per-metric path (``VIDEOGPA_NO_FUSED_METRICS=1``) against the fused one
+    on 2 clips. Returns a dict (with the batch-4 output JSON's path)."""
+    import shutil
+
+    import torch
+
+    import videogpa_torch.cli.score as score_cli
+    from videogpa_torch.data import video_io
+    from videogpa_torch.metrics import ConsistencyScore
+    from videogpa_torch.models.loader import load_vggt
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+    from videogpa_torch.models.vggt.convert import export_vggt
+    from videogpa_torch.reward import VideoProcessor
+    from videogpa_torch.utils.safetensors_np import save_file
+
+    cfg = VGGTConfig()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "score_files")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt_dir = os.path.join(root, "vggt1b")
+    os.makedirs(ckpt_dir)
+    model = vggt_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda").eval()
+    regular_camera_(model)
+    t0 = time.perf_counter()
+    sd = export_vggt(model)
+    save_file(sd, os.path.join(ckpt_dir, "model.safetensors"))
+    write_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(os.path.join(ckpt_dir, "model.safetensors")) / 1e9
+    n_keys = len(sd)
+    del sd
+    # the loader's own host peak: a fresh process that loads and exits
+    child = subprocess.run(
+        [sys.executable, "-c", "import resource, sys, time, torch\n"
+         "from videogpa_torch.models.loader import load_vggt\n"
+         "t0 = time.perf_counter(); load_vggt(sys.argv[1]); torch.cuda.synchronize()\n"
+         "print(time.perf_counter() - t0, "
+         "resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6)", ckpt_dir],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode != 0:
+        fail(f"load_vggt in a fresh process failed:\n{child.stderr[-2000:]}")
+    child_load_s, child_peak_gb = map(float, child.stdout.split()[-2:])
+    t0 = time.perf_counter()
+    loaded, _ = load_vggt(ckpt_dir, cfg, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[score_files] VGGT-1B in the upstream key layout: {n_keys} tensors, "
+        f"{size_gb:.2f} GB f32 safetensors written in {write_s:.1f} s; load_vggt "
+        f"{load_s:.1f} s here, {child_load_s:.1f} s in a fresh process whose peak host RSS "
+        f"was {child_peak_gb:.2f} GB (imports and the CUDA context included)")
+
+    # the loaded module computes what the module it was written from computes
+    clip = synthetic_frames(1, SCORE_FILES_FRAMES, cfg.img_size, seed=7)[0]
+    images = torch.from_numpy(clip).cuda().float().permute(0, 3, 1, 2)[None] / 255.0
+    with torch.no_grad():
+        a = vggt_forward(model, images, compute_dtype=torch.bfloat16, dpt_dtype=torch.bfloat16)
+        b = vggt_forward(loaded, images, compute_dtype=torch.bfloat16,
+                         dpt_dtype=torch.bfloat16)
+    same = all(torch.equal(a[k], b[k]) for k in ("pose_enc", "depth", "depth_conf",
+                                                 "world_points"))
+    log(f"[score_files] loaded module against the module written, one clip of "
+        f"{SCORE_FILES_FRAMES} x 518^2 (bf16 trunk and DPT): pose_enc, depth, depth_conf, "
+        f"world_points bit-equal: {same}")
+    if not same:
+        fail("load_vggt does not give back the module that was written")
+    del model, a, b, images
+
+    # the prompt-group JSON and the in-memory frame source
+    frames = {}
+    groups = []
+    for g in range(SCORE_FILES_GROUPS):
+        clips = synthetic_frames(SCORE_FILES_CLIPS, SCORE_FILES_FRAMES, cfg.img_size,
+                                 seed=200 + g)
+        videos = []
+        for c, clip in enumerate(clips):
+            path = f"videos/g{g}_c{c}.mp4"
+            frames[os.path.join(root, path)] = clip
+            videos.append({"video_path": path, "generation_id": c})
+        groups.append({"group_id": f"g{g}", "prompt": f"scene {g}", "videos": videos})
+    with open(os.path.join(root, "groups.json"), "w") as f:
+        json.dump({"groups": groups}, f)
+    n_clips = SCORE_FILES_GROUPS * SCORE_FILES_CLIPS
+
+    def memory_frames(path, n_frames=48, size=518):
+        return frames[path][:n_frames]
+
+    real_decode, real_score_groups = video_io.sample_uniform_frames, score_cli.score_groups
+    walls = []
+
+    def timed_score_groups(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = real_score_groups(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return stats
+
+    log(f"[score_files] the card's machine has no video decoder: "
+        f"data.video_io.sample_uniform_frames reads {n_clips} in-memory clips of "
+        f"{SCORE_FILES_FRAMES} x 518^2 synthetic frames in this phase")
+    out = {"load_s": load_s, "write_s": write_s, "checkpoint_gb": size_gb,
+           "fresh_process_load_s": child_load_s, "fresh_process_peak_rss_gb": child_peak_gb,
+           "runs": {}}
+    video_io.sample_uniform_frames = memory_frames
+    score_cli.score_groups = timed_score_groups
+    try:
+        for tag, extra in (("batch4", ["--batch_size", "4"]), ("batch1_async", []),
+                           ("int8_batch4", ["--batch_size", "4", "--int8"])):
+            out_json = os.path.join(root, f"scored_{tag}.json")
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = score_cli.main(["--input_json", os.path.join(root, "groups.json"),
+                                    "--output_json", out_json, "--base_dir", root,
+                                    "--model_name", ckpt_dir,
+                                    "--num_frames", str(SCORE_FILES_FRAMES)] + extra)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            batches = n_clips / 4 if "batch4" in tag else n_clips
+            per_batch = {k: v / batches for k, v in launches.items() if v}
+            with open(out_json) as f:
+                scored = json.load(f)
+            cps = [v["consistency_score"] for g in scored["groups"] for v in g["videos"]]
+            run = {"stats": stats, "main_s": wall, "score_groups_s": walls[-1],
+                   "clips_per_min": n_clips / (walls[-1] / 60.0), "launches": launches,
+                   "per_program": per_batch, "scores": cps, "json": out_json}
+            out["runs"][tag] = run
+            log(f"[score_files] cli.score.main {' '.join(extra) or '--batch_size 1'}: {stats}, "
+                f"main {wall:.1f} s (load included), score_groups {walls[-1]:.2f} s = "
+                f"{run['clips_per_min']:.1f} clips/min; launches per "
+                f"{'batch of 4' if 'batch4' in tag else 'clip'} {json.dumps(per_batch)}")
+            if stats["failed"] != 0 or stats["scored"] != n_clips:
+                fail(f"cli.score.main ({tag}) failed on {stats['failed']} clip(s)")
+            if not all(math.isfinite(x) for x in cps):
+                fail(f"non-finite consistency scores from cli.score.main ({tag})")
+
+        # the CLI's scores against process_frames_batch on the same frames
+        vp = VideoProcessor({"Consistency_Score": ConsistencyScore(device="cuda")},
+                            params=loaded, config=cfg, device="cuda")
+        direct = []
+        for g in groups:
+            clips = [frames[os.path.join(root, v["video_path"])] for v in g["videos"]]
+            direct += [r[0]["Consistency_Score"] for r in vp.process_frames_batch(clips, [0])]
+        worst = {tag: max(abs(x - y) / max(abs(y), 1e-12)
+                          for x, y in zip(out["runs"][tag]["scores"], direct))
+                 for tag in ("batch4", "batch1_async")}
+        drift = max(abs(x - y) / max(abs(y), 1e-12)
+                    for x, y in zip(out["runs"]["int8_batch4"]["scores"], direct))
+        out["rel_err_vs_process_frames_batch"], out["int8_rel_drift"] = worst, drift
+        log(f"[score_files] scores against process_frames_batch on the same frames: largest "
+            f"relative difference {json.dumps(worst)} (limit {SCORE_FILES_REL}: batch 4 runs "
+            f"the same programs; batch 1 runs one-clip programs, whose bf16 sums differ); "
+            f"int8 drift against exact {drift:.3e} (not a gate)")
+        if max(worst.values()) > SCORE_FILES_REL:
+            fail("cli.score.main's scores disagree with process_frames_batch")
+
+        # a resumed run scores nothing new
+        with open(out["runs"]["batch4"]["json"]) as f:
+            again = json.load(f)
+        stats = real_score_groups(vp, again, out["runs"]["batch4"]["json"], base_dir=root,
+                                  num_frames=SCORE_FILES_FRAMES, batch_size=4)
+        log(f"[score_files] resumed run: {stats}")
+        if stats != {"scored": 0, "failed": 0, "resumed": n_clips}:
+            fail("a resumed score_groups run scored again")
+
+        # the per-metric path against the fused path on 2 clips
+        two = [frames[os.path.join(root, v["video_path"])] for v in groups[0]["videos"][:2]]
+        fused = vp.process_frames_batch(two, [0])
+        os.environ["VIDEOGPA_NO_FUSED_METRICS"] = "1"
+        try:
+            per_metric = VideoProcessor({"Consistency_Score": ConsistencyScore(device="cuda")},
+                                        params=loaded, config=cfg, device="cuda")
+            ref = per_metric.process_frames_batch(two, [0])
+        finally:
+            del os.environ["VIDEOGPA_NO_FUSED_METRICS"]
+        d = max(abs(f[0][k] - r[0][k]) for f, r in zip(fused, ref)
+                for k in ("Consistency_Score", "motion_norm"))
+        ok = all(abs(f[0][k] - r[0][k]) <= 1e-5 + 1e-4 * abs(r[0][k])
+                 for f, r in zip(fused, ref) for k in ("Consistency_Score", "motion_norm"))
+        out["per_metric_max_abs_diff"] = d
+        log(f"[score_files] VIDEOGPA_NO_FUSED_METRICS=1 (the per-metric path) against the fused "
+            f"path on 2 clips: max |d| {d:.3e} (atol 1e-5 + rtol 1e-4) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail("the per-metric path disagrees with the fused path")
+    finally:
+        video_io.sample_uniform_frames, score_cli.score_groups = real_decode, real_score_groups
+    del vp, per_metric, loaded
+    shutil.rmtree(ckpt_dir)
+    torch.cuda.empty_cache()
+    return out
+
+
+# The CLI at batch 4 runs the scorer's own programs on the same frames; at
+# batch 1 each clip is its own program, whose bf16 GEMMs and attention sum
+# in other orders than at K = 4, and a consistency score then moves with
+# the z-buffer winners those sums flip: 1e-2 relative holds both
+SCORE_FILES_REL = 1e-2
+
+
+def phase_train_files(scored_json: str, steps: int = 2):
+    """The train leg from files at CogVideoX-5B's full width: pair metadata
+    built from [score_files]'s scored JSON (the least consistency score of
+    a group wins, ``train.dataset``'s rule) with 49f@480x720 latents and T5
+    embeddings written as .npz; ``run_recipe("CogVideoX-5B", config)`` runs
+    ``train_dpo`` for ``steps`` steps with validation on 1 pair and a
+    checkpoint at the last step, then resumes to ``steps + 1``; the exported
+    PEFT LoRA is read back and held against the last checkpoint's.
+    ``load_cogvideox`` is handed a random full-width DiT in memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import videogpa_torch.cli.train_dpo as train_cli
+    from videogpa_torch.models.cogvideox import CogVideoXConfig, dit_init
+    from videogpa_torch.train.lora import import_peft
+    from videogpa_torch.train.recipes import build_config, run_recipe
+
+    cfg = CogVideoXConfig.cogvideox_5b()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train_files")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    os.makedirs(os.path.join(data_dir, "latents"))
+    with open(scored_json) as f:
+        scored = json.load(f)
+    rng = np.random.default_rng(0)
+    lat_shape = (cfg.vae_latent_channels, cfg.sample_frames, cfg.sample_height, cfg.sample_width)
+    for g in scored["groups"]:
+        cond = f"latents/cond_{g['group_id']}.npz"
+        np.savez(os.path.join(data_dir, cond), encoder_hidden_states=rng.standard_normal(
+            (cfg.max_text_seq_length, cfg.text_embed_dim), dtype=np.float32))
+        for v in g["videos"]:
+            lat = f"latents/{os.path.basename(v['video_path'])}.npz"
+            np.savez(os.path.join(data_dir, lat),
+                     data=rng.standard_normal(lat_shape, dtype=np.float32))
+            v.update(latent_path=lat, condition_path=cond)
+    with open(os.path.join(data_dir, "meta_data.json"), "w") as f:
+        json.dump(scored, f)
+    config = build_config("CogVideoX-5B", base_path=data_dir)
+    # random weights: every group's winner and loser by its score, whatever the
+    # gap; a warmup shorter than the run (the schedule needs max_steps > warmup)
+    config.update(output_dir=os.path.join(root, "out"), max_steps=steps,
+                  checkpoint_every_n_steps=steps, log_every_n_steps=1, seed=0,
+                  metric_threshold=None, min_gap=0.0, motion_threshold=0.0, warmup_steps=1)
+    dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                   dtype=torch.bfloat16).requires_grad_(False)
+    log(f"[train_files] {len(scored['groups'])} groups from [score_files]'s JSON, latents "
+        f"{lat_shape} and T5 embeddings ({cfg.max_text_seq_length}, {cfg.text_embed_dim}) as "
+        f".npz; recipe CogVideoX-5B (batch {config['batch_size']}, accumulate "
+        f"{config['accumulate_grad_batches']}, LoRA r {config['lora_rank']}), max_steps "
+        f"{steps}, checkpoint every {steps}; load_cogvideox is handed a random full-width "
+        f"DiT in memory (a 10 GB checkpoint written and read back would cost more of the run "
+        f"than the loader is worth here; tests/test_torch_loaders.py holds the loader)")
+    real_load = train_cli.load_cogvideox
+    train_cli.load_cogvideox = lambda *a, **k: (dit, None)
+    out = {}
+    try:
+        for tag, max_steps in (("run", steps), ("resume", steps + 1)):
+            config["max_steps"] = max_steps
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_recipe("CogVideoX-5B", config)
+            torch.cuda.synchronize()
+            out[f"{tag}_s"] = time.perf_counter() - t0
+            out[f"{tag}_launches"] = read_launches()
+    finally:
+        train_cli.load_cogvideox = real_load
+    with open(os.path.join(root, "out", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if "train/loss" in r]
+    steps_seen = [r["step"] for r in train]
+    log(f"[train_files] metrics.jsonl train records: " + json.dumps(
+        [{k: r[k] for k in ("step", "time", "train/loss", "stats/samples_per_sec",
+                            "stats/max_memory_gb")} for r in train]))
+    if steps_seen != list(range(1, steps + 2)):
+        fail(f"train_dpo took steps {steps_seen}, expected 1..{steps} then {steps + 1} resumed")
+    if not all(math.isfinite(r["train/loss"]) for r in train):
+        fail("non-finite train loss")
+    L = cfg.num_layers
+    want_run = {"flash_attn_fwd": steps * 6 * L + 4 * L, "flash_attn_bwd": steps * 2 * L}
+    want_resume = {"flash_attn_fwd": 6 * L + 4 * L, "flash_attn_bwd": 2 * L}
+    for tag, want in (("run", want_run), ("resume", want_resume)):
+        got = {k: v for k, v in out[f"{tag}_launches"].items() if v}
+        log(f"[train_files] {tag}: {out[f'{tag}_s']:.1f} s, launches {json.dumps(got)}; "
+            f"expected {json.dumps(want)} (6 forwards and 2 backwards of {L} layers a step, 4 "
+            f"forwards a validation pair)")
+        if got != want:
+            fail(f"train_dpo ({tag}) did not run every attention through K1 and K3")
+    kept = sorted(json.load(open(os.path.join(root, "out", "checkpoints", "scores.json"))))
+    state = torch.load(os.path.join(root, "out", "checkpoints", kept[-1], "state.pt"),
+                       weights_only=True)
+    lora = import_peft(os.path.join(root, "out", "final_lora"), L, device="cpu")
+    same = state["step"] == steps + 1 and all(
+        torch.equal(lora[n][k], state["lora"][n][k]) for n in state["lora"]
+        for k in ("lora_A", "lora_B"))
+    log(f"[train_files] checkpoints kept {kept}; import_peft(final_lora) equals the trained "
+        f"LoRA of step {state['step']}: {same}")
+    if not same:
+        fail("the exported LoRA is not the trained one")
+    step_s = train[1]["time"] - train[0]["time"]
+    out.update(step_ms=1e3 * step_s, samples_per_sec=[r["stats/samples_per_sec"] for r in train],
+               max_memory_gb=[r["stats/max_memory_gb"] for r in train], steps=steps_seen,
+               per_step={"flash_attn_fwd": 6 * L, "flash_attn_bwd": 2 * L})
+    del dit, state, lora
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3086,6 +3637,8 @@ def main() -> int:
     zbuf_plain_ms = phase_parity_zbuffer()
     k8_err, k9_err, k8_plain_ms, k9_plain_ms = phase_parity_int8(dit_shape, vggt_global_shape,
                                                                  wan_shape)
+    headdim_launches = phase_parity_headdim()
+    f32_bwd = phase_parity_f32_bwd(cam_shape, vggt_shape)
     phase_parity_quant(dit_shape)
     phase_slice()
     phase_slice_dpo()
@@ -3098,6 +3651,13 @@ def main() -> int:
     sample_run = phase_sample(main_run.pop("dit"))
     train_run = phase_train()
     scorer_run = phase_scorer()
+    score_files_run = phase_score_files()
+    log("[score_files] clips/min through score_groups: " + json.dumps(
+        {tag: round(r["clips_per_min"], 1) for tag, r in score_files_run["runs"].items()})
+        + f"; [scorer]'s process_frames_batch (six metrics with LPIPS VGG16, warm batches): "
+        + json.dumps([round(x, 1) for x in scorer_run["clips_per_min"][1:]])
+        + " (the CLI scores the consistency score alone, MSE-only with no LPIPS network)")
+    train_files_run = phase_train_files(score_files_run["runs"]["batch4"]["json"])
     wan_run = phase_wan()
     wan_train_run = phase_wan_train()
     main_int8_run = phase_main_int8(main_run["latents"])
@@ -3183,6 +3743,12 @@ def main() -> int:
         "sample_i2v_layers": sample_run["i2v_layers"],
         "sample_i2v_peak_allocated_gb": sample_run["i2v_peak_gb"],
         "sample_int32_probe": sample_run["int32_probe"],
+        "score_files": {k: v for k, v in score_files_run.items() if k != "runs"},
+        "score_files_runs": {tag: {k: v for k, v in r.items() if k not in ("scores", "json")}
+                             for tag, r in score_files_run["runs"].items()},
+        "train_files": train_files_run,
+        "flash_attn_bwd_f32": f32_bwd,
+        "parity_headdim_launches": headdim_launches,
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
@@ -3201,7 +3767,12 @@ def main() -> int:
             "wan_train": wan_train_run["launches"],
             "denoise_int8": main_int8_run["launches"],
             "scorer_int8": scorer_int8_run["launches"], "wan_int8": wan_int8_run["launches"],
-            "sample": sample_run["launches"], "sample_i2v": sample_run["i2v_launches"]}
+            "sample": sample_run["launches"], "sample_i2v": sample_run["i2v_launches"],
+            "score_files": {k: sum(r["launches"][k] for r in score_files_run["runs"].values())
+                            for k in scorer_run["launches"]},
+            "train_files": {k: train_files_run["run_launches"][k]
+                            + train_files_run["resume_launches"][k]
+                            for k in train_run["launches"]}}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -3316,6 +3887,22 @@ def main() -> int:
                             "flash_attn_fwd_d128_same_phase_turns_ms":
                                 timing["k9_exact_kernel_turns_ms"],
                             "sdpa_ms": timing["k6_self_library_ms"]}},
+        # the f32 entry of K3/K7: no main path differentiates f32 attention
+        # (0 launches on each); it ran in [parity_f32_bwd] and [parity_headdim]
+        {"name": "flash_attn_bwd_f32", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_bwd_f32.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:951,983,883,908",
+         **by_path("flash_attn_bwd_f32"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_bwd_f32"],
+         "max_abs_err": f32_bwd["max_abs_err"],
+         "ms": f32_bwd["shapes"]["camera head"]["ms"],
+         "plain_ms": f32_bwd["shapes"]["camera head"]["plain_ms"],
+         "bound_ms": f32_bwd["shapes"]["camera head"]["bound_ms"],
+         "bound_by": f32_bwd["shapes"]["camera head"]["bound_by"],
+         "library_ms": f32_bwd["shapes"]["camera head"]["library_ms"],
+         "shapes": f32_bwd["shapes"],
+         "registers_smem": {"d128": f32_bwd["registers_smem_d128"],
+                            "d64": f32_bwd["registers_smem_d64"]}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -126,14 +126,12 @@ def test_unported_paths_raise(weights, clips):
         VideoProcessor({}, backbone="da3", device="cpu")
     with pytest.raises(NotImplementedError, match="LightGlue"):
         tm.EpipolarMetric(descriptor_type="lightglue")
+    # frames that are not square (host preprocessing) and the per-metric path
+    # are ported: they score (held against JAX in test_torch_score_cli.py)
     vp = _port_scorer(weights, "packed")
-    with pytest.raises(NotImplementedError, match="decode slice"):
-        vp.process_frames_batch([clips[0][:, :, :40]], [0])  # not square
-    with pytest.raises(NotImplementedError, match="decode slice"):
-        vp.process_frames(clips[0], [0], save_visuals=True)
-    vp.metrics = {"Reprojection_Error": object()}  # outside the fused set
-    with pytest.raises(NotImplementedError, match="per-metric"):
-        vp.process_frames_batch(clips, [0])
+    with pytest.warns(UserWarning, match="per-metric"):
+        r = vp.process_frames_batch([clips[0][:, :, :40]], [0])  # not square
+    assert np.isfinite(r[0][0]["Consistency_Score"])
 
 
 def test_lpips_matches_jax(weights):

@@ -4,6 +4,8 @@ same input-range and layout coercions.
 
 The scorer fuses all but Epipolar on the device; Epipolar (host OpenCV SIFT
 matching on the ground-truth frames, ``metrics.epipolar``) runs on the host.
+On the scorer's per-metric path the ground truth is the host's frames and the
+reprojection a device tensor: a metric computes on the reprojection's device.
 """
 
 from __future__ import annotations
@@ -37,6 +39,12 @@ def _tchw(x) -> torch.Tensor:
     return x.float()
 
 
+def _pair(gt, rep):
+    """(gt, rep) as (T, C, H, W) float32 on rep's device."""
+    rep = _tchw(rep)
+    return _tchw(gt).to(rep.device), rep
+
+
 def lpips_clip(model: LPIPS, gt: torch.Tensor, rep: torch.Tensor) -> torch.Tensor:
     """Mean LPIPS over a clip's frames, gt/rep (T, 3, H, W) in any range."""
     g = F.to_sym_range(gt)
@@ -61,7 +69,7 @@ class MSEMetric(Metric):
         super().__init__("mse")
 
     def compute(self, *, gt, rep, **kwargs) -> float:
-        return float(F.mse(_tchw(gt), _tchw(rep)))
+        return float(F.mse(*_pair(gt, rep)))
 
 
 class PSNRMetric(Metric):
@@ -69,7 +77,7 @@ class PSNRMetric(Metric):
         super().__init__("psnr")
 
     def compute(self, *, gt, rep, **kwargs) -> float:
-        return float(F.psnr(_tchw(gt), _tchw(rep)))
+        return float(F.psnr(*_pair(gt, rep)))
 
 
 class SSIMMetric(Metric):
@@ -77,7 +85,7 @@ class SSIMMetric(Metric):
         super().__init__("ssim")
 
     def compute(self, *, gt, rep, **kwargs) -> float:
-        return float(F.ssim(_tchw(gt), _tchw(rep)))
+        return float(F.ssim(*_pair(gt, rep)))
 
 
 class LPIPSMetric(Metric):
@@ -106,12 +114,13 @@ class ConsistencyScore(Metric):
         self.params = lpips_params if lpips_params is not None else _default_lpips(device)
 
     def compute(self, *, gt, rep, extrinsics, ratio: float = 1, **kwargs):
-        gt_t, rep_t = _tchw(gt), _tchw(rep)
+        gt_t, rep_t = _pair(gt, rep)
         val = F.mse(gt_t, rep_t)
         if self.params is not None:
             dev = next(self.params.parameters()).device
             with torch.no_grad():
-                val = val + ratio * lpips_clip(self.params, gt_t.to(dev), rep_t.to(dev)).cpu()
+                val = val + ratio * lpips_clip(self.params, gt_t.to(dev),
+                                               rep_t.to(dev)).to(val.device)
         return float(val), float(F.motion_score(_tensor(extrinsics)))
 
 
@@ -123,10 +132,10 @@ class MVCSMetric(Metric):
         d = _tensor(depths).float()
         if d.dim() == 4:
             d = d[:, 0] if d.shape[1] == 1 else d[..., 0]
-        K = _tensor(intrinsics).float()
+        K = _tensor(intrinsics).float().to(d.device)
         if K.shape[-2:] == (4, 4):
             K = K[..., :3, :3]
-        return float(F.mvcs(d, K, to_44(_tensor(extrinsics).float())))
+        return float(F.mvcs(d, K, to_44(_tensor(extrinsics).float().to(d.device))))
 
 
 class EpipolarMetric(Metric):

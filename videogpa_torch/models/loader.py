@@ -5,8 +5,8 @@ No network access is assumed: ``resolve_model_dir`` accepts a filesystem
 path or resolves a HF repo id against ``$VIDEOGPA_MODELS_DIR`` or the local
 HF cache. Multi-shard safetensors (``*.safetensors.index.json``) are read
 through their index; bf16 tensors widen to f32 on the host and each module
-is built on the device in the dtype asked for. The VGGT, Wan VAE and DA3
-loaders are not ported yet.
+is built on the device in the dtype asked for. The Wan VAE and DA3 loaders
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -130,3 +130,17 @@ def load_t5(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float3
     sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path, "text_encoder")))
     return _module_from_state_dict(T5Encoder, cfg, convert_t5_encoder(sd, cfg),
                                    resolve_device(device), dtype), cfg
+
+
+def load_vggt(model_name_or_path: str = "facebook/VGGT-1B", cfg=None,
+              dtype: torch.dtype = torch.float32, device=None):
+    """A facebook/VGGT-1B-layout checkpoint directory -> (``VGGT`` on
+    ``device`` (the card unless ``device="cpu"``) in ``dtype``, its config)."""
+    from videogpa_torch.models.vggt.config import VGGTConfig
+    from videogpa_torch.models.vggt.convert import convert_vggt
+    from videogpa_torch.models.vggt.model import VGGT
+
+    cfg = cfg or VGGTConfig()
+    sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path)))
+    return _module_from_state_dict(VGGT, cfg, convert_vggt(sd, cfg), resolve_device(device),
+                                   dtype), cfg

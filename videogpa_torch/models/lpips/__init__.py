@@ -1,5 +1,5 @@
 """LPIPS perceptual distance (VGG16 backbone)."""
 
-from videogpa_torch.models.lpips.lpips import LPIPS, lpips_distance, lpips_init
+from videogpa_torch.models.lpips.lpips import LPIPS, convert_lpips, lpips_distance, lpips_init
 
-__all__ = ["LPIPS", "lpips_distance", "lpips_init"]
+__all__ = ["LPIPS", "convert_lpips", "lpips_distance", "lpips_init"]

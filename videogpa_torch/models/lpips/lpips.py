@@ -3,13 +3,17 @@
 input in [-1, 1] -> per-channel shift/scale -> VGG16 features at relu1_2,
 relu2_2, relu3_3, relu4_3, relu5_3 -> channel-unit-normalise, squared
 difference -> learned 1x1 "lin" weights, spatial mean, sum over the 5 taps.
-The module tree mirrors ``lpips_init``'s (``convs.{i}``, ``lins.{i}``).
-Float32 convolutions stay in full f32 on the card (``ops.layers.conv2d``).
+The module tree mirrors ``lpips_init``'s (``convs.{i}``, ``lins.{i}``);
+``convert_lpips`` maps torchvision's ``vgg16.features`` and the lpips
+package's ``lin*`` checkpoints onto it. Float32 convolutions stay in full f32
+on the card (``ops.layers.conv2d``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Mapping, Optional
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -18,6 +22,7 @@ import torch.nn.functional as F
 from videogpa_torch.device import resolve_device
 from videogpa_torch.ops import layers as L
 
+_VGG16_CONVS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)  # torchvision indices
 _VGG16_CHANNELS = [64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
 _TAP_AFTER_CONV = (1, 3, 6, 9, 12)  # relu taps, as positions in the conv list
 _POOL_AFTER_CONV = (1, 3, 6, 9)  # 2x2 max-pool after these convs
@@ -41,8 +46,8 @@ class LPIPS(nn.Module):
 @torch.no_grad()
 def lpips_init(generator: Optional[torch.Generator] = None, device=None,
                dtype: torch.dtype = torch.float32) -> LPIPS:
-    """Random LPIPS (structure only; real weights come with ``convert_lpips``
-    in a later slice), kaiming-uniform as the JAX initialiser draws."""
+    """Random LPIPS (structure only; real weights come through
+    ``convert_lpips``), kaiming-uniform as the JAX initialiser draws."""
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -79,3 +84,20 @@ def lpips_distance(model: LPIPS, x: torch.Tensor, y: torch.Tensor) -> torch.Tens
         d = (_unit_normalize(a) - _unit_normalize(b)) ** 2
         total = total + lin(d).mean(dim=(1, 2, 3))
     return total
+
+
+def convert_lpips(vgg_sd: Mapping[str, np.ndarray],
+                  lin_sd: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """``LPIPS`` state dict from torchvision vgg16 ``features.*`` and the lpips
+    package's ``lin{i}.model.1.weight`` (or ``lins.{i}.model.1.weight``)
+    (``videogpa_tpu/models/lpips/lpips.py::convert_lpips``)."""
+    out: Dict[str, np.ndarray] = {}
+    for i, idx in enumerate(_VGG16_CONVS):
+        out[f"convs.{i}.weight"] = np.asarray(vgg_sd[f"features.{idx}.weight"])
+        out[f"convs.{i}.bias"] = np.asarray(vgg_sd[f"features.{idx}.bias"])
+    for i in range(len(_TAP_CHANNELS)):
+        key = f"lin{i}.model.1.weight"
+        if key not in lin_sd:
+            key = f"lins.{i}.model.1.weight"
+        out[f"lins.{i}.weight"] = np.asarray(lin_sd[key])  # (1, C, 1, 1)
+    return out

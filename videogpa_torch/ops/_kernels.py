@@ -29,6 +29,7 @@ SOURCES = {
     "flash_attn_bwd_d128": _CSRC / "flash_attn_bwd_d128.cu",
     "zbuffer_scatter_min": _CSRC / "zbuffer_scatter_min.cu",
     "flash_attn_int8": _CSRC / "flash_attn_int8.cu",
+    "flash_attn_bwd_f32": _CSRC / "flash_attn_bwd_f32.cu",
 }
 HEADERS = (_CSRC / "wgmma_sm90.cuh",)
 NVCC_FLAGS = [
@@ -45,6 +46,9 @@ _BWD_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
 # q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream.
 # The kernel needs every query scale sq > 0, as quantize_qk_int8 makes them.
 _INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
+# the f32 backward: q, k, v, o, do, lse, dq, dk, dv, delta (f32 scratch); B, H,
+# Nq, Nk, D; (b, n, h) strides of q, k, v, o, do, dq, dk, dv; scale; stream
+_BWD_F32_ARGS = [_P] * 10 + [_I] * 5 + [_LL] * 24 + [_F, _P]
 # entry point -> (source, C symbol, argtypes)
 _SIGNATURES = {
     "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
@@ -60,6 +64,7 @@ _SIGNATURES = {
     "scatter_min_u32": (
         "zbuffer_scatter_min", "videogpa_scatter_min_u32", [_P, _P, _P, _LL, _P]),
     "flash_attn_int8": ("flash_attn_int8", "videogpa_flash_attn_int8", _INT8_ARGS),
+    "flash_attn_bwd_f32": ("flash_attn_bwd_f32", "videogpa_flash_attn_bwd_f32", _BWD_F32_ARGS),
     # reports, not kernels: registers a thread and dynamic shared memory a CTA
     "flash_attn_fwd_attrs": ("flash_attn_fwd", "videogpa_flash_attn_fwd_attrs", [_I, _P, _P]),
     "flash_attn_fwd_f32_attrs": (
@@ -72,6 +77,8 @@ _SIGNATURES = {
     "flash_attn_fwd_d128_attrs": (
         "flash_attn_fwd_d128", "videogpa_flash_attn_fwd_d128_attrs", [_P, _P]),
     "flash_attn_int8_attrs": ("flash_attn_int8", "videogpa_flash_attn_int8_attrs", [_I, _P, _P]),
+    "flash_attn_bwd_f32_attrs": (
+        "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_f32_attrs", [_I, _P, _P]),
     "flash_attn_int8_d128": (
         "flash_attn_int8", "videogpa_flash_attn_int8_d128", _INT8_ARGS),
 }
@@ -145,8 +152,8 @@ def kernel(name: str) -> Callable[..., int]:
 def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
     report entry (``flash_attn_fwd``, ``flash_attn_fwd_f32``,
-    ``flash_attn_short``, ``flash_attn_bwd`` and ``flash_attn_int8`` (K8 and
-    K9) at head dim ``args[0]``,
+    ``flash_attn_short``, ``flash_attn_bwd``, ``flash_attn_bwd_f32`` and
+    ``flash_attn_int8`` (K8 and K9) at head dim ``args[0]``,
     ``flash_attn_fwd_d128`` (its bf16 kernel), ``flash_attn_bwd_d128``), as
     the card reports them."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)

@@ -19,6 +19,10 @@ the kernel or raises. There is no fallback from one to the other.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
   head_dim 16-128 on CUDA cores, tiled (64-query CTAs on a flat grid, K and
   V staged in shared memory by 64-key tiles), for short and long rows.
+- ``flash_attn_bwd_f32`` (the float32 entry of K3/K7,
+  ``csrc/flash_attn_bwd_f32.cu``): its backward at head_dim 16-128 on CUDA
+  cores, a delta prologue, a dK/dV kernel over key tiles and a dQ kernel
+  over query tiles; each gradient is written once, so runs are bit-stable.
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
   ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128; QK^T
@@ -30,7 +34,11 @@ and rounding f32 operands would move the f32 heads away from the JAX
 package's.
 It differentiates with a ``torch.autograd.Function`` whenever an operand
 requires grad: through K1 and K3 at head_dim < 128, through K6 and K7 at
-head_dim 128.
+head_dim 128, through K6's and K3/K7's float32 entries for float32 operands.
+On CUDA a head_dim between the kernels' widths (16, 32, 64, 128) is
+zero-padded to the next one, with the softmax scale of the original head_dim
+passed to the kernel and O sliced back: zero columns add nothing to QK^T or
+to PV, so the function is the same.
 """
 
 from __future__ import annotations
@@ -44,12 +52,27 @@ from videogpa_torch.ops import _kernels
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (16, 32, 64)
+# the head dims some kernel takes; ``attention`` pads any D <= 128 up to one
+HEAD_DIM_WIDTHS = (16, 32, 64, 128)
 
 
-def _reference(q, k, v, n_valid=None, with_lse=False):
+def _scale(D: int, softmax_scale: Optional[float]) -> float:
+    return D ** -0.5 if softmax_scale is None else float(softmax_scale)
+
+
+def padded_head_dim(D: int) -> int:
+    """The least kernel width (16, 32, 64, 128) that holds head_dim ``D``;
+    raises ``NotImplementedError`` above 128, which no kernel takes."""
+    for w in HEAD_DIM_WIDTHS:
+        if D <= w:
+            return w
+    raise NotImplementedError(f"attention on CUDA takes head_dim <= 128, got {D}")
+
+
+def _reference(q, k, v, n_valid=None, with_lse=False, softmax_scale=None):
     """(B, H, N, D) operands; f32 scores and softmax, P cast to V's dtype
     before PV with f32 accumulation (``videogpa_tpu/ops/attention.py:40``)."""
-    scale = q.shape[-1] ** -0.5
+    scale = _scale(q.shape[-1], softmax_scale)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if n_valid is not None and n_valid != k.shape[2]:
         s[..., n_valid:] = _NEG_INF
@@ -65,14 +88,15 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _reference(q, k, v, n_valid)[0]
 
 
-def flash_attn_fwd_reference(q, k, v, layout: str = "bnhd", with_lse: bool = False):
+def flash_attn_fwd_reference(q, k, v, layout: str = "bnhd", with_lse: bool = False,
+                             softmax_scale: Optional[float] = None):
     """Plain version of the kernel: same function, same layouts.
 
     Returns (O in the operands' layout, LSE (B, H, Nq) f32 natural log or None).
     """
     if layout == "bnhd":
         q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    o, lse = _reference(q, k, v, with_lse=with_lse)
+    o, lse = _reference(q, k, v, with_lse=with_lse, softmax_scale=softmax_scale)
     if layout == "bnhd":
         o = o.transpose(1, 2).contiguous()
     return o, lse
@@ -145,6 +169,11 @@ def _call(fn_name: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{fn_name}: kernel launch failed with cudaError {rc}")
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """Whether a wrapper launches its kernel for ``x``: a CUDA tensor."""
+    return x.is_cuda
+
+
 def _ptr(x: Optional[torch.Tensor]):
     return x.data_ptr() if x is not None else None
 
@@ -162,11 +191,13 @@ _FWD_GEOMETRY_MAX = 256
 _FWD_GEOMETRY_TYPES = _kernels._FWD_ARGS[5:-1]  # B, H, Nq, Nk, D, 12 strides, scale
 
 
-def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims):
+def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims,
+                softmax_scale=None):
     """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface
     (K1, K6 bf16, K6 f32: flat or persistent grids, any B*H)."""
     key = (entry, layout, q.dtype, k.dtype, v.dtype, q.get_device(), k.get_device(),
-           v.get_device(), q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride())
+           v.get_device(), q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
+           softmax_scale)
     geo = _FWD_GEOMETRY.get(key)
     if geo is None:
         B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
@@ -174,7 +205,7 @@ def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head
         # O is contiguous in the layout: its (b, n, h) strides follow from the shape
         o_strides = (Nq * H * D, H * D, D) if layout == "bnhd" else (H * Nq * D, D, Nq * D)
         args = (B, H, Nq, Nk, D, *_dims(q, layout)[4:], *_dims(k, layout)[4:],
-                *_dims(v, layout)[4:], *o_strides, D ** -0.5 * _LOG2E)
+                *_dims(v, layout)[4:], *o_strides, _scale(D, softmax_scale) * _LOG2E)
         geo = ((B, H, Nq), tuple(t(x) for t, x in zip(_FWD_GEOMETRY_TYPES, args)))
         if len(_FWD_GEOMETRY) >= _FWD_GEOMETRY_MAX:
             _FWD_GEOMETRY.clear()
@@ -191,8 +222,10 @@ def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head
 
 
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   layout: str = "bnhd", with_lse: bool = False):
-    """softmax(Q K^T / sqrt(D)) V, non-causal, Nq may differ from Nk.
+                   layout: str = "bnhd", with_lse: bool = False,
+                   softmax_scale: Optional[float] = None):
+    """softmax(Q K^T * scale) V, non-causal, Nq may differ from Nk; the scale
+    is ``softmax_scale``, by default 1 / sqrt(D).
 
     Args:
         q: (B, Nq, H, D) for ``layout="bnhd"`` or (B, H, Nq, D) for "bhnd".
@@ -211,11 +244,11 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     if q.is_cpu:
-        return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if not q.is_cuda:
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd", "flash_attn_fwd", q, k, v, layout, with_lse,
-                      torch.bfloat16, KERNEL_HEAD_DIMS)
+                      torch.bfloat16, KERNEL_HEAD_DIMS, softmax_scale)
     flash_attn_fwd.launches += 1
     return out
 
@@ -223,13 +256,14 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attn_fwd.launches = 0
 
 
-def _bwd_reference(q, k, v, o, lse, do):
+def _bwd_reference(q, k, v, o, lse, do, softmax_scale=None):
     """(B, H, N, D) operands. The formulas of ``_flash_bwd_T``
     (``videogpa_tpu/ops/attention.py:1022``): P = exp(S - LSE), dV = P^T dO,
-    dS = P * (dO V^T - delta) with delta = rowsum(O * dO), dQ = dS K / sqrt(D),
-    dK = dS^T Q / sqrt(D). f32 arithmetic; P and dS are cast to the
-    operands' dtype before their products, as the kernels round them."""
-    scale = q.shape[-1] ** -0.5
+    dS = P * (dO V^T - delta) with delta = rowsum(O * dO), dQ = dS K * scale,
+    dK = dS^T Q * scale (scale 1 / sqrt(D) by default). f32 arithmetic; P
+    and dS are cast to the operands' dtype before their products, as the
+    kernels round them."""
+    scale = _scale(q.shape[-1], softmax_scale)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.exp(s - lse[..., None])
@@ -241,23 +275,25 @@ def _bwd_reference(q, k, v, o, lse, do):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd"):
-    """Plain version of the backward kernel: same function, same layouts.
+def flash_attn_bwd_reference(q, k, v, o, lse, do, layout: str = "bnhd",
+                             softmax_scale: Optional[float] = None):
+    """Plain version of the backward kernels: same function, same layouts.
 
     Returns (dQ, dK, dV), each contiguous in the operands' layout."""
     if layout == "bnhd":
         q, k, v, o, do = (x.transpose(1, 2) for x in (q, k, v, o, do))
-    grads = _bwd_reference(q, k, v, o, lse, do)
+    grads = _bwd_reference(q, k, v, o, lse, do, softmax_scale)
     if layout == "bnhd":
         return tuple(g.transpose(1, 2).contiguous() for g in grads)
     return grads
 
 
-def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do):
+def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, do,
+                        dtype=torch.bfloat16):
     """``_check_operands`` for a backward kernel, and its natural-log LSE.
     Returns (B, Nq, H, D, Nk)."""
-    B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, head_dims=head_dims,
-                                      o=o, do=do)
+    B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
+                                      head_dims=head_dims, o=o, do=do)
     if (lse.device != q.device or lse.dtype != torch.float32
             or lse.shape != (B, H, Nq) or not lse.is_contiguous()):
         raise ValueError(f"{fn_name}: lse must be a contiguous ({B}, {H}, {Nq}) "
@@ -266,9 +302,11 @@ def _check_bwd_operands(fn_name: str, layout: str, head_dims, q, k, v, o, lse, d
 
 
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                   lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd"):
+                   lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd",
+                   softmax_scale: Optional[float] = None):
     """Gradients (dQ, dK, dV) of ``flash_attn_fwd`` given its output O, its
-    natural-log LSE (B, H, Nq) f32 and the output gradient dO.
+    natural-log LSE (B, H, Nq) f32 and the output gradient dO, at the
+    forward's ``softmax_scale`` (default 1 / sqrt(D)).
 
     q, o and do share q's layout and shape; k, v as in ``flash_attn_fwd``.
     The gradients are new contiguous tensors in ``layout``. CPU tensors take
@@ -282,12 +320,12 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q.device.type == "cpu":
-        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
-    if q.device.type != "cuda":
+    if q.is_cpu:
+        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
     grads = _launch_bwd("flash_attn_bwd", KERNEL_HEAD_DIMS, BWD_QUERIES,
-                        q, k, v, o, lse, do, layout)
+                        q, k, v, o, lse, do, layout, softmax_scale)
     flash_attn_bwd.launches += 1
     return grads
 
@@ -311,7 +349,8 @@ def short_eligible(Nk: int, H: int, D: int, itemsize: int) -> bool:
     return Nk_pad <= _SHORT_SEQ_MAX and 2 * Nk_pad * H * D * itemsize <= _SHORT_KV_VMEM_MAX
 
 
-def flash_attn_short_reference(q, k, v, n_valid: Optional[int] = None) -> torch.Tensor:
+def flash_attn_short_reference(q, k, v, n_valid: Optional[int] = None,
+                               softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Plain version of K4. q (B, Nq, H, D), k/v (B, Nk, H, D); keys at index
     >= n_valid score -inf and their V rows count as zero (so NaN there cannot
     reach O), as ``_flash_short``'s overwrite mask. Returns a contiguous
@@ -321,15 +360,17 @@ def flash_attn_short_reference(q, k, v, n_valid: Optional[int] = None) -> torch.
         v = v.clone()
         v[:, n_valid:] = 0
     q, k, v = (x.transpose(1, 2) for x in (q, k, v))
-    o, _ = _reference(q, k, v, n_valid=n_valid)
+    o, _ = _reference(q, k, v, n_valid=n_valid, softmax_scale=softmax_scale)
     return o.transpose(1, 2).contiguous()
 
 
 def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     n_valid: Optional[int] = None) -> torch.Tensor:
+                     n_valid: Optional[int] = None,
+                     softmax_scale: Optional[float] = None) -> torch.Tensor:
     """Short-row attention in the (B, N, H, D) layout, inference only.
 
-    softmax(Q K^T / sqrt(D)) V over keys [0, n_valid) (default: all Nk).
+    softmax(Q K^T * scale) V over keys [0, n_valid) (default: all Nk), the
+    scale ``softmax_scale``, by default 1 / sqrt(D).
     CPU tensors take the plain version. CUDA tensors must be bf16 with D in
     {16, 32, 64}, any (b, n, h) strides with a contiguous last dim that meet
     TMA's 16-byte rule (``check_16_bytes``), and ``short_eligible`` key rows,
@@ -339,16 +380,16 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_valid = k.shape[1] if n_valid is None else int(n_valid)
     if not 1 <= n_valid <= k.shape[1]:
         raise ValueError(f"flash_attn_short: n_valid {n_valid} outside [1, {k.shape[1]}]")
-    if q.device.type == "cpu":
-        return flash_attn_short_reference(q, k, v, n_valid)
-    if q.device.type != "cuda":
+    if q.is_cpu:
+        return flash_attn_short_reference(q, k, v, n_valid, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_short: unsupported device {q.device}")
-    o = _launch_short(q, k, v, n_valid)
+    o = _launch_short(q, k, v, n_valid, softmax_scale)
     flash_attn_short.launches += 1
     return o
 
 
-def _launch_short(q, k, v, n_valid: int) -> torch.Tensor:
+def _launch_short(q, k, v, n_valid: int, softmax_scale=None) -> torch.Tensor:
     """Validate K4's operands and launch it (a flat grid: any B*H)."""
     B, Nq, H, D, Nk = _check_operands("flash_attn_short", "bnhd", q, k, v)
     if not short_eligible(Nk, H, D, q.element_size()):
@@ -358,7 +399,8 @@ def _launch_short(q, k, v, n_valid: int) -> torch.Tensor:
     for x in (q, k, v, o):
         strides += _dims(x, "bnhd")[4:]
     _call("flash_attn_short", "flash_attn_short", q.device, q.data_ptr(), k.data_ptr(),
-          v.data_ptr(), o.data_ptr(), B, H, Nq, n_valid, D, *strides, D ** -0.5 * _LOG2E)
+          v.data_ptr(), o.data_ptr(), B, H, Nq, n_valid, D, *strides,
+          _scale(D, softmax_scale) * _LOG2E)
     return o
 
 
@@ -366,7 +408,8 @@ flash_attn_short.launches = 0
 
 
 def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        layout: str = "bnhd", with_lse: bool = False):
+                        layout: str = "bnhd", with_lse: bool = False,
+                        softmax_scale: Optional[float] = None):
     """K1's function at head_dim 128 in bf16 (a persistent wgmma + TMA
     kernel). Same arguments and results as ``flash_attn_fwd``.
 
@@ -378,11 +421,11 @@ def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     if q.is_cpu:
-        return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if not q.is_cuda:
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_fwd_d128: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", q, k, v, layout,
-                      with_lse, torch.bfloat16, (128,))
+                      with_lse, torch.bfloat16, (128,), softmax_scale)
     flash_attn_fwd_d128.launches += 1
     return out
 
@@ -391,7 +434,8 @@ flash_attn_fwd_d128.launches = 0
 
 
 def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                        lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd"):
+                        lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd",
+                        softmax_scale: Optional[float] = None):
     """K3's function at head_dim 128 in bf16: gradients (dQ, dK, dV) of
     ``flash_attn_fwd_d128`` given its output O, its natural-log LSE and dO.
     Same arguments and results as ``flash_attn_bwd``; Nq may differ from Nk.
@@ -407,12 +451,12 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q.device.type == "cpu":
-        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout)
-    if q.device.type != "cuda":
+    if q.is_cpu:
+        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
     grads = _launch_bwd("flash_attn_bwd_d128", (128,), BWD_D128_QUERIES,
-                        q, k, v, o, lse, do, layout)
+                        q, k, v, o, lse, do, layout, softmax_scale)
     flash_attn_bwd_d128.launches += 1
     return grads
 
@@ -459,7 +503,8 @@ def bwd_d128_splits(bh: int, nq: int, nk: int) -> Tuple[int, int]:
     return bwd_splits(bh, nq, nk, BWD_D128_QUERIES)
 
 
-def _launch_bwd(fn_name: str, head_dims, q_tile: int, q, k, v, o, lse, do, layout):
+def _launch_bwd(fn_name: str, head_dims, q_tile: int, q, k, v, o, lse, do, layout,
+                softmax_scale=None):
     """K3's and K7's launch (one C interface): the kernel computes delta
     itself from O and dO, so O is an operand; the wrapper allocates the
     kernel's f32 scratch (base-2 LSE and delta padded to whole query tiles,
@@ -482,15 +527,16 @@ def _launch_bwd(fn_name: str, head_dims, q_tile: int, q, k, v, o, lse, do, layou
         strides += _dims(x, layout)[4:]
     _call(fn_name, fn_name, q.device, *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv)),
           lse2.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), _ptr(dk_part), _ptr(dv_part),
-          B, H, Nq, Nk, D, splits, per, *strides, D ** -0.5)
+          B, H, Nq, Nk, D, splits, per, *strides, _scale(D, softmax_scale))
     return dq, dk, dv
 
 
-F32_HEAD_DIMS = (16, 32, 64, 128)
+F32_HEAD_DIMS = HEAD_DIM_WIDTHS
 
 
 def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       layout: str = "bnhd", with_lse: bool = False):
+                       layout: str = "bnhd", with_lse: bool = False,
+                       softmax_scale: Optional[float] = None):
     """K1's function on float32 operands at head_dim 16-128, kept in f32 end
     to end on CUDA cores (the VGGT camera head's trunk runs in f32 at head_dim
     128, and so does every attention of the f32 scorer). Same arguments and
@@ -508,16 +554,68 @@ def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
     if q.is_cpu:
-        return flash_attn_fwd_reference(q, k, v, layout, with_lse)
-    if not q.is_cuda:
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse, softmax_scale)
+    if not _on_card(q):
         raise ValueError(f"flash_attn_fwd_f32: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", q, k, v, layout, with_lse,
-                      torch.float32, F32_HEAD_DIMS)
+                      torch.float32, F32_HEAD_DIMS, softmax_scale)
     flash_attn_fwd_f32.launches += 1
     return out
 
 
 flash_attn_fwd_f32.launches = 0
+
+
+def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd",
+                       softmax_scale: Optional[float] = None):
+    """K3's function on float32 operands at head_dim 16-128: the gradients
+    (dQ, dK, dV) of ``flash_attn_fwd_f32`` given its output O, its
+    natural-log LSE (B, H, Nq) f32 and dO, kept in f32 end to end on the CUDA
+    cores (no TF32), as the JAX package differentiates f32 attention through
+    the same Pallas backward kernels. Same arguments and results as
+    ``flash_attn_bwd``; Nq may differ from Nk.
+
+    Three launches: a prologue writes delta = rowsum(O * dO), one kernel
+    walks the query tiles for each 64-key tile (dK, dV) and one walks the
+    key tiles for each 64-query tile (dQ). Every gradient element is summed
+    by one thread in a fixed order and written once, so two runs give the
+    same bits.
+
+    CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
+    tensors must be float32 with D in ``F32_HEAD_DIMS``, at any B*H; anything
+    else raises. Each call adds one to ``flash_attn_bwd_f32.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.is_cpu:
+        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
+    if not _on_card(q):
+        raise ValueError(f"flash_attn_bwd_f32: unsupported device {q.device}")
+    grads = _launch_bwd_f32(q, k, v, o, lse, do, layout, softmax_scale)
+    flash_attn_bwd_f32.launches += 1
+    return grads
+
+
+flash_attn_bwd_f32.launches = 0
+
+
+def _launch_bwd_f32(q, k, v, o, lse, do, layout, softmax_scale=None):
+    """Validate the f32 backward's operands and launch it (flat grids: any
+    B*H); the wrapper allocates delta, the prologue's f32 output."""
+    B, Nq, H, D, Nk = _check_bwd_operands("flash_attn_bwd_f32", layout, F32_HEAD_DIMS,
+                                          q, k, v, o, lse, do, dtype=torch.float32)
+    delta = torch.empty((B * H, Nq), dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    strides = []
+    for x in (q, k, v, o, do, dq, dk, dv):
+        strides += _dims(x, layout)[4:]
+    _call("flash_attn_bwd_f32", "flash_attn_bwd_f32", q.device,
+          *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv, delta)),
+          B, H, Nq, Nk, D, *strides, _scale(D, softmax_scale))
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------------------
@@ -534,9 +632,11 @@ def _seq_dim(layout: str) -> int:
     return 1 if layout == "bnhd" else 2
 
 
-def quantize_qk_int8(q: torch.Tensor, k: torch.Tensor, layout: str = "bhnd"):
+def quantize_qk_int8(q: torch.Tensor, k: torch.Tensor, layout: str = "bhnd",
+                     softmax_scale: Optional[float] = None):
     """The transform of ``_quantize_qk_int8``
-    (``videogpa_tpu/ops/attention.py:685``) on 4-D operands in ``layout``.
+    (``videogpa_tpu/ops/attention.py:685``) on 4-D operands in ``layout``;
+    q is prescaled by log2(e) * ``softmax_scale`` (default 1 / sqrt(D)).
 
     Returns (q8, sq, k8, sk): new int8 tensors shaped like q and k (dense,
     in the memory order of the f32 images of q and k) and their f32 scales
@@ -555,7 +655,7 @@ def quantize_qk_int8(q: torch.Tensor, k: torch.Tensor, layout: str = "bhnd"):
     kc = kf - kf.sum(dim=seq, keepdim=True) / n_keys
     sk = kc.abs().amax(dim=-1, keepdim=True) / i127 + 1e-12
     k8 = torch.round(kc.div_(sk)).to(torch.int8)
-    qf = q.float() * (D ** -0.5 * _LOG2E)
+    qf = q.float() * (_scale(D, softmax_scale) * _LOG2E)
     sq = qf.abs().amax(dim=-1, keepdim=True) / i127 + 1e-12
     q8 = torch.round(qf.div_(sq)).to(torch.int8)
     return q8, sq.squeeze(-1), k8, sk.squeeze(-1)
@@ -589,9 +689,9 @@ def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.T
     point ``fn_name`` for CUDA tensors."""
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
-    if q8.device.type == "cpu":
+    if q8.is_cpu:
         return flash_attn_int8_reference(q8, sq, k8, sk, v, layout)
-    if q8.device.type != "cuda":
+    if not _on_card(q8):
         raise ValueError(f"{fn_name}: unsupported device {q8.device}")
     return _launch_int8(fn_name, head_dims, q8, sq, k8, sk, v, layout)
 
@@ -656,7 +756,7 @@ def flash_attn_int8(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor, sk: to
     launch adds one to ``flash_attn_int8.launches``.
     """
     o = _int8_forward("flash_attn_int8", KERNEL_HEAD_DIMS, q8, sq, k8, sk, v, layout)
-    if q8.is_cuda:
+    if not q8.is_cpu:
         flash_attn_int8.launches += 1
     return o
 
@@ -668,8 +768,9 @@ def flash_attn_int8_d128(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
                          sk: torch.Tensor, v: torch.Tensor,
                          layout: str = "bnhd") -> torch.Tensor:
     """K9: :func:`flash_attn_int8` at head_dim 128 (the same kernel body).
-    ``attention`` does not dispatch it: ``impl="flash_int8"`` at head_dim 128
-    takes the exact kernel, as in the JAX package.
+    ``impl="flash_int8"`` at head_dim 128 takes the exact kernel, as in the
+    JAX package; ``attention`` runs this one only for a head_dim of 65-127,
+    zero-padded to 128 (the JAX package's int8 route at D < 128).
 
     CPU tensors take the plain version. CUDA tensors must have V in bf16,
     D = 128, every sq > 0 (as for K8) and q8, k8, v that meet TMA's 16-byte
@@ -677,7 +778,7 @@ def flash_attn_int8_d128(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
     ``flash_attn_int8_d128.launches``.
     """
     o = _int8_forward("flash_attn_int8_d128", (128,), q8, sq, k8, sk, v, layout)
-    if q8.is_cuda:
+    if not q8.is_cpu:
         flash_attn_int8_d128.launches += 1
     return o
 
@@ -689,23 +790,44 @@ class _FlashAttention(torch.autograd.Function):
     """A forward kernel with LSE and its backward kernel: ``flash_attn_fwd``
     and ``flash_attn_bwd`` at head_dim < 128, ``flash_attn_fwd_d128`` and
     ``flash_attn_bwd_d128`` at head_dim >= 128, as ``_flash_fwd`` and
-    ``_flash_bwd`` split in the JAX package. The counterpart of the JAX
-    ``_flash`` and ``_attention_bnhd_vjp`` custom vjps."""
+    ``_flash_bwd`` split in the JAX package; ``flash_attn_fwd_f32`` and
+    ``flash_attn_bwd_f32`` for float32 operands, as the JAX ``_flash``
+    differentiates f32 through the same kernels (on the CPU every wrapper
+    takes its plain version, so there the pair is picked by head_dim alone).
+    The counterpart of the JAX ``_flash`` and ``_attention_bnhd_vjp`` custom
+    vjps."""
 
     @staticmethod
-    def forward(ctx, q, k, v, layout):
-        fwd = flash_attn_fwd_d128 if q.shape[-1] >= 128 else flash_attn_fwd
-        o, lse = fwd(q, k, v, layout=layout, with_lse=True)
+    def _f32(q) -> bool:
+        return q.dtype == torch.float32 and not q.is_cpu
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, softmax_scale):
+        if _FlashAttention._f32(q):
+            fwd = flash_attn_fwd_f32
+        else:
+            fwd = flash_attn_fwd_d128 if q.shape[-1] >= 128 else flash_attn_fwd
+        o, lse = fwd(q, k, v, layout=layout, with_lse=True, softmax_scale=softmax_scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.layout = layout
+        ctx.layout, ctx.softmax_scale = layout, softmax_scale
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        bwd = flash_attn_bwd_d128 if q.shape[-1] >= 128 else flash_attn_bwd
-        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), layout=ctx.layout)
-        return dq, dk, dv, None
+        if _FlashAttention._f32(q):
+            bwd = flash_attn_bwd_f32
+        else:
+            bwd = flash_attn_bwd_d128 if q.shape[-1] >= 128 else flash_attn_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), layout=ctx.layout,
+                         softmax_scale=ctx.softmax_scale)
+        return dq, dk, dv, None, None
+
+
+def _pad_head_dim(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x zero-padded along its last dim to ``width``: a new contiguous tensor
+    (so it meets ``check_16_bytes``); autograd slices the gradient back."""
+    return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -720,11 +842,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             versions on CPU. "flash_int8" -> the int8-QK forward where it
             applies (below), inference only. "ring" is not ported and raises.
 
+    On CUDA a head_dim D that no kernel takes (any D <= 128 outside 16, 32,
+    64, 128) is zero-padded to ``padded_head_dim(D)``; the kernels get the
+    softmax scale of D and O is sliced back to D columns (under grad the
+    slice and the pad carry the gradients back). D > 128 raises there. The
+    routing below reads the padded D; the CPU takes any D unpadded.
+
     Routing, as ``attention(impl="flash")`` in the JAX package for bf16:
 
     - an operand requires grad (and grad is enabled) -> ``_FlashAttention``:
-      D < 128, K1 with LSE and K3 backward; D >= 128, K6
-      (``flash_attn_fwd_d128``) with LSE and K7 (``flash_attn_bwd_d128``);
+      float32, K6's f32 entry with LSE and the f32 backward
+      (``flash_attn_bwd_f32``); D < 128, K1 with LSE and K3 backward; D >=
+      128, K6 (``flash_attn_fwd_d128``) with LSE and K7
+      (``flash_attn_bwd_d128``);
     - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry, tiled on
       the CUDA cores), at any length: the camera head's short rows and the
       f32 scorer's long ones, which run far slower than bf16 rows on the
@@ -735,10 +865,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``impl="flash_int8"`` (``videogpa_tpu/ops/attention.py:1378-1401,
     1437-1448``) raises if an operand requires grad (the int8 forward has no
-    backward), and otherwise differs from the above in one case only: D < 128
-    on rows that are not short bnhd rows goes through ``quantize_qk_int8``
-    and ``flash_attn_int8`` (K8). Short bnhd rows and D >= 128 take the exact
-    kernels above. On CUDA K8 takes bf16 operands; float32 ones raise there.
+    backward), and otherwise differs from the above in one case only: an
+    original D < 128 on rows that are not short bnhd rows goes through
+    ``quantize_qk_int8`` and ``flash_attn_int8`` (K8), or, where D pads to
+    128 (65-127), the same kernel body at width 128 (``flash_attn_int8_d128``,
+    K9's entry). Short bnhd rows and D = 128 take the exact kernels above. On
+    CUDA the int8 kernels take bf16 operands; float32 ones raise there.
 
     Returns:
         Output in the operands' layout, dtype of q.
@@ -749,28 +881,47 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         )
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.is_cpu:
+        return _attention(q, k, v, impl, layout, q.shape[-1])
+    return _attention_padded(q, k, v, impl, layout)
+
+
+def _attention_padded(q, k, v, impl: str, layout: str) -> torch.Tensor:
+    """``attention`` on the card's route: head_dim D zero-padded to
+    ``padded_head_dim(D)`` where it is no kernel width, O sliced back."""
     D = q.shape[-1]
+    width = padded_head_dim(D)
+    if width == D:
+        return _attention(q, k, v, impl, layout, D)
+    qp, kp, vp = (_pad_head_dim(x, width) for x in (q, k, v))
+    return _attention(qp, kp, vp, impl, layout, D)[..., :D]
+
+
+def _attention(q, k, v, impl: str, layout: str, D: int) -> torch.Tensor:
+    """``attention`` on operands of a width some kernel takes (on CUDA), for
+    the original head_dim ``D`` (the softmax scale is D's)."""
+    scale = None if q.shape[-1] == D else D ** -0.5
+    Dk = q.shape[-1]
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
+    short = layout == "bnhd" and short_eligible(k.shape[1], q.shape[2], Dk, q.element_size())
     if impl == "flash_int8":
         if needs_grad:
             raise RuntimeError("attention(impl='flash_int8') is inference only: it has no "
                                "backward; use impl='flash' under grad")
-        seq = _seq_dim(layout)
-        short = layout == "bnhd" and short_eligible(k.shape[seq], q.shape[2], D,
-                                                    q.element_size())
         if D < 128 and not short:
-            if q.is_cuda and q.dtype != torch.bfloat16:
+            if not q.is_cpu and q.dtype != torch.bfloat16:
                 raise NotImplementedError(
                     f"attention(impl='flash_int8') on CUDA takes bf16 operands, got {q.dtype}")
-            q8, sq, k8, sk = quantize_qk_int8(q, k, layout)
-            return flash_attn_int8(q8, sq, k8, sk, v, layout).to(q.dtype)
+            q8, sq, k8, sk = quantize_qk_int8(q, k, layout, softmax_scale=scale)
+            int8 = flash_attn_int8_d128 if Dk == 128 else flash_attn_int8
+            return int8(q8, sq, k8, sk, v, layout).to(q.dtype)
     if needs_grad:
-        return _FlashAttention.apply(q, k, v, layout)
+        return _FlashAttention.apply(q, k, v, layout, scale)
     if q.dtype == torch.float32:
-        return flash_attn_fwd_f32(q, k, v, layout=layout)[0]
-    if D >= 128:
-        return flash_attn_fwd_d128(q, k, v, layout=layout)[0]
-    if layout == "bnhd" and short_eligible(k.shape[1], q.shape[2], D, q.element_size()):
-        return flash_attn_short(q, k, v)
-    return flash_attn_fwd(q, k, v, layout=layout)[0]
+        return flash_attn_fwd_f32(q, k, v, layout=layout, softmax_scale=scale)[0]
+    if Dk >= 128:
+        return flash_attn_fwd_d128(q, k, v, layout=layout, softmax_scale=scale)[0]
+    if short:
+        return flash_attn_short(q, k, v, softmax_scale=scale)
+    return flash_attn_fwd(q, k, v, layout=layout, softmax_scale=scale)[0]

@@ -1,13 +1,14 @@
 """Colored point cloud with confidence filtering (``videogpa_tpu/reward/pointcloud.py``).
 
 Shapes stay fixed: the full point set comes back with a boolean keep-mask,
-which the z-buffer consumes directly.
+which the z-buffer consumes directly. ``save_ply`` writes a cloud to disk.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 
@@ -46,3 +47,28 @@ def colored_pointcloud(predictions: Dict[str, torch.Tensor], mode: str = "depth"
         images = images.permute(0, 2, 3, 1)
     colors = images.reshape(-1, 3) * 255.0
     return points.reshape(-1, 3), colors, confidence_mask(conf, conf_thres)
+
+
+def save_ply(points, colors, path: str) -> None:
+    """Binary little-endian PLY of points (N, 3) and colors (N, 3) in [0, 255]
+    (numpy arrays or tensors on any device)."""
+    def host(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    P = host(points).astype(np.float32)
+    C = np.clip(host(colors), 0, 255).astype(np.uint8)
+    n = P.shape[0]
+    header = (
+        "ply\nformat binary_little_endian 1.0\n"
+        f"element vertex {n}\n"
+        "property float x\nproperty float y\nproperty float z\n"
+        "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+        "end_header\n"
+    )
+    rec = np.empty(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                             ("red", "u1"), ("green", "u1"), ("blue", "u1")])
+    rec["x"], rec["y"], rec["z"] = P[:, 0], P[:, 1], P[:, 2]
+    rec["red"], rec["green"], rec["blue"] = C[:, 0], C[:, 1], C[:, 2]
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii"))
+        f.write(rec.tobytes())

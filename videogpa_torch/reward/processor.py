@@ -1,29 +1,38 @@
 """VideoProcessor: the 3D-consistency reward scorer on the VGGT backbone
 (``videogpa_tpu/reward/processor.py``).
 
-For each clip: VGGT -> camera poses and depth -> world points -> confidence
-filter -> z-buffer reprojection into every camera -> the metric suite on
-(original, reprojected) frames. Everything from the upload of the raw uint8
-frames to the metric scalars runs on the device; only (K,) scores and the
-(K, S, 3, 4) extrinsics come back, as in the JAX package's fused scorer
-(``_device_fn_scored``).
+For each clip: sample frames uniformly -> VGGT -> camera poses and depth ->
+world points -> confidence filter -> z-buffer reprojection into every camera
+-> the metric suite on (original, reprojected) frames.
 
-The entry point is ``process_frames_batch`` on decoded, square uint8 frames
-of the model's size (518^2 for VGGT-1B): what ``cli/score.py`` hands over
-after its decode thread. Epipolar, where the metric set holds it, is
-computed on the host from those frames (SIFT matching). Decode, host
-preprocessing of other frame sizes and the per-metric host path come with a
-later slice and raise here.
+Two paths, as in the JAX package:
+
+- fused (``_scored``, the JAX ``_device_fn_scored``): square uint8 frames of
+  the model's size (518^2 for VGGT-1B) go up raw and everything from their
+  normalisation to the metric scalars runs on the device; only (K,) scores
+  and the (K, S, 3, 4) extrinsics come back. Epipolar, where the metric set
+  holds it, is computed on the host from the frames (SIFT matching).
+- per-metric (``_reprojected``, the JAX ``_device_fn_batched``, then
+  ``compute_metrics``): frames of another size go through the host's VGGT
+  preprocessing (``data.video_io.preprocess_images_vggt``), and the metrics
+  run one by one against the original frames; also for a metric set with a
+  metric the device path does not fuse, under ``VIDEOGPA_NO_FUSED_METRICS=1``
+  and for ``save_visuals``.
+
+``process`` / ``process_paths`` decode clips from files (OpenCV, imported at
+first use).
 """
 
 from __future__ import annotations
 
 import os
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from videogpa_torch.data import video_io
 from videogpa_torch.device import resolve_device
 from videogpa_torch.geometry import batch_reproject, depth_to_world_points
 from videogpa_torch.geometry.pose_enc import pose_encoding_to_extri_intri
@@ -95,7 +104,7 @@ class VideoProcessor:
         return "vggt"
 
     # ------------------------------------------------------------------
-    # Device program
+    # Device programs
     # ------------------------------------------------------------------
 
     def _fused_lpips_params(self):
@@ -105,28 +114,46 @@ class VideoProcessor:
                 return m.params
         return None
 
-    def _upload(self, all_frames: Sequence[np.ndarray]) -> torch.Tensor:
-        """(K, S, H, W, 3) uint8 on the device; the normalisation runs there."""
-        first = all_frames[0]
-        size = first.shape[2] if first.ndim == 4 else None
-        if not (first.dtype == np.uint8 and first.ndim == 4 and first.shape[1] == size
-                and size in (518, self.config.img_size)):
-            raise NotImplementedError(
-                "the port scores square uint8 frames of the model's size "
-                f"({self.config.img_size}); host preprocessing of other frames "
-                "(preprocess_images_vggt) comes with the decode slice")
-        # Epipolar needs only the host gt frames, so it rides the fused path
-        allowed = set(self.FUSABLE_METRICS) | {"Epipolar"}
-        if os.environ.get("VIDEOGPA_NO_FUSED_METRICS") == "1" or any(
-                n not in allowed for n in self.metrics):
-            raise NotImplementedError(
-                "the port computes the fused on-device metrics "
-                f"{self.FUSABLE_METRICS} and Epipolar; the per-metric host path "
-                "comes with a later slice")
+    def _raw_ok(self, frames: np.ndarray) -> bool:
+        """Whether a clip goes up raw: square uint8 frames of the model's size."""
+        return (frames.dtype == np.uint8 and frames.ndim == 4
+                and frames.shape[1] == frames.shape[2]
+                and frames.shape[2] in (518, self.config.img_size))
+
+    def _upload(self, all_frames: Sequence[np.ndarray]):
+        """(images on the device, whether they are the raw uint8 frames):
+        (K, S, H, W, 3) uint8, normalised on the device, or the host's VGGT
+        preprocessing of other frames, (K, S, 3, H', 518) f32 in [0, 1]
+        (width 518, H' <= 518)."""
         if self.params is None:
             raise RuntimeError("VideoProcessor needs backbone params (videogpa_torch."
-                               "models.vggt.vggt_init or converted weights)")
-        return torch.from_numpy(np.stack(all_frames)).to(self.device)
+                               "models.vggt.vggt_init, load_vggt or converted weights)")
+        if self._raw_ok(all_frames[0]):
+            return torch.from_numpy(np.stack(all_frames)).to(self.device), True
+        imgs = np.stack([video_io.preprocess_images_vggt(f)[0] for f in all_frames])
+        return torch.from_numpy(imgs).to(self.device), False
+
+    def _fused_ok(self, gt_is_upload: bool) -> bool:
+        """Fused on-device scoring applies when every requested metric is
+        device-computable (Epipolar allowed: it only needs the host's frames)
+        and the uploaded images ARE the metrics' ground truth (raw upload)."""
+        if os.environ.get("VIDEOGPA_NO_FUSED_METRICS") == "1":
+            return False
+        allowed = set(self.FUSABLE_METRICS) | {"Epipolar"}
+        return gt_is_upload and all(n in allowed for n in self.metrics)
+
+    def _warn_unfused(self) -> None:
+        """Say once that the per-metric path runs and why."""
+        if getattr(self, "_warned_unfused", False):
+            return
+        self._warned_unfused = True
+        unfusable = [n for n in self.metrics
+                     if n not in set(self.FUSABLE_METRICS) | {"Epipolar"}]
+        why = (f"non-fusable metric(s): {', '.join(unfusable)}" if unfusable
+               else "inputs are not the raw-upload gt (non-518/non-uint8), or "
+                    "VIDEOGPA_NO_FUSED_METRICS=1")
+        warnings.warn(f"fused on-device scoring disabled ({why}); falling back to the "
+                      "per-metric path, which computes each metric on its own", stacklevel=3)
 
     def _reproject_clip(self, extr, intr, depth, conf, colors, conf_thres: float):
         H, W = depth.shape[-2:]
@@ -138,13 +165,14 @@ class VideoProcessor:
                                zbuffer_impl=self.zbuffer_impl, unit_colors=False)
 
     @torch.no_grad()
-    def _scored(self, images_u8: torch.Tensor, conf_thres: float):
-        """Backbone -> geometry -> reprojection -> metric scalars for K clips
-        of raw uint8 frames (K, S, H, W, 3). Returns ((K,) score tensors by
-        name, (K, S, 3, 4) extrinsics), all on the device, nothing synced."""
-        names = [n for n in self.metrics if n in self.FUSABLE_METRICS]
-        lpips = self._fused_lpips_params()
-        images = images_u8.float().permute(0, 1, 4, 2, 3) / 255.0  # gt, (K, S, 3, H, W)
+    def _reprojected(self, images: torch.Tensor, conf_thres: float) -> Dict[str, Any]:
+        """Backbone -> geometry -> reprojection for K clips: raw uint8 (K, S,
+        H, W, 3) or preprocessed f32 (K, S, 3, H, W) in [0, 1]. Returns the
+        gt images in [0, 1] (K, S, 3, H, W), the reprojections (K clips of
+        (S, 3, H, W) in [-1, 1]), extrinsic (K, S, 3, 4), intrinsic and depth,
+        all on the device (the JAX package's ``_device_fn_batched``)."""
+        if images.dtype == torch.uint8:
+            images = images.float().permute(0, 1, 4, 2, 3) / 255.0
         H, W = images.shape[-2:]
         preds = vggt_forward(self.params, images, compute_dtype=self.compute_dtype,
                              dpt_chunk=self.dpt_chunk, dpt_dtype=self.dpt_dtype,
@@ -156,6 +184,19 @@ class VideoProcessor:
         # projection intermediates are O(S * H * W) points x S views
         reproj = [self._reproject_clip(extr[i], intr[i], depth[i], conf[i], images[i],
                                        conf_thres) for i in range(images.shape[0])]
+        return {"images": images, "reprojected": reproj, "extrinsic": extr,
+                "intrinsic": intr, "depth": depth}
+
+    @torch.no_grad()
+    def _scored(self, images_u8: torch.Tensor, conf_thres: float):
+        """Backbone -> geometry -> reprojection -> metric scalars for K clips
+        of raw uint8 frames (K, S, H, W, 3). Returns ((K,) score tensors by
+        name, (K, S, 3, 4) extrinsics), all on the device, nothing synced."""
+        names = [n for n in self.metrics if n in self.FUSABLE_METRICS]
+        lpips = self._fused_lpips_params()
+        out = self._reprojected(images_u8, conf_thres)
+        images, reproj = out["images"], out["reprojected"]  # gt, (K, S, 3, H, W)
+        extr, intr, depth = out["extrinsic"], out["intrinsic"], out["depth"]
         K = len(reproj)
 
         def per_clip(fn):
@@ -197,17 +238,9 @@ class VideoProcessor:
                 r["motion_norm"] = float(host["motion_norm"][i])
         return r
 
-    # ------------------------------------------------------------------
-    # Public API (reference-compatible)
-    # ------------------------------------------------------------------
-
-    def process_frames_batch(self, all_frames: Sequence[np.ndarray],
-                             thresholds) -> List[Dict[Any, Any]]:
-        """Score K decoded clips (a list of (S, H, W, 3) uint8 arrays) in one
-        device program per threshold. Returns one result dict per clip:
-        {threshold: {metric: float, ..., "motion_norm": float},
-        "_extrinsic": (S, 3, 4) list}."""
-        images = self._upload(all_frames)
+    def _results_fused(self, images: torch.Tensor, all_frames: Sequence[np.ndarray],
+                       thresholds) -> List[Dict[Any, Any]]:
+        """The fused path's result dicts for K uploaded raw clips."""
         results: List[Dict[Any, Any]] = [dict() for _ in all_frames]
         for th in thresholds:
             scores, extr = self._scored(images, float(th))
@@ -218,13 +251,69 @@ class VideoProcessor:
                 r["_extrinsic"] = extr_np[i].tolist()
         return results
 
+    # ------------------------------------------------------------------
+    # Public API (reference-compatible)
+    # ------------------------------------------------------------------
+
+    def process(self, video_path: str, thresholds, num_frames: int, save_visuals: bool = False,
+                out_dir: Optional[str] = None) -> Dict[Any, Any]:
+        """Decode ``num_frames`` uniformly sampled, centre-cropped 518^2 frames
+        of a video and score them (``process_frames``)."""
+        frames_np = video_io.sample_uniform_frames(video_path, n_frames=num_frames)
+        return self.process_frames(frames_np, thresholds, save_visuals, out_dir)
+
+    def process_paths(self, video_paths, thresholds, num_frames: int,
+                      decode_workers: int = 4) -> List[Dict[Any, Any]]:
+        """Decode a batch of clips on a thread pool, then score them in one
+        device program per threshold (``process_frames_batch``)."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+            all_frames = list(pool.map(
+                lambda p: video_io.sample_uniform_frames(p, n_frames=num_frames), video_paths))
+        return self.process_frames_batch(all_frames, thresholds)
+
+    def process_frames_batch(self, all_frames: Sequence[np.ndarray],
+                             thresholds) -> List[Dict[Any, Any]]:
+        """Score K decoded clips (a list of (S, H, W, 3) uint8 arrays) in one
+        device program per threshold. Returns one result dict per clip:
+        {threshold: {metric: float, ..., "motion_norm": float},
+        "_extrinsic": (S, 3, 4) list}."""
+        images, raw = self._upload(all_frames)
+        if self._fused_ok(gt_is_upload=raw):
+            return self._results_fused(images, all_frames, thresholds)
+        self._warn_unfused()
+        results: List[Dict[Any, Any]] = [dict() for _ in all_frames]
+        for th in thresholds:
+            out = self._reprojected(images, float(th))
+            extr_np = out["extrinsic"].cpu().numpy()
+            for i, r in enumerate(results):
+                r[th] = self.compute_metrics(
+                    all_frames[i], out["reprojected"][i], out["extrinsic"][i],
+                    intrinsics=out["intrinsic"][i], depths=out["depth"][i])
+                r["_extrinsic"] = extr_np[i].tolist()
+        return results
+
     def process_frames(self, frames_np: np.ndarray, thresholds, save_visuals: bool = False,
                        out_dir: Optional[str] = None) -> Dict[Any, Any]:
-        """One clip, frames_np (T, H, W, 3) uint8 RGB (pre-cropped)."""
-        if save_visuals:
-            raise NotImplementedError("save_visuals writes PNGs with OpenCV: "
-                                      "it comes with the decode slice")
-        return self.process_frames_batch([frames_np], thresholds)[0]
+        """One clip, frames_np (T, H, W, 3) uint8 RGB (pre-cropped). With
+        ``save_visuals`` and ``out_dir`` each threshold's reprojections are
+        written as PNGs under ``out_dir/th{th}/reprojections``."""
+        images, raw = self._upload([frames_np])
+        if not save_visuals and self._fused_ok(gt_is_upload=raw):
+            return self._results_fused(images, [frames_np], thresholds)[0]
+        results: Dict[Any, Any] = {}
+        extr_np = None
+        for th in thresholds:
+            out = self._reprojected(images, float(th))
+            extr_np = out["extrinsic"][0].cpu().numpy()
+            if save_visuals and out_dir is not None:
+                self._dump_reprojections(out["reprojected"][0], out_dir, th)
+            results[th] = self.compute_metrics(
+                frames_np, out["reprojected"][0], out["extrinsic"][0],
+                intrinsics=out["intrinsic"][0], depths=out["depth"][0])
+        results["_extrinsic"] = extr_np.tolist() if extr_np is not None else None
+        return results
 
     def process_frames_async(self, frames_np: np.ndarray,
                              thresholds) -> Callable[[], Dict[Any, Any]]:
@@ -232,8 +321,12 @@ class VideoProcessor:
         waiting for it; returns a zero-argument callable that pulls the
         scalars (the first sync) and assembles the ``process_frames`` schema.
         Enqueueing clip i+1 before pulling clip i hides the host's work
-        behind the device's."""
-        images = self._upload([frames_np])
+        behind the device's. Only the fused path does this: raises
+        ``RuntimeError`` otherwise, so a caller can use ``process_frames``."""
+        images, raw = self._upload([frames_np])
+        if not self._fused_ok(gt_is_upload=raw):
+            raise RuntimeError("process_frames_async needs the fused scoring path "
+                               "(device-computable metrics + raw-upload gt)")
         pending = [(th, *self._scored(images, float(th))) for th in thresholds]
 
         def result() -> Dict[Any, Any]:
@@ -247,3 +340,39 @@ class VideoProcessor:
             return results
 
         return result
+
+    def compute_metrics(self, gt_frames, rep_frames, extrinsics, intrinsics=None,
+                        depths=None) -> Dict[str, float]:
+        """Each metric on one clip: gt the host's frames, rep (S, 3, H, W) in
+        [-1, 1] on the device."""
+        results: Dict[str, float] = {}
+        for name, metric_fn in self.metrics.items():
+            if name == "Consistency_Score":
+                score, motion = metric_fn.compute(gt=gt_frames, rep=rep_frames,
+                                                  extrinsics=extrinsics)
+                results[name] = score
+                results["motion_norm"] = motion
+            elif name == "MVCS":
+                results[name] = metric_fn.compute(gt=gt_frames, rep=rep_frames, depths=depths,
+                                                  intrinsics=intrinsics,
+                                                  extrinsics=self._to_44(extrinsics))
+            else:
+                results[name] = metric_fn.compute(gt=gt_frames, rep=rep_frames)
+        return results
+
+    @staticmethod
+    def _to_44(extr) -> torch.Tensor:
+        extr = extr if isinstance(extr, torch.Tensor) else torch.from_numpy(np.asarray(extr))
+        return to_44(extr)
+
+    @staticmethod
+    def _dump_reprojections(reproj: torch.Tensor, out_dir: str, th) -> None:
+        """(S, 3, H, W) reprojections in [-1, 1] -> ``out_dir/th{th}/
+        reprojections/{i:03d}.png``."""
+        import cv2
+
+        d = os.path.join(out_dir, f"th{th}", "reprojections")
+        os.makedirs(d, exist_ok=True)
+        imgs = ((reproj.float() + 1.0) * 127.5).cpu().numpy().clip(0, 255).astype(np.uint8)
+        for i, img in enumerate(imgs.transpose(0, 2, 3, 1)):
+            cv2.imwrite(os.path.join(d, f"{i:03d}.png"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))

@@ -1,6 +1,6 @@
 """DPO training recipes: the four reference operating points as data
-(``videogpa_tpu/train/recipes.py``, copied; ``run_recipe`` waits for the
-checkpoint loader).
+(``videogpa_tpu/train/recipes.py``, copied), and ``run_recipe``, which hands
+a resolved config to ``cli.train_dpo``.
 
 Each recipe mirrors one reference ``train/<family>/03_train.py`` DEFAULT_CONFIG
 (reference ``train/CogVideoX-I2V-5B/03_train.py:39-80`` and siblings):
@@ -106,14 +106,23 @@ def build_config(
     return config
 
 
-def run_recipe(recipe: str, config: Dict) -> None:
-    """Dispatch a resolved config to the right trainer: needs
-    ``cli/train_dpo.py``, which starts from the checkpoint loader
-    (``load_cogvideox``), ported with the weights/loader slice."""
+def run_recipe(recipe: str, config: Dict, device=None) -> None:
+    """Dispatch a resolved config to the right trainer, on ``device`` (the
+    card unless ``device="cpu"``). The Wan2.2-TI2V-5B trainer needs the Wan
+    checkpoint converter and raises until it is ported (ROADMAP item G)."""
     if recipe not in _PER_RECIPE:
         raise ValueError(f"unknown recipe {recipe!r}; choose from {RECIPES}")
-    raise NotImplementedError(
-        f"run_recipe({recipe!r}): cli/train_dpo and the checkpoint loader are not "
-        "ported yet (weights/loader slice); drive train.trainer.make_dpo_train_step or "
-        "train.wan_trainer.make_wan_dpo_train_step directly"
-    )
+    if recipe == "Wan2.2-TI2V-5B":
+        raise NotImplementedError(
+            "run_recipe('Wan2.2-TI2V-5B'): train_wan_dpo needs convert_wan and the Wan "
+            "loader, not ported yet (ROADMAP item G); drive "
+            "train.wan_trainer.make_wan_dpo_train_step directly")
+    from videogpa_torch.cli.train_dpo import train_dpo
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+
+    model_cfg, i2v = {
+        "CogVideoX-5B": (CogVideoXConfig.cogvideox_5b, False),
+        "CogVideoX-I2V-5B": (CogVideoXConfig.cogvideox_5b_i2v, True),
+        "CogVideoX1.5-5B": (CogVideoXConfig.cogvideox_1_5_5b, False),
+    }[recipe]
+    train_dpo(config, model_cfg(), i2v=i2v, device=device)
