@@ -99,13 +99,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    parity_headdim — ``attention()`` at head dims 8, 40, 80 and 96 (zero-
              padded to the next kernel width with the original scale): bf16
              forward on long and short rows and autograd, f32 forward and
-             autograd, ``impl="flash_int8"`` at 40 and 80, each against the
-             plain version; the launch counters show K1, K3, K4, K6 (bf16 and
-             f32), K7, K8, K9 and the f32 backward ran.
-   parity_f32_bwd — the f32 entry of K3/K7 against its plain version at the
-             camera head, the frame rows, one long row and B*H = 66,000, two
-             runs bit-equal, ``attention()`` autograd in f32; its ms beside
-             its bound and SDPA's f32 backward.
+             autograd, ``impl="flash_int8"`` at 40 and 80; at 160 (padded to
+             192), 256 and 512 in bf16 and f32: forward, autograd and
+             ``impl="flash_int8"`` (the exact route, bit for bit, no int8
+             launch) through ``flash_attn_fwd_wide`` / ``flash_attn_bwd_wide``;
+             the int8 route with f32 operands at 40, 64 and 96 through
+             ``flash_attn_int8_f32``, also against exact attention; each
+             against the plain version; the launch counters show K1, K3, K4,
+             K6 (bf16 and f32), K7, K8, K9, the f32 backward and the three new
+             entries ran.
+   parity_f32_bwd — the CUDA-core backward against its plain version:
+             ``flash_attn_bwd_f32`` at the camera head, the frame rows, one
+             long row and B*H = 66,000, ``flash_attn_bwd_wide`` at (1, 4,096,
+             16, 256) in f32 and bf16, and edge cases (cross and ragged
+             lengths, head dims 16-512, both layouts, strided views, operands
+             off 16-byte alignment, more key tiles than the grid's CTAs);
+             two runs bit-equal at every shape; ``attention()`` autograd in
+             f32; its ms beside its bound and SDPA's backward in the same
+             dtype.
    score_files — random VGGT-1B weights written in the upstream key layout
              as safetensors and read by ``load_vggt`` (same outputs as the
              module written); ``cli.score.main`` on 3 groups x 4 clips of 10
@@ -126,7 +137,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
              thread and the shared memory a CTA; K8 and K9 in turns with the
              exact kernel at the same shape (K1, K6 bf16); for K6 f32 its
              device time a call beside its time a call at the camera head,
-             and its time at the f32 scorer's frame and global rows.
+             and its time at the f32 scorer's frame and global rows;
+             ``flash_attn_fwd_wide`` at (1, 4,096, 16, 256) in f32 and bf16
+             and ``flash_attn_int8_f32`` at the f32 scorer's global rows,
+             each against its plain version, beside its bound and SDPA.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -215,15 +229,16 @@ def _wrappers():
     """Every kernel wrapper of the port, by name; each counts its launches."""
     from videogpa_torch.geometry.zbuffer_kernel import scatter_min_u32
     from videogpa_torch.ops.attention import (
-        flash_attn_bwd, flash_attn_bwd_d128, flash_attn_bwd_f32, flash_attn_fwd,
-        flash_attn_fwd_d128, flash_attn_fwd_f32, flash_attn_int8, flash_attn_int8_d128,
-        flash_attn_short)
+        flash_attn_bwd, flash_attn_bwd_d128, flash_attn_bwd_f32, flash_attn_bwd_wide,
+        flash_attn_fwd, flash_attn_fwd_d128, flash_attn_fwd_f32, flash_attn_fwd_wide,
+        flash_attn_int8, flash_attn_int8_d128, flash_attn_int8_f32, flash_attn_short)
 
     return {f.__name__: f for f in (flash_attn_fwd, flash_attn_bwd, flash_attn_short,
                                     flash_attn_fwd_f32, flash_attn_fwd_d128,
                                     flash_attn_bwd_d128, scatter_min_u32,
                                     flash_attn_int8, flash_attn_int8_d128,
-                                    flash_attn_bwd_f32)}
+                                    flash_attn_bwd_f32, flash_attn_fwd_wide,
+                                    flash_attn_bwd_wide, flash_attn_int8_f32)}
 
 
 def zero_launches() -> None:
@@ -3082,80 +3097,169 @@ def _f32_grad_check(got, want):
     return d.max().item(), atol, ok
 
 
-def _bwd_f32_bound(B, Nq, Nk, H, D):
-    """The f32 backward's least time: five Nq x Nk x D products a head over
-    the f32 peak, or q, o, dO, LSE, k, v read and dQ, dK, dV written once."""
+def _peak_flops(dtype):
+    """The card's peak rate for products of ``dtype`` operands: the tensor
+    cores' for bf16, the CUDA cores' for float32 (no TF32). A kernel that
+    widens bf16 to f32 on the CUDA cores is still held to the bf16 peak."""
+    import torch
+
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+
+
+def _bwd_f32_bound(B, Nq, Nk, H, D, dtype):
+    """The CUDA-core backward's least time: five Nq x Nk x D products a head
+    over the peak of the operands' dtype (``_peak_flops``), or q, o, dO, k, v
+    read and dQ, dK, dV written once in that dtype with the f32 LSE."""
+    import torch
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
     flops = 10.0 * B * H * Nq * Nk * D
-    nbytes = 4.0 * B * H * (Nq * D * 4 + Nq + Nk * D * 4)
-    return _bound(flops, nbytes, PEAK_F32_FLOPS)
+    nbytes = B * H * (itemsize * (Nq * D * 4 + Nk * D * 4) + 4.0 * Nq)
+    return _bound(flops, nbytes, _peak_flops(dtype))
 
 
-def phase_parity_f32_bwd(cam_shape, vggt_shape):
-    """The f32 entry of K3/K7 (``flash_attn_bwd_f32``) against its plain
-    version at the camera head, the frame rows, one long row and B*H =
-    66,000; two runs bit-equal; ``attention()`` autograd in f32 through K6's
-    f32 entry and this one. Times the kernel, the plain version (over chunks
-    of heads) and SDPA's f32 backward at each shape. Returns a dict."""
+def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
+    """One case of the CUDA-core backward (``flash_attn_bwd_f32`` or
+    ``flash_attn_bwd_wide``): the forward ``fwd`` with LSE, the backward
+    twice (bit-equal), each gradient against the plain version over chunks
+    of heads (f32 tolerances for f32 operands, bf16 ones for bf16). With
+    ``iters``, also times the kernel, and SDPA's backward in the same dtype.
+    Returns a dict of the case."""
     import torch
     import torch.nn.functional as F
 
-    from videogpa_torch.ops import _kernels
-    from videogpa_torch.ops.attention import (
-        attention, flash_attn_bwd_f32, flash_attn_bwd_reference, flash_attn_fwd_f32)
+    from videogpa_torch.ops.attention import flash_attn_bwd_reference
 
-    gen = torch.Generator(device="cuda").manual_seed(41)
-    shapes = [("camera head", cam_shape, 200), ("frame rows", vggt_shape, 3),
-              ("long row", (1, 4096, 16, 64), 5),
-              ("B*H = 2 x 33,000 = 66,000", (2, 24, 33000, 64), 5)]
-    out = {"shapes": {}, "max_abs_err": 0.0}
-    for label, (B, N, H, D), iters in shapes:
-        q, k, v, do = (torch.randn((B, N, H, D), generator=gen, device="cuda") for _ in range(4))
-        o, lse = flash_attn_fwd_f32(q, k, v, layout="bnhd", with_lse=True)
-        grads = flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd")
-        again = flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd")
-        bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
-        del again
-        chunk = max(1, 2 ** 29 // (4 * B * N * N))  # heads a 0.5 GB score matrix holds
-        plain_ms, worst, atols = 0.0, [0.0, 0.0, 0.0], []
-        for h in range(0, H, chunk):
-            hs = slice(h, h + chunk)
-            sl = (slice(None), slice(None), hs)
-            want, ms = _timed(lambda: flash_attn_bwd_reference(
-                q[sl], k[sl], v[sl], o[sl], lse[:, hs].contiguous(), do[sl], layout="bnhd"))
-            plain_ms += ms
-            for i, (g, w) in enumerate(zip(grads, want)):
-                err, atol, ok = _f32_grad_check(g[sl], w)
-                worst[i] = max(worst[i], err)
-                atols.append(atol)
-                if not ok:
-                    fail(f"flash_attn_bwd_f32 disagrees with its plain version at the {label}, "
-                         f"heads {h}.., gradient {'QKV'[i]}")
-            del want
-        if not bit_equal:
-            fail(f"flash_attn_bwd_f32: two runs differ at the {label}")
-        ms = cuda_ms(lambda: flash_attn_bwd_f32(q, k, v, o, lse, do, layout="bnhd"), iters=iters)
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    o, lse = fwd(q, k, v, layout=layout, with_lse=True)
+    grads = bwd(q, k, v, o, lse, do, layout=layout)
+    again = bwd(q, k, v, o, lse, do, layout=layout)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    if not bit_equal:
+        fail(f"{bwd.__name__}: two runs differ at the {label}")
+    hd = 2 if layout == "bnhd" else 1
+    B, H = q.shape[0], q.shape[hd]
+    Nq, Nk = q.shape[3 - hd], k.shape[3 - hd]
+    D = q.shape[-1]
+    check = _f32_grad_check if q.dtype == torch.float32 else _grad_check
+    chunk = max(1, 2 ** 29 // (4 * B * Nq * Nk))  # heads a 0.5 GB score matrix holds
+    plain_ms, worst, atols = 0.0, [0.0, 0.0, 0.0], []
+    for h in range(0, H, chunk):
+        hs = slice(h, h + chunk)
+        sl = (slice(None), slice(None), hs) if layout == "bnhd" else (slice(None), hs)
+        want, ms = _timed(lambda: flash_attn_bwd_reference(
+            q[sl], k[sl], v[sl], o[sl], lse[:, hs].contiguous(), do[sl], layout=layout))
+        plain_ms += ms
+        for i, (g, w) in enumerate(zip(grads, want)):
+            err, atol, ok = check(g[sl], w)
+            worst[i] = max(worst[i], err)
+            atols.append(atol)
+            if not ok:
+                fail(f"{bwd.__name__} disagrees with its plain version at the {label}, "
+                     f"heads {h}.., gradient {'QKV'[i]}")
+        del want
+    out = {"shape": [B, Nq, Nk, H, D], "layout": layout, "dtype": str(q.dtype).split(".")[-1],
+           "plain_ms": plain_ms, "max_abs_err": max(worst), "bit_equal": bit_equal}
+    msg = (f"[parity_f32_bwd] {bwd.__name__} {label} {str(q.dtype)[6:]} {layout}, heads in "
+           f"chunks of {min(chunk, H)}: max|dQ| {worst[0]:.3e}, max|dK| {worst[1]:.3e}, "
+           f"max|dV| {worst[2]:.3e} (atol {min(atols):.2e}..{max(atols):.2e}) ok; two runs "
+           f"bit-equal")
+    if iters:
+        ms = cuda_ms(lambda: bwd(q, k, v, o, lse, do, layout=layout), iters=iters)
+        tr = (lambda x: x.transpose(1, 2)) if layout == "bnhd" else (lambda x: x)
+        qt, kt, vt = (tr(x).detach().requires_grad_(True) for x in (q, k, v))
         ot = F.scaled_dot_product_attention(qt, kt, vt)
-        dot = do.transpose(1, 2)
+        dot = tr(do)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True),
                          iters=iters)
-        bound_ms, bound_by = _bwd_f32_bound(B, N, N, H, D)
-        out["shapes"][label] = {
-            "shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": lib_ms,
-            "tflops": 10.0 * B * H * N * N * D / ms / 1e9, "max_abs_err": max(worst)}
-        out["max_abs_err"] = max(out["max_abs_err"], max(worst))
-        log(f"[parity_f32_bwd] {label} {(B, N, H, D)} bnhd, heads in chunks of {min(chunk, H)}: "
-            f"max|dQ| {worst[0]:.3e}, max|dK| {worst[1]:.3e}, max|dV| {worst[2]:.3e} (atol "
-            f"{min(atols):.2e}..{max(atols):.2e} + rtol {F32_GRAD_RTOL}) ok; two runs bit-equal; "
-            f"kernel {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.1f} ms, "
-            f"SDPA f32 backward {lib_ms:.4f} ms")
-        del q, k, v, do, o, lse, grads, qt, kt, vt, ot, dot
-        torch.cuda.empty_cache()
-    attrs = _kernels.kernel_attrs("flash_attn_bwd_f32", 128)
-    out["registers_smem_d128"] = [attrs["registers"], attrs["smem_bytes"]]
-    attrs = _kernels.kernel_attrs("flash_attn_bwd_f32", 64)
-    out["registers_smem_d64"] = [attrs["registers"], attrs["smem_bytes"]]
+        bound_ms, bound_by = _bwd_f32_bound(B, Nq, Nk, H, D, q.dtype)
+        out.update({"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                    "tflops": 10.0 * B * H * Nq * Nk * D / ms / 1e9})
+        msg += (f"; kernel {ms:.4f} ms ({out['tflops']:.1f} TFLOP/s counting five products), "
+                f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.1f} ms, SDPA "
+                f"{str(q.dtype)[6:]} backward {lib_ms:.4f} ms")
+        del qt, kt, vt, ot, dot
+    log(msg)
+    del o, lse, grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_parity_f32_bwd(cam_shape, vggt_shape):
+    """The CUDA-core backward against its plain version: ``flash_attn_bwd_f32``
+    at the camera head, the frame rows, one long row and B*H = 66,000, and
+    ``flash_attn_bwd_wide`` at (1, 4,096, 16, 256) in f32 and bf16, each two
+    runs bit-equal and timed beside its bound and SDPA's backward in the same
+    dtype; edge cases (cross and ragged lengths, head dims 16 and 32, the
+    bhnd layout, strided views, operands off 16-byte alignment, more key
+    tiles than the grid holds CTAs: the in-order dQ walk); ``attention()``
+    autograd in f32 through K6's f32 entry and this one. Returns a dict."""
+    import torch
+
+    from videogpa_torch.ops import _kernels
+    from videogpa_torch.ops.attention import (
+        attention, flash_attn_bwd_f32, flash_attn_bwd_wide, flash_attn_fwd_f32,
+        flash_attn_fwd_wide)
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+
+    def rnd(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    out = {"shapes": {}, "edge_cases": {}}
+    f32 = (flash_attn_fwd_f32, flash_attn_bwd_f32)
+    wide = (flash_attn_fwd_wide, flash_attn_bwd_wide)
+    shapes = [("camera head", f32, cam_shape, torch.float32, 200),
+              ("frame rows", f32, vggt_shape, torch.float32, 3),
+              ("long row", f32, (1, 4096, 16, 64), torch.float32, 5),
+              ("B*H = 2 x 33,000 = 66,000", f32, (2, 24, 33000, 64), torch.float32, 5),
+              ("long row D=256 f32", wide, (1, 4096, 16, 256), torch.float32, 2),
+              ("long row D=256 bf16", wide, (1, 4096, 16, 256), torch.bfloat16, 2)]
+    for label, (fwd, bwd), shape, dtype, iters in shapes:
+        q, k, v, do = (rnd(shape, dtype) for _ in range(4))
+        out["shapes"][label] = _bwd_f32_run(label, fwd, bwd, q, k, v, do, "bnhd", iters=iters)
+        del q, k, v, do
+
+    def bhnd(B, N, H, D, dtype=torch.float32):
+        return rnd((B, H, N, D), dtype)
+
+    unaligned = tuple(rnd(70 * 2 * 64 + 1)[1:].view(1, 70, 2, 64) for _ in range(4))
+    edges = [
+        ("cross Nq=37 Nk=53 D=16", f32, "bhnd",
+         (bhnd(2, 37, 3, 16), bhnd(2, 53, 3, 16), bhnd(2, 53, 3, 16), bhnd(2, 37, 3, 16))),
+        ("ragged N=130 D=32", f32, "bnhd", tuple(rnd((1, 130, 2, 32)) for _ in range(4))),
+        ("cross Nq=100 Nk=777 D=128", f32, "bnhd",
+         (rnd((2, 100, 3, 128)), rnd((2, 777, 3, 128)), rnd((2, 777, 3, 128)),
+          rnd((2, 100, 3, 128)))),
+        ("operands 4 bytes off 16-byte alignment N=70 D=64", f32, "bnhd", unaligned),
+        ("141 key tiles on one head, more than the grid's CTAs (in-order dQ)", f32, "bnhd",
+         tuple(rnd((1, 9000, 1, 64)) for _ in range(4))),
+        ("cross Nq=333 Nk=200 D=192 strided (B, H, N, D) views", wide, "bhnd",
+         tuple(rnd((2, n, 3 * 192)).view(2, n, 3, 192).transpose(1, 2)
+               for n in (333, 200, 200, 333))),
+        ("cross Nq=300 Nk=130 D=512 bf16", wide, "bnhd",
+         tuple(rnd((1, n, 2, 512), torch.bfloat16) for n in (300, 130, 130, 300))),
+        ("ragged N=200 D=320 bf16 bhnd", wide, "bhnd",
+         tuple(bhnd(2, 200, 2, 320, torch.bfloat16) for _ in range(4))),
+    ]
+    for label, (fwd, bwd), layout, (q, k, v, do) in edges:
+        r = _bwd_f32_run(label, fwd, bwd, q, k, v, do.contiguous(), layout)
+        out["edge_cases"][label] = r["max_abs_err"]
+        del q, k, v, do
+    del edges, unaligned
+    # the largest error of each entry (bf16 gradients are held by bf16 tolerances)
+    for key, entry in (("max_abs_err", "flash_attn_bwd_f32"),
+                       ("wide_max_abs_err", "flash_attn_bwd_wide")):
+        out[key] = max(r["max_abs_err"] for r in out["shapes"].values()
+                       if (entry == "flash_attn_bwd_wide") == (r["shape"][-1] > 128))
+    for key, args in (("registers_smem_d64", ("flash_attn_bwd_f32", 64)),
+                      ("registers_smem_d128", ("flash_attn_bwd_f32", 128)),
+                      ("registers_smem_d16", ("flash_attn_bwd_f32", 16)),
+                      ("registers_smem_wide_bf16", ("flash_attn_bwd_wide_bf16",))):
+        attrs = _kernels.kernel_attrs(*args)
+        out[key] = [attrs["registers"], attrs["smem_bytes"]]
+    log(f"[parity_f32_bwd] registers a thread and shared memory a CTA: " + json.dumps(
+        {k: v for k, v in out.items() if k.startswith("registers")}))
 
     # attention() under grad in f32: K6's f32 entry with LSE, then this entry
     q, k, v, do = (torch.randn(cam_shape, generator=gen, device="cuda") for _ in range(4))
@@ -3256,16 +3360,209 @@ def phase_parity_headdim():
         if not ok:
             fail(f"attention(impl='flash_int8') at head_dim {D} disagrees with the plain version")
         del q, k, v, o, ro
+    wide_errs = _parity_wide_head_dims(gen)
+    int8_f32_err = _parity_int8_f32(gen)
     launches = read_launches()
     log(f"[parity_headdim] launches: {json.dumps(launches)}")
     missing = [n for n in ("flash_attn_fwd", "flash_attn_bwd", "flash_attn_short",
                            "flash_attn_fwd_d128", "flash_attn_bwd_d128", "flash_attn_fwd_f32",
-                           "flash_attn_bwd_f32", "flash_attn_int8", "flash_attn_int8_d128")
+                           "flash_attn_bwd_f32", "flash_attn_int8", "flash_attn_int8_d128",
+                           "flash_attn_fwd_wide", "flash_attn_bwd_wide", "flash_attn_int8_f32")
                if launches[n] == 0]
     if missing:
         fail(f"attention() at padded head dims launched no {missing}")
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "wide_max_abs_err": wide_errs, "int8_f32_max_abs_err": int8_f32_err}
+
+
+def _parity_wide_head_dims(gen):
+    """``attention()`` at head dims above 128 (160 padded to 192, 256, 512)
+    in bf16 (bhnd) and f32 (bnhd): inference through ``flash_attn_fwd_wide``,
+    ``impl="flash_int8"`` taking the same exact route (the JAX package's rule
+    at D >= 128: no int8 launch, the same O bit for bit), and autograd through
+    ``flash_attn_fwd_wide`` + ``flash_attn_bwd_wide``, each against the plain
+    version at D. Returns the largest |dO| by dtype."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        attention, flash_attn_bwd_reference, flash_attn_bwd_wide, flash_attn_fwd_reference,
+        flash_attn_fwd_wide, flash_attn_int8, flash_attn_int8_d128, flash_attn_int8_f32)
+
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for D in (160, 256, 512):
+        for dtype, layout in ((torch.bfloat16, "bhnd"), (torch.float32, "bnhd")):
+            def rnd(n):
+                shape = (2, 4, n, D) if layout == "bhnd" else (2, n, 4, D)
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+            q, k, v, do = rnd(700), rnd(900), rnd(900), rnd(700)
+            f0, b0 = flash_attn_fwd_wide.launches, flash_attn_bwd_wide.launches
+            i0 = (flash_attn_int8.launches, flash_attn_int8_d128.launches,
+                  flash_attn_int8_f32.launches)
+            o = attention(q, k, v, layout=layout)
+            o8 = attention(q, k, v, impl="flash_int8", layout=layout)
+            ro, rl = flash_attn_fwd_reference(q, k, v, layout, with_lse=True)
+            if dtype == torch.bfloat16:
+                err, atol, ok = _check_o(o, ro)
+            else:
+                d = (o - ro).abs()
+                err, atol = d.max().item(), HEADDIM_F32_ATOL
+                ok = bool((d <= HEADDIM_F32_ATOL + HEADDIM_F32_RTOL * ro.abs()).all())
+            exact_int8 = torch.equal(o8, o) and i0 == (
+                flash_attn_int8.launches, flash_attn_int8_d128.launches,
+                flash_attn_int8_f32.launches)
+            qg, kg, vg = (x.clone().requires_grad_(True) for x in (q, k, v))
+            attention(qg, kg, vg, layout=layout).backward(do)
+            want = flash_attn_bwd_reference(q, k, v, ro, rl, do, layout=layout)
+            check = _f32_grad_check if dtype == torch.float32 else _grad_check
+            g_errs = []
+            for name, x, w in zip("QKV", (qg, kg, vg), want):
+                g_err, _, g_ok = check(x.grad, w)
+                g_errs.append(g_err)
+                ok = ok and g_ok
+            counted = (flash_attn_fwd_wide.launches - f0, flash_attn_bwd_wide.launches - b0) == (
+                3, 1)
+            name = str(dtype).split(".")[-1]
+            log(f"[parity_headdim] D = {D} {name} (2, 700 x 900, 4 heads) {layout}: O max|d| "
+                f"{err:.3e} (atol {atol:.2e}), flash_int8 = the exact route bit for bit with no "
+                f"int8 launch: {exact_int8}, grads max|d| "
+                f"{', '.join(f'{e:.3e}' for e in g_errs)}; wide forward 3 and backward 1 "
+                f"launches: {counted} {'ok' if ok and exact_int8 and counted else 'MISMATCH'}")
+            if not (ok and exact_int8 and counted):
+                fail(f"attention() at head_dim {D} in {name} disagrees with the plain version "
+                     "or missed the wide entries")
+            worst[name] = max(worst[name], err, *g_errs)
+            del q, k, v, do, o, o8, ro, rl, qg, kg, vg, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def _parity_int8_f32(gen):
+    """``attention(impl="flash_int8")`` on f32 operands (long bnhd rows) at D
+    40, 64 and 96 (40 padded to 64, 96 to 128): ``flash_attn_int8_f32``
+    against the plain int8 function on the unpadded operands, with f32
+    tolerances, and against exact f32 attention. Returns the largest |dO|."""
+    import torch
+
+    from videogpa_torch.ops.attention import (
+        attention, flash_attn_fwd_reference, flash_attn_int8_f32, flash_attn_int8_reference,
+        quantize_qk_int8)
+
+    worst = 0.0
+    for D in (40, 64, 96):
+        q, k, v = (torch.randn((2, 3000, 4, D), generator=gen, device="cuda") for _ in range(3))
+        k = k + 0.5
+        before = flash_attn_int8_f32.launches
+        o = attention(q, k, v, impl="flash_int8", layout="bnhd")
+        ro = flash_attn_int8_reference(*quantize_qk_int8(q, k, "bnhd"), v, "bnhd")
+        d = (o - ro).abs()
+        ok = bool((d <= HEADDIM_F32_ATOL + HEADDIM_F32_RTOL * ro.abs()).all()
+                  and torch.isfinite(o).all()) and o.dtype == torch.float32
+        cos, rel = _cos_rel(o, flash_attn_fwd_reference(q, k, v, "bnhd")[0])
+        ok = ok and cos > INT8_E2E_COS and rel < INT8_E2E_REL
+        launched = flash_attn_int8_f32.launches - before == 1
+        log(f"[parity_headdim] int8 with f32 operands D = {D} (2, 3000, 4, {D}) bnhd: max|dO| "
+            f"{d.max().item():.3e} (atol {HEADDIM_F32_ATOL} + rtol {HEADDIM_F32_RTOL}) against "
+            f"the plain int8 function; against exact f32 attention cosine {cos:.6f}, rel-L2 "
+            f"{rel:.4f}; flash_attn_int8_f32 launched: {launched} "
+            f"{'ok' if ok and launched else 'MISMATCH'}")
+        if not (ok and launched):
+            fail(f"attention(impl='flash_int8') on f32 operands at head_dim {D} disagrees")
+        worst = max(worst, d.max().item())
+        del q, k, v, o, ro, d
+    return worst
+
+
+def phase_timing_wide():
+    """The new CUDA-core forwards alone: ``flash_attn_fwd_wide`` at (1, 4,096,
+    16, 256) in f32 and bf16 and ``flash_attn_int8_f32`` at the f32 scorer's
+    global rows (4, 13,740, 16, 64), each held against its plain version
+    (over chunks of heads) and timed beside its bound and one PyTorch call
+    computing the same function (SDPA; none computes int8-QK attention).
+    Returns a dict."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops import _kernels
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd_reference, flash_attn_fwd_wide, flash_attn_int8_f32,
+        flash_attn_int8_reference, quantize_qk_int8)
+
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    out = {}
+    B, N, H, D = 1, 4096, 16, 256
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        q, k, v = (torch.randn((B, N, H, D), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        o = flash_attn_fwd_wide(q, k, v, layout="bnhd")[0]
+        plain_ms, worst = 0.0, 0.0
+        for h in range(0, H, 4):
+            sl = (slice(None), slice(None), slice(h, h + 4))
+            (ro, _), ms = _timed(lambda: flash_attn_fwd_reference(q[sl], k[sl], v[sl], "bnhd"))
+            plain_ms += ms
+            if dtype == torch.bfloat16:
+                err, _, ok = _check_o(o[sl], ro)
+            else:
+                d = (o[sl] - ro).abs()
+                err = d.max().item()
+                ok = bool((d <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all())
+            worst = max(worst, err)
+            if not ok:
+                fail(f"flash_attn_fwd_wide disagrees at {(B, N, H, D)} {name}, heads {h}..")
+            del ro
+        ms = cuda_ms(lambda: flash_attn_fwd_wide(q, k, v, layout="bnhd"), iters=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3)
+        bound_ms, bound_by = _bound(4.0 * B * H * N * N * D,
+                                    q.element_size() * 4.0 * B * N * H * D, _peak_flops(dtype))
+        out[name] = {"shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                     "max_abs_err": worst, "tflops": 4.0 * B * H * N * N * D / ms / 1e9}
+        log(f"[timing] flash_attn_fwd_wide {(B, N, H, D)} {name}: max|dO| {worst:.3e} against "
+            f"the plain version ({plain_ms:.1f} ms over chunks of 4 heads); kernel {ms:.3f} ms "
+            f"({out[name]['tflops']:.1f} TFLOP/s), bound {bound_ms:.3f} ms ({bound_by}), SDPA "
+            f"{lib_ms:.3f} ms")
+        del q, k, v, o, qt, kt, vt
+    B, N, H, D = 4, 13740, 16, 64
+    q, k, v = (torch.randn((B, N, H, D), generator=gen, device="cuda") for _ in range(3))
+    k = k + 0.5
+    ops = quantize_qk_int8(q, k, "bnhd")
+    o = flash_attn_int8_f32(*ops, v, layout="bnhd")
+    q8, sq, k8, sk = ops
+    plain_ms, worst = 0.0, 0.0
+    for b in range(B):
+        for h in range(0, H, 4):
+            sl = (slice(b, b + 1), slice(None), slice(h, h + 4))
+            ro, ms = _timed(lambda: flash_attn_int8_reference(q8[sl], sq[sl], k8[sl], sk[sl],
+                                                              v[sl], "bnhd"))
+            plain_ms += ms
+            d = (o[sl] - ro).abs()
+            worst = max(worst, d.max().item())
+            if not bool((d <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all()):
+                fail(f"flash_attn_int8_f32 disagrees at {(B, N, H, D)}, batch {b}, heads {h}..")
+            del ro, d
+    ms = cuda_ms(lambda: flash_attn_int8_f32(*ops, v, layout="bnhd"), iters=2)
+    quant_ms = cuda_ms(lambda: quantize_qk_int8(q, k, "bnhd"), iters=3)
+    t_ops = 2.0 * B * H * N * N * D * (1 / PEAK_INT8_OPS + 1 / PEAK_F32_FLOPS)
+    t_bytes = B * H * N * (2 * (D + 4) + 8 * D) / PEAK_HBM_BYTES
+    bound_ms = 1e3 * max(t_ops, t_bytes)
+    attrs = {name: _kernels.kernel_attrs(*args) for name, args in (
+        ("fwd_wide_f32", ("flash_attn_fwd_wide", 0)), ("fwd_wide_bf16", ("flash_attn_fwd_wide", 1)),
+        ("int8_f32_d64", ("flash_attn_int8_f32", 64)),
+        ("int8_f32_d128", ("flash_attn_int8_f32", 128)))}
+    out["int8_f32"] = {"shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms,
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "library_ms": None, "quantize_qk_ms": quant_ms, "max_abs_err": worst}
+    out["registers_smem"] = {k: [a["registers"], a["smem_bytes"]] for k, a in attrs.items()}
+    log(f"[timing] flash_attn_int8_f32 {(B, N, H, D)} (the f32 scorer's global rows): max|dO| "
+        f"{worst:.3e} against the plain version ({plain_ms:.1f} ms over chunks of 4 heads); "
+        f"kernel {ms:.3f} ms + quantise {quant_ms:.3f} ms, bound {bound_ms:.3f} ms; registers "
+        f"and smem {json.dumps(out['registers_smem'])}")
+    del q, k, v, ops, q8, sq, k8, sk, o
+    torch.cuda.empty_cache()
+    return out
 
 
 SCORE_FILES_GROUPS, SCORE_FILES_CLIPS, SCORE_FILES_FRAMES = 3, 4, 10
@@ -3637,8 +3934,10 @@ def main() -> int:
     zbuf_plain_ms = phase_parity_zbuffer()
     k8_err, k9_err, k8_plain_ms, k9_plain_ms = phase_parity_int8(dit_shape, vggt_global_shape,
                                                                  wan_shape)
-    headdim_launches = phase_parity_headdim()
+    headdim = phase_parity_headdim()
+    headdim_launches = headdim["launches"]
     f32_bwd = phase_parity_f32_bwd(cam_shape, vggt_shape)
+    wide = phase_timing_wide()
     phase_parity_quant(dit_shape)
     phase_slice()
     phase_slice_dpo()
@@ -3749,6 +4048,7 @@ def main() -> int:
         "train_files": train_files_run,
         "flash_attn_bwd_f32": f32_bwd,
         "parity_headdim_launches": headdim_launches,
+        "wide_and_int8_f32_entries": wide,
         "attention_share_of_warm_denoise_step": attn_share,
         "attention_share_of_last_train_mini_step": train_attn_ms / train_run["step_ms"][-1],
         "dit_attention_shape_bnhd": list(dit_shape),
@@ -3900,9 +4200,48 @@ def main() -> int:
          "bound_ms": f32_bwd["shapes"]["camera head"]["bound_ms"],
          "bound_by": f32_bwd["shapes"]["camera head"]["bound_by"],
          "library_ms": f32_bwd["shapes"]["camera head"]["library_ms"],
-         "shapes": f32_bwd["shapes"],
-         "registers_smem": {"d128": f32_bwd["registers_smem_d128"],
-                            "d64": f32_bwd["registers_smem_d64"]}},
+         "shapes": {k: v for k, v in f32_bwd["shapes"].items() if v["shape"][-1] <= 128},
+         "edge_cases_max_abs_err": f32_bwd["edge_cases"],
+         "registers_smem": {"d16": f32_bwd["registers_smem_d16"],
+                            "d64": f32_bwd["registers_smem_d64"],
+                            "d128": f32_bwd["registers_smem_d128"]}},
+        # the entries above head_dim 128 and the int8 route with f32 operands:
+        # no model of the repo has such a head or runs int8 in f32, so every
+        # main path launches them 0 times; they ran in [parity_headdim],
+        # [parity_f32_bwd] and [timing]
+        {"name": "flash_attn_fwd_wide", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd_wide.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:65",
+         **by_path("flash_attn_fwd_wide"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_fwd_wide"],
+         "max_abs_err": max(headdim["wide_max_abs_err"]["float32"], wide["float32"]["max_abs_err"]),
+         **{k: wide["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "shape_bnhd")},
+         "bf16": {**wide["bfloat16"],
+                  "max_abs_err_headdim": headdim["wide_max_abs_err"]["bfloat16"]},
+         "registers_smem": {k: v for k, v in wide["registers_smem"].items()
+                            if k.startswith("fwd_wide")}},
+        {"name": "flash_attn_bwd_wide", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_bwd_f32.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:883,908",
+         **by_path("flash_attn_bwd_wide"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_bwd_wide"],
+         "max_abs_err": f32_bwd["wide_max_abs_err"],
+         **{k: f32_bwd["shapes"]["long row D=256 f32"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+         "bf16": f32_bwd["shapes"]["long row D=256 bf16"],
+         "registers_smem": {"f32": f32_bwd["registers_smem_d128"],
+                            "bf16": f32_bwd["registers_smem_wide_bf16"]}},
+        {"name": "flash_attn_int8_f32", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd_wide.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:640",
+         **by_path("flash_attn_int8_f32"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_int8_f32"],
+         "max_abs_err": max(headdim["int8_f32_max_abs_err"], wide["int8_f32"]["max_abs_err"]),
+         **{k: wide["int8_f32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "quantize_qk_ms", "shape_bnhd")},
+         "registers_smem": {k: v for k, v in wide["registers_smem"].items()
+                            if k.startswith("int8")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ bf16), K7 (``flash_attn_bwd_d128``), K8 (``flash_attn_int8``) and K9
 against another checkout's on one NVIDIA GPU, in one process.
 
     python3 kernel_ab.py OTHER_CHECKOUT
+    python3 kernel_ab.py --f32-bwd OTHER_CHECKOUT  # the f32 backward alone
     python3 kernel_ab.py --variant NAME DEST   # a copy of this tree's kernels
                                                # with one design choice reverted
 
@@ -33,6 +34,14 @@ timed with that eager reduction, as its wrapper ran it. The other checkout's
 sources must have this checkout's C interfaces or those older ones. Prints
 the card and one JSON line.
 
+``--f32-bwd`` times only the CUDA-core backward (``flash_attn_bwd_f32``,
+``csrc/flash_attn_bwd_f32.cu``) against OTHER_CHECKOUT's, in turns, at the
+camera head (4, 10, 16, 128), the scorer's frame rows (40, 1,374, 16, 64),
+one long row (1, 4,096, 16, 64) and B*H = 66,000 at N 24, and the wide f32
+and bf16 entries at (1, 4,096, 16, 256) when both sides have them. The
+other side may have this interface or the one before the kernel's redesign
+(three launches, delta taken as scratch, seven products).
+
 ``--variant`` writes DEST/videogpa_torch/csrc: this checkout's sources with
 one of the design choices of ``VARIANTS`` reverted, for a run against it.
 """
@@ -56,6 +65,8 @@ LOG2E = 1.4426950408889634
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # the backward C interface that took delta from its caller
 OLD_BWD_ARGS = [_P] * 9 + [_I] * 5 + [_LL] * 21 + [_F, _P]
+# the f32 backward's interface before its redesign: delta as the only scratch
+OLD_BWD_F32_ARGS = [_P] * 10 + [_I] * 5 + [_LL] * 24 + [_F, _P]
 
 
 # design choices of this tree, each reverted by regular-expression
@@ -78,6 +89,34 @@ VARIANTS = {
     # instead of three (192-query items, 160 registers)
     "int8_two_consumer_wgs": ("flash_attn_int8", [
         (r"constexpr int kConsumerWGs = \d+;", "constexpr int kConsumerWGs = 2;")]),
+    # the f32 backward with 8 x 4 register micro-tiles for S^T and dP^T (two
+    # passes over the query halves, 12 float4 loads per 128 FMAs) instead of
+    # 8 x 8 (16 per 256)
+    "f32_bwd_8x4_tiles": ("flash_attn_bwd_f32", [
+        (r"constexpr int kQueriesPerPass = 8;", "constexpr int kQueriesPerPass = 4;")]),
+    # the f32 backward at D = 64 with two cp.async stages and so one CTA an
+    # SM, instead of one stage (issued before the dQ product) and two CTAs
+    "f32_bwd_two_stages": ("flash_attn_bwd_f32", [
+        (r"static constexpr int kStages = DC <= 32 \? 2 : 1;",
+         "static constexpr int kStages = DC <= 32 || !kWide ? 2 : 1;")]),
+    # the f32 backward issuing the next tile's copies at the top of the step
+    # instead of before the dQ product
+    "f32_bwd_late_issue": ("flash_attn_bwd_f32", [
+        (r"static constexpr bool kEarly = kStages == 1 && !kWide;",
+         "static constexpr bool kEarly = false;")]),
+    # the f32 backward adding dQ's partials by scalar red.add instead of
+    # 16-byte vector red.add
+    "f32_bwd_scalar_red": ("flash_attn_bwd_f32", [
+        (r"red_add4\(p, x\[0\], x\[1\], x\[2\], x\[3\]\);",
+         "for (int e = 0; e < 4; ++e) red_add(p + e, x[e]);")]),
+    # the f32 backward with the library exp2f instead of one ex2.approx.ftz
+    "f32_bwd_exp2f": ("flash_attn_bwd_f32", [
+        (r"exp2_ftz\(fmaf\(sacc", "exp2f(fmaf(sacc")]),
+    # the f32 backward visiting a key tile's query tiles and adding dQ's
+    # partials in order of the key tiles at every shape, instead of the
+    # diagonal order while a head's key tiles fit the grid
+    "f32_bwd_in_order": ("flash_attn_bwd_f32", [
+        (r"p\.diag = p\.n_kt > 1 && p\.n_kt <= grid \? 1 : 0;", "p.diag = 0;")]),
     # K6 f32 computing whole 64 x 64 tiles: no skip of rows past Nq or keys
     # past Nk (those rows are loaded as copies of the last live row, so their
     # values stay finite)
@@ -160,6 +199,75 @@ def _other_f32_call_ms(other: str) -> float:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def _f32_bwd_ab(other: str) -> dict:
+    """``--f32-bwd``: this checkout's f32 backward against OTHER's, in turns
+    (other / this / this / other) on the same operands; both must agree."""
+    import torch
+
+    from videogpa_torch.ops import attention as A
+
+    lib = _build_all(other, ("flash_attn_bwd_f32",))["flash_attn_bwd_f32"]
+    src = open(os.path.join(other, "videogpa_torch", "csrc", "flash_attn_bwd_f32.cu")).read()
+    new_interface = "dq_acc" in src
+    entry = _entry(lib, "videogpa_flash_attn_bwd_f32",
+                   _kernels._BWD_F32_ARGS if new_interface else OLD_BWD_F32_ARGS)
+    _kernels.build(("flash_attn_bwd_f32",))
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(93)
+    res = {}
+    cases = [("camera_head", (4, 10, 16, 128), torch.float32, 200),
+             ("frame_rows", (40, 1374, 16, 64), torch.float32, 3),
+             ("long_row", (1, 4096, 16, 64), torch.float32, 5),
+             ("bh_66000", (2, 24, 33000, 64), torch.float32, 5)]
+    if new_interface and "videogpa_flash_attn_bwd_wide_f32" in src:
+        cases += [("wide_f32_d256", (1, 4096, 16, 256), torch.float32, 2),
+                  ("wide_bf16_d256", (1, 4096, 16, 256), torch.bfloat16, 2)]
+    for tag, (B, N, H, D), dtype, iters in cases:
+        q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        wide = D > 128
+        fwd = A.flash_attn_fwd_wide if wide else A.flash_attn_fwd_f32
+        bwd = A.flash_attn_bwd_wide if wide else A.flash_attn_bwd_f32
+        name = ("flash_attn_bwd_wide_" + ("bf16" if dtype == torch.bfloat16 else "f32")
+                if wide else "flash_attn_bwd_f32")
+        o, lse = fwd(q, k, v, layout="bnhd", with_lse=True)
+        if new_interface:  # this checkout's wrapper, the other's entry
+            other_entry = getattr(lib, f"videogpa_{name}")
+            other_entry.argtypes, other_entry.restype = _kernels._BWD_F32_ARGS, ctypes.c_int
+
+            def old(name=name, other_entry=other_entry):
+                mine = _kernels.kernel(name)
+                _kernels._loaded[name] = other_entry
+                try:
+                    return bwd(q, k, v, o, lse, do, layout="bnhd")
+                finally:
+                    _kernels._loaded[name] = mine
+        else:
+            def old():
+                delta = torch.empty((B * H, N), dtype=torch.float32, device="cuda")
+                grads = [torch.empty_like(x) for x in (q, k, v)]
+                rc = entry(*(x.data_ptr() for x in (q, k, v, o, do, lse, *grads, delta)), B, H,
+                           N, N, D, *_strides("bnhd", q, k, v, o, do, *grads), D ** -0.5, stream)
+                assert rc == 0, rc
+                return grads
+
+        def new():
+            return bwd(q, k, v, o, lse, do, layout="bnhd")
+
+        for a, b in zip(old(), new()):
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+            if not torch.allclose(a.float(), b.float(), atol=tol, rtol=tol):
+                raise SystemExit(f"kernel_ab: the two f32 backwards disagree at {tag}")
+        t = [cs.cuda_ms(f, iters) for f in (old, new, new, old)]
+        res[tag] = {"shape_bnhd": [B, N, H, D], "other_ms": [t[0], t[3]],
+                    "this_ms": [t[1], t[2]]}
+        cs.log(f"[ab] f32 backward {tag} {(B, N, H, D)} {str(dtype)[6:]}: other "
+               f"{t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return res
+
+
 def _strides(layout, *xs):
     out = []
     for x in xs:
@@ -172,6 +280,10 @@ def main() -> int:
 
     if len(sys.argv) == 4 and sys.argv[1] == "--variant":
         make_variant(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--f32-bwd" and torch.cuda.is_available():
+        cs.log(cs.gpu_name_and_power())
+        cs.log("[ab] " + json.dumps({"f32_bwd": _f32_bwd_ab(sys.argv[2])}))
         return 0
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)

@@ -1,20 +1,34 @@
-"""The float32 entry of K3/K7 (``csrc/flash_attn_bwd_f32.cu``,
-``ops/attention.py::flash_attn_bwd_f32``) on the CPU.
+"""The CUDA-core backward (``csrc/flash_attn_bwd_f32.cu``: the float32 entry
+of K3/K7, ``flash_attn_bwd_f32``, and the entry above head_dim 128 in f32 and
+bf16, ``flash_attn_bwd_wide``) on the CPU.
 
 The kernel cannot run here, so its tiling is emulated in plain PyTorch:
-delta = rowsum(O * dO) in a prologue, dK/dV over 64-key tiles walking the
-query tiles, dQ over 64-query tiles walking the key tiles, with ragged last
-tiles on both sides (the tile is read from the source). The emulation is
-held against ``flash_attn_bwd_reference`` and against the JAX package's
-``_flash`` vjp in float32 (its Pallas backward in interpret mode), at head
-dims 16-128, Nq != Nk, both layouts. On ``meta`` operands with the C entry
-recorded, the wrapper launches at B*H = 70,000, and ``attention()`` under
-grad takes K6's f32 entry and this one on the card's route.
+delta = rowsum(O * dO) in a prologue; one work item per 64-key tile (the
+tile is read from the source) walking the 64-query tiles in the order
+``_walk`` gives (the kernel's order, as its header states it), S and dP
+summed over 64-column chunks of D above 64, dK and dV accumulated across
+the walk, and each query tile's dQ partials (each over two halves of the
+key tile) added in that function's order; P rounded to bf16 before dV and dS before dQ and dK for bf16
+operands; ragged last tiles on both sides. The emulation is held against
+``flash_attn_bwd_reference`` and against the JAX package's ``_flash`` vjp
+(its Pallas backward in interpret mode), in float32 at head dims 16-256 and
+in bf16 at 256, Nq != Nk, both layouts. The walk itself is checked: each key
+tile visits every query tile once, tiles that start together visit
+different query tiles at each step, every tile's partials are added once,
+and the closed form the kernel computes a key tile's place with
+(``dq_rank``) gives that order; the source starts the diagonal walk by a
+cooperative launch. On ``meta`` operands with the C entry
+recorded, the wrappers launch at B*H = 70,000 with their scratch sized, and
+``attention()`` under grad takes K6's f32 entry and this one on the card's
+route.
 
-Tolerances: atol 2e-5 between the emulation and the plain version (the
-same f32 formulas, other summation orders); 5e-4 against JAX, as
+Tolerances: atol 2e-5 between the emulation and the plain version in f32
+(the same formulas, other summation orders), 5e-4 against JAX, as
 ``tests/test_torch_attention_grad.py`` holds the port's gradients to the
-JAX flash vjp.
+JAX flash vjp; in bf16 atol and rtol 2e-2 of the gradient's largest
+magnitude, as ``tests/test_torch_attention_headdim.py`` holds bf16
+gradients (a bf16 rounding of P or dS that lands the other way moves a
+gradient by about one bf16 ulp).
 """
 
 import re
@@ -47,32 +61,60 @@ def _randn(seed, *shapes):
     return tuple(rng.standard_normal(s, dtype=np.float32) for s in shapes)
 
 
-def _f32_bwd_emulated(q, k, v, o, lse, do, scale):
-    """The kernel's three passes on (B, H, N, D) f32 operands."""
-    Nq, Nk = q.shape[2], k.shape[2]
+def _walk(n_qt: int, n_kt: int, grid: int):
+    """The kernel's walk: for each key tile j, the query tiles in the order
+    it visits them, and for each query tile the key tiles in the order their
+    dQ partials are added.
+
+    While a head's key tiles fit the persistent grid (``n_kt <= grid``), key
+    tile j visits query tile (t - j) mod n_qt at its step t, and a tile's
+    partials are added by (step, j): tiles that start together never wait on
+    each other. Otherwise the tiles are visited in order and added in order
+    of j (at one key tile the two orders are one)."""
+    if n_kt > grid:
+        return [list(range(n_qt)) for _ in range(n_kt)], [list(range(n_kt)) for _ in range(n_qt)]
+    visits = [[(t - j) % n_qt for t in range(n_qt)] for j in range(n_kt)]
+    adds = [sorted(range(n_kt), key=lambda j, i=i: ((i + j) % n_qt, j)) for i in range(n_qt)]
+    return visits, adds
+
+
+def _f32_bwd_emulated(q, k, v, o, lse, do, scale, dtype=torch.float32, grid=264):
+    """The kernel's prologue and work items on (B, H, N, D) f32 images of
+    operands of ``dtype``, walking the tiles as ``_walk`` gives."""
+    Nq, Nk, D = q.shape[2], k.shape[2], q.shape[3]
+    n_qt, n_kt = -(-Nq // BLOCK), -(-Nk // BLOCK)
+    visits, adds = _walk(n_qt, n_kt, grid)
+    chunk = D if D <= 64 else 64  # the contraction's chunks above head_dim 64
+
+    def rnd(x):
+        return x.to(dtype).float()
+
     delta = (o * do).sum(-1)  # prologue
-    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
-    for k0 in range(0, Nk, BLOCK):  # dK/dV: one CTA a key tile
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    partial = {}
+    for j in range(n_kt):  # one work item a key tile
+        k0 = j * BLOCK
         kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
         acc_k, acc_v = torch.zeros_like(kt), torch.zeros_like(vt)
-        for q0 in range(0, Nq, BLOCK):
-            sl = slice(q0, q0 + BLOCK)
-            s_t = kt @ q[:, :, sl].transpose(-1, -2)  # S^T, keys x queries
-            p_t = torch.exp(s_t * scale - lse[:, :, None, sl])
-            dp_t = vt @ do[:, :, sl].transpose(-1, -2)
-            ds_t = p_t * (dp_t - delta[:, :, None, sl])
-            acc_v += p_t @ do[:, :, sl]
+        for i in visits[j]:
+            sl = slice(i * BLOCK, (i + 1) * BLOCK)
+            s_t = sum(kt[..., c:c + chunk] @ q[:, :, sl, c:c + chunk].mT for c in range(0, D, chunk))
+            dp_t = sum(vt[..., c:c + chunk] @ do[:, :, sl, c:c + chunk].mT
+                       for c in range(0, D, chunk))
+            p_t = torch.exp2(s_t * (scale * tattn._LOG2E) - lse[:, :, None, sl] * tattn._LOG2E)
+            ds_t = rnd(p_t * (dp_t - delta[:, :, None, sl]))
+            acc_v += rnd(p_t) @ do[:, :, sl]
             acc_k += ds_t @ q[:, :, sl]
+            half = min(BLOCK // 2, kt.shape[2])  # the two halves of the key tile
+            partial[i, j] = (ds_t[:, :, :half].mT @ kt[:, :, :half]
+                             + ds_t[:, :, half:].mT @ kt[:, :, half:])
         dk[:, :, k0:k0 + BLOCK], dv[:, :, k0:k0 + BLOCK] = acc_k * scale, acc_v
-    for q0 in range(0, Nq, BLOCK):  # dQ: one CTA a query tile
-        sl = slice(q0, q0 + BLOCK)
-        acc = torch.zeros_like(q[:, :, sl])
-        for k0 in range(0, Nk, BLOCK):
-            kt, vt = k[:, :, k0:k0 + BLOCK], v[:, :, k0:k0 + BLOCK]
-            p = torch.exp(q[:, :, sl] @ kt.transpose(-1, -2) * scale - lse[:, :, sl, None])
-            ds = p * (do[:, :, sl] @ vt.transpose(-1, -2) - delta[:, :, sl, None])
-            acc += ds @ kt
-        dq[:, :, sl] = acc * scale
+    dq = torch.zeros_like(q)
+    for i in range(n_qt):  # the partials in their order, the last times the scale
+        acc = partial[i, adds[i][0]].clone()
+        for j in adds[i][1:]:
+            acc += partial[i, j]
+        dq[:, :, i * BLOCK:(i + 1) * BLOCK] = acc * scale
     return dq, dk, dv
 
 
@@ -85,7 +127,7 @@ def _jax_vjp(q, k, v, do):
 
 
 @pytest.mark.parametrize("nq,nk,d", [(150, 150, 16), (70, 200, 32), (257, 129, 64),
-                                     (64, 10, 128), (10, 10, 128)])
+                                     (64, 10, 128), (10, 10, 128), (130, 70, 256)])
 def test_emulated_tiling_matches_the_plain_version_and_jax(nq, nk, d):
     q, do = (torch.from_numpy(x) for x in _randn(d + nq, (1, 2, nq, d), (1, 2, nq, d)))
     k, v = (torch.from_numpy(x) for x in _randn(d + nk + 1, (1, 2, nk, d), (1, 2, nk, d)))
@@ -113,6 +155,83 @@ def test_bnhd_wrapper_and_a_non_default_scale_match_the_plain_formulas():
         torch.testing.assert_close(g.transpose(1, 2), w, atol=2e-5, rtol=0)
 
 
+def test_emulated_tiling_in_bf16_matches_the_plain_version_and_jax():
+    """The wide entry in bf16 at D = 256: the emulation (P and dS rounded
+    where the kernel rounds them) against the plain version and the JAX vjp
+    on the same bf16 operands."""
+    d, nq, nk = 256, 100, 130
+    q, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _randn(5, *[(1, 2, nq, d)] * 2))
+    k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _randn(6, *[(1, 2, nk, d)] * 2))
+    o, lse = tattn.flash_attn_fwd_reference(q, k, v, layout="bhnd", with_lse=True)
+    got = _f32_bwd_emulated(*(x.float() for x in (q, k, v, o)), lse, do.float(), d ** -0.5,
+                            dtype=torch.bfloat16)
+    want = tattn.flash_attn_bwd_wide(q, k, v, o, lse, do, layout="bhnd")  # CPU: plain version
+    _, vjp = jax.vjp(lambda a, b, c: jattn.attention(a, b, c, impl="flash", block_q=128,
+                                                     block_k=128),
+                     *(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)))
+    jax_grads = vjp(jnp.asarray(do.float().numpy(), jnp.bfloat16))
+    for g, w, jw in zip(got, want, jax_grads):
+        w = w.float()
+        jw = np.asarray(jnp.asarray(jw, jnp.float32))
+        scale = max(1.0, float(w.abs().max()))
+        atol = 2e-2 * scale
+        torch.testing.assert_close(g.to(torch.bfloat16).float(), w, atol=atol, rtol=2e-2)
+        np.testing.assert_allclose(g.numpy(), jw, atol=atol, rtol=2e-2)
+
+
+def _rank(i, t, j, n_qt, n_kt):
+    """The kernel's closed form for key tile j's place among query tile i's
+    contributors, visited at its step t (``dq_rank`` in the source)."""
+    a, b = divmod(n_kt, n_qt)
+    s0 = (n_qt - i) % n_qt
+    if s0 + t <= n_qt:
+        below_b = max(0, min(s0 + t, b) - s0)
+    else:
+        below_b = max(0, b - s0) + min(b, s0 + t - n_qt)
+    return a * t + below_b + j // n_qt
+
+
+@pytest.mark.parametrize("n_qt,n_kt,grid", [(22, 22, 264), (64, 64, 132), (5, 13, 264),
+                                            (13, 5, 264), (1, 7, 264), (7, 1, 264),
+                                            (3, 141, 132)])
+def test_the_walk_visits_every_tile_once_and_adds_in_the_kernels_order(n_qt, n_kt, grid):
+    visits, adds = _walk(n_qt, n_kt, grid)
+    for j in range(n_kt):
+        assert sorted(visits[j]) == list(range(n_qt))
+    for i in range(n_qt):
+        assert sorted(adds[i]) == list(range(n_kt))
+    if n_kt > grid:  # more key tiles than CTAs: in order, added in order of j
+        assert all(a == list(range(n_kt)) for a in adds)
+        return
+    for t in range(n_qt):  # tiles that start together never meet at a step
+        tiles = [visits[j][t] for j in range(min(n_kt, n_qt))]
+        assert len(set(tiles)) == len(tiles)
+    for j in range(n_kt):
+        for t, i in enumerate(visits[j]):
+            assert adds[i].index(j) == _rank(i, t, j, n_qt, n_kt)
+            # a key tile's partial comes after those added at earlier steps
+            assert all(visits[jj].index(i) <= t for jj in adds[i][:adds[i].index(j)])
+
+
+def test_the_diagonal_walk_starts_only_with_the_whole_grid_resident():
+    """The diagonal walk can make a key tile wait on one taken later, so the
+    source chooses it exactly where ``_walk`` does (several key tiles that
+    fit the grid) and starts it by a cooperative launch, falling back to the
+    in-order walk where the card refuses one."""
+    src = _SRC.read_text()
+    assert "p.diag = p.n_kt > 1 && p.n_kt <= grid ? 1 : 0;" in src
+    coop = re.search(r"if \(p\.diag\) \{(.*?)\n  \}\n  bwd_kernel<T, DC, kWide><<<", src, re.S)
+    assert coop is not None
+    body = coop.group(1)
+    assert "cudaLaunchCooperativeKernel" in body and "bwd_kernel<T, DC, kWide>" in body
+    assert "cudaErrorCooperativeLaunchTooLarge" in body and "p.diag = 0;" in body
+    assert src.count("<<<grid, kThreads") == 1  # the in-order walk's plain launch
+
+
+def _val(arg):
+    return arg.value if hasattr(arg, "value") else arg
+
+
 def _record(monkeypatch):
     calls = []
     monkeypatch.setattr(tattn, "_on_card", lambda x: x.device.type == "meta")
@@ -132,8 +251,11 @@ def test_f32_backward_launches_at_70000_heads(monkeypatch, layout):
     assert dq.shape == dk.shape == dv.shape == x.shape and dq.dtype == torch.float32
     [(entry, args)] = calls
     assert entry == "flash_attn_bwd_f32" and tattn.flash_attn_bwd_f32.launches == before + 1
-    # ten pointers, then B, H, Nq, Nk, D, 24 strides and the scale
-    assert args[10:15] == (2, 35000, 8, 8, 64) and len(args) == 10 + 5 + 24 + 1
+    # nine operand pointers and three of scratch (delta, dQ's partial sums,
+    # the turn counters), then B, H, Nq, Nk, D, 24 strides and the scale
+    assert tuple(_val(a) for a in args[12:17]) == (2, 35000, 8, 8, 64)
+    assert len(args) == 12 + 5 + 24 + 1
+    assert args[10] is None  # one key tile: no partial sums
     with pytest.raises(TypeError, match="float32"):
         tattn.flash_attn_bwd_f32(*(t.to(torch.bfloat16) for t in (x, x, x, x)), lse,
                                  x.to(torch.bfloat16), layout=layout)
@@ -147,3 +269,32 @@ def test_attention_under_grad_takes_the_f32_entries_on_the_card_route(monkeypatc
     o.sum().backward()
     assert [e for e, _ in calls] == ["flash_attn_fwd_f32", "flash_attn_bwd_f32"]
     assert q.grad.shape == q.shape
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+def test_wide_backward_launches_at_70000_heads_with_its_scratch(monkeypatch, layout):
+    """The bf16 entry above head_dim 128, B*H = 70,000, 130 queries and 65
+    keys: three query tiles, two key tiles and four 64-column slices. The
+    scratch is delta (rounded up to 16 bytes), the dQ partial sums over whole
+    query tiles and a turn counter per (head, slice, query tile) with the
+    work counter."""
+    calls = _record(monkeypatch)
+    B, H, D = 2, 35000, 256
+    shape_q = (B, 130, H, D) if layout == "bnhd" else (B, H, 130, D)
+    shape_k = (B, 65, H, D) if layout == "bnhd" else (B, H, 65, D)
+    q = torch.empty(shape_q, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(shape_k, dtype=torch.bfloat16, device="meta")
+    lse = torch.empty((B, H, 130), device="meta")
+    before = tattn.flash_attn_bwd_wide.launches
+    dq, dk, dv = tattn.flash_attn_bwd_wide(q, k, k, q, lse, q, layout=layout)
+    assert dq.shape == shape_q and dk.shape == dv.shape == shape_k and dq.dtype == torch.bfloat16
+    [(entry, args)] = calls
+    assert entry == "flash_attn_bwd_wide_bf16" and tattn.flash_attn_bwd_wide.launches == before + 1
+    assert tuple(_val(a) for a in args[12:17]) == (B, H, 130, 65, D)
+    n_delta = -(-B * H * 130 // 4) * 4
+    n_acc = B * H * 3 * 64 * D
+    assert args[10] - args[9] == 4 * n_delta and args[11] - args[10] == 4 * n_acc
+    assert tattn.bwd_f32_slices(D) == 4
+    with pytest.raises(NotImplementedError, match="head_dim 200"):
+        x = torch.empty((1, 10, 2, 200), device="meta")
+        tattn.flash_attn_bwd_wide(x, x, x, x, torch.empty((1, 2, 10), device="meta"), x)

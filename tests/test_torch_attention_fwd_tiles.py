@@ -286,14 +286,14 @@ def test_forward_geometry_cache_keeps_every_check(monkeypatch):
     bf16 operand whose base address breaks TMA's 16-byte rule still raises."""
     calls = []
     monkeypatch.setattr(tattn, "_call", lambda fn, entry, device, *args: calls.append(args))
-    monkeypatch.setattr(tattn, "_FWD_GEOMETRY", {})
+    monkeypatch.setattr(tattn, "_GEOMETRY", {})
     launch = tattn._launch_fwd
     q = torch.zeros(2, 40, 3, 64, dtype=torch.bfloat16)
     for _ in range(2):
         o, lse = launch("flash_attn_fwd", "flash_attn_fwd", q, q, q, "bnhd", True,
                         torch.bfloat16, tattn.KERNEL_HEAD_DIMS)
         assert o.shape == q.shape and o.is_contiguous() and lse.shape == (2, 3, 40)
-    assert len(tattn._FWD_GEOMETRY) == 1
+    assert len(tattn._GEOMETRY) == 1
     assert [a.value for a in calls[0][5:]] == [a.value for a in calls[1][5:]]
     # B, H, Nq, Nk, D and the (b, n, h) strides of q, k, v and O
     assert [a.value for a in calls[0][5:22]] == [2, 3, 40, 40, 64] + [7680, 192, 64] * 4

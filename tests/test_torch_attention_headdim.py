@@ -1,17 +1,28 @@
-"""``attention()`` at head dims no kernel takes (8, 40, 80, 96).
+"""``attention()`` at head dims no kernel takes (8, 40, 80, 96), and above
+128 (160, 256).
 
-On CUDA the port zero-pads D to the next kernel width (16, 32, 64, 128),
-passes the original D's softmax scale to the kernel and slices O back
-(``ops/attention.py::_attention_padded``). Here on the CPU the padded route
-runs with the kernels' plain versions and is held against the JAX
-``attention(impl="xla")`` at the original D, forward and gradients, f32 and
-bf16; the unpadded CPU route too. On ``meta`` operands, with the C entry
-points recorded, the padded route launches the kernel of the padded width
-with the original D's scale and hands back O and the gradients at D.
+On CUDA the port zero-pads D to the next kernel width (16, 32, 64, 128, then
+every multiple of 64), passes the original D's softmax scale to the kernel
+and slices O back (``ops/attention.py::_attention_padded``). Here on the CPU
+the padded route runs with the kernels' plain versions and is held against
+the JAX ``attention(impl="xla")`` at the original D, forward and gradients,
+f32 and bf16; the unpadded CPU route too; above 128 also against the JAX
+``attention(impl="flash")`` vjp in Pallas interpret mode, with a plain
+emulation of the wide forward's tiling (``csrc/flash_attn_fwd_wide.cu``:
+64-column slices of O, S summed over 64-column chunks, P rounded to the
+operands' dtype) against the JAX ``_flash_fwd``. The int8 route with f32
+operands (``flash_attn_int8_f32``'s plain version, and an emulation of its
+online softmax) is held against the JAX ``attention(impl="flash_int8")`` in
+interpret mode. On ``meta`` operands, with the C entry points recorded, the
+padded route launches the kernel of the padded width with the original D's
+scale and hands back O and the gradients at D; above 128 and for f32 int8
+it launches the new entries.
 
 Tolerances: f32, atol 1e-5 (forward) and 5e-5 (gradients): the same
 formulas summed in another order; bf16, atol and rtol 2e-2: one bf16 ulp of
-O (2^-7) on both sides plus the order of the f32 sums.
+O (2^-7) on both sides plus the order of the f32 sums; the int8 route in
+f32, atol 2e-5 on JAX's own quantised operands, as
+``tests/test_torch_attention_int8.py`` holds K8's plain version to it.
 """
 
 import jax
@@ -25,8 +36,20 @@ from videogpa_torch.ops import attention as tattn
 
 torch.set_num_threads(2)
 
-HEAD_DIMS = (8, 40, 80, 96)
+HEAD_DIMS = (8, 40, 80, 96, 160, 256)
 TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
+# the whole int8 route in f32 against JAX's: each side quantises, and K's
+# mean sums in another order, so an entry a tie apart rounds one step off
+# (< 0.1 % of them, ``test_quantize_qk_int8_matches_jax``); one such step
+# moves O by up to ~1e-3 of its scale
+INT8_F32_ATOL = 1e-3
+
+
+@pytest.fixture
+def interpret_mode():
+    jattn.INTERPRET = True
+    yield
+    jattn.INTERPRET = False
 
 
 def _randn(seed, *shapes):
@@ -56,7 +79,7 @@ def _port(route):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_forward_matches_jax_at_any_head_dim(D, dtype, route):
-    layout = "bnhd" if D in (8, 80) else "bhnd"
+    layout = "bnhd" if D in (8, 80, 160) else "bhnd"
     sq, sk = _shapes(layout, 1, 70, 90, 2, D)
     q, k, v = _randn(D, sq, sk, sk)
     got = _port(route)(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)), layout)
@@ -70,12 +93,15 @@ def test_forward_matches_jax_at_any_head_dim(D, dtype, route):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", HEAD_DIMS)
 def test_gradients_through_the_padded_route_match_jax(D, dtype):
-    layout = "bnhd" if D in (40, 96) else "bhnd"
+    layout = "bnhd" if D in (40, 96, 256) else "bhnd"
     sq, sk = _shapes(layout, 1, 60, 75, 2, D)
     q, k, v = _randn(100 + D, sq, sk, sk)
     ts = [torch.from_numpy(x).to(dtype).requires_grad_(True) for x in (q, k, v)]
     o = tattn._attention_padded(*ts, "flash", layout)
-    assert o.shape == sq and type(o.grad_fn).__name__ == "SliceBackward0"
+    # a width no kernel takes is sliced back; 256 is a width of its own
+    sliced = tattn.padded_head_dim(D) != D
+    assert o.shape == sq and type(o.grad_fn).__name__ == (
+        "SliceBackward0" if sliced else "_FlashAttentionBackward")
     (o.float() * o.float()).sum().backward()
 
     jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
@@ -113,10 +139,154 @@ def test_int8_padded_route_equals_the_unpadded_int8_function(D):
 
 
 def test_padded_head_dim():
-    assert [tattn.padded_head_dim(d) for d in (1, 8, 16, 17, 40, 64, 65, 96, 128)] == [
-        16, 16, 16, 32, 64, 64, 128, 128, 128]
-    with pytest.raises(NotImplementedError, match="head_dim <= 128"):
-        tattn.padded_head_dim(129)
+    """Every head dim has a width: 16, 32, 64, 128, then the next multiple of
+    64, which the wide entries take."""
+    dims = (1, 8, 16, 17, 40, 64, 65, 96, 128, 129, 160, 192, 200, 256, 512, 513)
+    assert [tattn.padded_head_dim(d) for d in dims] == [
+        16, 16, 16, 32, 64, 64, 128, 128, 128, 192, 192, 192, 256, 256, 512, 576]
+    for d in range(1, 1100):
+        w = tattn.padded_head_dim(d)
+        assert w >= d and (w in tattn.HEAD_DIM_WIDTHS or w in tattn.WIDE_HEAD_DIMS)
+        assert (w in tattn.WIDE_HEAD_DIMS) == (d > 128)
+
+
+def _jax_flash_vjp(q, k, v, do, layout, dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    o, vjp = jax.vjp(lambda a, b, c: jattn.attention(a, b, c, impl="flash", block_q=128,
+                                                     block_k=128, layout=layout),
+                     *(jnp.asarray(x, jdt) for x in (q, k, v)))
+    grads = vjp(jnp.asarray(do, jdt))
+    return [np.asarray(jnp.asarray(x, jnp.float32)) for x in (o, *grads)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [160, 256])
+def test_wide_head_dims_match_the_jax_flash_vjp(interpret_mode, D, dtype):
+    """Above 128 the JAX package runs ``_fwd_kernel`` and ``_dq_kernel`` /
+    ``_dkv_kernel`` at any D (the ones-column at D % 128 != 0); the port's
+    padded route (160 -> 192) with the wide entries' plain versions gives
+    the same O and gradients."""
+    layout = "bhnd" if D == 160 else "bnhd"
+    sq, sk = _shapes(layout, 1, 70, 90, 2, D)
+    q, k, v, do = _randn(300 + D, sq, sk, sk, sq)
+    ts = [torch.from_numpy(x).to(dtype).requires_grad_(True) for x in (q, k, v)]
+    o = tattn._attention_padded(*ts, "flash", layout)
+    o.backward(torch.from_numpy(do).to(dtype))
+    want_o, *want_g = _jax_flash_vjp(q, k, v, do, layout, dtype)
+    atol_o, atol_g = TOL[dtype]
+    rtol = 0 if dtype == torch.float32 else atol_o
+    np.testing.assert_allclose(o.detach().float().numpy(), want_o, atol=atol_o, rtol=rtol)
+    for t, w in zip(ts, want_g):
+        scale = 1.0 if dtype == torch.float32 else max(1.0, float(np.abs(w).max()))
+        np.testing.assert_allclose(t.grad.float().numpy(), w, atol=atol_g * scale, rtol=rtol)
+
+
+def _wide_fwd_emulated(q, k, v, scale, dtype):
+    """The wide forward's tiling on (B, H, N, D) f32 images of operands of
+    ``dtype``: one CTA a (64-query tile, 64-column slice of O), S summed over
+    64-column chunks of Q and K for each 64-key tile, an online softmax in
+    the log2 domain, P rounded to ``dtype`` before P V, the row sum of the
+    unrounded P."""
+    block = 64
+    Nq, Nk, D = q.shape[2], k.shape[2], q.shape[3]
+    o = torch.zeros_like(q)
+    for q0 in range(0, Nq, block):
+        qt = q[:, :, q0:q0 + block]
+        for c0 in range(0, D, block):  # one CTA a slice of O's columns
+            m = torch.full(qt.shape[:3] + (1,), -float("inf"))
+            l = torch.zeros_like(m)
+            acc = torch.zeros(qt.shape[:3] + (block,))
+            for k0 in range(0, Nk, block):
+                s = torch.zeros(qt.shape[:3] + (min(block, Nk - k0),))
+                for d0 in range(0, D, block):  # chunks of the contraction
+                    s = s + qt[..., d0:d0 + block] @ k[:, :, k0:k0 + block, d0:d0 + block].mT
+                s = s * (scale * tattn._LOG2E)
+                m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+                alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                acc = acc * alpha + p.to(dtype).float() @ v[:, :, k0:k0 + block, c0:c0 + block]
+                m = m_new
+            o[:, :, q0:q0 + block, c0:c0 + block] = acc / l
+    return o.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_wide_forward_tiling_matches_jax_flash_fwd(interpret_mode, dtype):
+    """The emulated tiling at D = 256, ragged in both lengths, against the
+    JAX ``_flash_fwd`` (``_fwd_kernel`` in interpret mode) and the plain
+    version."""
+    D, jdt = 256, (jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
+    q, k, v = _randn(17, (1, 2, 100, D), (1, 2, 70, D), (1, 2, 70, D))
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    got = _wide_fwd_emulated(tq.float(), tk.float(), tv.float(), D ** -0.5, dtype)
+    pad = lambda x, n: np.pad(x.reshape(2, -1, D), ((0, 0), (0, n - x.shape[2]), (0, 0)))  # noqa: E731
+    want, _ = jattn._flash_fwd(jnp.asarray(pad(q, 128), jdt), jnp.asarray(pad(k, 128), jdt),
+                               jnp.asarray(pad(v, 128), jdt), 70, 128, 128, with_lse=False)
+    want = np.asarray(jnp.asarray(want, jnp.float32))[:, :100].reshape(1, 2, 100, D)
+    atol = TOL[dtype][0]
+    rtol = 0 if dtype == torch.float32 else atol
+    np.testing.assert_allclose(got.float().numpy(), want, atol=atol, rtol=rtol)
+    plain = tattn.flash_attn_fwd_wide(tq, tk, tv, layout="bhnd")[0]  # CPU: plain version
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(), atol=atol, rtol=rtol)
+
+
+def _int8_f32_emulated(q8, sq, k8, sk, v):
+    """``flash_attn_int8_f32``'s online softmax on (B, H, N, D) operands:
+    exact integer scores times sq and sk, 64-key tiles, base 2, P and P V in
+    f32."""
+    block = 64
+    m = torch.full(q8.shape[:3] + (1,), -float("inf"))
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q8.shape[:3] + (v.shape[-1],))
+    for k0 in range(0, k8.shape[2], block):
+        s = (q8.double() @ k8[:, :, k0:k0 + block].double().mT).float()
+        s = s * sq[..., None] * sk[:, :, None, k0:k0 + block]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p @ v[:, :, k0:k0 + block]
+        m = m_new
+    return acc / l
+
+
+@pytest.mark.parametrize("D,Nq,Nk", [(40, 333, 200), (64, 130, 517)])
+def test_int8_f32_route_matches_jax_flash_int8(interpret_mode, D, Nq, Nk):
+    """The int8 route with f32 operands (``_fwd_kernel_T8`` on f32, which
+    keeps P in f32). ``_flash_int8`` quantises inside, so on JAX's own q8, sq,
+    k8, sk the plain version of ``flash_attn_int8_f32`` and the emulation of
+    its online softmax match it within f32 summation order and exp2 (atol
+    2e-5, as ``tests/test_torch_attention_int8.py`` holds K8's plain version
+    to it); the port's padded route (40 -> 64 zero columns, D's scale) gives
+    the unpadded int8 function within 1e-6, and JAX's whole route within
+    ``INT8_F32_ATOL`` (the two quantisers may round a K entry a tie apart)."""
+    B, H = 1, 2
+    q, k, v = _randn(40 + D, (B, H, Nq, D), (B, H, Nk, D), (B, H, Nk, D))
+    k = k + 0.5
+    jq, jk, jv = (jnp.asarray(x).reshape(B * H, -1, D) for x in (q, k, v))
+    bq, bk, Nq_p, Nk_p = jattn._block_geometry(Nq, Nk, 128, 128, D)
+    pad = lambda x, n: jnp.pad(x, ((0, 0), (0, n - x.shape[1]), (0, 0)))  # noqa: E731
+    want = np.asarray(jattn._flash_int8(pad(jq, Nq_p), pad(jk, Nk_p), pad(jv, Nk_p), Nk, bq, bk)
+                      )[:, :Nq].reshape(B, H, Nq, D)
+    # the operands ``_flash_int8`` quantises: padded to whole blocks (K's mean
+    # sums the zero rows too, so its last bits follow the padding)
+    q8, sq, k8, sk = (torch.from_numpy(np.array(x)) for x in jattn._quantize_qk_int8(
+        pad(jq, Nq_p), pad(jk, Nk_p), Nk))
+    ops = (q8[:, :Nq].reshape(B, H, Nq, D), sq[:, :Nq].reshape(B, H, Nq),
+           k8[:, :Nk].reshape(B, H, Nk, D), sk[:, :Nk].reshape(B, H, Nk))
+    tv = torch.from_numpy(v)
+    plain = tattn.flash_attn_int8_f32(*ops, tv, layout="bhnd")  # CPU: the plain version
+    emulated = _int8_f32_emulated(*ops, tv)
+    assert plain.dtype == torch.float32 and plain.shape == (B, H, Nq, D)
+    for got in (plain, emulated):
+        np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    unpadded = tattn.flash_attn_int8_f32(*tattn.quantize_qk_int8(tq, tk, "bhnd"), tv,
+                                         layout="bhnd")
+    padded = tattn._attention_padded(tq, tk, tv, "flash_int8", "bhnd")
+    np.testing.assert_allclose(padded.numpy(), unpadded.numpy(), atol=1e-6)
+    route = np.asarray(jattn.attention(*(jnp.asarray(x) for x in (q, k, v)), impl="flash_int8",
+                                       block_q=128, block_k=128))
+    np.testing.assert_allclose(padded.numpy(), route, atol=INT8_F32_ATOL)
 
 
 # ---- the card's route on meta operands, the C entry points recorded ----
@@ -189,10 +359,63 @@ def test_int8_route_pads_after_choosing_int8_by_the_original_head_dim(card_route
 
 
 def test_head_dim_above_128_raises_on_the_card_route(card_route):
+    """Nothing raises any more: D > 128 (inference, under grad and under
+    ``flash_int8``, which takes the exact route at D >= 128 as in the JAX
+    package) launches the wide entries at the padded width with D's scale,
+    and the int8 route with f32 operands launches ``flash_attn_int8_f32``."""
+    before = (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches,
+              tattn.flash_attn_int8_f32.launches)
     q = _meta((1, 64, 2, 160), torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="head_dim <= 128"):
-        tattn.attention(q, q, q, layout="bnhd")
+    assert tattn.attention(q, q, q, layout="bnhd").shape == q.shape
+    assert tattn.attention(q, q, q, impl="flash_int8", layout="bnhd").shape == q.shape
+    g = _meta((2, 3, 700, 256), torch.float32, grad=True)
+    o = tattn.attention(g, g, g)
+    assert o.dtype == torch.float32 and type(o.grad_fn).__name__ == "_FlashAttentionBackward"
+    o.sum().backward()
+    assert g.grad.shape == g.shape
     f = _meta((1, 5000, 2, 40), torch.float32)  # long rows: the int8 route
-    with pytest.raises(NotImplementedError, match="bf16 operands"):
-        tattn.attention(f, f, f, impl="flash_int8", layout="bnhd")
-    assert card_route == []
+    assert tattn.attention(f, f, f, impl="flash_int8", layout="bnhd").dtype == torch.float32
+    assert [e for e, _ in card_route] == [
+        "flash_attn_fwd_wide_bf16", "flash_attn_fwd_wide_bf16", "flash_attn_fwd_wide_f32",
+        "flash_attn_bwd_wide_f32", "flash_attn_int8_f32"]
+    (_, a_inf), (_, a_i8), (_, a_fwd), (_, a_bwd), (_, a_f32i8) = card_route
+    for args in (a_inf, a_i8):  # pointers q, k, v, o, lse, then B, H, Nq, Nk and the padded D
+        assert _scale_arg(args[9]) == 192
+        assert _scale_arg(args[-1]) == pytest.approx(160 ** -0.5 * tattn._LOG2E, rel=1e-7)
+    assert _scale_arg(a_fwd[9]) == 256
+    # twelve pointers (the last three the scratch), then B, H, Nq, Nk, D
+    assert tuple(_scale_arg(x) for x in a_bwd[12:17]) == (2, 3, 700, 700, 256)
+    assert _scale_arg(a_bwd[-1]) == pytest.approx(256 ** -0.5, rel=1e-7)
+    assert a_f32i8[6:11] == (1, 2, 5000, 5000, 64)  # six pointers, then B, H, Nq, Nk, D
+    assert (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches,
+            tattn.flash_attn_int8_f32.launches) == (before[0] + 3, before[1] + 1, before[2] + 1)
+
+
+@pytest.mark.parametrize("D,width", [(40, 64), (96, 128), (16, 16)])
+def test_int8_route_with_f32_operands_launches_the_f32_entry(card_route, D, width):
+    """f32 operands under ``flash_int8`` on the card's route: quantised with
+    D's scale, zero-padded to the width, through ``flash_attn_int8_f32``."""
+    q = _meta((2, 5000, 8, D), torch.float32)
+    o = tattn.attention(q, q, q, impl="flash_int8", layout="bnhd")
+    assert o.shape == q.shape and o.dtype == torch.float32
+    [(entry, args)] = card_route
+    assert entry == "flash_attn_int8_f32" and args[6:11] == (2, 8, 5000, 5000, width)
+
+
+@pytest.mark.parametrize("D,width,dtype", [(129, 192, torch.bfloat16), (200, 256, torch.float32),
+                                           (512, 512, torch.bfloat16)])
+def test_wide_launch_allocates_the_slices_scratch(card_route, D, width, dtype):
+    """Under grad above 128: the backward's scratch holds a turn counter per
+    (head, 64-column slice, 64-query tile) and the work counter, and the dQ
+    partial sums over whole query tiles when a tile has more than one key
+    tile."""
+    shape = (2, 3, 130, D)
+    q = _meta(shape, dtype, grad=True)
+    k = _meta((2, 3, 65, D), dtype, grad=True)
+    o = tattn.attention(q, k, k)
+    o.sum().backward()
+    assert q.grad.shape == shape and k.grad.shape == (2, 3, 65, D)
+    (e_fwd, _), (e_bwd, _) = card_route
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert (e_fwd, e_bwd) == (f"flash_attn_fwd_wide_{suffix}", f"flash_attn_bwd_wide_{suffix}")
+    assert tattn.bwd_f32_slices(width) == width // 64

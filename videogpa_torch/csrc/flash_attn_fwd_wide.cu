@@ -1,0 +1,659 @@
+// Attention forwards on the CUDA cores where the port's tensor-core kernels
+// do not apply (sm_90a): O = softmax(S) V, non-causal.
+//
+// 1. Any head_dim > 128 that is a multiple of 64, in float32 and bf16, with
+//    an optional natural-log LSE: `_fwd_kernel` (videogpa_tpu/ops/attention.py
+//    :65; calls at :175 with LSE and :186 without), which the JAX package runs
+//    at every D >= 128 (at D % 128 != 0 with its ones-column, :138-144). The
+//    port's wgmma kernels end at D = 128; `attention()` zero-pads any other
+//    D > 128 to the next multiple of 64 and passes D's scale. S = Q K^T * scale
+//    in the log2 domain, an exact online softmax, P rounded to the operands'
+//    dtype before P V (`p.astype(v_ref.dtype)`, :107-110), the row sum of the
+//    unrounded P, O rounded once. Bound: 4*B*H*Nq*Nk*D operations over the 67
+//    TFLOP/s f32 peak (the kernel runs on the CUDA cores in both dtypes).
+//    Design: at D = 128 the 64-row f32 tiles of K6's tiled kernel already take
+//    186 KB of the 227 KB a CTA may have, so D > 128 cannot widen the tile.
+//    Instead O's columns are split over the grid: one CTA per (64-query tile,
+//    64-column slice of O, b*h) on a flat grid (any B*H), and each CTA
+//    recomputes S over all of D, streaming 64-column chunks of Q and K of each
+//    64-key tile through two cp.async stages (the key tile's V slice rides
+//    with its last chunk). The thread layout is K6 f32's: 16 row groups of 4
+//    queries x 16 column groups, S a 4 x 4 micro-tile a thread, each row's 64
+//    keys reduced over a half-warp, P through shared memory as P^T, O a 4 x 4
+//    micro-tile a thread. A simple kernel: the wide heads run on no main path.
+//
+// 2. int8 QK^T with a float32 V at head_dim 16/32/64/128 (65-127 zero-padded
+//    to 128 by `attention()`): `_fwd_kernel_T8` (:640, call at :732) on float32
+//    operands, which casts P to V's dtype, here f32. S = int32(q8 k8^T) * sq *
+//    sk (exact integer scores by __dp4a, then the two scales; q8 carries
+//    scale * log2 e), an exact base-2 online softmax, P and P V in f32, O / l
+//    in f32. The operands are `quantize_qk_int8`'s. Bound: 2*B*H*Nq*Nk*D int8
+//    operations over the 1,979 TOP/s int8 peak plus 2*B*H*Nq*Nk*D f32 over 67
+//    TFLOP/s: the f32 P V. Design: K6 f32's tiled kernel with the q8 tile
+//    staged once, k8, its key scales and f32 V tiles of 64 keys double
+//    buffered by cp.async, S a 4 x 4 micro-tile of __dp4a sums a thread.
+//
+// Rows past Nq or Nk are never loaded; scores of keys past Nk are masked to
+// -inf before they are read, rows past Nq are never stored. Operands are
+// addressed through (b, n, h) element strides. Plain C interface (ctypes);
+// each entry returns cudaGetLastError() after its launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+#include <initializer_list>
+
+namespace {
+
+constexpr int kBlock = 64;            // queries a CTA, keys a tile
+constexpr int kThreads = 256;         // 16 row groups of 4 queries x 16 column groups
+constexpr int kPStride = kBlock + 4;  // floats a row of P^T
+constexpr int kChunk = 64;            // columns a chunk of Q, K and a slice of O and V
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
+                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
+}
+
+// Rows [row0, min(row0 + 64, n)) of an operand (row stride sn elements, W
+// contiguous elements from src) into shared-memory rows of RS elements; rows
+// past n are not written. 16-byte copies when every row starts on 16 bytes
+// (vec), else 4-byte copies (4-byte elements only).
+template <typename T, int W, int RS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long sn, int row0, int n,
+                                          bool vec) {
+  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  const int rows = min(kBlock, n - row0);
+  src += static_cast<long long>(row0) * sn;
+  if (vec) {
+    for (int c = threadIdx.x; c < rows * (W / kV); c += kThreads) {
+      const int r = c / (W / kV);
+      const int d = kV * (c % (W / kV));
+      cp_async_16(dst + r * RS + d, src + r * sn + d);
+    }
+  } else {
+    for (int c = threadIdx.x; c < rows * W; c += kThreads) {
+      const int r = c / W;
+      const int d = c % W;
+      cp_async_4(dst + r * RS + d, src + r * sn + d);
+    }
+  }
+}
+
+// The online-softmax step shared by both kernels: scores s (4 rows x keys cg
+// + 16 c, already in the log2 domain, keys >= Nk at -inf) update the running
+// max m and this thread's share of the row sums l; s becomes P; alpha is the
+// rescale of O. Each row's 64 keys are spread over the 16 lanes of a
+// half-warp.
+__device__ __forceinline__ void softmax_step(float (&s)[4][4], float (&m)[4], float (&l)[4],
+                                             float (&alpha)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mt = -INFINITY;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) mt = fmaxf(mt, s[i][c]);
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    const float mnew = fmaxf(m[i], mt);  // finite: the tile's first key is live
+    alpha[i] = exp2f(m[i] - mnew);       // 0 on the first tile
+    m[i] = mnew;
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[i][c] = exp2f(s[i][c] - mnew);
+      rs += s[i][c];
+    }
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
+// ---- 1. head_dim > 128, float32 or bf16 ----
+
+struct WideParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* lse;  // (B*H, Nq) or nullptr
+  int H, Nq, Nk, D, n_qt, n_slices, vec;
+  long long q_sb, q_sn, q_sh;
+  long long k_sb, k_sn, k_sh;
+  long long v_sb, v_sn, v_sh;
+  long long o_sb, o_sn, o_sh;
+  float scale_log2;
+};
+
+template <typename T>
+struct WideCfg {
+  static constexpr int kRS = kChunk + 16 / static_cast<int>(sizeof(T));  // elements a row
+  static constexpr int kTileElems = kBlock * kRS;
+  static constexpr int kStageBytes = 3 * kTileElems * static_cast<int>(sizeof(T));  // Q, K, V
+  static constexpr int kOffP = 2 * kStageBytes;
+  static constexpr int kBytes = kOffP + kBlock * kPStride * 4;
+};
+
+// One CTA per item = (b*h * n_slices + slice) * n_qt + query tile. Thread t
+// holds rows 4 (t / 16) + 0..3 of the tile; for S the keys t % 16 + 16 c of
+// the key tile, for O the slice's columns 4 (t % 16) + 0..3.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_wide_kernel(const WideParams p) {
+  using C = WideCfg<T>;
+  constexpr int kRS = C::kRS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int item = blockIdx.x;
+  const int i_tile = item % p.n_qt;
+  const int grp = item / p.n_qt;
+  const int slice = grp % p.n_slices;
+  const int bh = grp / p.n_slices;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bool vec = p.vec != 0;
+  const int rg = threadIdx.x / 16;
+  const int cg = threadIdx.x % 16;
+  const int q0 = i_tile * kBlock;
+  const bool rows_live = 4 * rg < p.Nq - q0;
+  const int n_ch = p.D / kChunk;
+  const int n_kt = (p.Nk + kBlock - 1) / kBlock;
+  const int n_stages = n_kt * n_ch;
+  float* sp = reinterpret_cast<float*>(smem + C::kOffP);
+
+  // stage s = key tile * n_ch + chunk: Q's and K's chunk, and with the last
+  // chunk the key tile's V slice
+  auto issue = [&](int s) {
+    T* sQ = reinterpret_cast<T*>(smem + (s & 1) * C::kStageBytes);
+    const int j = s / n_ch;
+    const int u = s % n_ch;
+    load_rows<T, kChunk, kRS>(sQ, q + u * kChunk, p.q_sn, q0, p.Nq, vec);
+    load_rows<T, kChunk, kRS>(sQ + C::kTileElems, k + u * kChunk, p.k_sn, j * kBlock, p.Nk, vec);
+    if (u == n_ch - 1) {
+      load_rows<T, kChunk, kRS>(sQ + 2 * C::kTileElems, v + slice * kChunk, p.v_sn, j * kBlock,
+                                p.Nk, vec);
+    }
+  };
+  issue(0);
+  cp_async_commit();
+
+  float acc[4][4], m[4], l[4], s[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int st = 0; st < n_stages; ++st) {
+    if (st + 1 < n_stages) issue(st + 1);
+    cp_async_commit();   // possibly empty: keeps the group count uniform
+    cp_async_wait<1>();  // everything but the prefetch has landed
+    __syncthreads();
+    const T* sQ = reinterpret_cast<const T*>(smem + (st & 1) * C::kStageBytes);
+    const T* sK = sQ + C::kTileElems;
+    const T* sV = sQ + 2 * C::kTileElems;
+    const int j = st / n_ch;
+    const int u = st % n_ch;
+    const int key0 = j * kBlock;
+    const int kn = min(kBlock, p.Nk - key0);  // live keys in this tile
+    if (u == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+      }
+    }
+    if (rows_live && cg < kn) {  // S += Q K^T over this chunk
+      const T* qa = sQ + 4 * rg * kRS;
+      const T* kb = sK + cg * kRS;
+#pragma unroll 4
+      for (int d = 0; d < kChunk; d += 4) {
+        float4 x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = ld4(qa + i * kRS + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[c] = ld4(kb + 16 * c * kRS + d);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[i][c] = fmaf(x[i].x, y[c].x, s[i][c]);
+            s[i][c] = fmaf(x[i].y, y[c].y, s[i][c]);
+            s[i][c] = fmaf(x[i].z, y[c].z, s[i][c]);
+            s[i][c] = fmaf(x[i].w, y[c].w, s[i][c]);
+          }
+        }
+      }
+    }
+    if (u == n_ch - 1) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = key0 + cg + 16 * c < p.Nk ? s[i][c] * p.scale_log2 : -INFINITY;
+        }
+      }
+      float alpha[4];
+      softmax_step(s, m, l, alpha);
+      // P^T, rounded to the operands' dtype for P V
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kPStride + 4 * rg) =
+            make_float4(round_to<T>(s[0][c]), round_to<T>(s[1][c]), round_to<T>(s[2][c]),
+                        round_to<T>(s[3][c]));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[i];
+      }
+      const T* vcol = sV + 4 * cg;
+#pragma unroll 4
+      for (int key = 0; key < (rows_live ? kn : 0); ++key) {
+        const float4 pk = *reinterpret_cast<const float4*>(sp + key * kPStride + 4 * rg);
+        const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
+        const float4 x = ld4(vcol + key * kRS);
+        const float vv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pr[i], vv[e], acc[i][e]);
+        }
+      }
+    }
+    __syncthreads();  // this stage's buffers and P^T are rewritten next
+  }
+
+  // epilogue: the row sums over the half-warp, O / l through the strides, LSE
+  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + slice * kChunk + 4 * cg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + 4 * rg + i;
+    if (row >= p.Nq) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[row * p.o_sn + e] = from_f<T>(acc[i][e] * inv);
+    if (p.lse != nullptr && slice == 0 && cg == 0) {
+      p.lse[static_cast<long long>(bh) * p.Nq + row] = (m[i] + log2f(l[i])) * kLn2;
+    }
+  }
+}
+
+template <typename T>
+int wide_entry(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+               int Nq, int Nk, int D, const long long* st, float scale_log2, void* stream) {
+  using C = WideCfg<T>;
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || D <= 128 || D % kChunk != 0) {
+    return cudaErrorInvalidValue;
+  }
+  WideParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.H = H; p.Nq = Nq; p.Nk = Nk; p.D = D;
+  p.n_qt = (Nq + kBlock - 1) / kBlock;
+  p.n_slices = D / kChunk;
+  p.q_sb = st[0]; p.q_sn = st[1]; p.q_sh = st[2];
+  p.k_sb = st[3]; p.k_sn = st[4]; p.k_sh = st[5];
+  p.v_sb = st[6]; p.v_sn = st[7]; p.v_sh = st[8];
+  p.o_sb = st[9]; p.o_sn = st[10]; p.o_sh = st[11];
+  p.scale_log2 = scale_log2;
+  constexpr long long kV = 16 / sizeof(T);
+  bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && st[i] % kV == 0;
+  if (sizeof(T) == 2 && !vec) return cudaErrorInvalidValue;  // bf16 copies are 16-byte
+  p.vec = vec ? 1 : 0;
+  const long long items = static_cast<long long>(B) * H * p.n_slices * p.n_qt;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  if (err != cudaSuccess) return err;
+  attn_wide_kernel<T><<<static_cast<unsigned int>(items), kThreads, C::kBytes,
+                        static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
+// ---- 2. int8 QK^T, float32 V ----
+
+struct Int8Params {
+  const int8_t* q8;
+  const float* sq;
+  const int8_t* k8;
+  const float* sk;
+  const float* v;
+  float* o;
+  int H, Nq, Nk, n_qt, vec;
+  long long q_sb, q_sn, q_sh;
+  long long sq_sb, sq_sn, sq_sh;
+  long long k_sb, k_sn, k_sh;
+  long long sk_sb, sk_sn, sk_sh;
+  long long v_sb, v_sn, v_sh;
+  long long o_sb, o_sn, o_sh;
+};
+
+template <int D>
+struct Int8Cfg {
+  static constexpr int kQS = D + 16;  // bytes a row of q8 or k8
+  static constexpr int kVS = D + 4;   // floats a row of V
+  static constexpr int kStageBytes = kBlock * kQS + kBlock * 4 + kBlock * kVS * 4;  // k8, sk, V
+  static constexpr int kOffStage = kBlock * kQS;  // after the q8 tile
+  static constexpr int kOffP = kOffStage + 2 * kStageBytes;
+  static constexpr int kBytes = kOffP + kBlock * kPStride * 4;
+  static constexpr int kW = D >= 64 ? 4 : D / 16;  // O columns a thread holds per chunk
+  static constexpr int kChunks = D / 16 / kW;     // chunks of kW columns, 16 * kW apart
+};
+
+// One CTA per (64-query tile, b*h), item = b*h * n_qt + query tile; the
+// thread layout of attn_wide_kernel, O over all D columns (kChunks x kW).
+template <int D>
+__global__ void __launch_bounds__(kThreads) attn_int8_f32_kernel(const Int8Params p) {
+  using C = Int8Cfg<D>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int item = blockIdx.x;
+  const int bh = item / p.n_qt;
+  const int q0 = (item % p.n_qt) * kBlock;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int8_t* q8 = p.q8 + b * p.q_sb + h * p.q_sh;
+  const int8_t* k8 = p.k8 + b * p.k_sb + h * p.k_sh;
+  const float* sk = p.sk + b * p.sk_sb + h * p.sk_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  const bool vec = p.vec != 0;
+  const int rg = threadIdx.x / 16;
+  const int cg = threadIdx.x % 16;
+  const int n_kt = (p.Nk + kBlock - 1) / kBlock;
+  const bool rows_live = 4 * rg < p.Nq - q0;
+  float* sp = reinterpret_cast<float*>(smem + C::kOffP);
+
+  auto issue = [&](int j) {
+    unsigned char* st = smem + C::kOffStage + (j & 1) * C::kStageBytes;
+    const int key0 = j * kBlock;
+    load_rows<int8_t, D, C::kQS>(reinterpret_cast<int8_t*>(st), k8, p.k_sn, key0, p.Nk, true);
+    if (static_cast<int>(threadIdx.x) < min(kBlock, p.Nk - key0)) {
+      cp_async_4(st + kBlock * C::kQS + 4 * threadIdx.x, sk + (key0 + threadIdx.x) * p.sk_sn);
+    }
+    load_rows<float, D, C::kVS>(reinterpret_cast<float*>(st + kBlock * C::kQS + kBlock * 4), v,
+                                p.v_sn, key0, p.Nk, vec);
+  };
+  load_rows<int8_t, D, C::kQS>(reinterpret_cast<int8_t*>(smem), q8, p.q_sn, q0, p.Nq, true);
+  issue(0);
+  cp_async_commit();
+
+  float sqr[4];  // the rows' scales
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * rg + i;
+    sqr[i] = row < p.Nq ? p.sq[b * p.sq_sb + row * p.sq_sn + h * p.sq_sh] : 0.f;
+  }
+  float acc[4][C::kChunks * C::kW], m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < C::kChunks * C::kW; ++e) acc[i][e] = 0.f;
+  }
+  const unsigned char* sq8 = smem + 4 * rg * C::kQS;
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) issue(j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const unsigned char* st = smem + C::kOffStage + (j & 1) * C::kStageBytes;
+    const float* ssk = reinterpret_cast<const float*>(st + kBlock * C::kQS);
+    const float* sv = ssk + kBlock;
+    const int key0 = j * kBlock;
+    const int kn = min(kBlock, p.Nk - key0);
+
+    // the exact integer scores: 4 rows x 4 keys a thread, 16 bytes a step
+    int si[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) si[i][c] = 0;
+    }
+    if (rows_live && cg < kn) {
+      const unsigned char* skb = st + cg * C::kQS;
+#pragma unroll
+      for (int d = 0; d < D; d += 16) {
+        int4 x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const int4*>(sq8 + i * C::kQS + d);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          y[c] = *reinterpret_cast<const int4*>(skb + 16 * c * C::kQS + d);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            si[i][c] = __dp4a(x[i].x, y[c].x, si[i][c]);
+            si[i][c] = __dp4a(x[i].y, y[c].y, si[i][c]);
+            si[i][c] = __dp4a(x[i].z, y[c].z, si[i][c]);
+            si[i][c] = __dp4a(x[i].w, y[c].w, si[i][c]);
+          }
+        }
+      }
+    }
+    // S = s * sq * sk in the log2 domain; keys >= Nk at -inf
+    float s[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int key = cg + 16 * c;
+      const bool live = key0 + key < p.Nk;
+      const float skv = live ? ssk[key] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][c] = live ? static_cast<float>(si[i][c]) * sqr[i] * skv : -INFINITY;
+      }
+    }
+    float alpha[4];
+    softmax_step(s, m, l, alpha);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kPStride + 4 * rg) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+    }
+    __syncthreads();
+
+    // O = O * alpha + P V in f32
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int e = 0; e < C::kChunks * C::kW; ++e) acc[i][e] *= alpha[i];
+    }
+    const float* vcol = sv + C::kW * cg;
+#pragma unroll 4
+    for (int key = 0; key < (rows_live ? kn : 0); ++key) {
+      const float4 pk = *reinterpret_cast<const float4*>(sp + key * kPStride + 4 * rg);
+      const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
+#pragma unroll
+      for (int c = 0; c < C::kChunks; ++c) {
+        float vv[C::kW];
+        const float* vrow = vcol + key * C::kVS + 16 * C::kW * c;
+        if constexpr (C::kW == 4) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow);
+          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < C::kW; ++e) vv[e] = vrow[e];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < C::kW; ++e) {
+            acc[i][c * C::kW + e] = fmaf(pr[i], vv[e], acc[i][c * C::kW + e]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // buffer j & 1 and P^T are rewritten next
+  }
+
+  float* o = p.o + b * p.o_sb + h * p.o_sh + C::kW * cg;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int row = q0 + 4 * rg + i;
+    if (row >= p.Nq) continue;
+    const float inv = 1.f / l[i];
+#pragma unroll
+    for (int c = 0; c < C::kChunks; ++c) {
+#pragma unroll
+      for (int e = 0; e < C::kW; ++e) {
+        o[row * p.o_sn + 16 * C::kW * c + e] = acc[i][c * C::kW + e] * inv;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_int8(const Int8Params& p, int B, cudaStream_t stream) {
+  constexpr int bytes = Int8Cfg<D>::kBytes;
+  const long long items = static_cast<long long>(B) * p.H * p.n_qt;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_int8_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  attn_int8_f32_kernel<D><<<static_cast<unsigned int>(items), kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t attrs_of(K kernel, int bytes, int* regs, int* smem_bytes) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess) {
+    *regs = a.numRegs;
+    *smem_bytes = bytes;
+  }
+  return err;
+}
+
+}  // namespace
+
+#define VIDEOGPA_WIDE_ARGS                                                                      \
+  const void *q, const void *k, const void *v, void *o, void *lse, int B, int H, int Nq,       \
+      int Nk, int D, long long q_sb, long long q_sn, long long q_sh, long long k_sb,           \
+      long long k_sn, long long k_sh, long long v_sb, long long v_sn, long long v_sh,          \
+      long long o_sb, long long o_sn, long long o_sh, float scale_log2, void *stream
+#define VIDEOGPA_WIDE_STRIDES                                                                   \
+  const long long st[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,              \
+                            o_sb, o_sn, o_sh}
+
+extern "C" int videogpa_flash_attn_fwd_wide_f32(VIDEOGPA_WIDE_ARGS) {
+  VIDEOGPA_WIDE_STRIDES;
+  return wide_entry<float>(q, k, v, o, lse, B, H, Nq, Nk, D, st, scale_log2, stream);
+}
+
+extern "C" int videogpa_flash_attn_fwd_wide_bf16(VIDEOGPA_WIDE_ARGS) {
+  VIDEOGPA_WIDE_STRIDES;
+  return wide_entry<__nv_bfloat16>(q, k, v, o, lse, B, H, Nq, Nk, D, st, scale_log2, stream);
+}
+
+// strides: (b, n, h) of q8, sq, k8, sk, v, o in that order (K8's interface)
+extern "C" int videogpa_flash_attn_int8_f32(
+    const void* q8, const void* sq, const void* k8, const void* sk, const void* v, void* o,
+    int B, int H, int Nq, int Nk, int D, long long q_sb, long long q_sn, long long q_sh,
+    long long sq_sb, long long sq_sn, long long sq_sh, long long k_sb, long long k_sn,
+    long long k_sh, long long sk_sb, long long sk_sn, long long sk_sh, long long v_sb,
+    long long v_sn, long long v_sh, long long o_sb, long long o_sn, long long o_sh,
+    void* stream) {
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
+  Int8Params p;
+  p.q8 = static_cast<const int8_t*>(q8);
+  p.sq = static_cast<const float*>(sq);
+  p.k8 = static_cast<const int8_t*>(k8);
+  p.sk = static_cast<const float*>(sk);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.H = H; p.Nq = Nq; p.Nk = Nk;
+  p.n_qt = (Nq + kBlock - 1) / kBlock;
+  p.q_sb = q_sb; p.q_sn = q_sn; p.q_sh = q_sh;
+  p.sq_sb = sq_sb; p.sq_sn = sq_sn; p.sq_sh = sq_sh;
+  p.k_sb = k_sb; p.k_sn = k_sn; p.k_sh = k_sh;
+  p.sk_sb = sk_sb; p.sk_sn = sk_sn; p.sk_sh = sk_sh;
+  p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
+  // q8 and k8 rows are copied by 16 bytes (the wrapper checks the rule); V
+  // by 16 bytes when every row starts on 16 bytes, else by 4
+  if ((reinterpret_cast<uintptr_t>(q8) | reinterpret_cast<uintptr_t>(k8)) % 16 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  for (long long s : {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh}) {
+    if (s % 16 != 0) return cudaErrorInvalidValue;
+  }
+  bool vec = reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  for (long long s : {v_sb, v_sn, v_sh}) vec = vec && s % 4 == 0;
+  p.vec = vec ? 1 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch_int8<16>(p, B, s);
+    case 32: return launch_int8<32>(p, B, s);
+    case 64: return launch_int8<64>(p, B, s);
+    case 128: return launch_int8<128>(p, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// registers a thread and dynamic shared memory a CTA, for reports: the wide
+// kernel in f32 (bf16 = 0) or bf16, the int8 / f32 kernel at head_dim D
+extern "C" int videogpa_flash_attn_fwd_wide_attrs(int bf16, int* regs, int* smem_bytes) {
+  return bf16 ? attrs_of(attn_wide_kernel<__nv_bfloat16>, WideCfg<__nv_bfloat16>::kBytes, regs,
+                         smem_bytes)
+              : attrs_of(attn_wide_kernel<float>, WideCfg<float>::kBytes, regs, smem_bytes);
+}
+
+extern "C" int videogpa_flash_attn_int8_f32_attrs(int D, int* regs, int* smem_bytes) {
+  switch (D) {
+    case 16: return attrs_of(attn_int8_f32_kernel<16>, Int8Cfg<16>::kBytes, regs, smem_bytes);
+    case 32: return attrs_of(attn_int8_f32_kernel<32>, Int8Cfg<32>::kBytes, regs, smem_bytes);
+    case 64: return attrs_of(attn_int8_f32_kernel<64>, Int8Cfg<64>::kBytes, regs, smem_bytes);
+    case 128: return attrs_of(attn_int8_f32_kernel<128>, Int8Cfg<128>::kBytes, regs, smem_bytes);
+    default: return cudaErrorInvalidValue;
+  }
+}

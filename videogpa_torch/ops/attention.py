@@ -21,12 +21,21 @@ the kernel or raises. There is no fallback from one to the other.
   V staged in shared memory by 64-key tiles), for short and long rows.
 - ``flash_attn_bwd_f32`` (the float32 entry of K3/K7,
   ``csrc/flash_attn_bwd_f32.cu``): its backward at head_dim 16-128 on CUDA
-  cores, a delta prologue, a dK/dV kernel over key tiles and a dQ kernel
-  over query tiles; each gradient is written once, so runs are bit-stable.
+  cores, a delta prologue and one fused kernel over key tiles (a persistent
+  grid) that sums dQ across key tiles in a fixed order, so runs are
+  bit-stable.
+- ``flash_attn_fwd_wide`` (``csrc/flash_attn_fwd_wide.cu``) and
+  ``flash_attn_bwd_wide`` (``csrc/flash_attn_bwd_f32.cu``): the forward and
+  backward at any head_dim above 128 that is a multiple of 64, float32 or
+  bf16, on CUDA cores (64-column slices of O and of the gradients, S
+  recomputed over all of D by each slice).
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
   ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128; QK^T
   on int8 wgmma, PV on bf16 wgmma, TMA, a persistent grid.
+- ``flash_attn_int8_f32`` (``csrc/flash_attn_fwd_wide.cu``): the same
+  function with a float32 V at head_dim 16-128, on CUDA cores (``__dp4a``
+  integer scores, P and PV in f32).
 
 ``attention`` routes as the JAX package does for bf16, and sends float32
 operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
@@ -34,11 +43,12 @@ and rounding f32 operands would move the f32 heads away from the JAX
 package's.
 It differentiates with a ``torch.autograd.Function`` whenever an operand
 requires grad: through K1 and K3 at head_dim < 128, through K6 and K7 at
-head_dim 128, through K6's and K3/K7's float32 entries for float32 operands.
-On CUDA a head_dim between the kernels' widths (16, 32, 64, 128) is
-zero-padded to the next one, with the softmax scale of the original head_dim
-passed to the kernel and O sliced back: zero columns add nothing to QK^T or
-to PV, so the function is the same.
+head_dim 128, through K6's and K3/K7's float32 entries for float32 operands,
+through the wide entries above 128. On CUDA a head_dim between the kernels'
+widths (16, 32, 64, 128, then every multiple of 64) is zero-padded to the
+next one, with the softmax scale of the original head_dim passed to the
+kernel and O sliced back: zero columns add nothing to QK^T or to PV, so the
+function is the same.
 """
 
 from __future__ import annotations
@@ -52,8 +62,14 @@ from videogpa_torch.ops import _kernels
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 KERNEL_HEAD_DIMS = (16, 32, 64)
-# the head dims some kernel takes; ``attention`` pads any D <= 128 up to one
+# the head dims some kernel takes up to 128; above it the wide entries take
+# every multiple of WIDE_MULTIPLE, and ``attention`` pads any D up to one
 HEAD_DIM_WIDTHS = (16, 32, 64, 128)
+WIDE_MULTIPLE = 64
+
+
+# the head dims of the wide entries: every multiple of 64 above 128
+WIDE_HEAD_DIMS = range(128 + WIDE_MULTIPLE, 1 << 16, WIDE_MULTIPLE)
 
 
 def _scale(D: int, softmax_scale: Optional[float]) -> float:
@@ -61,12 +77,12 @@ def _scale(D: int, softmax_scale: Optional[float]) -> float:
 
 
 def padded_head_dim(D: int) -> int:
-    """The least kernel width (16, 32, 64, 128) that holds head_dim ``D``;
-    raises ``NotImplementedError`` above 128, which no kernel takes."""
+    """The least kernel width that holds head_dim ``D``: 16, 32, 64 or 128,
+    and above 128 the next multiple of 64 (160 -> 192; 256 and 512 stay)."""
     for w in HEAD_DIM_WIDTHS:
         if D <= w:
             return w
-    raise NotImplementedError(f"attention on CUDA takes head_dim <= 128, got {D}")
+    return _round_up(D, WIDE_MULTIPLE)
 
 
 def _reference(q, k, v, n_valid=None, with_lse=False, softmax_scale=None):
@@ -178,42 +194,56 @@ def _ptr(x: Optional[torch.Tensor]):
     return x.data_ptr() if x is not None else None
 
 
-# Launch geometry of the forward wrappers by their operands' geometry (entry,
-# layout, dtypes, devices, shapes, strides): operands whose geometry passed
-# ``_check_operands`` once pass it again, so a hit skips the checks and the
-# stride arithmetic and checks only the base addresses anew (TMA's 16-byte
-# rule). The geometry is kept as ctypes values of the C entry's argument
-# types, which a call passes without converting them. The camera head's f32
-# attention is a few microseconds on the card, so its wrapper's host path is
-# what a launch costs.
-_FWD_GEOMETRY: dict = {}
-_FWD_GEOMETRY_MAX = 256
+# Launch geometry of the forward and CUDA-core backward wrappers by their
+# operands' geometry (entry, layout, scale, dtypes, devices, shapes,
+# strides): operands whose geometry passed the checks once pass them again,
+# so a hit skips the checks and the stride arithmetic and checks only the
+# base addresses anew (TMA's and the 16-byte copies' rule). The geometry is
+# kept as ctypes values of the C entry's argument types, which a call passes
+# without converting them. The camera head's f32 attention is a few
+# microseconds on the card, so its wrapper's host path is what a launch
+# costs.
+_GEOMETRY: dict = {}
+_GEOMETRY_MAX = 256
 _FWD_GEOMETRY_TYPES = _kernels._FWD_ARGS[5:-1]  # B, H, Nq, Nk, D, 12 strides, scale
+
+
+def _geometry(fn_name: str, entry: str, layout: str, softmax_scale, dtype, names, tensors,
+              build):
+    """The cached launch geometry of ``entry`` for ``tensors``, made by
+    ``build()`` (which runs the checks) on a miss. On a hit, bf16 operands
+    named in ``names`` (the first ``len(names)`` tensors) are held to the
+    16-byte rule again."""
+    key = (entry, layout, softmax_scale,
+           *[(x.dtype, x.get_device(), x.shape, x.stride()) for x in tensors])
+    geo = _GEOMETRY.get(key)
+    if geo is None:
+        geo = build()
+        if len(_GEOMETRY) >= _GEOMETRY_MAX:
+            _GEOMETRY.clear()
+        _GEOMETRY[key] = geo
+    elif dtype == torch.bfloat16:
+        for name, x in zip(names, tensors):
+            check_16_bytes(fn_name, name, x)
+    return geo
 
 
 def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head_dims,
                 softmax_scale=None):
     """Shared launch of a forward kernel with ``flash_attn_fwd``'s C interface
     (K1, K6 bf16, K6 f32: flat or persistent grids, any B*H)."""
-    key = (entry, layout, q.dtype, k.dtype, v.dtype, q.get_device(), k.get_device(),
-           v.get_device(), q.shape, k.shape, v.shape, q.stride(), k.stride(), v.stride(),
-           softmax_scale)
-    geo = _FWD_GEOMETRY.get(key)
-    if geo is None:
+
+    def build():
         B, Nq, H, D, Nk = _check_operands(fn_name, layout, q, k, v, dtype=dtype,
                                           head_dims=head_dims)
         # O is contiguous in the layout: its (b, n, h) strides follow from the shape
         o_strides = (Nq * H * D, H * D, D) if layout == "bnhd" else (H * Nq * D, D, Nq * D)
         args = (B, H, Nq, Nk, D, *_dims(q, layout)[4:], *_dims(k, layout)[4:],
                 *_dims(v, layout)[4:], *o_strides, _scale(D, softmax_scale) * _LOG2E)
-        geo = ((B, H, Nq), tuple(t(x) for t, x in zip(_FWD_GEOMETRY_TYPES, args)))
-        if len(_FWD_GEOMETRY) >= _FWD_GEOMETRY_MAX:
-            _FWD_GEOMETRY.clear()
-        _FWD_GEOMETRY[key] = geo
-    elif dtype == torch.bfloat16:
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            check_16_bytes(fn_name, name, x)
-    lse_shape, args = geo
+        return (B, H, Nq), tuple(t(x) for t, x in zip(_FWD_GEOMETRY_TYPES, args))
+
+    lse_shape, args = _geometry(fn_name, entry, layout, softmax_scale, dtype, "qkv", (q, k, v),
+                                build)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = q.new_empty(lse_shape, dtype=torch.float32) if with_lse else None
     _call(fn_name, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -576,11 +606,16 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
     the same Pallas backward kernels. Same arguments and results as
     ``flash_attn_bwd``; Nq may differ from Nk.
 
-    Three launches: a prologue writes delta = rowsum(O * dO), one kernel
-    walks the query tiles for each 64-key tile (dK, dV) and one walks the
-    key tiles for each 64-query tile (dQ). Every gradient element is summed
-    by one thread in a fixed order and written once, so two runs give the
-    same bits.
+    Two launches: a prologue writes delta = rowsum(O * dO); one kernel takes
+    (64-key tile, column slice, b*h) items on a persistent grid, walks the
+    query tiles (five products: S, dP, dV, dK and dQ's partial) and adds dQ's
+    partials of a query tile in a fixed order of the key tiles. Every
+    gradient element is summed in the same order on every run, so two runs
+    give the same bits. While a head's key tiles fit the grid, they walk
+    the query tiles diagonally, which can make a key tile wait on a later
+    one: that grid is started by a cooperative launch, which runs it only
+    with every CTA resident (else the in-order walk runs, as it does for
+    longer rows); the header of ``csrc/flash_attn_bwd_f32.cu`` has the order.
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
     tensors must be float32 with D in ``F32_HEAD_DIMS``, at any B*H; anything
@@ -592,30 +627,139 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
     if not _on_card(q):
         raise ValueError(f"flash_attn_bwd_f32: unsupported device {q.device}")
-    grads = _launch_bwd_f32(q, k, v, o, lse, do, layout, softmax_scale)
+    grads = _launch_bwd_f32("flash_attn_bwd_f32", "flash_attn_bwd_f32", F32_HEAD_DIMS,
+                            torch.float32, q, k, v, o, lse, do, layout, softmax_scale)
     flash_attn_bwd_f32.launches += 1
     return grads
 
 
 flash_attn_bwd_f32.launches = 0
 
+# The CUDA-core backward's tiles (csrc/flash_attn_bwd_f32.cu): 64 keys a work
+# item, 64 queries a tile, and above head_dim 64 the gradients in slices of
+# 64 columns, each slice an item of its own.
+BWD_F32_BLOCK, BWD_F32_SLICE = 64, 64
 
-def _launch_bwd_f32(q, k, v, o, lse, do, layout, softmax_scale=None):
-    """Validate the f32 backward's operands and launch it (flat grids: any
-    B*H); the wrapper allocates delta, the prologue's f32 output."""
-    B, Nq, H, D, Nk = _check_bwd_operands("flash_attn_bwd_f32", layout, F32_HEAD_DIMS,
-                                          q, k, v, o, lse, do, dtype=torch.float32)
-    delta = torch.empty((B * H, Nq), dtype=torch.float32, device=q.device)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    strides = []
-    for x in (q, k, v, o, do, dq, dk, dv):
-        strides += _dims(x, layout)[4:]
-    _call("flash_attn_bwd_f32", "flash_attn_bwd_f32", q.device,
-          *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv, delta)),
-          B, H, Nq, Nk, D, *strides, _scale(D, softmax_scale))
+
+def bwd_f32_slices(D: int) -> int:
+    """Column slices of the CUDA-core backward at head_dim ``D``."""
+    return 1 if D <= BWD_F32_SLICE else D // BWD_F32_SLICE
+
+
+def flash_attn_bwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        lse: torch.Tensor, do: torch.Tensor, layout: str = "bnhd",
+                        softmax_scale: Optional[float] = None):
+    """The backward at any head_dim above 128 that is a multiple of 64, in
+    float32 or bf16: the gradients of ``flash_attn_fwd_wide`` given its
+    output O, its natural-log LSE and dO (``_dq_kernel`` / ``_dkv_kernel``,
+    which the JAX package runs at every D >= 128). The kernel of
+    ``flash_attn_bwd_f32`` with 64-column slices of the gradients, each
+    slice's items recomputing S and dP over all of D; bf16 operands are
+    widened on load, P is rounded to bf16 before dV and dS before dQ and dK,
+    as the JAX kernels round them. Same arguments and results as
+    ``flash_attn_bwd``; two runs give the same bits.
+
+    CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
+    tensors must be float32 or bf16 (bf16 meeting ``check_16_bytes``) with D
+    in ``WIDE_HEAD_DIMS``, at any B*H; anything else raises. Each call adds
+    one to ``flash_attn_bwd_wide.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.is_cpu:
+        return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
+    if not _on_card(q):
+        raise ValueError(f"flash_attn_bwd_wide: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attn_bwd_wide: q must be float32 or bfloat16, got {q.dtype}")
+    entry = "flash_attn_bwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_bwd_wide_f32"
+    grads = _launch_bwd_f32("flash_attn_bwd_wide", entry, WIDE_HEAD_DIMS, q.dtype,
+                            q, k, v, o, lse, do, layout, softmax_scale)
+    flash_attn_bwd_wide.launches += 1
+    return grads
+
+
+flash_attn_bwd_wide.launches = 0
+
+
+_BWD_F32_TYPES = _kernels._BWD_F32_ARGS[12:-1]  # B, H, Nq, Nk, D, 24 strides, scale
+
+
+def _contiguous_strides(shape, layout):
+    """The (b, n, h) element strides of a new contiguous tensor of ``shape``."""
+    _, n1, n2, D = shape
+    strides = (n1 * n2 * D, n2 * D, D)
+    return strides if layout == "bnhd" else (strides[0], strides[2], strides[1])
+
+
+def _launch_bwd_f32(fn_name: str, entry: str, head_dims, dtype, q, k, v, o, lse, do, layout,
+                    softmax_scale=None):
+    """Validate the CUDA-core backward's operands and launch it (a
+    persistent grid: any B*H). The wrapper allocates the gradients and one
+    f32 scratch: delta, the dQ partial sums (only when a query tile has more
+    than one key tile) and the int32 turn counters with the work counter
+    after them, which the prologue zeroes."""
+
+    def build():
+        B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, head_dims, q, k, v, o, lse,
+                                              do, dtype=dtype)
+        n_qt, n_kt = -(-Nq // BWD_F32_BLOCK), -(-Nk // BWD_F32_BLOCK)
+        n_delta = _round_up(B * H * Nq, 4)  # the partial sums start on 16 bytes
+        n_acc = B * H * n_qt * BWD_F32_BLOCK * D if n_kt > 1 else 0
+        n_turn = B * H * bwd_f32_slices(D) * n_qt + 1
+        strides = []
+        for x in (q, k, v, o, do):
+            strides += _dims(x, layout)[4:]
+        for x in (q, k, v):  # dq, dk, dv
+            strides += _contiguous_strides(x.shape, layout)
+        args = (B, H, Nq, Nk, D, *strides, _scale(D, softmax_scale))
+        return (n_delta, n_acc, n_turn), tuple(t(x) for t, x in zip(_BWD_F32_TYPES, args))
+
+    (n_delta, n_acc, n_turn), args = _geometry(fn_name, entry, layout, softmax_scale, dtype,
+                                               ("q", "k", "v", "o", "do"),
+                                               (q, k, v, o, do, lse), build)
+    scratch = lse.new_empty(n_delta + n_acc + n_turn)  # f32, on q's device
+    base = scratch.data_ptr()
+    dq, dk, dv = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+    _call(fn_name, entry, q.device,
+          *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv)), base,
+          base + 4 * n_delta if n_acc else None, base + 4 * (n_delta + n_acc), *args)
     return dq, dk, dv
+
+
+def flash_attn_fwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        layout: str = "bnhd", with_lse: bool = False,
+                        softmax_scale: Optional[float] = None):
+    """K6's function at any head_dim above 128 that is a multiple of 64, in
+    float32 or bf16 (``_fwd_kernel``, which the JAX package runs at every D >=
+    128). Same arguments and results as ``flash_attn_fwd``.
+
+    A tiled kernel on the CUDA cores: one CTA per (64-query tile, 64-column
+    slice of O, b*h) streams 64-column chunks of Q and K and recomputes S
+    over all of D; P is rounded to the operands' dtype before P V, as the JAX
+    kernel rounds it.
+
+    CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
+    tensors must be float32 or bf16 (bf16 meeting ``check_16_bytes``) with D
+    in ``WIDE_HEAD_DIMS``, at any B*H; anything else raises. Each launch adds
+    one to ``flash_attn_fwd_wide.launches``.
+    """
+    if layout not in ("bnhd", "bhnd"):
+        raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if q.is_cpu:
+        return flash_attn_fwd_reference(q, k, v, layout, with_lse, softmax_scale)
+    if not _on_card(q):
+        raise ValueError(f"flash_attn_fwd_wide: unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attn_fwd_wide: q must be float32 or bfloat16, got {q.dtype}")
+    entry = "flash_attn_fwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_fwd_wide_f32"
+    out = _launch_fwd("flash_attn_fwd_wide", entry, q, k, v, layout, with_lse, q.dtype,
+                      WIDE_HEAD_DIMS, softmax_scale)
+    flash_attn_fwd_wide.launches += 1
+    return out
+
+
+flash_attn_fwd_wide.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -684,8 +828,9 @@ def flash_attn_int8_reference(q8, sq, k8, sk, v, layout: str = "bnhd") -> torch.
     return o.contiguous()
 
 
-def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.Tensor:
-    """Both int8-QK wrappers: the plain version for CPU tensors, the entry
+def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout,
+                  v_dtype=torch.bfloat16) -> torch.Tensor:
+    """The int8-QK wrappers: the plain version for CPU tensors, the entry
     point ``fn_name`` for CUDA tensors."""
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -693,26 +838,29 @@ def _int8_forward(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.T
         return flash_attn_int8_reference(q8, sq, k8, sk, v, layout)
     if not _on_card(q8):
         raise ValueError(f"{fn_name}: unsupported device {q8.device}")
-    return _launch_int8(fn_name, head_dims, q8, sq, k8, sk, v, layout)
+    return _launch_int8(fn_name, head_dims, q8, sq, k8, sk, v, layout, v_dtype)
 
 
-def _launch_int8(fn_name: str, head_dims, q8, sq, k8, sk, v, layout) -> torch.Tensor:
+def _launch_int8(fn_name: str, head_dims, q8, sq, k8, sk, v, layout,
+                 v_dtype=torch.bfloat16) -> torch.Tensor:
     """Validate the int8-QK operands and launch the entry point ``fn_name``
-    (K8 and K9 share one C interface), at any B*H."""
+    (K8, K9 and the f32-V entry share one C interface), at any B*H. A bf16 V
+    meets TMA's rule; an f32 V is copied by 16 or 4 bytes as it is aligned."""
     B, Nq, H, D, _, _, _ = _dims(q8, layout)
     Bk, Nk, Hk, Dk, _, _, _ = _dims(k8, layout)
     for name, x, dtype in (("q8", q8, torch.int8), ("k8", k8, torch.int8),
                            ("sq", sq, torch.float32), ("sk", sk, torch.float32),
-                           ("v", v, torch.bfloat16)):
+                           ("v", v, v_dtype)):
         if x.device != q8.device:
             raise ValueError(f"{fn_name}: {name} on {x.device}, q8 on {q8.device}")
         if x.dtype != dtype:
             raise TypeError(f"{fn_name}: {name} must be {dtype}, got {x.dtype}")
-    # TMA's rule for q8, k8 and v (``check_16_bytes``)
+    # TMA's rule for q8, k8 and a bf16 v (``check_16_bytes``)
     for name, x in (("q8", q8), ("k8", k8), ("v", v)):
         if x.stride(-1) != 1:
             raise ValueError(f"{fn_name}: {name} needs a contiguous last dim")
-        check_16_bytes(fn_name, name, x)
+        if x is not v or v_dtype == torch.bfloat16:
+            check_16_bytes(fn_name, name, x)
     if ((Bk, Hk, Dk) != (B, H, D) or v.shape != k8.shape or sq.shape != q8.shape[:-1]
             or sk.shape != k8.shape[:-1]):
         shapes = {n: tuple(x.shape) for n, x in
@@ -786,27 +934,62 @@ def flash_attn_int8_d128(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
 flash_attn_int8_d128.launches = 0
 
 
+def flash_attn_int8_f32(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
+                        sk: torch.Tensor, v: torch.Tensor,
+                        layout: str = "bnhd") -> torch.Tensor:
+    """K8's function with a float32 V (``_fwd_kernel_T8`` on f32 operands,
+    which casts P to V's dtype): softmax2(int32(q8 k8^T) * sq * sk) V with P
+    and P V in f32, at head_dim 16, 32, 64 or 128 (``attention`` pads 65-127
+    to 128). A tiled kernel on the CUDA cores: ``__dp4a`` integer scores, an
+    exact online softmax, f32 FMAs for P V. Returns O in f32, a new
+    contiguous tensor shaped like q8. Takes any sq.
+
+    CPU tensors take the plain version. CUDA tensors must have V in float32
+    and q8, k8 that meet TMA's 16-byte rule (``check_16_bytes``), at any B*H;
+    anything else raises. Each kernel launch adds one to
+    ``flash_attn_int8_f32.launches``.
+    """
+    o = _int8_forward("flash_attn_int8_f32", HEAD_DIM_WIDTHS, q8, sq, k8, sk, v, layout,
+                      torch.float32)
+    if not q8.is_cpu:
+        flash_attn_int8_f32.launches += 1
+    return o
+
+
+flash_attn_int8_f32.launches = 0
+
+
+def _card_f32(x) -> bool:
+    """A float32 operand off the CPU: the card routes it to the f32 entries
+    (on the CPU every wrapper takes its plain version, so there the route is
+    picked by head_dim alone)."""
+    return x.dtype == torch.float32 and not x.is_cpu
+
+
 class _FlashAttention(torch.autograd.Function):
     """A forward kernel with LSE and its backward kernel: ``flash_attn_fwd``
     and ``flash_attn_bwd`` at head_dim < 128, ``flash_attn_fwd_d128`` and
-    ``flash_attn_bwd_d128`` at head_dim >= 128, as ``_flash_fwd`` and
+    ``flash_attn_bwd_d128`` at head_dim 128, as ``_flash_fwd`` and
     ``_flash_bwd`` split in the JAX package; ``flash_attn_fwd_f32`` and
-    ``flash_attn_bwd_f32`` for float32 operands, as the JAX ``_flash``
-    differentiates f32 through the same kernels (on the CPU every wrapper
-    takes its plain version, so there the pair is picked by head_dim alone).
-    The counterpart of the JAX ``_flash`` and ``_attention_bnhd_vjp`` custom
-    vjps."""
+    ``flash_attn_bwd_f32`` for float32 operands up to 128, as the JAX
+    ``_flash`` differentiates f32 through the same kernels;
+    ``flash_attn_fwd_wide`` and ``flash_attn_bwd_wide`` above 128 in either
+    dtype. The counterpart of the JAX ``_flash`` and ``_attention_bnhd_vjp``
+    custom vjps."""
 
     @staticmethod
-    def _f32(q) -> bool:
-        return q.dtype == torch.float32 and not q.is_cpu
+    def _pair(q):
+        if q.shape[-1] > 128:
+            return flash_attn_fwd_wide, flash_attn_bwd_wide
+        if _card_f32(q):
+            return flash_attn_fwd_f32, flash_attn_bwd_f32
+        if q.shape[-1] >= 128:
+            return flash_attn_fwd_d128, flash_attn_bwd_d128
+        return flash_attn_fwd, flash_attn_bwd
 
     @staticmethod
     def forward(ctx, q, k, v, layout, softmax_scale):
-        if _FlashAttention._f32(q):
-            fwd = flash_attn_fwd_f32
-        else:
-            fwd = flash_attn_fwd_d128 if q.shape[-1] >= 128 else flash_attn_fwd
+        fwd = _FlashAttention._pair(q)[0]
         o, lse = fwd(q, k, v, layout=layout, with_lse=True, softmax_scale=softmax_scale)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.layout, ctx.softmax_scale = layout, softmax_scale
@@ -815,10 +998,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        if _FlashAttention._f32(q):
-            bwd = flash_attn_bwd_f32
-        else:
-            bwd = flash_attn_bwd_d128 if q.shape[-1] >= 128 else flash_attn_bwd
+        bwd = _FlashAttention._pair(q)[1]
         dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), layout=ctx.layout,
                          softmax_scale=ctx.softmax_scale)
         return dq, dk, dv, None, None
@@ -843,23 +1023,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             applies (below), inference only. "ring" is not ported and raises.
 
     On CUDA a head_dim D that no kernel takes (any D <= 128 outside 16, 32,
-    64, 128) is zero-padded to ``padded_head_dim(D)``; the kernels get the
-    softmax scale of D and O is sliced back to D columns (under grad the
-    slice and the pad carry the gradients back). D > 128 raises there. The
-    routing below reads the padded D; the CPU takes any D unpadded.
+    64, 128, any D > 128 that is no multiple of 64) is zero-padded to
+    ``padded_head_dim(D)``; the kernels get the softmax scale of D and O is
+    sliced back to D columns (under grad the slice and the pad carry the
+    gradients back). The routing below reads the padded D; the CPU takes any
+    D unpadded.
 
     Routing, as ``attention(impl="flash")`` in the JAX package for bf16:
 
     - an operand requires grad (and grad is enabled) -> ``_FlashAttention``:
-      float32, K6's f32 entry with LSE and the f32 backward
-      (``flash_attn_bwd_f32``); D < 128, K1 with LSE and K3 backward; D >=
-      128, K6 (``flash_attn_fwd_d128``) with LSE and K7
+      D > 128 in either dtype, ``flash_attn_fwd_wide`` with LSE and
+      ``flash_attn_bwd_wide``; float32, K6's f32 entry with LSE and the f32
+      backward (``flash_attn_bwd_f32``); D < 128, K1 with LSE and K3
+      backward; D = 128, K6 (``flash_attn_fwd_d128``) with LSE and K7
       (``flash_attn_bwd_d128``);
+    - D > 128 -> ``flash_attn_fwd_wide`` (float32 or bf16, on the CUDA cores);
     - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry, tiled on
       the CUDA cores), at any length: the camera head's short rows and the
       f32 scorer's long ones, which run far slower than bf16 rows on the
       tensor cores;
-    - D >= 128 -> ``flash_attn_fwd_d128`` (K6);
+    - D = 128 -> ``flash_attn_fwd_d128`` (K6);
     - bnhd rows that are ``short_eligible`` -> ``flash_attn_short`` (K4);
     - otherwise -> ``flash_attn_fwd`` (K1).
 
@@ -869,8 +1052,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     original D < 128 on rows that are not short bnhd rows goes through
     ``quantize_qk_int8`` and ``flash_attn_int8`` (K8), or, where D pads to
     128 (65-127), the same kernel body at width 128 (``flash_attn_int8_d128``,
-    K9's entry). Short bnhd rows and D = 128 take the exact kernels above. On
-    CUDA the int8 kernels take bf16 operands; float32 ones raise there.
+    K9's entry); on CUDA float32 operands go to ``flash_attn_int8_f32``
+    (f32 V, P and PV, at width 16-128). Short bnhd rows and D >= 128 take the
+    exact kernels above.
 
     Returns:
         Output in the operands' layout, dtype of q.
@@ -910,17 +1094,23 @@ def _attention(q, k, v, impl: str, layout: str, D: int) -> torch.Tensor:
             raise RuntimeError("attention(impl='flash_int8') is inference only: it has no "
                                "backward; use impl='flash' under grad")
         if D < 128 and not short:
-            if not q.is_cpu and q.dtype != torch.bfloat16:
+            if not q.is_cpu and q.dtype not in (torch.bfloat16, torch.float32):
                 raise NotImplementedError(
-                    f"attention(impl='flash_int8') on CUDA takes bf16 operands, got {q.dtype}")
+                    f"attention(impl='flash_int8') on CUDA takes bf16 or float32 operands, "
+                    f"got {q.dtype}")
             q8, sq, k8, sk = quantize_qk_int8(q, k, layout, softmax_scale=scale)
-            int8 = flash_attn_int8_d128 if Dk == 128 else flash_attn_int8
+            if _card_f32(q):
+                int8 = flash_attn_int8_f32
+            else:
+                int8 = flash_attn_int8_d128 if Dk == 128 else flash_attn_int8
             return int8(q8, sq, k8, sk, v, layout).to(q.dtype)
     if needs_grad:
         return _FlashAttention.apply(q, k, v, layout, scale)
+    if Dk > 128:
+        return flash_attn_fwd_wide(q, k, v, layout=layout, softmax_scale=scale)[0]
     if q.dtype == torch.float32:
         return flash_attn_fwd_f32(q, k, v, layout=layout, softmax_scale=scale)[0]
-    if Dk >= 128:
+    if Dk == 128:
         return flash_attn_fwd_d128(q, k, v, layout=layout, softmax_scale=scale)[0]
     if short:
         return flash_attn_short(q, k, v, softmax_scale=scale)
