@@ -128,6 +128,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
              latents and T5 embeddings as .npz; ``run_recipe("CogVideoX-5B")``
              for 2 steps with validation and a checkpoint, then a resume to
              step 3; the exported PEFT LoRA against the last checkpoint.
+   slice_wan_vae — a small Wan VAE (z 48, bases 32 / 48) in f32 on the
+             card against the CPU: encode (mean, and a sample with injected
+             noise) and decode at T = 1 and 9, streaming and full-sequence.
+   wan_sample — ``sample_ti2v`` at full width and depth with [wan]'s DiT:
+             umT5-XXL (f32) encodes 2 x 512 ids, the Wan VAE (f32) encodes a
+             704 x 1,280 image, 3 UniPC steps, the streamed decode of 81
+             frames; prints umT5, image-encode, step and decode ms, the
+             decode's TFLOP/s, peak GB and the launches (K6 bf16 180, every
+             other kernel 0).
+   encode_files — ``cli.encode_wan.run`` (umT5 + Wan VAE, one group: image
+             and an 81-frame 704 x 1,280 clip) and ``cli.encode.run`` (T5-XXL
+             + CogVideoX VAE in f32, one group: image and a 49-frame 480 x 720
+             clip), frames from memory; artifacts, ms and peak GB.
+   wan_train_files — .npz latents (48, 21, 44, 80) with umT5 conditions and
+             image latents; ``run_recipe("Wan2.2-TI2V-5B")`` with [wan]'s DiT
+             for 2 steps with validation, a resume to step 3, the exported
+             PEFT LoRA read back.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -1775,11 +1792,9 @@ def phase_wan(num_requests: int = 2, steps: int = 3):
     profile = profile_device_time("one Wan denoise step (profiled)", lambda: wan_denoise_loop(
         model, text, negative, latent_shape, num_steps=1, image_latent=image, ti2v=True,
         generator=torch.Generator(device="cuda").manual_seed(5)))
-    del model
-    torch.cuda.empty_cache()
     return {"launches": launches, "request_s": request_s,
             "step_ms": [1e3 * s / steps for s in request_s], "peak_gb": peak_gb,
-            "launches_per_step": 2 * cfg.num_layers, "profile": profile}
+            "launches_per_step": 2 * cfg.num_layers, "profile": profile, "dit": model}
 
 
 def phase_wan_train(mini_steps: int = 4):
@@ -1874,6 +1889,498 @@ def phase_wan_train(mini_steps: int = 4):
     return {"launches": launches, "step_ms": step_ms,
             "update_ms": [step_ms[i] + step_ms[i + 1] for i in range(0, mini_steps - 1, 2)],
             "peak_gb": peak_gb, "profile": profile, "metrics": metrics_log}
+
+
+# ---------------------------------------------------------------------------
+# The Wan VAE, Wan sampling, the encode leg and Wan training from files
+# ---------------------------------------------------------------------------
+
+# the Wan VAE in f32 with TF32 off on the card and on the CPU: the two sum the
+# convolutions in other orders, so outputs differ by f32 rounding; a fault
+# moves them by their own size
+WAN_VAE_REL = 1e-4
+
+
+def small_wan_vae_config():
+    """Wan2.2's VAE (z 48, 2 x 2 patchify, 4 scales, temporal resampling at
+    two of them, mid attention) at a fifth of its widths."""
+    import dataclasses
+
+    from videogpa_torch.models.wan import WanConfig
+
+    return dataclasses.replace(WanConfig.ti2v_5b(), vae_base_ch=32, vae_dec_base_ch=48)
+
+
+def phase_slice_wan_vae() -> None:
+    """A small Wan VAE on the card in f32 against the CPU on the same weights
+    and latent statistics: encode (posterior mean, and a sample with the
+    noise injected) and decode at T = 1 and 9, in the streaming and the
+    full-sequence forms."""
+    import torch
+
+    from videogpa_torch.models.wan import wan_vae_decode, wan_vae_encode, wan_vae_init
+
+    cfg = small_wan_vae_config()
+    gen = torch.Generator().manual_seed(60)
+    ref = wan_vae_init(cfg, gen, device="cpu")
+    with torch.no_grad():
+        ref.latents_mean.normal_(0.0, 0.3, generator=gen)
+        ref.latents_std.uniform_(0.8, 1.5, generator=gen)
+    dev = wan_vae_init(cfg, device="cuda")
+    dev.load_state_dict(ref.state_dict())
+    H, W, z = 64, 96, cfg.vae_z_dim
+    zero_launches()
+    errs = {}
+    for T in (1, 9):
+        t_lat = 1 + (T - 1) // 4
+        video = torch.rand(1, 3, T, H, W, generator=gen) * 2 - 1
+        noise = torch.randn(1, z, t_lat, H // 16, W // 16, generator=gen)
+        lat = torch.randn(1, z, t_lat, H // 16, W // 16, generator=gen)
+        outs = {}
+        for stream in (True, False):
+            form = "stream" if stream else "full"
+            cases = {
+                f"encode {form}": lambda m, d: wan_vae_encode(m, video.to(d), cfg, stream=stream),
+                f"encode sample {form}": lambda m, d: wan_vae_encode(
+                    m, video.to(d), cfg, noise=noise.to(d), sample=True, stream=stream),
+                f"decode {form}": lambda m, d: wan_vae_decode(m, lat.to(d), cfg, stream=stream),
+            }
+            for case, fn in cases.items():
+                want = fn(ref, "cpu")
+                got = fn(dev, "cuda")
+                torch.cuda.synchronize()
+                errs[f"T={T} {case}"] = _rel(got, want)
+                outs[case] = got
+                if not (bool(torch.isfinite(got).all()) and got.shape == want.shape
+                        and errs[f"T={T} {case}"] <= WAN_VAE_REL):
+                    fail(f"the small Wan VAE's {case} at T={T} on the card disagrees with the "
+                         f"CPU: rel-norm error {errs[f'T={T} {case}']:.3e}")
+        for case in ("encode", "encode sample", "decode"):
+            errs[f"T={T} {case} stream vs full on the card"] = _rel(
+                outs[f"{case} stream"], outs[f"{case} full"].cpu())
+    log(f"[slice_wan_vae] small Wan VAE (z {z}, encoder base {cfg.vae_base_ch}, decoder base "
+        f"{cfg.vae_dec_base_ch}, {H}x{W}) f32 on the card vs the CPU: rel-norm errors "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (limit {WAN_VAE_REL})")
+    if max(errs.values()) > WAN_VAE_REL:
+        fail("the Wan VAE's streaming and full-sequence forms disagree on the card")
+    launches = read_launches()
+    if any(launches.values()):
+        fail(f"the Wan VAE launched an attention kernel: {launches}")
+
+
+def meta_tflop(run) -> float:
+    """The convolutions' and products' TFLOP of ``run()``, counted by
+    ``torch.utils.flop_counter`` on meta tensors: nothing is computed."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        run()
+    return counter.get_total_flops() / 1e12
+
+
+def wan_vae_tflop(cfg, encode: bool, shape) -> float:
+    """TFLOP of one Wan VAE call at ``shape`` (a video to encode or latents
+    to decode)."""
+    import torch
+
+    from videogpa_torch.models.wan import WanVAE, wan_vae_decode, wan_vae_encode
+
+    vae = WanVAE(cfg, device="meta")
+    x = torch.empty(shape, device="meta")
+    return meta_tflop(lambda: (wan_vae_encode if encode else wan_vae_decode)(vae, x, cfg))
+
+
+def phase_wan_sample(dit, steps: int = 3):
+    """``sample_ti2v`` at full width and depth: umT5-XXL (f32) encodes a
+    prompt and the empty negative (2 x 512 ids), the Wan VAE (f32) encodes a
+    704 x 1,280 image (posterior sample), ``steps`` UniPC steps of the [wan]
+    phase's Wan2.2-TI2V-5B DiT (bf16) run the CFG pair with the clean first
+    frame, and the VAE decodes the (1, 48, 21, 44, 80) latents to 81 frames,
+    streaming, with the DiT, umT5 and the VAE resident. Returns the VAE and
+    umT5 for [encode_files]."""
+    import torch
+
+    from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
+    from videogpa_torch.models.wan import WanConfig, pipeline, sample_ti2v, wan_vae_init
+
+    cfg, t5_cfg = WanConfig.ti2v_5b(), T5Config.umt5_xxl()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    t5 = t5_encoder_init(t5_cfg, torch.Generator(device="cuda").manual_seed(61), device="cuda")
+    vae = wan_vae_init(cfg, torch.Generator(device="cuda").manual_seed(62), device="cuda")
+    torch.cuda.synchronize()
+    n_t5 = sum(p.numel() for p in t5.parameters())
+    n_vae = sum(p.numel() for p in vae.parameters())
+    log(f"[wan_sample] umT5-XXL ({t5_cfg.num_layers} layers, d_model {t5_cfg.d_model}, vocab "
+        f"{t5_cfg.vocab_size}, per-layer bias, {n_t5 / 1e9:.3f} B params, f32) and the Wan VAE "
+        f"({n_vae / 1e6:.1f} M params, f32) on the card in {time.perf_counter() - t0:.1f} s, "
+        f"beside the [wan] DiT")
+    gen = torch.Generator().manual_seed(63)
+    ids = torch.randint(1, t5_cfg.vocab_size, (2, cfg.text_len), generator=gen)
+    mask = torch.ones_like(ids)
+    ids[1, 1:], mask[1, 1:] = 0, 0  # the empty negative: EOS, then padding
+    ids, mask = ids.cuda(), mask.cuda()
+    zero_launches()
+    with torch.no_grad():
+        t5_encode(t5, ids, mask)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = t5_encode(t5, ids, mask)
+        torch.cuda.synchronize()
+    t5_ms = 1e3 * (time.perf_counter() - t0)
+    if emb.shape != (2, cfg.text_len, t5_cfg.d_model) or not bool(torch.isfinite(emb).all()):
+        fail(f"umT5 embeddings {tuple(emb.shape)} not finite or wrong shape")
+    log(f"[wan_sample] t5_encode 2 x {cfg.text_len} ids (umT5-XXL): {t5_ms:.1f} ms, embeddings "
+        f"{tuple(emb.shape)} finite")
+
+    timing = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[name] = time.perf_counter() - t1
+            return out
+        return run
+
+    real = {n: getattr(pipeline, n) for n in ("wan_vae_encode", "wan_denoise_loop",
+                                              "wan_vae_decode")}
+    image = torch.rand(1, 3, 704, 1280, generator=torch.Generator(device="cuda").manual_seed(64),
+                       device="cuda") * 2 - 1
+    for n, fn in real.items():
+        setattr(pipeline, n, timed(n, fn))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = sample_ti2v(dit, vae, emb[:1], emb[1:], cfg, image=image, num_steps=steps,
+                            generator=torch.Generator(device="cuda").manual_seed(65))
+        torch.cuda.synchronize()
+    finally:
+        for n, fn in real.items():
+            setattr(pipeline, n, fn)
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(launches, 0)
+    want["flash_attn_fwd_d128"] = steps * 2 * cfg.num_layers
+    decode_tflop = wan_vae_tflop(cfg, False, (1,) + WAN_LATENT)
+    image_tflop = wan_vae_tflop(cfg, True, (1, 3, 1, 704, 1280))
+    out = {"t5_ms": t5_ms, "image_encode_ms": 1e3 * timing["wan_vae_encode"],
+           "step_ms": 1e3 * timing["wan_denoise_loop"] / steps,
+           "decode_ms": 1e3 * timing["wan_vae_decode"], "total_s": total_s, "peak_gb": peak_gb,
+           "decode_tflop": decode_tflop,
+           "decode_tflops": decode_tflop / timing["wan_vae_decode"],
+           "decode_bound_ms": 1e3 * 1e12 * decode_tflop / PEAK_F32_FLOPS,
+           "image_encode_tflop": image_tflop, "launches": launches}
+    log(f"[wan_sample] sample_ti2v 81f@704x1280, {steps} UniPC steps (CFG pair, ti2v): image "
+        f"encode {out['image_encode_ms']:.1f} ms ({image_tflop:.2f} TFLOP), {out['step_ms']:.1f} "
+        f"ms a step, decode {out['decode_ms']:.1f} ms ({decode_tflop:.1f} TFLOP, "
+        f"{out['decode_tflops']:.1f} TFLOP/s, bound {out['decode_bound_ms'] / 1e3:.2f} s at the "
+        f"f32 peak of {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s), total {total_s:.3f} s; video "
+        f"{tuple(video.shape)} {video.dtype}, finite {bool(torch.isfinite(video).all())}, "
+        f"min {video.min().item():.4f} max {video.max().item():.4f}, std "
+        f"{video.std().item():.4f}; peak allocated {peak_gb:.2f} GB with the DiT, umT5 and "
+        f"the VAE resident; launches {json.dumps(launches)}; expected flash_attn_fwd_d128 "
+        f"{steps} steps x ({cfg.num_layers} self + {cfg.num_layers} cross) = "
+        f"{want['flash_attn_fwd_d128']}, every other 0 (umT5 and the VAE attend in plain "
+        f"PyTorch)")
+    if (tuple(video.shape) != (1, 3, 81, 704, 1280) or not bool(torch.isfinite(video).all())
+            or float(video.abs().max()) > 1.0):
+        fail("sample_ti2v's video is not finite in [-1, 1] at 81f@704x1280")
+    if launches != want:
+        fail(f"the Wan sampling path's launches {launches} are not K6's "
+             f"{want['flash_attn_fwd_d128']} alone")
+    del video, emb
+    torch.cuda.empty_cache()
+    out.update(vae=vae, t5=t5)
+    return out
+
+
+class _StubTokenizer:
+    """Seeded ids of the asked length (the card's machine has no tokenizer
+    files); the mask marks the first half as text."""
+
+    def __init__(self, vocab: int, seed: int):
+        import numpy as np
+
+        self.vocab, self.rng = vocab, np.random.default_rng(seed)
+
+    def __call__(self, text, max_length, **kw):
+        import numpy as np
+
+        ids = self.rng.integers(1, self.vocab, (1, max_length))
+        mask = np.zeros((1, max_length), np.int64)
+        mask[:, :max_length // 2] = 1
+        return {"input_ids": ids * mask, "attention_mask": mask}
+
+
+def _encode_from_memory(tag, cli, args, vae, t5, tokenizer, cfg, clips, images, lat_shape,
+                        cond_shapes):
+    """``cli.run`` (the encode CLI after loading) on one group whose video
+    and image come from memory (``video_io.read_video_frames`` and the CLI's
+    ``read_image`` replaced): no OpenCV on the card's machine. Checks the
+    artifacts and returns the run's seconds, peak GB and per-call ms."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.cli import encode as encode_cli
+    from videogpa_torch.data import video_io
+
+    real = (video_io.read_video_frames, encode_cli.read_image, cli.video_latent)
+    calls = []
+
+    def video_latent(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real[2](*a, **k)
+        calls.append((a[1].shape[0], 1e3 * (time.perf_counter() - t1)))
+        return out
+
+    video_io.read_video_frames = lambda path, idx: clips[os.path.basename(path)][idx]
+    encode_cli.read_image = lambda path, h, w: images[os.path.basename(path)]
+    cli.video_latent = video_latent
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.run(args, vae, t5, tokenizer, cfg)
+        torch.cuda.synchronize()
+    finally:
+        video_io.read_video_frames, encode_cli.read_image, cli.video_latent = real
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    out_dir = os.path.join(args.base_dir, args.output_dir)
+    with np.load(os.path.join(out_dir, "latent_g0_0.npz")) as f:
+        lat = f["data"]
+    with np.load(os.path.join(out_dir, "condition_g0.npz")) as f:
+        cond = {k: f[k].shape for k in f.files}
+    with open(args.metadata) as f:
+        paths = json.load(f)["groups"][0]["videos"][0]
+    log(f"[encode_files] {tag}: cli run {run_s:.3f} s (video and image encodes "
+        + ", ".join(f"{n} frames {ms:.1f} ms" for n, ms in calls)
+        + f"), latent {lat.shape} finite {bool(np.isfinite(lat).all())} std "
+        f"{float(lat.std()):.4f}, condition {cond}; metadata paths "
+        f"{paths['latent_path']}, {paths['condition_path']}; peak allocated {peak_gb:.2f} GB; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if lat.shape != lat_shape or not np.isfinite(lat).all() or cond != cond_shapes:
+        fail(f"{tag}: the encode artifacts are not finite or have the wrong shapes")
+    if any(launches.values()):
+        fail(f"{tag}: the encode path launched an attention kernel: {launches}")
+    return {"run_s": run_s, "peak_gb": peak_gb, "encode_ms": calls, "launches": launches}
+
+
+def _smooth_clip(T, H, W, seed):
+    """(T, H, W, 3) uint8 frames of moving colour waves, made on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    phase = torch.rand(3, generator=g, device="cuda") * 6.28
+    t = torch.arange(T, device="cuda", dtype=torch.float32)[:, None, None, None]
+    y = torch.arange(H, device="cuda", dtype=torch.float32)[None, :, None, None]
+    x = torch.arange(W, device="cuda", dtype=torch.float32)[None, None, :, None]
+    f = torch.sin(x / 37.0 + y / 53.0 + 0.2 * t + phase) * 110 + 128
+    return f.clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+def phase_encode_files_wan(vae, t5):
+    """``cli.encode_wan``'s device part at full size, from memory: one group
+    with an image and one 81-frame 704 x 1,280 clip through ``run`` with
+    [wan_sample]'s umT5 and Wan VAE (the DiT resident beside them): the umT5
+    condition (512 ids), the image latent and the streamed clip latent."""
+    import shutil
+
+    import torch
+
+    from videogpa_torch.cli import encode_wan
+    from videogpa_torch.models.wan import WanConfig
+
+    cfg = WanConfig.ti2v_5b()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "encode_files")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    clip = _smooth_clip(81, 704, 1280, 70)
+    meta = os.path.join(root, "meta_wan.json")
+    with open(meta, "w") as f:
+        json.dump({"groups": [{"group_id": "g0", "prompt": "waves", "image_path": "i0.png",
+                               "videos": [{"video_path": "w0.mp4", "generation_id": 0}]}]}, f)
+    args = encode_wan.parse_args(["--metadata", meta, "--base_dir", root,
+                                  "--output_dir", "wan_latents"])
+    out = _encode_from_memory(
+        "Wan2.2-TI2V-5B (81f@704x1280, umT5-XXL f32, Wan VAE f32)", encode_wan, args, vae, t5,
+        _StubTokenizer(t5.cfg.vocab_size, 71), cfg, {"w0.mp4": clip}, {"i0.png": clip[0]},
+        (cfg.vae_z_dim, 21, 44, 80),
+        {"encoder_hidden_states": (cfg.text_len, cfg.text_dim),
+         "image_latent": (cfg.vae_z_dim, 1, 44, 80)})
+    out["clip_tflop"] = wan_vae_tflop(cfg, True, (1, 3, 81, 704, 1280))
+    log(f"[encode_files] Wan clip encode: {out['clip_tflop']:.1f} TFLOP, "
+        f"{out['clip_tflop'] / (out['encode_ms'][-1][1] / 1e3):.1f} TFLOP/s")
+    del vae, t5
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encode_files_cogvideox():
+    """``cli.encode``'s device part at full size, from memory: T5-v1.1-XXL
+    (f32) and the CogVideoX VAE (f32, as the encode script loads it) on
+    random weights; one group with an image and one 49-frame 480 x 720 clip
+    through ``run`` (the posterior sampled with the group's generator)."""
+    import shutil
+
+    import torch
+
+    from videogpa_torch.cli import encode as encode_cli
+    from videogpa_torch.models.cogvideox import (
+        CogVideoXConfig, CogVideoXVAE, vae_encode, vae_init)
+    from videogpa_torch.models.t5 import T5Config, t5_encoder_init
+
+    cfg = CogVideoXConfig.cogvideox_5b_i2v()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "encode_files")
+    torch.cuda.reset_peak_memory_stats()
+    t5 = t5_encoder_init(T5Config.t5_v1_1_xxl(), torch.Generator(device="cuda").manual_seed(72),
+                         device="cuda")
+    vae = vae_init(cfg, torch.Generator(device="cuda").manual_seed(73), device="cuda")
+    clip = _smooth_clip(49, 480, 720, 74)
+    meta = os.path.join(root, "meta_cogvideox.json")
+    with open(meta, "w") as f:
+        json.dump({"groups": [{"group_id": "g0", "prompt": "waves", "image_path": "i0.png",
+                               "videos": [{"video_path": "c0.mp4", "generation_id": 0}]}]}, f)
+    args = encode_cli.parse_args(["--metadata", meta, "--base_dir", root,
+                                  "--output_dir", "cogvideox_latents"])
+    out = _encode_from_memory(
+        "CogVideoX-I2V-5B (49f@480x720, T5-v1.1-XXL f32, VAE f32)", encode_cli, args, vae, t5,
+        _StubTokenizer(t5.cfg.vocab_size, 75), cfg, {"c0.mp4": clip}, {"i0.png": clip[0]},
+        (cfg.vae_latent_channels, 13, 60, 90),
+        {"encoder_hidden_states": (cfg.max_text_seq_length, cfg.text_embed_dim),
+         "image_embeds": (3, 480, 720)})
+    meta_vae = CogVideoXVAE(cfg, device="meta")
+    out["clip_tflop"] = meta_tflop(lambda: vae_encode(
+        meta_vae, torch.empty(1, 3, 49, 480, 720, device="meta"), cfg,
+        noise=torch.empty(1, cfg.vae_latent_channels, 13, 60, 90, device="meta")))
+    log(f"[encode_files] CogVideoX clip encode: {out['clip_tflop']:.1f} TFLOP, "
+        f"{out['clip_tflop'] / (out['encode_ms'][-1][1] / 1e3):.1f} TFLOP/s")
+    del vae, t5
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_wan_train_files(dit, steps: int = 2):
+    """The Wan train leg from files at full width: three groups of two
+    videos with .npz latents (48, 21, 44, 80) and conditions holding umT5
+    embeddings (512, 4096) and the first frame's ``image_latent``;
+    ``run_recipe("Wan2.2-TI2V-5B", config)`` runs ``train_wan_dpo`` for
+    ``steps`` steps with validation on 1 pair and a checkpoint at the last
+    step, then resumes to ``steps + 1``; the exported PEFT LoRA is read back
+    and held against the last checkpoint's. ``load_wan`` is handed the [wan]
+    phase's DiT (bf16, as the trainer loads it) in memory."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import videogpa_torch.cli.train_dpo as train_cli
+    from videogpa_torch.models.wan import WanConfig
+    from videogpa_torch.train.lora import import_peft
+    from videogpa_torch.train.recipes import build_config, run_recipe
+
+    cfg = WanConfig.ti2v_5b()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "wan_train_files")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    os.makedirs(os.path.join(data_dir, "latents"))
+    rng = np.random.default_rng(0)
+    groups = []
+    for g in range(3):
+        cond = f"latents/condition_g{g}.npz"
+        np.savez(os.path.join(data_dir, cond),
+                 encoder_hidden_states=rng.standard_normal((cfg.text_len, cfg.text_dim),
+                                                           dtype=np.float32),
+                 image_latent=rng.standard_normal((WAN_LATENT[0], 1) + WAN_LATENT[2:],
+                                                  dtype=np.float32))
+        videos = []
+        for i, score in enumerate((0.2 + 0.1 * g, 0.7)):
+            lat = f"latents/latent_g{g}_{i}.npz"
+            np.savez(os.path.join(data_dir, lat),
+                     data=rng.standard_normal(WAN_LATENT, dtype=np.float32))
+            videos.append({"video_path": f"g{g}_{i}.mp4", "consistency_score": score,
+                           "motion_norm": 0.1, "latent_path": lat, "condition_path": cond})
+        groups.append({"group_id": f"g{g}", "prompt": f"prompt {g}", "videos": videos})
+    with open(os.path.join(data_dir, "meta_data.json"), "w") as f:
+        json.dump({"groups": groups}, f)
+    config = build_config("Wan2.2-TI2V-5B", base_path=data_dir)
+    config.update(output_dir=os.path.join(root, "out"), max_steps=steps,
+                  checkpoint_every_n_steps=steps, log_every_n_steps=1, metric_threshold=None,
+                  min_gap=0.0, motion_threshold=0.0, warmup_steps=1)
+    log(f"[wan_train_files] 3 groups of 2 videos, latents {WAN_LATENT} and umT5 embeddings "
+        f"({cfg.text_len}, {cfg.text_dim}) with an image_latent as .npz; recipe Wan2.2-TI2V-5B "
+        f"(batch {config['batch_size']}, accumulate {config['accumulate_grad_batches']}, LoRA "
+        f"r {config['lora_rank']}), max_steps {steps}, checkpoint every {steps}; load_wan is "
+        f"handed the [wan] DiT in memory (tests/test_torch_wan_convert.py holds the loader)")
+    real_load = train_cli.load_wan
+    train_cli.load_wan = lambda *a, **k: dit
+    out = {}
+    try:
+        for tag, max_steps in (("run", steps), ("resume", steps + 1)):
+            config["max_steps"] = max_steps
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_recipe("Wan2.2-TI2V-5B", config)
+            torch.cuda.synchronize()
+            out[f"{tag}_s"] = time.perf_counter() - t0
+            out[f"{tag}_launches"] = read_launches()
+    finally:
+        train_cli.load_wan = real_load
+    with open(os.path.join(root, "out", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if "train/loss" in r]
+    steps_seen = [r["step"] for r in train]
+    log(f"[wan_train_files] metrics.jsonl train records: " + json.dumps(
+        [{k: r[k] for k in ("step", "time", "train/loss", "stats/samples_per_sec",
+                            "stats/max_memory_gb")} for r in train]))
+    if steps_seen != list(range(1, steps + 2)):
+        fail(f"train_wan_dpo took steps {steps_seen}, expected 1..{steps} then {steps + 1} "
+             "resumed")
+    if not all(math.isfinite(r["train/loss"]) for r in train):
+        fail("non-finite Wan train loss")
+    L2 = 2 * cfg.num_layers  # self + cross attention a forward
+    for tag, n in (("run", steps), ("resume", 1)):
+        want = dict.fromkeys(out[f"{tag}_launches"], 0)
+        want.update(flash_attn_fwd_d128=n * 6 * L2 + 4 * L2, flash_attn_bwd_d128=n * 2 * L2)
+        log(f"[wan_train_files] {tag}: {out[f'{tag}_s']:.1f} s, launches "
+            f"{json.dumps({k: v for k, v in out[f'{tag}_launches'].items() if v})}; expected "
+            f"flash_attn_fwd_d128 {want['flash_attn_fwd_d128']}, flash_attn_bwd_d128 "
+            f"{want['flash_attn_bwd_d128']} (6 forwards and 2 backwards of {L2} attentions a "
+            f"step, 4 forwards a validation pair), every other 0")
+        if out[f"{tag}_launches"] != want:
+            fail(f"train_wan_dpo ({tag}) did not run every attention through K6 and K7")
+    kept = sorted(json.load(open(os.path.join(root, "out", "checkpoints", "scores.json"))))
+    state = torch.load(os.path.join(root, "out", "checkpoints", kept[-1], "state.pt"),
+                       weights_only=True)
+    lora = import_peft(os.path.join(root, "out", "final_lora"), cfg.num_layers,
+                       block_prefix="blocks", device="cpu")
+    with open(os.path.join(root, "out", "final_lora", "adapter_config.json")) as f:
+        mapping = json.load(f)["auto_mapping"]
+    same = state["step"] == steps + 1 and lora.keys() == state["lora"].keys() and all(
+        torch.equal(lora[n][k], state["lora"][n][k]) for n in state["lora"]
+        for k in ("lora_A", "lora_B"))
+    log(f"[wan_train_files] checkpoints kept {kept}; import_peft(final_lora, "
+        f"block_prefix='blocks') equals the trained LoRA of step {state['step']}: {same}; "
+        f"auto_mapping {mapping}")
+    if not same or mapping["base_model_class"] != "WanModel":
+        fail("the exported Wan LoRA is not the trained one")
+    out.update(step_ms=1e3 * (train[1]["time"] - train[0]["time"]),
+               samples_per_sec=[r["stats/samples_per_sec"] for r in train],
+               max_memory_gb=[r["stats/max_memory_gb"] for r in train], steps=steps_seen)
+    del state, lora
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_timing_wan(wan_shape, text_len):
@@ -3946,6 +4453,7 @@ def main() -> int:
     phase_slice_wan()
     phase_slice_int8()
     phase_slice_sampling()
+    phase_slice_wan_vae()
     main_run = phase_main()
     sample_run = phase_sample(main_run.pop("dit"))
     train_run = phase_train()
@@ -3958,7 +4466,14 @@ def main() -> int:
         + " (the CLI scores the consistency score alone, MSE-only with no LPIPS network)")
     train_files_run = phase_train_files(score_files_run["runs"]["batch4"]["json"])
     wan_run = phase_wan()
+    wan_dit = wan_run.pop("dit")
+    wan_sample_run = phase_wan_sample(wan_dit)
+    encode_wan_run = phase_encode_files_wan(wan_sample_run.pop("vae"), wan_sample_run.pop("t5"))
+    wan_train_files_run = phase_wan_train_files(wan_dit)
+    del wan_dit
+    torch.cuda.empty_cache()
     wan_train_run = phase_wan_train()
+    encode_cog_run = phase_encode_files_cogvideox()
     main_int8_run = phase_main_int8(main_run["latents"])
     scorer_int8_run = phase_scorer_int8(scorer_run["results"])
     wan_int8_run = phase_wan_int8()
@@ -4046,6 +4561,9 @@ def main() -> int:
         "score_files_runs": {tag: {k: v for k, v in r.items() if k not in ("scores", "json")}
                              for tag, r in score_files_run["runs"].items()},
         "train_files": train_files_run,
+        "wan_sample": {k: v for k, v in wan_sample_run.items() if k != "launches"},
+        "encode_files": {"wan": encode_wan_run, "cogvideox": encode_cog_run},
+        "wan_train_files": wan_train_files_run,
         "flash_attn_bwd_f32": f32_bwd,
         "parity_headdim_launches": headdim_launches,
         "wide_and_int8_f32_entries": wide,
@@ -4072,7 +4590,13 @@ def main() -> int:
                             for k in scorer_run["launches"]},
             "train_files": {k: train_files_run["run_launches"][k]
                             + train_files_run["resume_launches"][k]
-                            for k in train_run["launches"]}}
+                            for k in train_run["launches"]},
+            "wan_sample": wan_sample_run["launches"],
+            "encode_files": {k: encode_wan_run["launches"][k] + encode_cog_run["launches"][k]
+                             for k in train_run["launches"]},
+            "wan_train_files": {k: wan_train_files_run["run_launches"][k]
+                                + wan_train_files_run["resume_launches"][k]
+                                for k in train_run["launches"]}}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""

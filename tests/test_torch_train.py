@@ -280,18 +280,24 @@ def test_recipes_match_jax(monkeypatch, tmp_path):
         assert (trecipes.build_config(r, base_path=str(tmp_path))
                 == jrecipes.build_config(r, base_path=str(tmp_path)))
     # run_recipe dispatches the CogVideoX recipes to cli.train_dpo.train_dpo
-    # (held against the JAX package's train_dpo in test_torch_train_cli.py);
-    # only the Wan recipe still raises, naming the item that ports it
+    # (held against the JAX package's train_dpo in test_torch_train_cli.py)
+    # and the Wan recipe to train_wan_dpo (test_torch_wan_flows.py), with
+    # the 5B configurations unless a model configuration is handed over
     import videogpa_torch.cli.train_dpo as tcli
 
     calls = []
     monkeypatch.setattr(tcli, "train_dpo",
                         lambda config, cfg, i2v=False, device=None: calls.append((cfg, i2v)))
-    for r in trecipes.RECIPES[:3]:
+    monkeypatch.setattr(tcli, "train_wan_dpo",
+                        lambda config, cfg=None, device=None: calls.append((cfg, "wan")))
+    for r in trecipes.RECIPES:
         trecipes.run_recipe(r, trecipes.default_config(r))
-    assert [(c.num_layers, i2v) for c, i2v in calls] == [(42, False), (42, True), (42, False)]
-    with pytest.raises(NotImplementedError, match="item G"):
-        trecipes.run_recipe("Wan2.2-TI2V-5B", trecipes.default_config("Wan2.2-TI2V-5B"))
+    assert [(c.num_layers, i2v) for c, i2v in calls[:3]] == [(42, False), (42, True), (42, False)]
+    assert calls[3] == (None, "wan")
+    from videogpa_torch.models.wan import WanConfig
+
+    trecipes.run_recipe("Wan2.2-TI2V-5B", {}, model_cfg=WanConfig.tiny())
+    assert calls[4] == (WanConfig.tiny(), "wan")
     with pytest.raises(ValueError):
         trecipes.default_config("nope")
 

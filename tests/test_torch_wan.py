@@ -307,8 +307,6 @@ def test_wan_denoise_loop_draws_from_the_generator_and_rejects_unknown_solvers()
     assert torch.equal(run(0), run(0)) and not torch.equal(run(0), run(1))
     with pytest.raises(ValueError, match="solver"):
         tpipe.wan_denoise_loop(model, _t(ctx[:1]), _t(ctx[1:]), shape, solver="dpm")
-    with pytest.raises(NotImplementedError, match="VAE"):
-        tpipe.sample_ti2v()
 
 
 # ---------------------------------------------------------------------------

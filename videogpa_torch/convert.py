@@ -19,13 +19,16 @@ Leaves under a ``lax.scan``-stacked node (``blocks``, ``frame_blocks``,
 ``global_blocks``, the camera head's ``trunk``) carry every layer along a
 leading axis; they are unstacked into ``<node>.{i}.*``. List nodes
 (``projects``, ``layer_rn``, ``convs``, ``lins``) become ``<node>.{i}.*``.
-Tokens, tables and the Wan blocks' and head's ``modulation`` (``_VERBATIM``)
-and LayerScale's ``ls1/ls2.gamma`` are copied as they are. Covers the
-CogVideoX DiT and VAE (5-D conv kernels, GroupNorm ``scale``/``bias``, the
-``down``/``up``/``resnets`` lists), ``t5_encoder_init`` (``embed`` and
-``rel_bias`` copied), ``wan_init``, ``vggt_init`` and ``lpips_init`` trees.
-Any leaf the bridge cannot name raises, and loading is strict, so nothing is
-left unmapped on either side.
+Tokens, tables, the Wan blocks' and head's ``modulation`` and the Wan VAE's
+``latents_mean`` / ``latents_std`` (``_VERBATIM``), and the ``gamma`` of
+LayerScale's ``ls1/ls2`` and of the Wan VAE's RMS norms (``_GAMMA_OWNERS``)
+are copied as they are.
+Covers the CogVideoX DiT and VAE (5-D conv kernels, GroupNorm
+``scale``/``bias``, the ``down``/``up``/``resnets`` lists),
+``t5_encoder_init`` (``embed`` and ``rel_bias`` copied), ``wan_init``,
+``wan_vae_init``, ``vggt_init`` and ``lpips_init`` trees. Any leaf the
+bridge cannot name raises, and loading is strict, so nothing is left
+unmapped on either side.
 """
 
 from __future__ import annotations
@@ -41,8 +44,9 @@ from videogpa_torch.ops.quant import QuantLinear
 # leaves copied as they are, by name
 _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
              "register_tokens", "pos_embed", "empty_pose_tokens", "modulation",
-             "embed", "rel_bias")
-_LAYER_SCALES = ("ls1", "ls2")
+             "embed", "rel_bias", "latents_mean", "latents_std")
+# owners whose ``gamma`` is copied as it is: LayerScale, the Wan VAE's RMS norms
+_GAMMA_OWNERS = ("ls1", "ls2", "norm1", "norm2", "norm", "head_norm")
 # nodes whose leaves stack every layer along a leading axis
 _STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
 # 4-D kernels of transposed convolutions (kernel_size == stride)
@@ -65,7 +69,7 @@ def _torch_leaf(path: str, arr: np.ndarray):
     """(torch key, array in torch layout) for one unstacked JAX leaf."""
     module, _, name = path.rpartition(".")
     owner = module.rpartition(".")[2]
-    if name in _VERBATIM or (name == "gamma" and owner in _LAYER_SCALES):
+    if name in _VERBATIM or (name == "gamma" and owner in _GAMMA_OWNERS):
         return path, arr
     if name == "kernel" and arr.ndim == 2:
         return f"{module}.weight", arr.T

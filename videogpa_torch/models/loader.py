@@ -5,8 +5,8 @@ No network access is assumed: ``resolve_model_dir`` accepts a filesystem
 path or resolves a HF repo id against ``$VIDEOGPA_MODELS_DIR`` or the local
 HF cache. Multi-shard safetensors (``*.safetensors.index.json``) are read
 through their index; bf16 tensors widen to f32 on the host and each module
-is built on the device in the dtype asked for. The Wan VAE and DA3 loaders
-are not ported yet.
+is built on the device in the dtype asked for. The DA3 loader is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -105,9 +105,8 @@ def load_cogvideox(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch
     -> (``CogVideoXTransformer``, ``CogVideoXVAE``) on ``device`` (the card
     unless ``device="cpu"``) in ``dtype``."""
     from videogpa_torch.models.cogvideox.config import CogVideoXConfig
-    from videogpa_torch.models.cogvideox.convert import convert_dit, convert_vae
+    from videogpa_torch.models.cogvideox.convert import convert_dit
     from videogpa_torch.models.cogvideox.dit import CogVideoXTransformer
-    from videogpa_torch.models.cogvideox.vae import CogVideoXVAE
 
     cfg = cfg or CogVideoXConfig.cogvideox_5b()
     device = resolve_device(device)
@@ -115,9 +114,22 @@ def load_cogvideox(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch
     dit = _module_from_state_dict(CogVideoXTransformer, cfg, convert_dit(dit_sd, cfg), device,
                                   dtype)
     del dit_sd
-    vae_sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path, "vae")))
-    vae = _module_from_state_dict(CogVideoXVAE, cfg, convert_vae(vae_sd, cfg), device, dtype)
-    return dit, vae
+    return dit, load_cogvideox_vae(model_name_or_path, cfg, dtype, device)
+
+
+def load_cogvideox_vae(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float32,
+                       device=None):
+    """The ``vae/`` of a diffusers-layout CogVideoX checkpoint ->
+    ``CogVideoXVAE`` on ``device`` in ``dtype`` (the encode CLI needs no
+    DiT)."""
+    from videogpa_torch.models.cogvideox.config import CogVideoXConfig
+    from videogpa_torch.models.cogvideox.convert import convert_vae
+    from videogpa_torch.models.cogvideox.vae import CogVideoXVAE
+
+    cfg = cfg or CogVideoXConfig.cogvideox_5b()
+    sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path, "vae")))
+    return _module_from_state_dict(CogVideoXVAE, cfg, convert_vae(sd, cfg),
+                                   resolve_device(device), dtype)
 
 
 def load_t5(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float32,
@@ -144,3 +156,53 @@ def load_vggt(model_name_or_path: str = "facebook/VGGT-1B", cfg=None,
     sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path)))
     return _module_from_state_dict(VGGT, cfg, convert_vggt(sd, cfg), resolve_device(device),
                                    dtype), cfg
+
+
+def load_wan(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float32,
+             device=None):
+    """The ``WanModel`` safetensors at the root of a Wan2.2 checkpoint
+    directory (through ``convert_wan``) -> ``WanTransformer`` on ``device``
+    in ``dtype``. The JAX package's Wan entry points do this inline."""
+    from videogpa_torch.models.wan.config import WanConfig
+    from videogpa_torch.models.wan.convert import convert_wan
+    from videogpa_torch.models.wan.dit import WanTransformer
+
+    cfg = cfg or WanConfig.ti2v_5b()
+    sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path)))
+    return _module_from_state_dict(WanTransformer, cfg, convert_wan(sd, cfg),
+                                   resolve_device(device), dtype)
+
+
+def load_wan_vae(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float32,
+                 device=None):
+    """The Wan2.2 VAE -> ``WanVAE`` on ``device`` (the card unless
+    ``device="cpu"``) in ``dtype``.
+
+    Reads the native checkpoint the reference uses (a ``*VAE*.pth`` at the
+    model root, ``wan/modules/vae2_2.py`` keys), else the ``vae/``
+    safetensors. ``latents_mean`` / ``latents_std`` are not in the native
+    checkpoint (the Wan repo hard-codes them): they come from a
+    ``vae_stats.json`` side file or ``vae/config.json`` where present."""
+    from videogpa_torch.convert import load_torch_state_dict
+    from videogpa_torch.models.wan.config import WanConfig
+    from videogpa_torch.models.wan.convert import convert_wan_vae
+    from videogpa_torch.models.wan.vae import WanVAE
+
+    cfg = cfg or WanConfig.ti2v_5b()
+    root = resolve_model_dir(model_name_or_path)
+    mean = std = None
+    for stats_file in (os.path.join(root, "vae_stats.json"),
+                       os.path.join(root, "vae", "config.json")):
+        if os.path.isfile(stats_file):
+            with open(stats_file) as f:
+                j = json.load(f)
+            if "latents_mean" in j and "latents_std" in j:
+                mean, std = j["latents_mean"], j["latents_std"]
+                break
+    pths = sorted(f for f in os.listdir(root) if f.endswith(".pth") and "VAE" in f.upper())
+    if pths:
+        sd = _to_f32(load_torch_state_dict(os.path.join(root, pths[0])))
+    else:
+        sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path, "vae")))
+    return _module_from_state_dict(WanVAE, cfg, convert_wan_vae(sd, cfg, mean, std),
+                                   resolve_device(device), dtype)

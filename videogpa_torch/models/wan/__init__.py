@@ -1,8 +1,8 @@
 """Wan2.2 TI2V-5B video diffusion family in PyTorch
 (``videogpa_tpu/models/wan``): WanModel DiT (self-attn + text cross-attn,
-per-token timesteps), the shifted flow-matching schedule and the TI2V denoise
-loop. The Wan VAE, ``sample_ti2v`` and the checkpoint conversion come with
-the VAE and loader slices.
+per-token timesteps), the shifted flow-matching schedule, the TI2V denoise
+loop, the Wan VAE (z = 48, stride (4, 16, 16)) and ``sample_ti2v``; the
+checkpoint converters are in ``models.wan.convert``.
 """
 
 from videogpa_torch.models.wan.config import WanConfig
@@ -19,6 +19,12 @@ from videogpa_torch.models.wan.pipeline import (
     unipc_loop,
     wan_denoise_loop,
 )
+from videogpa_torch.models.wan.vae import (
+    WanVAE,
+    wan_vae_decode,
+    wan_vae_encode,
+    wan_vae_init,
+)
 
 __all__ = [
     "WanConfig",
@@ -33,4 +39,8 @@ __all__ = [
     "unipc_loop",
     "wan_denoise_loop",
     "sample_ti2v",
+    "WanVAE",
+    "wan_vae_init",
+    "wan_vae_encode",
+    "wan_vae_decode",
 ]

@@ -20,8 +20,8 @@ UniPC's coefficients depend on the sigma grid only, so they are computed once
 in float64 numpy and the loop is a plain Python loop carrying the sample, the
 last corrected sample and a 2-deep history of x0 predictions. The initial
 latents come from a ``torch.Generator`` or are injected (``latents=``), so a
-test can feed the JAX package's draw. ``sample_ti2v`` comes with the VAE
-slice.
+test can feed the JAX package's draw. ``sample_ti2v`` wraps the loop in the
+Wan VAE: the image's posterior sample in, the streamed decode out.
 """
 
 from __future__ import annotations
@@ -31,8 +31,10 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from videogpa_torch.models.wan.config import WanConfig
 from videogpa_torch.models.wan.dit import WanTransformer, wan_forward
 from videogpa_torch.models.wan.flow_match import ti2v_timestep_tokens
+from videogpa_torch.models.wan.vae import WanVAE, wan_vae_decode, wan_vae_encode
 
 
 def shifted_sigmas(num_steps: int, shift: float, device=None) -> torch.Tensor:
@@ -226,9 +228,42 @@ def wan_denoise_loop(
     return lat
 
 
-def sample_ti2v(*args, **kwargs):
-    """Text(+image)-to-video through the Wan VAE: not ported yet."""
-    raise NotImplementedError(
-        "sample_ti2v needs the Wan VAE (wan_vae_encode / wan_vae_decode), which is ported "
-        "with the VAE slice; drive wan_denoise_loop on latents directly"
-    )
+@torch.no_grad()
+def sample_ti2v(
+    model: WanTransformer,
+    vae: WanVAE,
+    context: torch.Tensor,
+    null_context: torch.Tensor,
+    cfg: WanConfig,
+    image: Optional[torch.Tensor] = None,
+    num_frames: int = 81,
+    height: int = 704,
+    width: int = 1280,
+    num_steps: int = 50,
+    guidance_scale: float = 5.0,
+    attn_impl: str = "auto",
+    compute_dtype: torch.dtype = torch.bfloat16,
+    solver: str = "unipc",
+    generator: Optional[torch.Generator] = None,
+    image_noise: Optional[torch.Tensor] = None,
+    latents: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Text(+image)-to-video. ``image``: (B, 3, H, W) in [-1, 1], or None
+    (T2V). Returns the decoded video (B, 3, T, H, W) in [-1, 1], f32.
+
+    The image latent is the VAE's posterior sample (``image_noise``, or a
+    draw from ``generator``); the denoise loop's initial latents are
+    ``latents`` or the generator's next draw (the JAX package splits one key
+    into the two draws)."""
+    B = context.shape[0]
+    st, sh, sw = cfg.vae_stride
+    shape = (B, cfg.vae_z_dim, (num_frames - 1) // st + 1, height // sh, width // sw)
+    image_latent = None
+    if image is not None:
+        image_latent = wan_vae_encode(vae, image[:, :, None], cfg, generator=generator,
+                                      noise=image_noise, sample=True)
+    lat = wan_denoise_loop(model, context, null_context, shape, num_steps=num_steps,
+                           guidance_scale=guidance_scale, image_latent=image_latent,
+                           ti2v=image is not None, compute_dtype=compute_dtype, solver=solver,
+                           generator=generator, latents=latents, attn_impl=attn_impl)
+    return wan_vae_decode(vae, lat, cfg).clamp_(-1.0, 1.0)

@@ -106,23 +106,22 @@ def build_config(
     return config
 
 
-def run_recipe(recipe: str, config: Dict, device=None) -> None:
+def run_recipe(recipe: str, config: Dict, device=None, model_cfg=None) -> None:
     """Dispatch a resolved config to the right trainer, on ``device`` (the
-    card unless ``device="cpu"``). The Wan2.2-TI2V-5B trainer needs the Wan
-    checkpoint converter and raises until it is ported (ROADMAP item G)."""
+    card unless ``device="cpu"``). ``model_cfg`` overrides the recipe's model
+    configuration (the reference scripts hard-code the 5B ones)."""
     if recipe not in _PER_RECIPE:
         raise ValueError(f"unknown recipe {recipe!r}; choose from {RECIPES}")
+    from videogpa_torch.cli.train_dpo import train_dpo, train_wan_dpo
+
     if recipe == "Wan2.2-TI2V-5B":
-        raise NotImplementedError(
-            "run_recipe('Wan2.2-TI2V-5B'): train_wan_dpo needs convert_wan and the Wan "
-            "loader, not ported yet (ROADMAP item G); drive "
-            "train.wan_trainer.make_wan_dpo_train_step directly")
-    from videogpa_torch.cli.train_dpo import train_dpo
+        train_wan_dpo(config, model_cfg, device=device)
+        return
     from videogpa_torch.models.cogvideox import CogVideoXConfig
 
-    model_cfg, i2v = {
+    make_cfg, i2v = {
         "CogVideoX-5B": (CogVideoXConfig.cogvideox_5b, False),
         "CogVideoX-I2V-5B": (CogVideoXConfig.cogvideox_5b_i2v, True),
         "CogVideoX1.5-5B": (CogVideoXConfig.cogvideox_1_5_5b, False),
     }[recipe]
-    train_dpo(config, model_cfg(), i2v=i2v, device=device)
+    train_dpo(config, model_cfg or make_cfg(), i2v=i2v, device=device)
