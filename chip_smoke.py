@@ -145,6 +145,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
              image latents; ``run_recipe("Wan2.2-TI2V-5B")`` with [wan]'s DiT
              for 2 steps with validation, a resume to step 3, the exported
              PEFT LoRA read back.
+   slice_da3 — the tiny DA3 (4 views) and a small one (6 views at 280^2,
+             heads of 64) in f32 on the card against the CPU: depth, conf,
+             extrinsics, intrinsics and ray by rel-norm, the selected
+             reference views equal; the tiny DA3 scorer, card against CPU.
+   scorer_da3 — the DA3-Large scorer at full width and depth (24 blocks at
+             1,024, 16 heads x 64, DualDPT 256 / (256, 512, 1,024, 1,024))
+             on random weights: 3 batches of K = 4 clips x 10 frames x 518^2
+             through ``process_frames_batch``, bf16 trunk, f32 heads, LPIPS
+             VGG16; batch ms, clips/min, peak GB, the geometry's ranges and
+             the launches a batch (K4 16, K1 8, K5 4); then in int8 mode on
+             the same model and frames (K8 8, K4 16, K5 4) with each score's
+             drift against exact; one profiled batch.
+   replicate_files — ``replicate_torch.sh``'s two legs: ``cli.replicate``
+             on [sample]'s resident CogVideoX-5B-I2V DiT, T5-XXL and VAE for
+             1 prompt x 1 seed (2 DPM steps; the first frame and the writer
+             in memory), a second run that skips it; DA3-Large written in the
+             checkpoint key layout and read back by ``load_da3``;
+             ``cli.replicate_scorer`` on 2 prompts x 4 clips (the generated
+             video among them, decoded from memory) at score_batch 4, and a
+             resumed run.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -157,7 +177,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              and its time at the f32 scorer's frame and global rows;
              ``flash_attn_fwd_wide`` at (1, 4,096, 16, 256) in f32 and bf16
              and ``flash_attn_int8_f32`` at the f32 scorer's global rows,
-             each against its plain version, beside its bound and SDPA.
+             each against its plain version, beside its bound and SDPA; K4
+             at DA3-Large's frame rows (40, 1,370, 16, 64), K1 and K8 at its
+             global rows (4, 13,700, 16, 64).
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -305,8 +327,9 @@ def _check(o, lse, ro, rl):
     return d_o.max().item(), o_atol, d_lse.max().item(), ok
 
 
-def phase_parity(dit_shape, vggt_global_shape):
-    """K1 vs its plain version; returns (max O error, plain ms at the DiT shape)."""
+def phase_parity(dit_shape, vggt_global_shape, da3_global_shape):
+    """K1 vs its plain version; returns (max O error, plain ms at the DiT
+    shape, {"max_abs_err", "plain_ms"} at the DA3 global shape)."""
     import torch
 
     from videogpa_torch.ops.attention import flash_attn_fwd, flash_attn_fwd_reference
@@ -342,9 +365,9 @@ def phase_parity(dit_shape, vggt_global_shape):
         errs.append(o_err)
     del cases, packed
 
-    # the main paths' shapes at full size: the DiT's, and the VGGT global
-    # blocks' (13,740 keys: another ragged last tile and B*H grid), there with
-    # q and k as the QK-norm/RoPE outputs and v a view of the qkv projection
+    # the main paths' shapes at full size: the DiT's, and the VGGT and DA3
+    # global blocks' (13,740 and 13,700 keys: other ragged last tiles and B*H
+    # grids), there with v a strided view of one packed qkv tensor
     B, N, H, D = dit_shape
     q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
     worst, plain_ms = _parity_full(f"DiT shape {dit_shape}", q, k, v)
@@ -357,8 +380,16 @@ def phase_parity(dit_shape, vggt_global_shape):
                             q.contiguous(), k.contiguous(), v)
     errs.append(worst)
     del q, k, v
+    B, N, H, D = da3_global_shape
+    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+        torch.bfloat16).unbind(2)
+    da3_err, da3_plain_ms = _parity_full(
+        f"DA3 global shape {da3_global_shape} (v a strided view)", q.contiguous(),
+        k.contiguous(), v)
+    errs.append(da3_err)
+    del q, k, v
     torch.cuda.empty_cache()
-    return max(errs), plain_ms
+    return max(errs), plain_ms, {"max_abs_err": da3_err, "plain_ms": da3_plain_ms}
 
 
 def _parity_full(label, q, k, v, chunk: int = 4):
@@ -1124,9 +1155,9 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_parity_short(vggt_shape):
+def phase_parity_short(vggt_shape, da3_shape):
     """K4 against its plain version in bf16; returns (max |dO|, plain ms at
-    the VGGT frame-attention shape)."""
+    the VGGT frame-attention shape, {"max_abs_err", "plain_ms"} at DA3's)."""
     import torch
 
     from videogpa_torch.ops.attention import flash_attn_short, flash_attn_short_reference
@@ -1161,22 +1192,25 @@ def phase_parity_short(vggt_shape):
         errs.append(err)
     del cases, packed, nan_q, nan_k, nan_v
 
-    # the VGGT frame-attention shape, q/k/v as views of one packed projection
-    B, N, H, D = vggt_shape
-    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
-        torch.bfloat16).unbind(2)
-    o = flash_attn_short(q, k, v)
-    ro, plain_ms = _timed(lambda: flash_attn_short_reference(q, k, v))
-    err, atol, ok = _check_o(o, ro)
-    log(f"[parity] K4 VGGT frame shape {vggt_shape} (strided qkv views): max|dO| {err:.3e} "
-        f"(atol {atol:.2e} + rtol {O_RTOL}) {'ok' if ok else 'MISMATCH'}; plain version "
-        f"{plain_ms:.2f} ms")
-    if not ok:
-        fail("flash_attn_short disagrees at the VGGT frame shape")
-    errs.append(err)
-    del q, k, v, o, ro
-    torch.cuda.empty_cache()
-    return max(errs), plain_ms
+    # the VGGT and DA3 frame-attention shapes (1,374 and 1,370 keys: other
+    # ragged last tiles), q/k/v as views of one packed projection
+    full = {}
+    for label, (B, N, H, D) in (("VGGT", vggt_shape), ("DA3", da3_shape)):
+        q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16).unbind(2)
+        o = flash_attn_short(q, k, v)
+        ro, plain_ms = _timed(lambda: flash_attn_short_reference(q, k, v))
+        err, atol, ok = _check_o(o, ro)
+        log(f"[parity] K4 {label} frame shape {(B, N, H, D)} (strided qkv views): max|dO| "
+            f"{err:.3e} (atol {atol:.2e} + rtol {O_RTOL}) {'ok' if ok else 'MISMATCH'}; plain "
+            f"version {plain_ms:.2f} ms")
+        if not ok:
+            fail(f"flash_attn_short disagrees at the {label} frame shape")
+        errs.append(err)
+        full[label] = {"max_abs_err": err, "plain_ms": plain_ms}
+        del q, k, v, o, ro
+        torch.cuda.empty_cache()
+    return max(errs), full["VGGT"]["plain_ms"], full["DA3"]
 
 
 def phase_parity_d128(cam_shape, wan_shape, f32_long_shapes):
@@ -2636,10 +2670,11 @@ def _cos_rel(got, want):
     return (a @ b / (a.norm() * b.norm())).item(), ((a - b).norm() / b.norm()).item()
 
 
-def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
+def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape, da3_global_shape):
     """K8 and K9 against their plain version on the same quantised operands,
     and quantise + kernel against exact f32 attention. Returns (K8 max |dO|,
-    K9 max |dO|, K8 plain ms at the DiT shape, K9 plain ms at the Wan shape)."""
+    K9 max |dO|, K8 plain ms at the DiT shape, K9 plain ms at the Wan shape,
+    K8's {"max_abs_err", "plain_ms"} at the DA3 global shape)."""
     import torch
 
     from videogpa_torch.ops.attention import (
@@ -2728,6 +2763,14 @@ def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
                           flash_attn_int8, q.contiguous(), k.contiguous(), v)
     errs["K8"].append(worst)
     del q, k, v
+    B, N, H, D = da3_global_shape
+    q, k, v = (torch.randn(B, N, 3, H, D, generator=gen, device="cuda") + 0.5).to(
+        torch.bfloat16).unbind(2)
+    da3_err, da3_plain_ms = _int8_full(
+        "K8", f"DA3 global shape {da3_global_shape} (v a strided view)", flash_attn_int8,
+        q.contiguous(), k.contiguous(), v)
+    errs["K8"].append(da3_err)
+    del q, k, v
     B, N, H, D = wan_shape
     q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
     worst, k9_plain_ms = _int8_full("K9", f"Wan shape {wan_shape}", flash_attn_int8_d128,
@@ -2735,7 +2778,8 @@ def phase_parity_int8(dit_shape, vggt_global_shape, wan_shape):
     errs["K9"].append(worst)
     del q, k, v
     torch.cuda.empty_cache()
-    return max(errs["K8"]), max(errs["K9"]), k8_plain_ms, k9_plain_ms
+    return (max(errs["K8"]), max(errs["K9"]), k8_plain_ms, k9_plain_ms,
+            {"max_abs_err": da3_err, "plain_ms": da3_plain_ms})
 
 
 def phase_parity_quant(dit_shape):
@@ -3446,7 +3490,8 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
     latents through the bf16 VAE with the DiT, T5 and VAE resident; then
     ``video_to_uint8``. Then, with the T2V DiT and T5 freed, ``sample_i2v``
     with the I2V DiT (``i2v_layers`` of 42 layers): the VAE encodes one
-    480x720 frame, ``steps`` DPM steps, decode."""
+    480x720 frame, ``steps`` DPM steps, decode. Returns the I2V DiT, T5 and
+    the VAE, still resident, under "models" (for [replicate_files])."""
     import dataclasses
 
     import torch
@@ -3540,11 +3585,12 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
     profile = profile_device_time(
         f"one decode tile ({tile}^2 latents, f32 activations)",
         lambda: vae_decode(vae, torch.randn(1, 16, 13, tile, tile, device="cuda"), cfg))
-    del dit, t5, emb, video
+    del dit, emb, video
     torch.cuda.empty_cache()
     probe = probe_int32_limits()
 
-    # I2V at full width; the T2V DiT and T5 are freed
+    # I2V at full width; the T2V DiT is freed, T5 stays resident for
+    # [replicate_files], as a generator holds it
     icfg = dataclasses.replace(CogVideoXConfig.cogvideox_5b_i2v(), num_layers=i2v_layers)
     t0 = time.perf_counter()
     idit = dit_init(icfg, torch.Generator(device="cuda").manual_seed(48), device="cuda",
@@ -3566,23 +3612,29 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
     i2v_s = time.perf_counter() - t0
     i2v_launches = read_launches()
     i2v_peak = torch.cuda.max_memory_allocated() / 1e9
+    # T5 stays resident through sample_i2v, which does not use it: the peak
+    # less T5's weights is the figure comparable with runs that freed it
+    t5_gb = sum(t.numel() * t.element_size() for t in t5.state_dict().values()) / 1e9
     want = dict.fromkeys(i2v_launches, 0)
     want["flash_attn_fwd"] = steps * icfg.num_layers
     log(f"[sample] sample_i2v 49f@480x720 (VAE encode of one 480x720 frame, {steps} DPM "
-        f"steps, decode): {i2v_s:.3f} s, video {tuple(ivideo.shape)}, peak {i2v_peak:.2f} GB; "
+        f"steps, decode): {i2v_s:.3f} s, video {tuple(ivideo.shape)}, peak {i2v_peak:.2f} GB "
+        f"({i2v_peak - t5_gb:.2f} GB without T5's resident {t5_gb:.2f} GB); "
         f"launches {json.dumps(i2v_launches)}")
     if (tuple(ivideo.shape) != (1, 3, 49, 480, 720) or not bool(torch.isfinite(ivideo).all())
             or float(ivideo.abs().max()) > 1.0):
         fail("sample_i2v's video is not finite in [-1, 1] at 49f@480x720")
     if i2v_launches != want:
         fail(f"the I2V path's launches {i2v_launches} are not K1's alone")
-    del idit, vae, ivideo
+    del ivideo
     torch.cuda.empty_cache()
     return {"launches": launches, "i2v_launches": i2v_launches, "t5_ms": t5_ms,
+            "models": {"cfg": icfg, "dit": idit, "vae": vae, "t5": t5, "t5_cfg": t5_cfg},
             "decode_conv_tflop": conv_tflop,
             "step_ms": step_ms, "denoise_s": timing["denoise_s"],
             "decode_ms": 1e3 * timing["decode_s"], "tile": tile, "total_s": total_s,
             "peak_gb": peak_gb, "i2v_s": i2v_s, "i2v_peak_gb": i2v_peak,
+            "i2v_peak_gb_without_t5": i2v_peak - t5_gb,
             "i2v_layers": icfg.num_layers, "decode_profile": profile, "int32_probe": probe}
 
 
@@ -4171,7 +4223,7 @@ def phase_score_files():
         return frames[path][:n_frames]
 
     real_decode, real_score_groups = video_io.sample_uniform_frames, score_cli.score_groups
-    walls = []
+    walls, counts = [], []
 
     def timed_score_groups(*args, **kwargs):
         torch.cuda.synchronize()
@@ -4179,6 +4231,7 @@ def phase_score_files():
         stats = real_score_groups(*args, **kwargs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        counts.append(stats)
         return stats
 
     log(f"[score_files] the card's machine has no video decoder: "
@@ -4196,11 +4249,12 @@ def phase_score_files():
             zero_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            stats = score_cli.main(["--input_json", os.path.join(root, "groups.json"),
-                                    "--output_json", out_json, "--base_dir", root,
-                                    "--model_name", ckpt_dir,
-                                    "--num_frames", str(SCORE_FILES_FRAMES)] + extra)
+            score_cli.main(["--input_json", os.path.join(root, "groups.json"),
+                            "--output_json", out_json, "--base_dir", root,
+                            "--model_name", ckpt_dir,
+                            "--num_frames", str(SCORE_FILES_FRAMES)] + extra)
             wall = time.perf_counter() - t0
+            stats = counts[-1]
             launches = read_launches()
             batches = n_clips / 4 if "batch4" in tag else n_clips
             per_batch = {k: v / batches for k, v in launches.items() if v}
@@ -4396,6 +4450,562 @@ def phase_train_files(scored_json: str, steps: int = 2):
     return out
 
 
+# ---------------------------------------------------------------------------
+# DA3: the reference's default scoring backbone, and the replicate flow on it
+# ---------------------------------------------------------------------------
+
+# [slice_da3]: the card against the CPU, both in f32 (cuDNN's TF32 off, f32
+# attention through K6's f32 entry): the same arithmetic up to summation
+# order, ~1e-7 relative a layer (the CPU tests see <= 3e-7 against JAX); the
+# heads' exp() doubles it. 1e-4 in the rel-norm is the CPU parity limit.
+DA3_F32_REL = 1e-4
+
+
+def regular_da3_camera_(model) -> None:
+    """Shift the random camera decoder's fov outputs by +1 rad (its ReLU can
+    emit fov 0: focal length inf, no reprojection), as ``regular_camera_``
+    does for VGGT."""
+    import torch
+
+    with torch.no_grad():
+        model.cam_dec.fc_fov.bias += 1.0
+
+
+def small_da3_config():
+    """DA3's grammar at DA3-Large's head dim (64): 8 blocks from alt_start 2,
+    280^2 frames (20 x 20 patches, 401 tokens), DualDPT 32 / (32, 32, 64, 64)."""
+    import dataclasses
+
+    from videogpa_torch.models.da3 import DA3Config
+
+    return dataclasses.replace(DA3Config.tiny(), img_size=280, embed_dim=128, num_heads=2,
+                               dpt_features=32, dpt_out_channels=(32, 32, 64, 64))
+
+
+def _normalised(clips):
+    """uint8 clips -> (K, S, 3, H, W) ImageNet-normalised f32 on the CPU."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.da3.model import IMAGENET_MEAN, IMAGENET_STD
+
+    x = torch.from_numpy(np.stack(clips)).float().permute(0, 1, 4, 2, 3) / 255.0
+    mean = torch.tensor(IMAGENET_MEAN).reshape(1, 1, 3, 1, 1)
+    std = torch.tensor(IMAGENET_STD).reshape(1, 1, 3, 1, 1)
+    return (x - mean) / std
+
+
+def phase_slice_da3() -> None:
+    """The tiny DA3 (4 views) and a small one (6 views at 280^2) in f32 on
+    the card against the same weights on the CPU: depth, conf, extrinsics
+    and intrinsics by rel-norm, and the selected reference view, equal; then
+    the tiny DA3 scorer through process_frames_batch, card against CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.da3 import DA3Config, da3_forward, da3_init
+    from videogpa_torch.models.da3 import vit
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.reward import VideoProcessor
+
+    real_select = vit.select_reference_view
+    picks = []
+
+    def spy(x, strategy="saddle_balanced"):
+        idx = real_select(x, strategy)
+        picks.append(idx.cpu().tolist())
+        return idx
+
+    for tag, cfg, S in (("tiny", DA3Config.tiny(), 4), ("small", small_da3_config(), 6)):
+        ref = da3_init(cfg, torch.Generator().manual_seed(20), device="cpu")
+        regular_da3_camera_(ref)
+        dev = copy.deepcopy(ref).to("cuda")
+        x = _normalised(synthetic_frames(2, S, cfg.img_size, seed=21))
+        picks.clear()
+        vit.select_reference_view = spy
+        try:
+            with torch.no_grad():
+                want = da3_forward(ref, x)
+                zero_launches()
+                got = da3_forward(dev, x.cuda())
+                torch.cuda.synchronize()
+        finally:
+            vit.select_reference_view = real_select
+        launches = {k: v for k, v in read_launches().items() if v}
+        rel = {k: ((got[k].cpu() - want[k]).norm() / want[k].norm()).item()
+               for k in ("depth", "depth_conf", "extrinsics", "intrinsics", "ray")}
+        log(f"[slice_da3] {tag} DA3 ({cfg.img_size}^2, 2 clips x {S} views, {cfg.depth} blocks "
+            f"of {cfg.num_heads} x {cfg.embed_dim // cfg.num_heads}) f32 card vs CPU: rel-norm "
+            + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+            + f" (limit {DA3_F32_REL}); reference views CPU {picks[0]}, card {picks[1]}; "
+            f"launches {json.dumps(launches)}")
+        if picks[0] != picks[1]:
+            fail(f"the {tag} DA3 selected other reference views on the card")
+        if max(rel.values()) > DA3_F32_REL or not all(
+                bool(torch.isfinite(got[k]).all()) for k in rel):
+            fail(f"the {tag} DA3 forward on the card disagrees with the CPU")
+        if launches != {"flash_attn_fwd_f32": cfg.depth}:
+            fail(f"the {tag} f32 DA3 did not run its {cfg.depth} blocks through K6 f32")
+
+        if tag == "tiny":
+            lp_ref = lpips_init(torch.Generator().manual_seed(9), device="cpu")
+            lp_dev = copy.deepcopy(lp_ref).to("cuda")
+            clips = synthetic_frames(2, S, cfg.img_size, seed=22)
+
+            def score(model, lp, device):
+                vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model,
+                                    backbone="da3", compute_dtype=torch.float32, device=device)
+                return vp.process_frames_batch(clips, [0])
+
+            got_s, want_s = score(dev, lp_dev, "cuda"), score(ref, lp_ref, "cpu")
+            flip = SCORER_FLIPS / (S * cfg.img_size ** 2)
+            worst = {}
+            for g, w in zip(got_s, want_s):
+                for name, b in w[0].items():
+                    a = g[0][name]
+                    if name in ("MSE", "Consistency_Score"):
+                        lim = flip + 1e-5
+                    elif name == "PSNR":
+                        lim = 10 * np.log10(1 + flip / max(w[0]["MSE"], 1e-12)) + 1e-4
+                    else:
+                        lim = {"SSIM": 1e-2, "LPIPS": 1e-3}.get(name, 1e-4)
+                    worst[name] = max(worst.get(name, 0.0), abs(a - b))
+                    if not (np.isfinite(a) and abs(a - b) <= lim):
+                        fail(f"tiny DA3 scorer {name}: card {a} vs CPU {b} (limit {lim:.2e})")
+            log(f"[slice_da3] tiny DA3 scorer (2 clips x {S} frames) f32 card vs CPU, max |d| "
+                "per score: " + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+        del ref, dev, got, want
+    torch.cuda.empty_cache()
+
+
+def da3_large(dtype, seed: int = 30):
+    """DA3-Large on the card from a seed: the backbone in ``dtype``, the
+    heads and camera MLPs f32 (the scorer's dtypes), the fov offset applied."""
+    import torch
+
+    from videogpa_torch.models.da3 import DA3Config, da3_init
+
+    model = da3_init(DA3Config.large(), torch.Generator(device="cuda").manual_seed(seed),
+                     device="cuda", dtype=dtype)
+    regular_da3_camera_(model)
+    return model.eval()
+
+
+def _da3_batches(vp, batches, tag, K):
+    """Score each batch, timed; returns (batch ms, results)."""
+    import torch
+
+    batch_ms, results = [], []
+    for b, clips in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(vp.process_frames_batch(clips, [0]))
+        torch.cuda.synchronize()
+        batch_ms.append(1e3 * (time.perf_counter() - t0))
+        log(f"[{tag}] batch {b} ({'cold' if b == 0 else 'warm'}): {batch_ms[-1]:.1f} ms, "
+            f"{K / (batch_ms[-1] / 6e4):.1f} clips/min; clip 0: "
+            + json.dumps({k: round(v, 6) for k, v in results[-1][0][0].items()}))
+    return batch_ms, results
+
+
+def phase_scorer_da3(num_batches: int = 3, K: int = 4, S: int = 10):
+    """The DA3-Large scorer at full width and depth (24 blocks at 1,024, 16
+    heads x 64, DualDPT 256 / (256, 512, 1,024, 1,024)) on random weights:
+    ``num_batches`` batches of K clips x S frames x 518^2 through
+    ``process_frames_batch``, bf16 trunk, f32 heads, the device metric set
+    with a VGG16 LPIPS; launches per batch K4 16, K1 8, K5 K. Then the same
+    model quantised in place (``quantize_scorer_params("da3")``) on the same
+    frames: K8 8, K4 16, K5 K, and each score's drift against exact.
+    Selection may pick another reference view in bf16 than in f32, so the
+    scores are checked for finiteness and the geometry for its ranges."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.metrics import build_metrics
+    from videogpa_torch.models.da3 import DA3Config
+    from videogpa_torch.models.da3.heads import dualdpt_forward
+    from videogpa_torch.models.da3.vit import aavit_forward
+    from videogpa_torch.models.lpips import lpips_init
+    from videogpa_torch.ops.quant import QuantLinear, quantize_scorer_params
+    from videogpa_torch.reward import VideoProcessor
+
+    cfg = DA3Config.large()
+    t0 = time.perf_counter()
+    model = da3_large(torch.bfloat16)
+    lp = lpips_init(torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[scorer_da3] DA3-Large: AA-ViT {cfg.depth} blocks at {cfg.embed_dim} "
+        f"({cfg.num_heads} x {cfg.embed_dim // cfg.num_heads}), alternating from block "
+        f"{cfg.alt_start}, out layers {cfg.out_layers}, DualDPT {cfg.dpt_features} / "
+        f"{cfg.dpt_out_channels}; {n_params / 1e9:.3f} B params (backbone bf16, heads and "
+        f"camera MLPs f32), LPIPS VGG16 f32; built in {time.perf_counter() - t0:.1f} s")
+    batches = [synthetic_frames(K, S, cfg.img_size, seed=300 + b) for b in range(num_batches)]
+    n_local = cfg.alt_start + (cfg.depth - cfg.alt_start) // 2
+    n_global = (cfg.depth - cfg.alt_start) // 2
+    out = {}
+    for mode in ("exact", "int8"):
+        impl = "auto"
+        if mode == "int8":
+            model, impl = quantize_scorer_params("da3", model)
+            n_q = sum(isinstance(m, QuantLinear) for m in model.modules())
+            log(f"[scorer_da3] int8: quantize_scorer_params made {n_q} linears int8 (4 x "
+                f"{cfg.depth} blocks), attn_impl {impl!r}; patch embed, DualDPT and the camera "
+                "MLPs as before")
+            if n_q != 4 * cfg.depth:
+                fail("quantize_da3_int8 did not swap 4 linears a block")
+        vp = VideoProcessor(device_metrics(build_metrics(lp)), params=model, backbone="da3",
+                            compute_dtype=torch.bfloat16, zbuffer_impl="packed",
+                            device="cuda", attn_impl=impl)
+        tag = "scorer_da3" if mode == "exact" else "scorer_da3_int8"
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        batch_ms, results = _da3_batches(vp, batches, tag, K)
+        launches = read_launches()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        per_batch = {k: v / num_batches for k, v in launches.items()}
+        want = dict.fromkeys(launches, 0)
+        want.update({"flash_attn_short": n_local, "scatter_min_u32": K,
+                     ("flash_attn_fwd" if mode == "exact" else "flash_attn_int8"): n_global})
+        log(f"[{tag}] launches per batch {json.dumps(per_batch)}; expected {json.dumps(want)} "
+            f"(K4: {n_local} frame blocks of 40 x 1,370 tokens; "
+            f"{'K1' if mode == 'exact' else 'K8'}: {n_global} global blocks of 4 x 13,700; K5: "
+            f"one packed z-buffer a clip); peak allocated {peak_gb:.2f} GB")
+        if per_batch != want:
+            fail(f"the DA3 scorer ({mode}) did not run each attention and z-buffer through "
+                 "its kernel")
+        for r in results[-1]:
+            for name, v in r[0].items():
+                if not math.isfinite(v):
+                    fail(f"non-finite DA3 score {name} = {v}")
+            if len(r["_extrinsic"]) != S:
+                fail("DA3 extrinsics of the wrong shape")
+        out[mode] = {"batch_ms": batch_ms, "clips_per_min": [K / (ms / 6e4) for ms in batch_ms],
+                     "peak_gb": peak_gb, "launches": launches, "per_batch": per_batch,
+                     "results": results}
+        if mode == "exact":
+            # the geometry of one batch: depth > 0, conf > 1, proper rotations
+            images = torch.from_numpy(np.stack(batches[0])).cuda()
+            with torch.no_grad():
+                geo = vp._reprojected(images, 0.0)
+            depth, extr = geo["depth"].float(), geo["extrinsic"].float()
+            det = torch.linalg.det(extr[..., :3, :3])
+            ranges = {"depth_min": depth.min().item(), "depth_max": depth.max().item(),
+                      "rotation_det_err": (det - 1).abs().max().item(),
+                      "focal_px": [geo["intrinsic"][..., 0, 0].min().item(),
+                                   geo["intrinsic"][..., 0, 0].max().item()]}
+            out["ranges"] = ranges
+            log(f"[scorer_da3] geometry of batch 0: {json.dumps(ranges)}")
+            if not (ranges["depth_min"] > 0 and math.isfinite(ranges["depth_max"])
+                    and ranges["rotation_det_err"] < 1e-3):
+                fail("DA3-Large's depth or camera poses are out of range")
+            del geo, images
+            out["profile"] = profile_device_time(
+                "one DA3 scorer batch (profiled)",
+                lambda: vp.process_frames_batch(batches[-1], [0]))
+            # the two model layers alone on batch 0: the trunk, and DualDPT on its taps
+            x = _normalised(batches[0]).cuda().to(torch.bfloat16)
+            with torch.no_grad():
+                feats = aavit_forward(model.backbone, x)
+                out["trunk_ms"] = cuda_ms(lambda: aavit_forward(model.backbone, x), iters=2,
+                                          warmup=1)
+                out["heads_ms"] = cuda_ms(
+                    lambda: dualdpt_forward(model.head, feats, tuple(x.shape[-2:])), iters=2,
+                    warmup=1)
+            del feats, x
+            out["heads_tflop"] = da3_heads_tflop(cfg, K, S)
+            log(f"[scorer_da3] one batch's layers alone: AA-ViT trunk (bf16) "
+                f"{out['trunk_ms']:.1f} ms; DualDPT (both chains, f32, TF32 off) "
+                f"{out['heads_ms']:.1f} ms for {out['heads_tflop']:.2f} TFLOP "
+                f"(torch.utils.flop_counter on meta tensors), "
+                f"{out['heads_tflop'] / (out['heads_ms'] / 1e3):.1f} TFLOP/s, bound "
+                f"{1e3 * out['heads_tflop'] / (PEAK_F32_FLOPS / 1e12):.1f} ms at the f32 peak")
+        del vp
+    drift = {}
+    for got_b, want_b in zip(out["int8"]["results"], out["exact"]["results"]):
+        for g, w in zip(got_b, want_b):
+            for name, v in g[0].items():
+                d = abs(v - w[0][name])
+                worst = drift.setdefault(name, {"max_abs": 0.0, "max_rel": 0.0})
+                worst["max_abs"] = max(worst["max_abs"], d)
+                worst["max_rel"] = max(worst["max_rel"], d / max(abs(w[0][name]), 1e-12))
+    out["int8"]["drift"] = drift
+    log("[scorer_da3_int8] drift of each score against the exact scorer on the same frames "
+        f"({num_batches * K} clips, random weights): "
+        + json.dumps({k: {a: float(f"{b:.3e}") for a, b in v.items()} for k, v in drift.items()}))
+    for mode in ("exact", "int8"):
+        del out[mode]["results"]
+    del model, lp
+    torch.cuda.empty_cache()
+    return out
+
+
+def da3_heads_tflop(cfg, K: int, S: int) -> float:
+    """TFLOP of DualDPT on one batch of K clips x S frames at the config's
+    size, counted on meta tensors."""
+    import torch
+
+    from videogpa_torch.models.da3.heads import DualDPT, dualdpt_forward
+
+    P = (cfg.img_size // cfg.patch_size) ** 2
+    head = DualDPT(cfg, device="meta")
+    feats = [(torch.empty(K, S, P, cfg.tokens_dim, device="meta", dtype=torch.bfloat16),
+              torch.empty(K, S, cfg.tokens_dim, device="meta", dtype=torch.bfloat16))
+             for _ in range(4)]
+    return meta_tflop(lambda: dualdpt_forward(head, feats, (cfg.img_size, cfg.img_size)))
+
+
+def phase_timing_da3(local_shape, global_shape):
+    """K4 at DA3-Large's frame rows and K1 and K8 at its global rows, beside
+    their bounds and SDPA on the same operands (standard normal draws: q and
+    k contiguous, v a strided view of the packed (B, N, 3, H, D) tensor; the
+    kernels' agreement at these shapes is held in [parity] and
+    [parity-int8])."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd, flash_attn_int8, flash_attn_short, quantize_qk_int8)
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(61)
+    for tag, shape in (("k4", local_shape), ("k1", global_shape)):
+        B, N, H, D = shape
+        q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16).unbind(2)
+        q, k = q.contiguous(), k.contiguous()
+        fn = flash_attn_short if tag == "k4" else (
+            lambda q_, k_, v_: flash_attn_fwd(q_, k_, v_, layout="bnhd"))
+        out[f"{tag}_ms"] = cuda_ms(lambda: fn(q, k, v), iters=10)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # yardstick only
+        out[f"{tag}_library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                                           iters=10)
+        out[f"{tag}_bound_ms"], out[f"{tag}_bound_by"] = _fwd_bound(B, N, N, H, D)
+        out[f"{tag}_tflops"] = 4.0 * B * H * N * N * D / out[f"{tag}_ms"] / 1e9
+        if tag == "k1":
+            ops = quantize_qk_int8(q, k, "bnhd")
+            out["k8_ms"] = cuda_ms(lambda: flash_attn_int8(*ops, v, layout="bnhd"), iters=10)
+            out["k8_quantize_ms"] = cuda_ms(lambda: quantize_qk_int8(q, k, "bnhd"), iters=10)
+            out["k8_bound_ms"], out["k8_bound_by"] = _int8_bound(B, N, N, H, D)
+            del ops
+        del q, k, v, qt, kt, vt
+    log(f"[timing] DA3-Large attention: K4 at {list(local_shape)}, K1 and K8 at "
+        f"{list(global_shape)}: " + json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_replicate_files(models, steps: int = 2):
+    """``replicate_torch.sh``'s two legs at full size. Generation:
+    ``cli.replicate.main`` for 1 prompt x 1 seed (its step count cut to
+    ``steps``; a video takes 50) on [sample]'s resident CogVideoX-5B-I2V
+    DiT, T5-XXL and VAE (a generator built around them, the tokenizer a
+    seeded stub); the DL3DV first frame (480 x 720, from memory: the card's
+    machine has no OpenCV) and the mp4 writer (the frames kept in memory) are
+    replaced inside the phase. Scoring: random DA3-Large weights written in
+    the checkpoint key layout (``export_da3`` + ``save_file``) and read back
+    by ``load_da3`` (same outputs as the module written); then
+    ``cli.replicate_scorer.main`` on 2 prompts x 4 clips (the generated video
+    among them) at score_batch 4 with DA3, decoded from memory, and a
+    resumed run that scores nothing."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    import videogpa_torch.metrics as metrics_pkg
+    from videogpa_torch.cli import generate, replicate, replicate_scorer
+    from videogpa_torch.data import video_io
+    from videogpa_torch.models.cogvideox import SamplerSettings
+    from videogpa_torch.models.da3 import DA3Config, da3_forward
+    from videogpa_torch.models.da3.convert import export_da3
+    from videogpa_torch.models.loader import load_da3
+    from videogpa_torch.utils.safetensors_np import save_file
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "replicate_files")
+    shutil.rmtree(root, ignore_errors=True)
+    scene = "0a1b2c3d"
+    os.makedirs(os.path.join(root, "dl3dv", "1K", scene, "images_8"))
+    open(os.path.join(root, "dl3dv", "1K", scene, "images_8", "frame_00001.png"), "wb").close()
+    with open(os.path.join(root, "captions.json"), "w") as f:
+        json.dump({f"1K/{scene}/images_8": "a slow walk through a sunlit courtyard"}, f)
+    out_dir = os.path.join(root, "out")
+    rng = np.random.default_rng(70)
+    first = np.kron(rng.uniform(0, 255, (60, 90, 3)), np.ones((8, 8, 1))).astype(np.uint8)
+    written = {}
+
+    def memory_writer(path, frames, fps=8):
+        written[path] = frames
+        open(path, "wb").close()  # the file the flow's skip-existing checks
+
+    icfg, idit, vae, t5, t5_cfg = (models[k] for k in ("cfg", "dit", "vae", "t5", "t5_cfg"))
+    calls = []
+    generator_cls = generate.CogVideoXGenerator
+
+    def resident(args, cfg, i2v=False, dynamic_cfg=False, lora_weight=None,
+                 absolute_lora=False, device=None):
+        calls.append({"lora_weight": lora_weight, "steps": args.num_inference_steps})
+        gen = generator_cls.__new__(generator_cls)
+        gen.cfg, gen.i2v, gen.args, gen.device, gen.attn_impl = cfg, i2v, args, "cuda", "auto"
+        gen.settings = SamplerSettings(num_inference_steps=args.num_inference_steps,
+                                       guidance_scale=args.guidance_scale,
+                                       use_dynamic_cfg=dynamic_cfg)
+        gen.dit, gen.vae, gen.t5 = idit, vae, t5
+        gen.tokenizer = _StubTokenizer(t5_cfg.vocab_size, seed=71)
+        return gen
+
+    config = replicate.build_config({
+        "RUN_MODE": "dpo", "RUN_SEEDS": "456", "RUN_NUM_PROMPTS": "1",
+        "PROMPT_JSON": os.path.join(root, "captions.json"),
+        "DL3DV_BASE_DIR": os.path.join(root, "dl3dv"), "RUN_OUTPUT_DIR": out_dir,
+        "RUN_LORA_PATH": os.path.join(root, "no_lora")})
+    config["num_inference_steps"] = steps
+    real = (generate.CogVideoXGenerator, replicate.read_first_frame, video_io.write_video)
+    generate.CogVideoXGenerator = resident
+    replicate.read_first_frame = lambda path, width=720, height=480: first
+    video_io.write_video = memory_writer
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = replicate.main(config, cfg=icfg)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        gen_launches = read_launches()
+        again = replicate.main(config, cfg=icfg)  # every video exists: nothing new
+    finally:
+        generate.CogVideoXGenerator, replicate.read_first_frame, video_io.write_video = real
+    gen_peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(gen_launches, 0)
+    want["flash_attn_fwd"] = steps * icfg.num_layers
+    name = os.path.join(out_dir, scene, "seed_456_dpo_w1.0.mp4")
+    video = written.get(name)
+    log(f"[replicate_files] cli.replicate.main: 1 prompt x 1 seed, {steps} DPM steps (cut from "
+        f"50), CogVideoX-5B-I2V ({icfg.num_layers} layers) with T5-XXL and the VAE resident: "
+        f"{gen_s:.2f} s, wrote {[os.path.relpath(p, root) for p in paths]}, video "
+        f"{None if video is None else video.shape}, peak {gen_peak:.2f} GB, generator calls "
+        f"{calls}; launches {json.dumps({k: v for k, v in gen_launches.items() if v})}")
+    if paths != [name] or video is None or video.shape != (49, 480, 720, 3):
+        fail("cli.replicate.main did not write the 49 x 480 x 720 video it names")
+    if gen_launches != want:
+        fail(f"the replicate generation's launches are not K1's {want['flash_attn_fwd']} alone")
+    if again != []:
+        fail("a second cli.replicate.main run generated again")
+    del models["dit"], models["vae"], models["t5"], idit, vae, t5
+    torch.cuda.empty_cache()
+
+    # the DA3-Large checkpoint in the checkpoint key layout, read back
+    cfg = DA3Config.large()
+    ckpt_dir = os.path.join(root, "da3_large")
+    os.makedirs(ckpt_dir)
+    model = da3_large(torch.float32, seed=72)
+    t0 = time.perf_counter()
+    sd = export_da3(model)
+    save_file(sd, os.path.join(ckpt_dir, "model.safetensors"))
+    write_s = time.perf_counter() - t0
+    size_gb = os.path.getsize(os.path.join(ckpt_dir, "model.safetensors")) / 1e9
+    n_keys = len(sd)
+    del sd
+    t0 = time.perf_counter()
+    loaded, _ = load_da3(ckpt_dir, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = _normalised(synthetic_frames(1, 10, cfg.img_size, seed=73)).cuda()
+    with torch.no_grad():
+        a = da3_forward(model, x, compute_dtype=torch.bfloat16)
+        b = da3_forward(loaded, x, compute_dtype=torch.bfloat16)
+    same = all(torch.equal(a[k], b[k]) for k in ("depth", "depth_conf", "extrinsics",
+                                                 "intrinsics"))
+    log(f"[replicate_files] DA3-Large in the checkpoint key layout: {n_keys} tensors, "
+        f"{size_gb:.2f} GB f32 safetensors written in {write_s:.1f} s, load_da3 {load_s:.1f} s; "
+        f"depth, conf, extrinsics, intrinsics of one 10-frame clip bit-equal to the module "
+        f"written: {same}")
+    if not same:
+        fail("load_da3 does not give back the module that was written")
+    del model, loaded, a, b, x
+    torch.cuda.empty_cache()
+
+    # 2 prompts x 4 clips: the generated video and 7 synthetic ones, from memory
+    frames = {}
+    idx = np.linspace(0, video.shape[0] - 1, 10).round().astype(int)
+    side = min(video.shape[1:3])
+    top, left = (video.shape[1] - side) // 2, (video.shape[2] - side) // 2
+    crop = torch.from_numpy(video[idx, top:top + side, left:left + side]).permute(0, 3, 1, 2)
+    frames[name] = F.interpolate(crop.float(), size=(cfg.img_size, cfg.img_size), mode="area"
+                                 ).round().clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).numpy()
+    extra = [(scene, "seed_457_dpo_w1.0.mp4"), (scene, "seed_456_original_w1.0.mp4"),
+             (scene, "seed_457_original_w1.0.mp4")] + [
+        ("scene2", f"seed_{s}_{m}_w1.0.mp4") for s in (456, 457) for m in ("dpo", "original")]
+    synth = synthetic_frames(len(extra), 10, cfg.img_size, seed=74)
+    for (pid, fname), clip in zip(extra, synth):
+        os.makedirs(os.path.join(out_dir, pid), exist_ok=True)
+        path = os.path.join(out_dir, pid, fname)
+        open(path, "wb").close()
+        frames[path] = clip
+
+    def memory_frames(path, n_frames=48, size=518):
+        return frames[path][:n_frames]
+
+    real_build = metrics_pkg.build_metrics
+
+    def device_build(*a, **k):
+        return device_metrics(real_build(*a, **k))
+
+    score_cfg = replicate_scorer.build_score_config({
+        "SCORE_BASE_DIR": out_dir, "SCORE_OUTPUT_CSV": os.path.join(root, "scores.csv"),
+        "SCORE_NUM_FRAMES": "10", "SCORE_BATCH": "4", "SCORE_MODEL_NAME": ckpt_dir})
+    real_decode = video_io.sample_uniform_frames
+    video_io.sample_uniform_frames = memory_frames
+    metrics_pkg.build_metrics = device_build
+    try:
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = replicate_scorer.main(score_cfg, device="cuda")
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        score_launches = read_launches()
+        zero_launches()
+        resumed = replicate_scorer.main({**score_cfg, "resume": True}, device="cuda")
+        resume_launches = read_launches()
+    finally:
+        video_io.sample_uniform_frames = real_decode
+        metrics_pkg.build_metrics = real_build
+    rows = report["rows"]
+    n_local = cfg.alt_start + (cfg.depth - cfg.alt_start) // 2
+    n_global = (cfg.depth - cfg.alt_start) // 2
+    want = dict.fromkeys(score_launches, 0)
+    want.update({"flash_attn_short": 2 * n_local, "flash_attn_fwd": 2 * n_global,
+                 "scatter_min_u32": 8})
+    log(f"[replicate_files] cli.replicate_scorer.main (DA3, score_batch 4, the CSV's metric "
+        f"set without Epipolar, MSE-only consistency): {len(rows)} rows in {score_s:.1f} s "
+        f"(load_da3 included), summary " + json.dumps(
+            {m: {k: round(v, 6) for k, v in s.items()} for m, s in report["summary"].items()})
+        + f"; launches {json.dumps({k: v for k, v in score_launches.items() if v})} (expected "
+        f"2 batches: {json.dumps({k: v for k, v in want.items() if v})}); the generated video's "
+        f"row: " + json.dumps({k: v for k, v in rows[0].items()
+                               if k in ("relative_path", "consistency_score", "motion_score")}))
+    if len(rows) != 8 or any(r.get("error") for r in rows) or not all(
+            math.isfinite(r["consistency_score"]) for r in rows):
+        fail("cli.replicate_scorer.main did not score the 8 clips")
+    if {m: s["count"] for m, s in report["summary"].items()} != {"dpo": 4, "original": 4}:
+        fail("the replicate scorer's per-mode summary is wrong")
+    if score_launches != want:
+        fail("the replicate scorer did not run DA3's attention and z-buffer through K4, K1, K5")
+    if resumed["rows"] != rows or any(resume_launches.values()):
+        fail("a resumed cli.replicate_scorer.main run scored again")
+    log(f"[replicate_files] resumed run: {len(resumed['rows'])} rows, nothing scored")
+    shutil.rmtree(root)
+    return {"generate_s": gen_s, "generate_peak_gb": gen_peak, "generate_launches": gen_launches,
+            "checkpoint_gb": size_gb, "write_s": write_s, "load_s": load_s, "score_s": score_s,
+            "score_launches": score_launches, "summary": report["summary"]}
+
+
 def main() -> int:
     import torch
 
@@ -4429,18 +5039,25 @@ def main() -> int:
     wan_tokens = math.prod(n // p for n, p in zip(WAN_LATENT[1:], wcfg.patch_size))
     # Wan2.2 DiT self-attention, batch 1 per train forward: (1, 18480, 24, 128)
     wan_shape = (1, wan_tokens, wcfg.num_heads, wcfg.head_dim)
+    from videogpa_torch.models.da3 import DA3Config
+
+    dcfg = DA3Config.large()
+    da3_frame = 1 + (dcfg.img_size // dcfg.patch_size) ** 2  # 1,370 tokens, no registers
+    da3_local_shape = (4 * 10, da3_frame, dcfg.num_heads, dcfg.embed_dim // dcfg.num_heads)
+    da3_global_shape = (4, 10 * da3_frame, dcfg.num_heads, dcfg.embed_dim // dcfg.num_heads)
 
     phase_build()
-    fwd_err, fwd_plain_ms = phase_parity(dit_shape, vggt_global_shape)
+    fwd_err, fwd_plain_ms, fwd_da3 = phase_parity(dit_shape, vggt_global_shape,
+                                                  da3_global_shape)
     bwd_err, bwd_plain_ms = phase_parity_bwd(train_shape)
-    short_err, short_plain_ms = phase_parity_short(vggt_shape)
+    short_err, short_plain_ms, short_da3 = phase_parity_short(vggt_shape, da3_local_shape)
     d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(
         cam_shape, wan_shape, (vggt_shape, vggt_global_shape))
     k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
         phase_parity_bwd_d128(wan_shape, wcfg.text_len))
     zbuf_plain_ms = phase_parity_zbuffer()
-    k8_err, k9_err, k8_plain_ms, k9_plain_ms = phase_parity_int8(dit_shape, vggt_global_shape,
-                                                                 wan_shape)
+    k8_err, k9_err, k8_plain_ms, k9_plain_ms, k8_da3 = phase_parity_int8(
+        dit_shape, vggt_global_shape, wan_shape, da3_global_shape)
     headdim = phase_parity_headdim()
     headdim_launches = headdim["launches"]
     f32_bwd = phase_parity_f32_bwd(cam_shape, vggt_shape)
@@ -4454,10 +5071,13 @@ def main() -> int:
     phase_slice_int8()
     phase_slice_sampling()
     phase_slice_wan_vae()
+    phase_slice_da3()
     main_run = phase_main()
     sample_run = phase_sample(main_run.pop("dit"))
+    replicate_run = phase_replicate_files(sample_run.pop("models"))
     train_run = phase_train()
     scorer_run = phase_scorer()
+    da3_run = phase_scorer_da3()
     score_files_run = phase_score_files()
     log("[score_files] clips/min through score_groups: " + json.dumps(
         {tag: round(r["clips_per_min"], 1) for tag, r in score_files_run["runs"].items()})
@@ -4481,6 +5101,7 @@ def main() -> int:
     timing.update(phase_timing_scorer(vggt_shape, cam_shape, vggt_global_shape))
     timing.update(phase_timing_wan(wan_shape, wcfg.text_len))
     timing.update(phase_timing_int8(dit_shape, vggt_global_shape, wan_shape))
+    timing_da3 = phase_timing_da3(da3_local_shape, da3_global_shape)
 
     attn_share = main_run["launches_per_step"] * timing["fwd_ms"] / main_run["step_ms"][-1]
     per_mini = (train_run["launches"]["flash_attn_fwd"] // 4,
@@ -4497,6 +5118,19 @@ def main() -> int:
         "scorer_batch_ms": scorer_run["batch_ms"],
         "scorer_clips_per_min": scorer_run["clips_per_min"],
         "scorer_peak_allocated_gb": scorer_run["peak_gb"],
+        "da3_scorer_batch_ms": da3_run["exact"]["batch_ms"],
+        "da3_scorer_clips_per_min": da3_run["exact"]["clips_per_min"],
+        "da3_scorer_peak_allocated_gb": da3_run["exact"]["peak_gb"],
+        "da3_scorer_geometry_ranges": da3_run["ranges"],
+        "da3_scorer_heads_tflop": da3_run["heads_tflop"],
+        "da3_scorer_trunk_ms_heads_ms": [da3_run["trunk_ms"], da3_run["heads_ms"]],
+        "da3_int8_scorer_batch_ms": da3_run["int8"]["batch_ms"],
+        "da3_int8_scorer_clips_per_min": da3_run["int8"]["clips_per_min"],
+        "da3_int8_scorer_peak_allocated_gb": da3_run["int8"]["peak_gb"],
+        "da3_int8_scorer_drift_vs_exact": da3_run["int8"]["drift"],
+        "da3_attention": timing_da3,
+        "replicate_files": {k: v for k, v in replicate_run.items()
+                            if k not in ("generate_launches", "score_launches")},
         "flash_attn_fwd_ms_at_dit_shape": timing["fwd_ms"],
         "flash_attn_fwd_tflops": timing["fwd_tflops"],
         "flash_attn_fwd_bound_ms": timing["fwd_bound_ms"],
@@ -4556,6 +5190,7 @@ def main() -> int:
         "sample_i2v_s": sample_run["i2v_s"],
         "sample_i2v_layers": sample_run["i2v_layers"],
         "sample_i2v_peak_allocated_gb": sample_run["i2v_peak_gb"],
+        "sample_i2v_peak_allocated_gb_without_resident_t5": sample_run["i2v_peak_gb_without_t5"],
         "sample_int32_probe": sample_run["int32_probe"],
         "score_files": {k: v for k, v in score_files_run.items() if k != "runs"},
         "score_files_runs": {tag: {k: v for k, v in r.items() if k not in ("scores", "json")}
@@ -4575,6 +5210,8 @@ def main() -> int:
         "vggt_global_attention_shape_bnhd": list(vggt_global_shape),
         "camera_head_attention_shape_bnhd": list(cam_shape),
         "wan_attention_shape_bnhd": list(wan_shape),
+        "da3_frame_attention_shape_bnhd": list(da3_local_shape),
+        "da3_global_attention_shape_bnhd": list(da3_global_shape),
         "wan_cross_attention_keys": wcfg.text_len,
         "card": card,
         "wall_s": time.perf_counter() - t_start,
@@ -4596,6 +5233,11 @@ def main() -> int:
                              for k in train_run["launches"]},
             "wan_train_files": {k: wan_train_files_run["run_launches"][k]
                                 + wan_train_files_run["resume_launches"][k]
+                                for k in train_run["launches"]},
+            "scorer_da3": da3_run["exact"]["launches"],
+            "scorer_da3_int8": da3_run["int8"]["launches"],
+            "replicate_files": {k: replicate_run["generate_launches"][k]
+                                + replicate_run["score_launches"][k]
                                 for k in train_run["launches"]}}
 
     def by_path(name):
@@ -4617,7 +5259,11 @@ def main() -> int:
          "vggt_global_shape": {"ms": timing["fwd_vggt_ms"],
                                "bound_ms": timing["fwd_vggt_bound_ms"],
                                "bound_by": timing["fwd_vggt_bound_by"],
-                               "library_ms": timing["fwd_vggt_library_ms"]}},
+                               "library_ms": timing["fwd_vggt_library_ms"]},
+         "da3_global_shape": {**fwd_da3, "ms": timing_da3["k1_ms"],
+                              "bound_ms": timing_da3["k1_bound_ms"],
+                              "bound_by": timing_da3["k1_bound_by"],
+                              "library_ms": timing_da3["k1_library_ms"]}},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:951,983",
@@ -4631,7 +5277,11 @@ def main() -> int:
          **by_path("flash_attn_short"),
          "max_abs_err": short_err, "ms": timing["k4_ms"], "plain_ms": short_plain_ms,
          "bound_ms": timing["k4_bound_ms"], "bound_by": timing["k4_bound_by"],
-         "library_ms": timing["k4_library_ms"]},
+         "library_ms": timing["k4_library_ms"],
+         "da3_frame_shape": {**short_da3, "ms": timing_da3["k4_ms"],
+                             "bound_ms": timing_da3["k4_bound_ms"],
+                             "bound_by": timing_da3["k4_bound_by"],
+                             "library_ms": timing_da3["k4_library_ms"]}},
         {"name": "scatter_min_u32", "route": "cuda",
          "source": "videogpa_torch/csrc/zbuffer_scatter_min.cu",
          "replaces": "videogpa_tpu/geometry/zbuffer_kernel.py:110",
@@ -4697,7 +5347,11 @@ def main() -> int:
                                "bound_by": timing["k8_vggt_bound_by"],
                                "quantize_qk_ms": timing["k8_vggt_quantize_ms"],
                                "flash_attn_fwd_same_phase_turns_ms":
-                                   timing["k8_vggt_exact_kernel_turns_ms"]}},
+                                   timing["k8_vggt_exact_kernel_turns_ms"]},
+         "da3_global_shape": {**k8_da3, "ms": timing_da3["k8_ms"],
+                              "bound_ms": timing_da3["k8_bound_ms"],
+                              "bound_by": timing_da3["k8_bound_by"], "library_ms": None,
+                              "quantize_qk_ms": timing_da3["k8_quantize_ms"]}},
         {"name": "flash_attn_int8_d128", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_int8.cu",
          "replaces": "videogpa_tpu/ops/attention.py:766",

@@ -20,7 +20,6 @@ import cv2
 import numpy as np
 import torch
 
-import videogpa_torch.cli.score as tscore
 import videogpa_torch.cli.train_dpo as tcli
 import videogpa_torch.data.video_io as tio
 import videogpa_torch.models.loader as tloader
@@ -29,6 +28,7 @@ from videogpa_torch.models.vggt import VGGTConfig, vggt_init
 from videogpa_torch.train import recipes as trecipes
 from videogpa_torch.train.dataset import DPODataset
 from videogpa_torch.train.lora import import_peft
+from test_torch_score_cli import main_stats
 
 torch.set_num_threads(2)
 
@@ -70,9 +70,10 @@ def test_generate_score_train_from_files(tmp_path, monkeypatch):
                         functools.partial(tio.sample_uniform_frames, size=vcfg.img_size))
 
     # ---- score: the CLI writes consistency scores into the group JSON ----
-    stats = tscore.main(["--input_json", str(base / "groups.json"), "--output_json",
-                         str(base / "scored.json"), "--base_dir", str(base), "--num_frames",
-                         "4", "--batch_size", "2", "--device", "cpu"])
+    stats = main_stats(monkeypatch, ["--input_json", str(base / "groups.json"),
+                                     "--output_json", str(base / "scored.json"), "--base_dir",
+                                     str(base), "--num_frames", "4", "--batch_size", "2",
+                                     "--device", "cpu"])
     assert stats == {"scored": 6, "failed": 0, "resumed": 0}
     scored = json.load(open(base / "scored.json"))
 

@@ -64,7 +64,7 @@ class FakeTokenizer:
 def _tiny_generator_cls(cfg):
     class TinyGenerator:
         def __init__(self, args, cfg_model, i2v=False, dynamic_cfg=False,
-                     lora_weight=None, absolute_lora=False):
+                     lora_weight=None, absolute_lora=False, device=None):
             gen = torch.Generator().manual_seed(0)
             self.cfg, self.args = cfg_model, args
             self.settings = SamplerSettings(num_inference_steps=args.num_inference_steps,

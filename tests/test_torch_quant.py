@@ -37,6 +37,7 @@ import videogpa_torch.metrics as tm
 from videogpa_torch.convert import load_jax_params, state_dict_from_jax
 from videogpa_torch.models.cogvideox import (
     CogVideoXConfig, CogVideoXTransformer, SamplerSettings, denoise_loop, dit_forward)
+from videogpa_torch.models.da3 import DA3Config, da3_init
 from videogpa_torch.models.vggt import VGGT, VGGTConfig, vggt_forward
 from videogpa_torch.models.wan import WanConfig, WanTransformer, wan_forward
 from videogpa_torch.ops import quant as tquant
@@ -255,8 +256,15 @@ def test_quantize_scorer_params():
     out, impl = tquant.quantize_scorer_params("vggt", model)
     assert out is model and impl == "flash_int8"
     assert isinstance(model.aggregator.global_blocks[0].attn.qkv, tquant.QuantLinear)
-    with pytest.raises(NotImplementedError):
-        tquant.quantize_scorer_params("da3", model)
+    # DA3: the AA-ViT's blocks become int8, the heads and camera MLPs stay float
+    da3 = da3_init(DA3Config.tiny(), torch.Generator().manual_seed(0), device="cpu")
+    out, impl = tquant.quantize_scorer_params("da3", da3)
+    assert out is da3 and impl == "flash_int8"
+    for blk in (*da3.backbone.blocks_pre, *da3.backbone.blocks_alt):
+        assert isinstance(blk.attn.qkv, tquant.QuantLinear)
+        assert isinstance(blk.mlp.fc2, tquant.QuantLinear)
+    assert not any(isinstance(m, tquant.QuantLinear)
+                   for part in (da3.head, da3.cam_dec, da3.cam_enc) for m in part.modules())
 
 
 def _dit_inputs(cfg, seed):

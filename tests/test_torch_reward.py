@@ -18,6 +18,7 @@ from videogpa_tpu.reward import VideoProcessor as JaxVideoProcessor
 import videogpa_torch.metrics as tm
 from videogpa_torch.convert import load_jax_params
 from videogpa_torch.metrics import functional as tF
+from videogpa_torch.models.da3 import DA3Config
 from videogpa_torch.models.lpips import LPIPS, lpips_distance
 from videogpa_torch.models.vggt import VGGT, VGGTConfig
 from videogpa_torch.reward import VideoProcessor
@@ -122,8 +123,11 @@ def test_fused_schema_keys(weights, clips):
 
 
 def test_unported_paths_raise(weights, clips):
-    with pytest.raises(NotImplementedError, match="DA3"):
-        VideoProcessor({}, backbone="da3", device="cpu")
+    # DA3 is ported: the backbone resolves and defaults to DA3-Large's config
+    # (its scoring is held against JAX in test_torch_da3_scorer.py)
+    assert VideoProcessor({}, backbone="da3", device="cpu").config == DA3Config()
+    vp = VideoProcessor({}, model_name="depth-anything/DA3-Large", device="cpu")
+    assert vp.backbone == "da3" and vp.config == DA3Config.large()
     with pytest.raises(NotImplementedError, match="LightGlue"):
         tm.EpipolarMetric(descriptor_type="lightglue")
     # frames that are not square (host preprocessing) and the per-metric path

@@ -7,7 +7,8 @@ mp4s written here with OpenCV are decoded by both packages' real
 raw-upload path runs as it does at 518 with VGGT-1B. Covered: ``score_groups``
 batched (one-thread decode prefetch) and async single-clip, resume, per-item
 isolation of an unreadable clip, ``main(argv)`` with ``load_vggt``
-monkeypatched (exact and ``--int8``; ``--backbone da3`` raises), the fused
+monkeypatched (exact and ``--int8``; ``--backbone da3`` with ``load_da3``
+monkeypatched to the tiny DA3), the fused
 path against the per-metric path (``tests/test_reward.py::
 test_fused_scoring_matches_per_metric``), frames of another size through the
 host preprocessing, ``save_visuals`` and ``save_ply``, and the scorer half of
@@ -24,6 +25,7 @@ atol 1e-5 (the reference test's tolerance).
 import functools
 import json
 import os
+import sys
 
 import cv2
 import jax.numpy as jnp
@@ -43,6 +45,7 @@ import videogpa_torch.data.video_io as tio
 import videogpa_torch.metrics as tm
 import videogpa_torch.models.loader as tloader
 from videogpa_torch.convert import load_jax_params
+from videogpa_torch.models.da3 import DA3Config, da3_init
 from videogpa_torch.models.lpips import LPIPS
 from videogpa_torch.models.vggt import VGGT, VGGTConfig
 from videogpa_torch.reward import VideoProcessor
@@ -173,9 +176,38 @@ def test_an_unreadable_clip_is_isolated_as_in_the_jax_package(weights, workspace
         assert abs(_scores(got)[path][0] - cs) <= FLIP
 
 
+def main_stats(monkeypatch, argv):
+    """``cli.score.main(argv)`` (which returns nothing) and the counts its
+    ``score_groups`` call returned."""
+    seen = []
+    real = tscore.score_groups
+    monkeypatch.setattr(tscore, "score_groups",
+                        lambda *a, **k: seen.append(real(*a, **k)) or seen[-1])
+    assert tscore.main(argv) is None
+    monkeypatch.setattr(tscore, "score_groups", real)
+    return seen[-1]
+
+
+def test_main_exits_zero_as_a_console_script(weights, workspace, tiny_decode, tmp_path,
+                                             monkeypatch):
+    """The ``videogpa-torch-score`` entry runs ``sys.exit(main())``: main must
+    return None (a returned dict is printed to stderr with exit status 1)."""
+    base, data = workspace
+    _, _, model, _ = weights
+    src = tmp_path / "groups.json"
+    src.write_text(json.dumps(data))
+    monkeypatch.setattr(tloader, "load_vggt", lambda *a, **k: (model, VGGTConfig.tiny()))
+    with pytest.raises(SystemExit) as exit_info:
+        sys.exit(tscore.main(["--input_json", str(src), "--output_json",
+                              str(tmp_path / "o.json"), "--base_dir", str(base),
+                              "--num_frames", str(S), "--device", "cpu", "--batch_size", "4"]))
+    assert exit_info.value.code is None
+
+
 def test_main_scores_a_group_json(weights, workspace, tiny_decode, tmp_path, monkeypatch):
     """``main(argv)`` with ``load_vggt`` monkeypatched (as
-    ``tests/test_cli.py``'s scorer tests do): exact and ``--int8``."""
+    ``tests/test_cli.py``'s scorer tests do): exact and ``--int8``; and
+    ``--backbone da3`` with ``load_da3`` monkeypatched."""
     base, data = workspace
     _, _, model, _ = weights
     src = tmp_path / "groups.json"
@@ -192,16 +224,31 @@ def test_main_scores_a_group_json(weights, workspace, tiny_decode, tmp_path, mon
     out = str(tmp_path / "scored.json")
     argv = ["--input_json", str(src), "--output_json", out, "--base_dir", str(base),
             "--num_frames", str(S), "--device", "cpu"]
-    stats = tscore.main(argv + ["--batch_size", "2"])
+    stats = main_stats(monkeypatch, argv + ["--batch_size", "2"])
     assert stats == {"scored": 4, "failed": 0, "resumed": 0}
     assert loads == [("facebook/VGGT-1B", "cpu")]
     exact = _scores(json.load(open(out)))
-    stats8 = tscore.main(argv + ["--output_json", str(tmp_path / "int8.json"), "--int8"])
+    stats8 = main_stats(monkeypatch,
+                        argv + ["--output_json", str(tmp_path / "int8.json"), "--int8"])
     assert stats8 == {"scored": 4, "failed": 0, "resumed": 0}
     int8 = _scores(json.load(open(tmp_path / "int8.json")))
     assert set(int8) == set(exact) and all(np.isfinite(v[0]) for v in int8.values())
-    with pytest.raises(NotImplementedError, match="item L"):
-        tscore.main(argv + ["--backbone", "da3"])
+    # --backbone da3 loads DA3 (``load_da3`` monkeypatched: the tiny DA3)
+    da3 = da3_init(DA3Config.tiny(), torch.Generator().manual_seed(3), device="cpu")
+    with torch.no_grad():
+        da3.cam_dec.fc_fov.bias += 1.0  # a random camera decoder can emit fov 0
+
+    def fake_load_da3(name, cfg=None, dtype=torch.float32, device=None):
+        loads.append((name, str(device)))
+        return da3, DA3Config.tiny()
+
+    monkeypatch.setattr(tloader, "load_da3", fake_load_da3)
+    stats_da3 = main_stats(monkeypatch, argv + ["--output_json", str(tmp_path / "da3.json"),
+                                                "--backbone", "da3", "--batch_size", "2"])
+    assert stats_da3 == {"scored": 4, "failed": 0, "resumed": 0}
+    assert loads[-1] == ("depth-anything/DA3-Large", "cpu")
+    by_da3 = _scores(json.load(open(tmp_path / "da3.json")))
+    assert set(by_da3) == set(exact) and all(np.isfinite(v[0]) for v in by_da3.values())
 
 
 def test_fused_scoring_matches_per_metric(weights, workspace, tiny_decode, monkeypatch):

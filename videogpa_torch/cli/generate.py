@@ -1,8 +1,13 @@
 """Shared CogVideoX generation entry point (``videogpa_tpu/cli/generate.py``).
 
 CLI surface of the reference ``generate/CogVideoX-5B.py`` /
-``CogVideoX-5B-I2V.py`` / ``CogVideoX1.5-5B.py``: the same flags, prompt-JSON
+``CogVideoX-5B-I2V.py`` / ``CogVideoX1.5-5B.py``, one entry picked by
+``--recipe``: the same flags, prompt-JSON
 formats, skip-existing resume, per-prompt error isolation and seed naming.
+
+    python -m videogpa_torch.cli.generate --recipe CogVideoX-5B-I2V \
+        --prompt_json P --output_dir O [--base_dir D]
+
 ``--gpu_id`` is accepted for CLI compatibility; the process runs on the
 current CUDA device (choose it with ``CUDA_VISIBLE_DEVICES``). LoRA mounting
 honours the three reference scaling conventions (PEFT merge, CogVideoX1.5
@@ -160,14 +165,15 @@ class CogVideoXGenerator:
 
 def run_generation(args, cfg, i2v=False, dynamic_cfg=False,
                    lora_weight=None, absolute_lora=False,
-                   num_frames=49, height=480, width=720, base_dir=None):
+                   num_frames=49, height=480, width=720, base_dir=None, device=None):
     """Sample every prompt of ``args.prompt_json`` to
     ``<output_dir>/<group_id>/seed_<seed>.mp4``, skipping videos that exist.
     A prompt that fails is reported and the run goes on (reference
     behaviour)."""
     from videogpa_torch.data.video_io import write_video
 
-    gen = CogVideoXGenerator(args, cfg, i2v, dynamic_cfg, lora_weight, absolute_lora)
+    gen = CogVideoXGenerator(args, cfg, i2v, dynamic_cfg, lora_weight, absolute_lora,
+                             device=device)
     tasks = load_tasks(args.prompt_json, args.num_prompts)
     out_root = Path(args.output_dir)
     out_root.mkdir(parents=True, exist_ok=True)
@@ -204,3 +210,57 @@ def run_generation(args, cfg, i2v=False, dynamic_cfg=False,
             print(f"  Failed: {e}")
             traceback.print_exc()
     print("Done.")
+
+
+# the reference's three wrappers (generate/CogVideoX-5B.py, CogVideoX-5B-I2V.py,
+# CogVideoX1.5-5B.py): base model, configuration and operating point
+_RECIPES = {
+    "CogVideoX-5B": {"base_model": "THUDM/CogVideoX-5B", "config": "cogvideox_5b"},
+    "CogVideoX-5B-I2V": {"base_model": "THUDM/CogVideoX-5B-I2V", "config": "cogvideox_5b_i2v",
+                         "i2v": True},
+    # 81 frames at 768 x 1360, fps 16, dynamic cfg, and --lora_weight as the
+    # ABSOLUTE LoRA scaling (default 0.2)
+    "CogVideoX1.5-5B": {"base_model": "THUDM/CogVideoX1.5-5B", "config": "cogvideox_1_5_5b",
+                        "dynamic_cfg": True, "absolute_lora": True, "fps": 16,
+                        "num_frames": 81, "height": 768, "width": 1360},
+}
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """``--recipe`` (default CogVideoX-5B) and the flags of that recipe's
+    reference wrapper, with its defaults."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--recipe", choices=sorted(_RECIPES), default="CogVideoX-5B")
+    recipe = _RECIPES[pre.parse_known_args(argv)[0].recipe]
+    parser = argparse.ArgumentParser(description="CogVideoX generation")
+    parser.add_argument("--recipe", choices=sorted(_RECIPES), default="CogVideoX-5B")
+    add_common_args(parser, base_model=recipe["base_model"])
+    if recipe.get("i2v"):
+        parser.add_argument("--base_dir", type=str, default=None,
+                            help="base dir for relative image paths")
+    if recipe.get("absolute_lora"):
+        parser.add_argument("--lora_weight", type=float, default=0.2,
+                            help="absolute LoRA scaling override")
+    parser.set_defaults(fps=recipe.get("fps", 8))
+    return parser.parse_args(argv)
+
+
+def main(argv=None, cfg=None, device=None) -> None:
+    """``videogpa-torch-generate``: one entry for the three CogVideoX
+    generate wrappers, picked by ``--recipe``. ``cfg`` takes another model
+    configuration, ``device`` the CPU."""
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+
+    args = parse_args(argv)
+    recipe = _RECIPES[args.recipe]
+    cfg = cfg or getattr(CogVideoXConfig, recipe["config"])()
+    op = {k: recipe.get(k, d) for k, d in (("num_frames", 49), ("height", 480), ("width", 720))}
+    run_generation(args, cfg, i2v=recipe.get("i2v", False),
+                   dynamic_cfg=recipe.get("dynamic_cfg", False),
+                   lora_weight=getattr(args, "lora_weight", None),
+                   absolute_lora=recipe.get("absolute_lora", False),
+                   base_dir=getattr(args, "base_dir", None), device=device, **op)
+
+
+if __name__ == "__main__":
+    main()

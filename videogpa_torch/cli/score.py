@@ -10,7 +10,9 @@ every group (batched path: after every chunk).
     python -m videogpa_torch.cli.score --input_json groups.json \
         --output_json scored.json --base_dir videos/ --batch_size 4
 
-The scorer runs on the card unless ``--device cpu``.
+``--backbone da3`` scores with DA3 (``--model_name`` a DA3 checkpoint
+directory, default ``depth-anything/DA3-Large``); ``--int8`` quantises
+either backbone. The scorer runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -178,10 +180,11 @@ def score_groups(processor, data: dict, output_json: str, base_dir: str = "",
     return {"scored": n_done, "failed": n_fail, "resumed": n_skip}
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> None:
     """``videogpa-torch-score``: the preference-pair scorer's command line
-    (the reference's ``train/01_preference_pair.py`` surface). Returns the
-    ``score_groups`` counts."""
+    (the reference's ``train/01_preference_pair.py`` surface). Returns
+    nothing, as a console script's exit status is its return value; the
+    ``score_groups`` counts are printed."""
     import argparse
     import time
 
@@ -203,13 +206,15 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
 
     from videogpa_torch.metrics import ConsistencyScore
-    from videogpa_torch.models.loader import load_vggt
+    from videogpa_torch.models import loader
     from videogpa_torch.reward import VideoProcessor
 
     if args.backbone.lower() == "da3":
-        raise NotImplementedError("--backbone da3: the DA3 backbone is not ported yet "
-                                  "(ROADMAP item L)")
-    params, cfg = load_vggt(args.model_name or "facebook/VGGT-1B", device=args.device)
+        params, cfg = loader.load_da3(args.model_name or "depth-anything/DA3-Large",
+                                      device=args.device)
+    else:
+        params, cfg = loader.load_vggt(args.model_name or "facebook/VGGT-1B",
+                                       device=args.device)
     attn_impl = "auto"
     if args.int8:
         from videogpa_torch.ops.quant import quantize_scorer_params
@@ -225,7 +230,6 @@ def main(argv=None) -> dict:
                          batch_size=args.batch_size)
     hours = (time.time() - t0) / 3600
     print(f"Done in {hours:.2f} h ({stats}) -> {args.output_json}")
-    return stats
 
 
 if __name__ == "__main__":

@@ -16,9 +16,11 @@ The inverse of ``videogpa_tpu/convert.py:22-56`` (``t_linear``,
   ``QuantLinear`` where the tree holds one
 
 Leaves under a ``lax.scan``-stacked node (``blocks``, ``frame_blocks``,
-``global_blocks``, the camera head's ``trunk``) carry every layer along a
-leading axis; they are unstacked into ``<node>.{i}.*``. List nodes
-(``projects``, ``layer_rn``, ``convs``, ``lins``) become ``<node>.{i}.*``.
+``global_blocks``, DA3's ``blocks_pre``, the camera head's and DA3 camera
+encoder's ``trunk``) carry every layer along a leading axis; they are
+unstacked into ``<node>.{i}.*``. List nodes (``projects``, ``layer_rn``,
+``convs``, ``lins``, DA3's ``blocks_alt``) become ``<node>.{i}.*``, lists of
+lists (DA3's ``output_conv1_aux``) ``<node>.{i}.{j}.*``.
 Tokens, tables, the Wan blocks' and head's ``modulation`` and the Wan VAE's
 ``latents_mean`` / ``latents_std`` (``_VERBATIM``), and the ``gamma`` of
 LayerScale's ``ls1/ls2`` and of the Wan VAE's RMS norms (``_GAMMA_OWNERS``)
@@ -26,7 +28,7 @@ are copied as they are.
 Covers the CogVideoX DiT and VAE (5-D conv kernels, GroupNorm
 ``scale``/``bias``, the ``down``/``up``/``resnets`` lists),
 ``t5_encoder_init`` (``embed`` and ``rel_bias`` copied), ``wan_init``,
-``wan_vae_init``, ``vggt_init`` and ``lpips_init`` trees. Any leaf the
+``wan_vae_init``, ``vggt_init``, ``lpips_init`` and ``da3_init`` trees. Any leaf the
 bridge cannot name raises, and loading is strict, so nothing is left
 unmapped on either side.
 """
@@ -48,7 +50,7 @@ _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
 # owners whose ``gamma`` is copied as it is: LayerScale, the Wan VAE's RMS norms
 _GAMMA_OWNERS = ("ls1", "ls2", "norm1", "norm2", "norm", "head_norm")
 # nodes whose leaves stack every layer along a leading axis
-_STACKED = ("blocks", "frame_blocks", "global_blocks", "trunk")
+_STACKED = ("blocks", "frame_blocks", "global_blocks", "blocks_pre", "trunk")
 # 4-D kernels of transposed convolutions (kernel_size == stride)
 _TRANSPOSED_CONVS = ("resize0", "resize1")
 

@@ -1,5 +1,5 @@
-"""9-D "absT_quaR_FoV" pose encoding -> extrinsics + intrinsics
-(``videogpa_tpu/geometry/pose_enc.py:39-65``).
+"""9-D "absT_quaR_FoV" pose encoding <-> extrinsics + intrinsics
+(``videogpa_tpu/geometry/pose_enc.py``).
 
 enc[..., 0:3] is the camera-from-world translation, enc[..., 3:7] the
 scalar-last rotation quaternion, enc[..., 7:9] (fov_h, fov_w) in radians.
@@ -12,7 +12,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from videogpa_torch.geometry.rotation import quat_to_mat
+from videogpa_torch.geometry.rotation import mat_to_quat, quat_to_mat
+
+
+def extri_intri_to_pose_encoding(extrinsics: torch.Tensor, intrinsics: torch.Tensor,
+                                 image_size_hw: Tuple[int, int]) -> torch.Tensor:
+    """(..., 3, 4) extrinsics + (..., 3, 3) K -> (..., 9) f32 encoding."""
+    H, W = image_size_hw
+    fov_h = 2 * torch.atan((H / 2) / intrinsics[..., 1, 1])
+    fov_w = 2 * torch.atan((W / 2) / intrinsics[..., 0, 0])
+    return torch.cat([extrinsics[..., :3, 3], mat_to_quat(extrinsics[..., :3, :3]),
+                      fov_h[..., None], fov_w[..., None]], dim=-1).float()
 
 
 def pose_encoding_to_extri_intri(

@@ -1,4 +1,4 @@
-"""SE(3) inverse and depth unprojection (``videogpa_tpu/geometry/transforms.py``).
+"""SE(3) inverses and depth unprojection (``videogpa_tpu/geometry/transforms.py``).
 
 OpenCV cameras; extrinsics are world->camera [R|t].
 """
@@ -19,6 +19,15 @@ def closed_form_inverse_se3(se3: torch.Tensor) -> torch.Tensor:
     top = torch.cat([Rt, -Rt @ t], dim=-1)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=se3.dtype, device=se3.device)
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
+
+
+def affine_inverse(A: torch.Tensor) -> torch.Tensor:
+    """Invert (..., 4, 4) rigid transforms keeping the bottom row as it is;
+    on (..., 3, 4) input the result is (..., 3, 4) (DA3's c2w <-> w2c)."""
+    R = A[..., :3, :3]
+    T = A[..., :3, 3:]
+    Rt = R.transpose(-1, -2)
+    return torch.cat([torch.cat([Rt, -Rt @ T], dim=-1), A[..., 3:, :]], dim=-2)
 
 
 def _pixel_grid(H: int, W: int, dtype, device) -> torch.Tensor:

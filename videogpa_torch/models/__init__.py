@@ -1,1 +1,1 @@
-"""Model families ported so far: CogVideoX."""
+"""Model families of the port: CogVideoX, T5, Wan2.2, VGGT, LPIPS and DA3."""

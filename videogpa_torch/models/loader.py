@@ -5,8 +5,7 @@ No network access is assumed: ``resolve_model_dir`` accepts a filesystem
 path or resolves a HF repo id against ``$VIDEOGPA_MODELS_DIR`` or the local
 HF cache. Multi-shard safetensors (``*.safetensors.index.json``) are read
 through their index; bf16 tensors widen to f32 on the host and each module
-is built on the device in the dtype asked for. The DA3 loader is not
-ported yet.
+is built on the device in the dtype asked for.
 """
 
 from __future__ import annotations
@@ -156,6 +155,31 @@ def load_vggt(model_name_or_path: str = "facebook/VGGT-1B", cfg=None,
     sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path)))
     return _module_from_state_dict(VGGT, cfg, convert_vggt(sd, cfg), resolve_device(device),
                                    dtype), cfg
+
+
+def load_da3(model_name_or_path: str = "depth-anything/DA3-Large", cfg=None,
+             dtype: torch.dtype = torch.float32, device=None):
+    """A DA3 checkpoint directory (safetensors, the HF-hub layout or a raw
+    training dump, normalised by ``normalize_da3_state_dict``) -> (``DA3`` on
+    ``device`` (the card unless ``device="cpu"``) in ``dtype``, its config).
+    The camera encoder is built where the checkpoint holds one."""
+    from videogpa_torch.models.da3.config import DA3Config
+    from videogpa_torch.models.da3.convert import convert_da3, normalize_da3_state_dict
+    from videogpa_torch.models.da3.model import DA3
+
+    cfg = cfg or DA3Config.large()
+    sd = _to_f32(load_safetensors_dir(resolve_model_dir(model_name_or_path)))
+    if not any(k.startswith("backbone.") for k in sd):
+        # raw training-dump layout (module./model. prefixes, old head names)
+        sd = normalize_da3_state_dict(sd)
+    msd = convert_da3(sd, cfg)
+    del sd
+    cam_enc = any(k.startswith("cam_enc.") for k in msd)
+    model = DA3(cfg, cam_enc=cam_enc, device="meta", dtype=dtype).to_empty(
+        device=resolve_device(device))
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in msd.items()},
+                          strict=True)
+    return model.requires_grad_(False), cfg
 
 
 def load_wan(model_name_or_path: str, cfg=None, dtype: torch.dtype = torch.float32,

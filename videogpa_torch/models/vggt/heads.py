@@ -40,7 +40,7 @@ def activate_head(out: torch.Tensor, activation: str,
                   conf_activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, C, H, W) -> ((B, H, W, C-1) points or depth, (B, H, W) conf), f32.
     VGGT's heads: "exp" (depth) or "inv_log" (points), conf "expp1"; the
-    JAX package's other activations serve DA3, a later slice."""
+    JAX package's other activations serve DA3 (``models/da3/heads.py``)."""
     fmap = out.permute(0, 2, 3, 1).float()
     xyz, conf = fmap[..., :-1], fmap[..., -1]
     if activation == "exp":
@@ -159,19 +159,21 @@ def uv_pos_embed(ph: int, pw: int, channels: int, W: int, H: int, device=None) -
     return emb.reshape(ph, pw, channels).permute(2, 0, 1) * 0.1
 
 
-def _rcu_apply(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def _rcu_apply(m: nn.Module, x: torch.Tensor, inplace_relu: bool = True) -> torch.Tensor:
     # VGGT's ResidualConvUnit applies ReLU(inplace=True) to its input before
-    # the skip-add, so the residual adds relu(x), not x (heads.py:235-245)
+    # the skip-add, so the residual adds relu(x), not x (heads.py:235-245);
+    # DA3's fusion blocks build ReLU(inplace=False): the skip adds raw x
     xr = torch.relu(x)
     out = m.conv2(torch.relu(m.conv1(xr)))
-    return out + xr
+    return out + (xr if inplace_relu else x)
 
 
-def _fusion(m: nn.Module, x: torch.Tensor, residual=None, size=None) -> torch.Tensor:
+def _fusion(m: nn.Module, x: torch.Tensor, residual=None, size=None,
+            inplace_relu: bool = True) -> torch.Tensor:
     out = x
     if residual is not None:
-        out = out + _rcu_apply(m.rcu1, residual)
-    out = _rcu_apply(m.rcu2, out)
+        out = out + _rcu_apply(m.rcu1, residual, inplace_relu)
+    out = _rcu_apply(m.rcu2, out, inplace_relu)
     if size is None:
         size = (out.shape[-2] * 2, out.shape[-1] * 2)
     out = resize_bilinear(out, size, align_corners=True)

@@ -194,9 +194,17 @@ def quantize_wan_int8(model: nn.Module) -> nn.Module:
     return model
 
 
+def quantize_da3_int8(model: nn.Module) -> nn.Module:
+    """DA3: the AA-ViT's pre and alternating blocks become int8, in place.
+    The patch embed, the camera encoder and decoder and the DualDPT stay as
+    they are (the heads run f32, as the reference's autocast-off region)."""
+    _quantize_vit_blocks(model.backbone.blocks_pre)
+    _quantize_vit_blocks(model.backbone.blocks_alt)
+    return model
+
+
 def quantize_scorer_params(backbone: str, model: nn.Module) -> Tuple[nn.Module, str]:
     """The scorer's int8 mode: (the model quantised in place, the
     ``attn_impl`` to hand to ``VideoProcessor``)."""
-    if backbone.lower() == "da3":
-        raise NotImplementedError("the DA3 backbone is not ported yet (a later slice)")
-    return quantize_vggt_int8(model), "flash_int8"
+    q = quantize_da3_int8 if backbone.lower() == "da3" else quantize_vggt_int8
+    return q(model), "flash_int8"

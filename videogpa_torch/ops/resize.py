@@ -2,9 +2,10 @@
 
 The JAX package gathers explicitly to reproduce ``F.interpolate`` and
 ``F.grid_sample``; here ``resize_bilinear`` is ``F.interpolate`` itself
-(held against the JAX gathers in the tests), and the antialiased bicubic
-resize of the pos-embed uses the same host-side weight matrices as the JAX
-package (copied, numpy only).
+(held against the JAX gathers in the tests), and the bicubic resize of
+the pos-embeds (antialiased for VGGT, plain with a scale override for DA3)
+uses the same host-side weight matrices as the JAX package (copied, numpy
+only).
 """
 
 from __future__ import annotations
@@ -52,33 +53,47 @@ def _cubic_kernel(t: np.ndarray, a: float) -> np.ndarray:
     )
 
 
-def _bicubic_aa_weights_1d(in_size: int, out_size: int) -> np.ndarray:
-    """(out_size, in_size) weights of torch's antialiased bicubic resize: the
-    PIL-style a = -0.5 kernel, half-pixel centres, clipped borders,
-    normalised rows (the antialias branch of
-    ``videogpa_tpu/ops/resize.py::_bicubic_weights_1d``)."""
+def _bicubic_weights_1d(in_size: int, out_size: int, antialias: bool = True,
+                        scale_override: float = 0.0) -> np.ndarray:
+    """(out_size, in_size) weights of torch's bicubic ``F.interpolate``
+    (``videogpa_tpu/ops/resize.py::_bicubic_weights_1d``).
+
+    ``antialias``: the PIL-style a = -0.5 kernel, half-pixel centres,
+    clipped borders, normalised rows. Otherwise the a = -0.75 kernel on four
+    edge-clamped taps. ``scale_override`` > 0 maps source coordinates with
+    that in/out ratio instead of ``in_size / out_size``, as torch does when
+    the caller passes ``scale_factor=`` (DINOv2's ``interpolate_offset``).
+    """
     Wt = np.zeros((out_size, in_size), np.float64)
-    scale = in_size / out_size
-    s = max(scale, 1.0)
-    support = 2.0 * s
-    for i in range(out_size):
-        center = scale * (i + 0.5)
-        lo = max(0, int(center - support + 0.5))
-        hi = min(in_size, int(center + support + 0.5))
-        j = np.arange(lo, hi)
-        w = _cubic_kernel((j - center + 0.5) / s, a=-0.5)
-        Wt[i, j] = w / w.sum()
+    scale = scale_override if scale_override > 0 else in_size / out_size
+    if antialias:
+        s = max(scale, 1.0)
+        support = 2.0 * s
+        for i in range(out_size):
+            center = scale * (i + 0.5)
+            lo = max(0, int(center - support + 0.5))
+            hi = min(in_size, int(center + support + 0.5))
+            j = np.arange(lo, hi)
+            w = _cubic_kernel((j - center + 0.5) / s, a=-0.5)
+            Wt[i, j] = w / w.sum()
+    else:
+        for i, c in enumerate((np.arange(out_size) + 0.5) * scale - 0.5):
+            f = int(np.floor(c))
+            j = np.arange(f - 1, f + 3)
+            np.add.at(Wt[i], np.clip(j, 0, in_size - 1), _cubic_kernel(j - c, a=-0.75))
     return Wt.astype(np.float32)
 
 
-def resize_bicubic(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Resize (..., H, W) as torch's bicubic with ``antialias=True`` (the
-    DINOv2 pos-embed interpolation), as two products with precomputed
-    weight matrices; f32 math."""
+def resize_bicubic(x: torch.Tensor, out_hw, antialias: bool = True,
+                   scale_override=(0.0, 0.0)) -> torch.Tensor:
+    """Resize (..., H, W) as torch's bicubic ``F.interpolate``, as two products
+    with precomputed weight matrices; f32 math. The default is the
+    antialiased resize of VGGT's DINOv2 pos-embed; DA3's passes
+    ``antialias=False`` with its ``scale_override`` (per-axis in/out ratios)."""
     H, W = x.shape[-2:]
     Ho, Wo = out_hw
-    wh = torch.from_numpy(_bicubic_aa_weights_1d(H, Ho)).to(x.device)
-    ww = torch.from_numpy(_bicubic_aa_weights_1d(W, Wo)).to(x.device)
+    wh = torch.from_numpy(_bicubic_weights_1d(H, Ho, antialias, scale_override[0])).to(x.device)
+    ww = torch.from_numpy(_bicubic_weights_1d(W, Wo, antialias, scale_override[1])).to(x.device)
     y = torch.einsum("oh,...hw->...ow", wh, x.float())
     y = torch.einsum("ow,...hw->...ho", ww, y)
     return y.to(x.dtype)

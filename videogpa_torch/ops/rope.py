@@ -68,14 +68,24 @@ def _angles_1d(positions: torch.Tensor, dim: int, base: float) -> torch.Tensor:
     return torch.cat([ang, ang], dim=-1)
 
 
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    """(x1, x2) halves -> (-x2, x1)."""
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([-x2, x1], dim=-1)
 
 
-def _rope_1d(tokens: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+def apply_rope_1d(tokens: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """tokens (..., N, d) rotated by rotate-half angles broadcastable to them; f32 math."""
     t = tokens.float()
-    return (t * torch.cos(angles) + _rotate_half(t) * torch.sin(angles)).to(tokens.dtype)
+    return (t * torch.cos(angles) + rotate_half(t) * torch.sin(angles)).to(tokens.dtype)
+
+
+def apply_rope_cos_sin(tokens: torch.Tensor, cos: torch.Tensor,
+                       sin: torch.Tensor) -> torch.Tensor:
+    """The rotate-half form with precomputed tables: tokens (..., N, D),
+    tables (N, D); f32 math."""
+    t = tokens.float()
+    return (t * cos + rotate_half(t) * sin).to(tokens.dtype)
 
 
 def rope_2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
@@ -93,5 +103,5 @@ def rope_2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
         ang_y, ang_x = ang_y[:, :, None], ang_x[:, :, None]
     else:
         ang_y, ang_x = ang_y[:, None], ang_x[:, None]
-    return torch.cat([_rope_1d(tokens[..., :half], ang_y),
-                      _rope_1d(tokens[..., half:], ang_x)], dim=-1)
+    return torch.cat([apply_rope_1d(tokens[..., :half], ang_y),
+                      apply_rope_1d(tokens[..., half:], ang_x)], dim=-1)

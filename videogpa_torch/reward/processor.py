@@ -1,19 +1,25 @@
-"""VideoProcessor: the 3D-consistency reward scorer on the VGGT backbone
-(``videogpa_tpu/reward/processor.py``).
+"""VideoProcessor: the 3D-consistency reward scorer on the VGGT or DA3
+backbone (``videogpa_tpu/reward/processor.py``).
 
-For each clip: sample frames uniformly -> VGGT -> camera poses and depth ->
-world points -> confidence filter -> z-buffer reprojection into every camera
--> the metric suite on (original, reprojected) frames.
+For each clip: sample frames uniformly -> VGGT or DA3 -> camera poses and
+depth -> world points -> confidence filter -> z-buffer reprojection into
+every camera -> the metric suite on (original, reprojected) frames. DA3
+takes ImageNet-normalised frames of any size (sides divisible by 14) and
+unprojects its depth in its own convention (``unproject_depth`` with the
+camera->world inverse of its extrinsics); the colours of its point cloud are
+the normalised frames mapped back to [0, 1].
 
 Two paths, as in the JAX package:
 
-- fused (``_scored``, the JAX ``_device_fn_scored``): square uint8 frames of
-  the model's size (518^2 for VGGT-1B) go up raw and everything from their
-  normalisation to the metric scalars runs on the device; only (K,) scores
-  and the (K, S, 3, 4) extrinsics come back. Epipolar, where the metric set
+- fused (``_scored``, the JAX ``_device_fn_scored``): uint8 frames (for VGGT
+  square ones of the model's size, 518^2 for VGGT-1B; for DA3 any size) go
+  up raw and everything from their normalisation to the metric scalars runs
+  on the device; only (K,) scores and the (K, S, 3, 4) extrinsics come back.
+  DA3 scores fused from float frames too, uploaded in [0, 1] and normalised
+  on the device. Epipolar, where the metric set
   holds it, is computed on the host from the frames (SIFT matching).
 - per-metric (``_reprojected``, the JAX ``_device_fn_batched``, then
-  ``compute_metrics``): frames of another size go through the host's VGGT
+  ``compute_metrics``): VGGT frames of another size go through the host's VGGT
   preprocessing (``data.video_io.preprocess_images_vggt``), and the metrics
   run one by one against the original frames; also for a metric set with a
   metric the device path does not fuse, under ``VIDEOGPA_NO_FUSED_METRICS=1``
@@ -34,14 +40,18 @@ import torch
 
 from videogpa_torch.data import video_io
 from videogpa_torch.device import resolve_device
-from videogpa_torch.geometry import batch_reproject, depth_to_world_points
+from videogpa_torch.geometry import (
+    batch_reproject, closed_form_inverse_se3, depth_to_world_points, unproject_depth)
 from videogpa_torch.geometry.pose_enc import pose_encoding_to_extri_intri
 from videogpa_torch.metrics import functional as F
 from videogpa_torch.metrics.api import lpips_clip, to_44
-from videogpa_torch.models.vggt import VGGT, VGGTConfig, vggt_forward
+from videogpa_torch.models.da3 import DA3Config, da3_forward
+from videogpa_torch.models.da3.model import IMAGENET_MEAN, IMAGENET_STD
+from videogpa_torch.models.vggt import VGGTConfig, vggt_forward
 from videogpa_torch.reward.pointcloud import colored_pointcloud
 
 DEFAULT_VGGT_MODEL = "facebook/VGGT-1B"
+DEFAULT_DA3_MODEL = "depth-anything/DA3-Large"
 
 
 class VideoProcessor:
@@ -49,17 +59,18 @@ class VideoProcessor:
 
     Args:
         metrics: name -> Metric (``videogpa_torch.metrics.build_metrics``).
-        params: the VGGT module (``vggt_init`` or converted weights), on
-            ``device``.
-        config: VGGT config (default: the module's, else VGGT-1B).
-        backbone: "vggt" (default; also the VIDEO_PROCESSOR_BACKBONE env
-            var, or a "depth-anything" ``model_name``); "da3" raises.
-        compute_dtype: trunk dtype (bf16 on the card).
-        dpt_chunk: frames per DPT-head chunk.
+        params: the backbone module (``vggt_init`` / ``da3_init``, ``load_vggt``
+            / ``load_da3`` or converted weights), on ``device``.
+        config: backbone config (default: the module's, else VGGT-1B or
+            DA3-Large).
+        backbone: "vggt" (default) or "da3"; also the VIDEO_PROCESSOR_BACKBONE
+            env var, or a "depth-anything" ``model_name``.
+        compute_dtype: trunk dtype (bf16 on the card); DA3's heads run f32.
+        dpt_chunk: frames per DPT-head chunk (VGGT; DA3's DualDPT takes all).
         zbuffer_impl: "packed" (default, or VIDEOGPA_ZBUFFER), "scatter" or
             "sorted" (see ``geometry.projection``).
         dpt_dtype: DPT dtype; default VIDEOGPA_DPT_BF16 if set, else f32 for
-            an f32 ``compute_dtype`` and bf16 otherwise.
+            an f32 ``compute_dtype`` and bf16 otherwise (VGGT).
         attn_impl: the backbone's attention impl; "flash_int8" with a model
             quantised by ``ops.quant.quantize_scorer_params`` is the int8 mode.
         device: where the scorer runs; ``None`` means ``cuda``.
@@ -67,19 +78,18 @@ class VideoProcessor:
 
     FUSABLE_METRICS = ("MSE", "PSNR", "SSIM", "LPIPS", "Consistency_Score", "MVCS")
 
-    def __init__(self, metrics: Dict[str, Any], params: Optional[VGGT] = None,
-                 config: Optional[VGGTConfig] = None, model_name: Optional[str] = None,
+    def __init__(self, metrics: Dict[str, Any], params: Optional[torch.nn.Module] = None,
+                 config=None, model_name: Optional[str] = None,
                  backbone: Optional[str] = None, compute_dtype: torch.dtype = torch.bfloat16,
                  dpt_chunk: int = 8, zbuffer_impl: Optional[str] = None,
                  dpt_dtype: Optional[torch.dtype] = None, device=None,
                  attn_impl: str = "auto"):
         self.metrics = metrics
         self.backbone = self._resolve_backbone(backbone, model_name)
-        if self.backbone == "da3":
-            raise NotImplementedError("the DA3 backbone is not ported yet (a later slice)")
         self.device = resolve_device(device)
         self.params = params
-        self.config = config or (params.cfg if params is not None else VGGTConfig())
+        default_cfg = DA3Config if self.backbone == "da3" else VGGTConfig
+        self.config = config or (params.cfg if params is not None else default_cfg())
         self.compute_dtype = compute_dtype
         self.attn_impl = attn_impl
         self.dpt_chunk = dpt_chunk
@@ -115,28 +125,36 @@ class VideoProcessor:
         return None
 
     def _raw_ok(self, frames: np.ndarray) -> bool:
-        """Whether a clip goes up raw: square uint8 frames of the model's size."""
-        return (frames.dtype == np.uint8 and frames.ndim == 4
-                and frames.shape[1] == frames.shape[2]
-                and frames.shape[2] in (518, self.config.img_size))
+        """Whether a clip goes up raw: uint8 frames, for VGGT square ones of
+        the model's size."""
+        if frames.dtype != np.uint8 or frames.ndim != 4:
+            return False
+        return self.backbone == "da3" or (frames.shape[1] == frames.shape[2]
+                                          and frames.shape[2] in (518, self.config.img_size))
 
     def _upload(self, all_frames: Sequence[np.ndarray]):
-        """(images on the device, whether they are the raw uint8 frames):
-        (K, S, H, W, 3) uint8, normalised on the device, or the host's VGGT
-        preprocessing of other frames, (K, S, 3, H', 518) f32 in [0, 1]
-        (width 518, H' <= 518)."""
+        """(images on the device, whether they are the metrics' ground truth):
+        (K, S, H, W, 3) uint8; else for DA3 the frames as (K, S, 3, H, W) f32
+        in [0, 1] (both normalised on the device); else the host's VGGT
+        preprocessing, (K, S, 3, H', 518) f32 in [0, 1] (H' <= 518), which
+        is not the ground truth."""
         if self.params is None:
             raise RuntimeError("VideoProcessor needs backbone params (videogpa_torch."
-                               "models.vggt.vggt_init, load_vggt or converted weights)")
+                               "models.vggt.vggt_init / models.da3.da3_init, load_vggt / "
+                               "load_da3 or converted weights)")
         if self._raw_ok(all_frames[0]):
             return torch.from_numpy(np.stack(all_frames)).to(self.device), True
+        if self.backbone == "da3":
+            imgs = np.stack([f.astype(np.float32).transpose(0, 3, 1, 2) / 255.0
+                             for f in all_frames])
+            return torch.from_numpy(imgs).to(self.device), True
         imgs = np.stack([video_io.preprocess_images_vggt(f)[0] for f in all_frames])
         return torch.from_numpy(imgs).to(self.device), False
 
     def _fused_ok(self, gt_is_upload: bool) -> bool:
         """Fused on-device scoring applies when every requested metric is
         device-computable (Epipolar allowed: it only needs the host's frames)
-        and the uploaded images ARE the metrics' ground truth (raw upload)."""
+        and the uploaded images ARE the metrics' ground truth (``_upload``)."""
         if os.environ.get("VIDEOGPA_NO_FUSED_METRICS") == "1":
             return False
         allowed = set(self.FUSABLE_METRICS) | {"Epipolar"}
@@ -157,7 +175,11 @@ class VideoProcessor:
 
     def _reproject_clip(self, extr, intr, depth, conf, colors, conf_thres: float):
         H, W = depth.shape[-2:]
-        world = depth_to_world_points(depth, extr, intr)
+        if self.backbone == "da3":
+            world = unproject_depth(depth[None, ..., None], intr[None],
+                                    closed_form_inverse_se3(extr)[None])[0]
+        else:
+            world = depth_to_world_points(depth, extr, intr)
         pts, cols, mask = colored_pointcloud(
             {"world_points_from_depth": world, "depth_conf": conf, "images": colors},
             "depth", conf_thres)
@@ -167,34 +189,49 @@ class VideoProcessor:
     @torch.no_grad()
     def _reprojected(self, images: torch.Tensor, conf_thres: float) -> Dict[str, Any]:
         """Backbone -> geometry -> reprojection for K clips: raw uint8 (K, S,
-        H, W, 3) or preprocessed f32 (K, S, 3, H, W) in [0, 1]. Returns the
+        H, W, 3) or f32 (K, S, 3, H, W) in [0, 1] (``_upload``). Returns the
         gt images in [0, 1] (K, S, 3, H, W), the reprojections (K clips of
         (S, 3, H, W) in [-1, 1]), extrinsic (K, S, 3, 4), intrinsic and depth,
         all on the device (the JAX package's ``_device_fn_batched``)."""
         if images.dtype == torch.uint8:
             images = images.float().permute(0, 1, 4, 2, 3) / 255.0
         H, W = images.shape[-2:]
-        preds = vggt_forward(self.params, images, compute_dtype=self.compute_dtype,
-                             dpt_chunk=self.dpt_chunk, dpt_dtype=self.dpt_dtype,
-                             attn_impl=self.attn_impl)
-        extr, intr = pose_encoding_to_extri_intri(preds["pose_enc"], (H, W))
-        depth = preds["depth"][..., 0]
-        conf = preds["depth_conf"]
+        if self.backbone == "da3":
+            mean = torch.tensor(IMAGENET_MEAN, device=images.device).reshape(1, 1, 3, 1, 1)
+            std = torch.tensor(IMAGENET_STD, device=images.device).reshape(1, 1, 3, 1, 1)
+            x = (images - mean) / std
+            out = da3_forward(self.params, x, attn_impl=self.attn_impl,
+                              compute_dtype=self.compute_dtype)
+            extr, intr = out["extrinsics"], out["intrinsics"]
+            depth, conf = out["depth"], out["depth_conf"]
+            # the point cloud's colours are the normalised frames mapped back,
+            # as in the JAX package: a colour an ulp off can round to another
+            # 8-bit level in the reprojection
+            colors = x * std + mean
+        else:
+            preds = vggt_forward(self.params, images, compute_dtype=self.compute_dtype,
+                                 dpt_chunk=self.dpt_chunk, dpt_dtype=self.dpt_dtype,
+                                 attn_impl=self.attn_impl)
+            extr, intr = pose_encoding_to_extri_intri(preds["pose_enc"], (H, W))
+            depth = preds["depth"][..., 0]
+            conf = preds["depth_conf"]
+            colors = images
         # one clip at a time, as the JAX package's lax.map: the per-clip
         # projection intermediates are O(S * H * W) points x S views
-        reproj = [self._reproject_clip(extr[i], intr[i], depth[i], conf[i], images[i],
-                                       conf_thres) for i in range(images.shape[0])]
+        reproj = [self._reproject_clip(extr[i], intr[i], depth[i], conf[i], colors[i],
+                                       conf_thres) for i in range(len(images))]
         return {"images": images, "reprojected": reproj, "extrinsic": extr,
                 "intrinsic": intr, "depth": depth}
 
     @torch.no_grad()
-    def _scored(self, images_u8: torch.Tensor, conf_thres: float):
+    def _scored(self, images: torch.Tensor, conf_thres: float):
         """Backbone -> geometry -> reprojection -> metric scalars for K clips
-        of raw uint8 frames (K, S, H, W, 3). Returns ((K,) score tensors by
-        name, (K, S, 3, 4) extrinsics), all on the device, nothing synced."""
+        whose upload is their ground truth (``_upload``). Returns ((K,)
+        score tensors by name, (K, S, 3, 4) extrinsics), all on the device,
+        nothing synced."""
         names = [n for n in self.metrics if n in self.FUSABLE_METRICS]
         lpips = self._fused_lpips_params()
-        out = self._reprojected(images_u8, conf_thres)
+        out = self._reprojected(images, conf_thres)
         images, reproj = out["images"], out["reprojected"]  # gt, (K, S, 3, H, W)
         extr, intr, depth = out["extrinsic"], out["intrinsic"], out["depth"]
         K = len(reproj)
@@ -240,7 +277,7 @@ class VideoProcessor:
 
     def _results_fused(self, images: torch.Tensor, all_frames: Sequence[np.ndarray],
                        thresholds) -> List[Dict[Any, Any]]:
-        """The fused path's result dicts for K uploaded raw clips."""
+        """The fused path's result dicts for K uploaded clips."""
         results: List[Dict[Any, Any]] = [dict() for _ in all_frames]
         for th in thresholds:
             scores, extr = self._scored(images, float(th))
@@ -279,8 +316,8 @@ class VideoProcessor:
         device program per threshold. Returns one result dict per clip:
         {threshold: {metric: float, ..., "motion_norm": float},
         "_extrinsic": (S, 3, 4) list}."""
-        images, raw = self._upload(all_frames)
-        if self._fused_ok(gt_is_upload=raw):
+        images, gt_is_upload = self._upload(all_frames)
+        if self._fused_ok(gt_is_upload):
             return self._results_fused(images, all_frames, thresholds)
         self._warn_unfused()
         results: List[Dict[Any, Any]] = [dict() for _ in all_frames]
@@ -299,8 +336,8 @@ class VideoProcessor:
         """One clip, frames_np (T, H, W, 3) uint8 RGB (pre-cropped). With
         ``save_visuals`` and ``out_dir`` each threshold's reprojections are
         written as PNGs under ``out_dir/th{th}/reprojections``."""
-        images, raw = self._upload([frames_np])
-        if not save_visuals and self._fused_ok(gt_is_upload=raw):
+        images, gt_is_upload = self._upload([frames_np])
+        if not save_visuals and self._fused_ok(gt_is_upload):
             return self._results_fused(images, [frames_np], thresholds)[0]
         results: Dict[Any, Any] = {}
         extr_np = None
@@ -323,8 +360,8 @@ class VideoProcessor:
         Enqueueing clip i+1 before pulling clip i hides the host's work
         behind the device's. Only the fused path does this: raises
         ``RuntimeError`` otherwise, so a caller can use ``process_frames``."""
-        images, raw = self._upload([frames_np])
-        if not self._fused_ok(gt_is_upload=raw):
+        images, gt_is_upload = self._upload([frames_np])
+        if not self._fused_ok(gt_is_upload):
             raise RuntimeError("process_frames_async needs the fused scoring path "
                                "(device-computable metrics + raw-upload gt)")
         pending = [(th, *self._scored(images, float(th))) for th in thresholds]
