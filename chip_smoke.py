@@ -165,6 +165,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``cli.replicate_scorer`` on 2 prompts x 4 clips (the generated
              video among them, decoded from memory) at score_batch 4, and a
              resumed run.
+   slice_da3_nested — the tiny and the small DA3, each with a mono net of
+             its widths, a GSDPT head and a gaussian scene, f32 on the card
+             against the CPU: mono depth and sky, ``nested_inference``
+             (depth, conf, extrinsics, scale factor, reference view), GSDPT,
+             ``render_3dgs`` at random and at tied depths.
+   da3_nested — ``nested_inference`` on ``da3nested-giant-large`` at full
+             width and depth (DA3-Giant: 40 blocks at 1,536, 24 heads x 64,
+             SwiGLU; the metric DA3-Large: 24 plain blocks, the sky DPT) on
+             random weights, one scene of 10 x 518^2, bf16 trunks, f32
+             heads: 1 cold + 3 warm calls, each with the anyview, metric and
+             host-alignment ms, peak GB and launches (K1 14, K4 50); one
+             profiled call; each branch's layers alone.
+   da3_service — DA3-Large written as a checkpoint and served by the port's
+             ``ModelBackend`` over loopback HTTP (127.0.0.1, port 0): /reload,
+             4 /infer requests of 10 x 518^2 (glb, gs_ply, a COLMAP project
+             whose poses drive the Umeyama alignment, gs_video rendering 10
+             views from 2.68 M gaussians), /tasks, /status, /memory; per
+             request latency, inference and export ms, launches (K1 8, K4
+             16), peak GB and artefact size. Images decode from memory and
+             the video writer keeps its frames (no OpenCV, PIL or mp4 encoder
+             on the card's machine).
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -179,7 +200,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              and ``flash_attn_int8_f32`` at the f32 scorer's global rows,
              each against its plain version, beside its bound and SDPA; K4
              at DA3-Large's frame rows (40, 1,370, 16, 64), K1 and K8 at its
-             global rows (4, 13,700, 16, 64).
+             global rows (4, 13,700, 16, 64); K1 at DA3-Giant's global rows
+             (1, 13,700, 24, 64) and K4 at its frame rows (10, 1,370, 24,
+             64), each also against its plain version.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
@@ -221,6 +244,14 @@ EXTREME_REL_RMS = 2e-2
 # error of each LoRA gradient, and the loss within 1e-2 (bf16 carries ~3
 # significant digits through two DiT forwards and one backward)
 DPO_GRAD_REL, DPO_LOSS_ATOL = 5e-2, 1e-2
+
+
+_T0 = time.perf_counter()
+
+
+def mark(phase: str) -> None:
+    """Log the seconds since the script started, after a phase."""
+    log(f"[phase] {phase} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -5006,6 +5037,469 @@ def phase_replicate_files(models, steps: int = 2):
             "score_launches": score_launches, "summary": report["summary"]}
 
 
+# ---------------------------------------------------------------------------
+# DA3 served as a depth-and-pose model: mono / metric, nested giant + metric
+# large, the Gaussian branch and renderer, the export pack, the HTTP backend
+# ---------------------------------------------------------------------------
+
+def _da3_mono_config(cfg):
+    """A mono config of ``cfg``'s widths: alternating attention off, four of
+    its eight blocks tapped."""
+    import dataclasses
+
+    return dataclasses.replace(cfg, alt_start=-1, out_layers=(1, 3, 5, 7))
+
+
+def _gs_scene(N: int, seed: int, tied: bool):
+    """N gaussians in front of the cameras; ``tied``: every depth equal."""
+    import numpy as np
+
+    from videogpa_torch.models.da3 import Gaussians
+
+    rng = np.random.default_rng(seed)
+    z = np.full(N, 2.0) if tied else rng.uniform(1.5, 3.0, N)
+    quats = rng.normal(size=(N, 4))
+    return Gaussians(
+        means=np.stack([rng.uniform(-0.6, 0.6, N), rng.uniform(-0.45, 0.45, N), z], -1)[None]
+        .astype(np.float32),
+        harmonics=rng.normal(size=(1, N, 3, 1)).astype(np.float32),
+        opacities=rng.uniform(0.3, 0.95, (1, N)).astype(np.float32),
+        scales=rng.uniform(0.01, 0.05, (1, N, 3)).astype(np.float32),
+        rotations=(quats / np.linalg.norm(quats, axis=-1, keepdims=True))[None].astype(np.float32))
+
+
+def phase_slice_da3_nested() -> None:
+    """The tiny DA3 (4 views) and the small one (6 views at 280^2, heads of
+    64), each with a mono net of its widths, a GSDPT head and a gaussian
+    scene, in f32 on the card against the same weights on the CPU: the mono
+    forward's depth and sky, ``nested_inference``'s depth, conf, extrinsics,
+    scale factor and selected reference view, GSDPT on the CPU trunk's
+    features, and ``render_3dgs`` at random and at tied depths (the pick
+    among equal depths in ``lax.top_k``'s order), each by rel-norm."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.da3 import (
+        DA3Config, da3_init, gsdpt_forward, gsdpt_init, mono_forward, mono_init,
+        nested_inference, render_3dgs)
+    from videogpa_torch.models.da3 import vit
+
+    real_select = vit.select_reference_view
+    picks = []
+
+    def spy(x, strategy="saddle_balanced"):
+        idx = real_select(x, strategy)
+        picks.append(idx.cpu().tolist())
+        return idx
+
+    for tag, cfg, S in (("tiny", DA3Config.tiny(), 4), ("small", small_da3_config(), 6)):
+        mcfg = _da3_mono_config(cfg)
+        av_ref = da3_init(cfg, torch.Generator().manual_seed(80), device="cpu")
+        regular_da3_camera_(av_ref)
+        m_ref = mono_init(mcfg, torch.Generator().manual_seed(81), device="cpu")
+        gs_ref = gsdpt_init(cfg, generator=torch.Generator().manual_seed(82), device="cpu")
+        av_dev, m_dev, gs_dev = (copy.deepcopy(m).to("cuda") for m in (av_ref, m_ref, gs_ref))
+        frames = synthetic_frames(1, S, cfg.img_size, seed=83)[0]
+        x = _normalised([frames])
+        rel = {}
+        with torch.no_grad():
+            want = mono_forward(m_ref, x)
+            zero_launches()
+            got = mono_forward(m_dev, x.cuda())
+            torch.cuda.synchronize()
+            mono_launches = {k: v for k, v in read_launches().items() if v}
+            rel.update({f"mono_{k}": _rel(got[k], want[k]) for k in ("depth", "sky")})
+
+            picks.clear()
+            vit.select_reference_view = spy
+            try:
+                want_n = nested_inference(av_ref, m_ref, frames, compute_dtype=torch.float32)
+                got_n = nested_inference(av_dev, m_dev, frames, compute_dtype=torch.float32)
+            finally:
+                vit.select_reference_view = real_select
+            rel.update({f"nested_{k}": _rel(torch.from_numpy(getattr(got_n, k)),
+                                            torch.from_numpy(getattr(want_n, k)))
+                        for k in ("depth", "conf", "extrinsics")})
+            rel["nested_scale_factor"] = abs(got_n.scale_factor / want_n.scale_factor - 1)
+
+            feats = vit.aavit_forward(av_ref.backbone, x)
+            imgs = torch.from_numpy(frames).permute(0, 3, 1, 2)[None].float() / 255
+            want_g = gsdpt_forward(gs_ref, feats, imgs)
+            got_g = gsdpt_forward(gs_dev, [(t.cuda(), c.cuda()) for t, c in feats], imgs.cuda())
+            rel.update({f"gsdpt_{k}": _rel(g, w)
+                        for k, g, w in zip(("raw", "opacity"), got_g, want_g)})
+
+        rng = np.random.default_rng(84)
+        extr = np.tile(np.eye(4, dtype=np.float32), (2, 1, 1))
+        extr[:, :3, 3] = rng.normal(size=(2, 3)) * 0.05
+        W, H = 96, 64
+        intr = np.tile(np.array([[60.0 / W, 0, 0.5], [0, 60.0 / H, 0.5], [0, 0, 1]], np.float32),
+                       (2, 1, 1))
+        for scene in ("random", "tied"):
+            g = _gs_scene(4000, seed=85, tied=scene == "tied")
+            want_r = render_3dgs(extr, intr, (H, W), g, max_per_tile=32, device="cpu")
+            got_r = render_3dgs(extr, intr, (H, W), g, max_per_tile=32, device="cuda")
+            rel.update({f"render_{scene}_{k}": _rel(a, b)
+                        for k, a, b in zip(("color", "depth"), got_r, want_r)})
+        log(f"[slice_da3_nested] {tag} ({cfg.img_size}^2, {S} views; mono {mcfg.depth} blocks "
+            f"of {mcfg.num_heads} x {mcfg.embed_dim // mcfg.num_heads}) f32 card vs CPU, "
+            f"rel-norm " + json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})
+            + f" (limit {DA3_F32_REL}); scale factor CPU {want_n.scale_factor:.6f}, card "
+            f"{got_n.scale_factor:.6f}; reference views CPU {picks[0]}, card {picks[1]}; mono "
+            f"launches {json.dumps(mono_launches)}")
+        if picks[0] != picks[1]:
+            fail(f"the {tag} nested DA3 selected other reference views on the card")
+        if max(rel.values()) > DA3_F32_REL or not (
+                np.isfinite(got_n.depth).all() and got_n.scale_factor > 0):
+            fail(f"the {tag} mono / nested / GSDPT / renderer on the card disagrees with the CPU")
+        if mono_launches != {"flash_attn_fwd_f32": max(mcfg.out_layers) + 1}:
+            fail(f"the {tag} f32 mono net did not run its blocks through K6 f32")
+        del av_ref, m_ref, gs_ref, av_dev, m_dev, gs_dev
+    torch.cuda.empty_cache()
+
+
+def _giant_launches(any_cfg, met_cfg) -> dict:
+    """K1 and K4 launches of one nested call: the anyview branch's odd
+    alternating blocks attend over the clip, its other blocks and every
+    metric block within a frame."""
+    alt = range(any_cfg.alt_start, any_cfg.depth)
+    n_global = sum(i % 2 for i in alt)
+    return {"flash_attn_fwd": n_global,
+            "flash_attn_short": any_cfg.depth - n_global + max(met_cfg.out_layers) + 1}
+
+
+def phase_da3_nested(calls: int = 3):
+    """``nested_inference`` on ``da3nested-giant-large`` at full width and
+    depth on random weights: DA3-Giant (40 blocks at 1,536, 24 heads x 64,
+    SwiGLU, DualDPT 256 / (256, 512, 1,024, 1,024)) and the metric DA3-Large
+    (24 plain blocks at 1,024, the sky DPT), bf16 trunks, f32 heads, one
+    scene of 10 frames at 518^2; 1 cold and ``calls`` warm calls. Each call:
+    the anyview, metric and host-alignment ms, peak GB, launches (exactly K1
+    14 and K4 26 + 24), a finite scale factor > 0, finite depths and
+    extrinsics."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.da3 import DA3Config, da3_init, mono_init, nested_inference
+    from videogpa_torch.utils.timing import StageTimer
+
+    any_cfg, met_cfg = DA3Config.from_name("da3nested-giant-large")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anyview = da3_init(any_cfg, torch.Generator(device="cuda").manual_seed(90), device="cuda",
+                       dtype=torch.bfloat16)
+    regular_da3_camera_(anyview)
+    metric = mono_init(met_cfg, torch.Generator(device="cuda").manual_seed(91), device="cuda",
+                       dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_any = sum(p.numel() for p in anyview.parameters())
+    n_met = sum(p.numel() for p in metric.parameters())
+    frames = synthetic_frames(1, 10, any_cfg.img_size, seed=92)[0]
+    want = dict.fromkeys(read_launches(), 0)
+    want.update(_giant_launches(any_cfg, met_cfg))
+    runs, total = [], dict.fromkeys(want, 0)
+    for c in range(1 + calls):
+        timer = StageTimer(sync=torch.cuda.synchronize)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.perf_counter()
+        pred = nested_inference(anyview, metric, frames, timer=timer)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = read_launches()
+        for k, v in launches.items():
+            total[k] += v
+        run = {"call_ms": ms, **{f"{k}_ms": 1e3 * timer.totals[k]
+                                 for k in ("anyview", "metric", "align")},
+               "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "scale_factor": pred.scale_factor,
+               "depth_range": [float(pred.depth.min()), float(pred.depth.max())]}
+        runs.append(run)
+        log(f"[da3_nested] call {c} ({'cold' if c == 0 else 'warm'}): " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v) for k, v in run.items()})
+            + f"; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+        if launches != want:
+            fail(f"nested call {c} launched {launches}, not K1 {want['flash_attn_fwd']} and "
+                 f"K4 {want['flash_attn_short']} alone")
+        if not (np.isfinite(pred.scale_factor) and pred.scale_factor > 0
+                and np.isfinite(pred.depth).all() and np.isfinite(pred.extrinsics).all()
+                and pred.depth.shape == (10, 518, 518)):
+            fail(f"nested call {c} gave a non-finite or non-positive result")
+    profile = profile_device_time("one nested call (profiled)",
+                                  lambda: nested_inference(anyview, metric, frames))
+    # each branch's layers alone on the same frames: the trunks, then the heads on their taps
+    from videogpa_torch.models.da3.heads import dualdpt_forward
+    from videogpa_torch.models.da3.mono import mono_forward, mono_vit_forward
+    from videogpa_torch.models.da3.vit import aavit_forward
+
+    x = _normalised([frames]).cuda()
+    layers = {}
+    with torch.no_grad():
+        xb = x.to(torch.bfloat16)
+        feats = aavit_forward(anyview.backbone, xb)
+        layers["giant_trunk_ms"] = cuda_ms(lambda: aavit_forward(anyview.backbone, xb), iters=2,
+                                           warmup=1)
+        layers["giant_dualdpt_ms"] = cuda_ms(
+            lambda: dualdpt_forward(anyview.head, feats, tuple(x.shape[-2:])), iters=2, warmup=1)
+        del feats
+        layers["metric_trunk_ms"] = cuda_ms(
+            lambda: mono_vit_forward(metric.backbone, xb[0]), iters=2, warmup=1)
+        layers["metric_forward_ms"] = cuda_ms(
+            lambda: mono_forward(metric, x, compute_dtype=torch.bfloat16), iters=2, warmup=1)
+    del x, xb
+    heads_tflop = da3_heads_tflop(any_cfg, 1, 10)
+    log(f"[da3_nested] layers alone: " + json.dumps({k: round(v, 2) for k, v in layers.items()})
+        + f"; the giant's DualDPT at {heads_tflop / (layers['giant_dualdpt_ms'] / 1e3):.1f} "
+        f"TFLOP/s (f32, TF32 off)")
+    log(f"[da3_nested] da3nested-giant-large: anyview {n_any / 1e9:.3f} B parameters (bf16 "
+        f"trunk, f32 heads), metric {n_met / 1e9:.3f} B, drawn on the card in {init_s:.1f} s; "
+        f"the giant's DualDPT {heads_tflop:.2f} TFLOP a call (meta count); launches a call "
+        f"{json.dumps({k: v for k, v in want.items() if v})}")
+    del anyview, metric
+    torch.cuda.empty_cache()
+    return {"runs": runs, "launches": total, "init_s": init_s, "anyview_params": n_any,
+            "metric_params": n_met, "giant_heads_tflop": heads_tflop, "layers_ms": layers,
+            "profile": profile}
+
+
+def phase_da3_giant_attention(global_shape, local_shape):
+    """K1 at DA3-Giant's global rows and K4 at its frame rows against their
+    plain versions (K1 over chunks of 4 heads), then timed beside their
+    bounds and SDPA on the same operands (standard normal draws, q and k
+    contiguous, v a strided view of the packed (B, N, 3, H, D) tensor)."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.attention import (
+        flash_attn_fwd, flash_attn_short, flash_attn_short_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    out = {}
+    for tag, shape in (("k1", global_shape), ("k4", local_shape)):
+        B, N, H, D = shape
+        q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16).unbind(2)
+        q, k = q.contiguous(), k.contiguous()
+        if tag == "k1":
+            err, plain_ms = _parity_full(f"DA3-Giant global shape {shape} (v a strided view)",
+                                         q, k, v)
+            fn = lambda: flash_attn_fwd(q, k, v, layout="bnhd")  # noqa: E731
+        else:
+            o = flash_attn_short(q, k, v)
+            ro, plain_ms = _timed(lambda: flash_attn_short_reference(q, k, v))
+            err, atol, ok = _check_o(o, ro)
+            log(f"[parity] K4 DA3-Giant frame shape {shape} (strided qkv views): max|dO| "
+                f"{err:.3e} (atol {atol:.2e} + rtol {O_RTOL}) {'ok' if ok else 'MISMATCH'}; "
+                f"plain version {plain_ms:.2f} ms")
+            if not ok:
+                fail("flash_attn_short disagrees at the DA3-Giant frame shape")
+            del o, ro
+            fn = lambda: flash_attn_short(q, k, v)  # noqa: E731
+        ms = cuda_ms(fn, iters=10)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # yardstick only
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=10)
+        bound_ms, bound_by = _fwd_bound(B, N, N, H, D)
+        out[tag] = {"shape_bnhd": list(shape), "max_abs_err": err, "plain_ms": plain_ms,
+                    "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": library_ms,
+                    "tflops": 4.0 * B * H * N * N * D / ms / 1e9}
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+    log("[timing] DA3-Giant attention: " + json.dumps(out))
+    return out
+
+
+def _colmap_text_project(root: str, n: int, size: int):
+    """A COLMAP text project of n cameras on a circle around the origin
+    (rotations about y, 3 units away), image files as empty placeholders.
+    Returns the image paths in name order."""
+    os.makedirs(os.path.join(root, "images"))
+    os.makedirs(os.path.join(root, "sparse"))
+    f = 0.9 * size
+    with open(os.path.join(root, "sparse", "cameras.txt"), "w") as fh:
+        fh.write(f"1 PINHOLE {size} {size} {f} {f} {size / 2} {size / 2}\n")
+    paths = []
+    with open(os.path.join(root, "sparse", "images.txt"), "w") as fh:
+        for i in range(n):
+            half = 0.05 * i  # rotation of 0.1 rad a camera about y
+            name = f"frame_{i:03d}.png"
+            fh.write(f"{i + 1} {math.cos(half)} 0 {math.sin(half)} 0 0 0 3 1 {name}\n\n")
+            paths.append(os.path.join(root, "images", name))
+            open(paths[-1], "wb").close()
+    return paths
+
+
+def phase_da3_service():
+    """DA3-Large at full width written in the checkpoint key layout
+    (``export_da3``), loaded by the port's ``ModelBackend`` (``/reload``)
+    and served through ``make_handler`` on a ``ThreadingHTTPServer`` bound to
+    127.0.0.1, port 0 (loopback only): four ``/infer`` requests of 10 frames
+    at 518^2 — images with export glb, images with gs_ply, a synthetic COLMAP
+    text project whose poses drive the Umeyama alignment (npz), and images
+    with gs_video (10 views rendered from 2.68 M gaussians) — each polled on
+    ``/tasks/<id>`` until done, then ``/tasks``, ``/status`` and ``/memory``.
+    Per request: latency, inference and export ms, launches (K1 8, K4 16),
+    peak GB and the artefact's size. The card's machine has no OpenCV, PIL
+    or mp4 encoder: the backend's image decoder is swapped for frames held
+    in memory (named by path or key) and the video writer for one that keeps
+    the frames, inside the phase."""
+    import shutil
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.data import video_io
+    from videogpa_torch.models.da3 import DA3Config
+    from videogpa_torch.models.da3 import export as export_mod
+    from videogpa_torch.models.da3 import model as model_mod
+    from videogpa_torch.models.da3.convert import export_da3
+    from videogpa_torch.models.da3.service import ModelBackend, make_handler
+    from videogpa_torch.utils.safetensors_np import save_file
+
+    cfg = DA3Config.large()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "da3_service")
+    shutil.rmtree(root, ignore_errors=True)
+    ckpt = os.path.join(root, "da3_large")
+    os.makedirs(ckpt)
+    model = da3_large(torch.float32, seed=100)
+    save_file(export_da3(model), os.path.join(ckpt, "model.safetensors"))
+    del model
+    torch.cuda.empty_cache()
+
+    clips = synthetic_frames(2, 10, cfg.img_size, seed=101)
+    memory = {f"mem://{c}/{i}": f for c, clip in enumerate(clips) for i, f in enumerate(clip)}
+    col_paths = _colmap_text_project(os.path.join(root, "scene"), 10, cfg.img_size)
+    memory.update(zip(col_paths, clips[1]))
+    videos = {}
+
+    def memory_writer(path, frames, fps=8):
+        videos[path] = (np.asarray(frames), fps)
+        open(path, "wb").close()
+
+    stage_ms = {"inference": [], "export": []}
+
+    def timed(stage, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            stage_ms[stage].append(1e3 * (time.perf_counter() - t0))
+            return out
+        return run
+
+    real = (ModelBackend.__dict__["_decode_image"], video_io.write_video,
+            model_mod.da3_inference, export_mod.export)
+    ModelBackend._decode_image = staticmethod(lambda item: memory[item])
+    video_io.write_video = memory_writer
+    model_mod.da3_inference = timed("inference", real[2])
+    export_mod.export = timed("export", real[3])
+    server = None
+    try:
+        backend = ModelBackend(model_dir=ckpt, out_root=os.path.join(root, "out"),
+                               device="cuda")
+        server = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(backend))
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def call(path, payload=None):
+            data = None if payload is None else json.dumps(payload).encode()
+            req = urllib.request.Request(base + path, data=data,
+                                         headers={"Content-Type": "application/json"})
+            return json.loads(urllib.request.urlopen(req, timeout=600).read())
+
+        status0 = call("/status")
+        t0 = time.perf_counter()
+        reload = call("/reload", {})
+        load_s = time.perf_counter() - t0
+        keys = [[f"mem://{c}/{i}" for i in range(10)] for c in range(2)]
+        requests = [("images_glb", {"images": keys[0], "export": "glb"}),
+                    ("images_gs_ply", {"images": keys[0], "export": "gs_ply"}),
+                    ("colmap_npz", {"colmap": os.path.join(root, "scene"), "export": "npz"}),
+                    ("images_gs_video", {"images": keys[1], "export": "gs_video"})]
+        want = dict.fromkeys(read_launches(), 0)
+        n_global = (cfg.depth - cfg.alt_start) // 2
+        want.update({"flash_attn_fwd": n_global, "flash_attn_short": cfg.depth - n_global})
+        results, total = {}, dict.fromkeys(want, 0)
+        for tag, payload in requests:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            n_stage = len(stage_ms["inference"])
+            t0 = time.perf_counter()
+            tid = call("/infer", payload)["task_id"]
+            while True:
+                task = call(f"/tasks/{tid}")
+                if task["status"] in ("done", "error"):
+                    break
+                time.sleep(0.01)
+            latency = 1e3 * (time.perf_counter() - t0)
+            launches = read_launches()
+            for k, v in launches.items():
+                total[k] += v
+            if task["status"] != "done":
+                fail(f"the served request {tag} ended {task['status']}: {task.get('error')}")
+            path = task["result"]
+            if os.path.isdir(path):
+                size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path)
+                           for f in fs)
+            else:
+                size = os.path.getsize(path)
+            extra = {}
+            if tag == "images_gs_video":
+                frames, fps = videos[path]
+                size = frames.nbytes
+                extra = {"video_frames": list(frames.shape), "fps": fps,
+                         "mean_level": float(frames.mean())}
+                if frames.shape != (10, 518, 518, 3) or not frames.std() > 0:
+                    fail("gs_video did not render 10 views of 518^2 with content")
+            if tag == "colmap_npz":
+                pred = np.load(path)
+                extra = {"gt_camera_centres_recovered": bool(np.isfinite(
+                    pred["extrinsics"]).all()), "depth_range": [float(pred["depth"].min()),
+                                                                 float(pred["depth"].max())]}
+            results[tag] = {"latency_ms": latency,
+                            "inference_ms": stage_ms["inference"][n_stage],
+                            "export_ms": stage_ms["export"][n_stage],
+                            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "artifact": os.path.relpath(path, root), "artifact_bytes": size,
+                            "n_frames": task["n_frames"], **extra}
+            log(f"[da3_service] {tag}: " + json.dumps(
+                {k: (round(v, 2) if isinstance(v, float) else v)
+                 for k, v in results[tag].items()})
+                + f"; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+            if launches != want:
+                fail(f"the served request {tag} launched {launches}, not K1 "
+                     f"{want['flash_attn_fwd']} and K4 {want['flash_attn_short']} alone")
+        tasks = call("/tasks")["tasks"]
+        status = call("/status")
+        mem = call("/memory")
+        log(f"[da3_service] /status before {json.dumps(status0)}, after {json.dumps(status)}; "
+            f"/reload {json.dumps(reload)} in {load_s:.2f} s; /tasks {len(tasks)} all "
+            f"{sorted({t['status'] for t in tasks})}; /memory {json.dumps(mem)}")
+        if (len(tasks) != len(requests) or any(t["status"] != "done" for t in tasks)
+                or not status["model_loaded"] or status0["model_loaded"]
+                or not mem.get("cuda", {}).get("total_gb")):
+            fail("the backend's /tasks, /status or /memory is not what the requests left")
+        backend._model = None
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        (ModelBackend._decode_image, video_io.write_video, model_mod.da3_inference,
+         export_mod.export) = real
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return {"requests": results, "launches": total, "load_s": load_s}
+
+
 def main() -> int:
     import torch
 
@@ -5045,6 +5539,9 @@ def main() -> int:
     da3_frame = 1 + (dcfg.img_size // dcfg.patch_size) ** 2  # 1,370 tokens, no registers
     da3_local_shape = (4 * 10, da3_frame, dcfg.num_heads, dcfg.embed_dim // dcfg.num_heads)
     da3_global_shape = (4, 10 * da3_frame, dcfg.num_heads, dcfg.embed_dim // dcfg.num_heads)
+    gcfg = DA3Config.giant()  # the nested preset's anyview branch: one scene of 10 frames
+    giant_local_shape = (10, da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
+    giant_global_shape = (1, 10 * da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
 
     phase_build()
     fwd_err, fwd_plain_ms, fwd_da3 = phase_parity(dit_shape, vggt_global_shape,
@@ -5072,12 +5569,18 @@ def main() -> int:
     phase_slice_sampling()
     phase_slice_wan_vae()
     phase_slice_da3()
+    phase_slice_da3_nested()
+    mark("parity and slices")
     main_run = phase_main()
     sample_run = phase_sample(main_run.pop("dit"))
     replicate_run = phase_replicate_files(sample_run.pop("models"))
+    mark("main, sample, replicate_files")
     train_run = phase_train()
     scorer_run = phase_scorer()
     da3_run = phase_scorer_da3()
+    nested_run = phase_da3_nested()
+    service_run = phase_da3_service()
+    mark("train, scorer, scorer_da3, da3_nested, da3_service")
     score_files_run = phase_score_files()
     log("[score_files] clips/min through score_groups: " + json.dumps(
         {tag: round(r["clips_per_min"], 1) for tag, r in score_files_run["runs"].items()})
@@ -5094,6 +5597,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     wan_train_run = phase_wan_train()
     encode_cog_run = phase_encode_files_cogvideox()
+    mark("score_files, train_files, wan, wan_sample, encode_files, wan_train_files, wan_train")
     main_int8_run = phase_main_int8(main_run["latents"])
     scorer_int8_run = phase_scorer_int8(scorer_run["results"])
     wan_int8_run = phase_wan_int8()
@@ -5102,6 +5606,8 @@ def main() -> int:
     timing.update(phase_timing_wan(wan_shape, wcfg.text_len))
     timing.update(phase_timing_int8(dit_shape, vggt_global_shape, wan_shape))
     timing_da3 = phase_timing_da3(da3_local_shape, da3_global_shape)
+    giant = phase_da3_giant_attention(giant_global_shape, giant_local_shape)
+    mark("int8 paths and timing")
 
     attn_share = main_run["launches_per_step"] * timing["fwd_ms"] / main_run["step_ms"][-1]
     per_mini = (train_run["launches"]["flash_attn_fwd"] // 4,
@@ -5131,6 +5637,9 @@ def main() -> int:
         "da3_attention": timing_da3,
         "replicate_files": {k: v for k, v in replicate_run.items()
                             if k not in ("generate_launches", "score_launches")},
+        "da3_nested": {k: v for k, v in nested_run.items() if k != "launches"},
+        "da3_service": {k: v for k, v in service_run.items() if k != "launches"},
+        "da3_giant_attention": giant,
         "flash_attn_fwd_ms_at_dit_shape": timing["fwd_ms"],
         "flash_attn_fwd_tflops": timing["fwd_tflops"],
         "flash_attn_fwd_bound_ms": timing["fwd_bound_ms"],
@@ -5212,6 +5721,8 @@ def main() -> int:
         "wan_attention_shape_bnhd": list(wan_shape),
         "da3_frame_attention_shape_bnhd": list(da3_local_shape),
         "da3_global_attention_shape_bnhd": list(da3_global_shape),
+        "da3_giant_frame_attention_shape_bnhd": list(giant_local_shape),
+        "da3_giant_global_attention_shape_bnhd": list(giant_global_shape),
         "wan_cross_attention_keys": wcfg.text_len,
         "card": card,
         "wall_s": time.perf_counter() - t_start,
@@ -5238,7 +5749,8 @@ def main() -> int:
             "scorer_da3_int8": da3_run["int8"]["launches"],
             "replicate_files": {k: replicate_run["generate_launches"][k]
                                 + replicate_run["score_launches"][k]
-                                for k in train_run["launches"]}}
+                                for k in train_run["launches"]},
+            "da3_nested": nested_run["launches"], "da3_service": service_run["launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -5263,7 +5775,8 @@ def main() -> int:
          "da3_global_shape": {**fwd_da3, "ms": timing_da3["k1_ms"],
                               "bound_ms": timing_da3["k1_bound_ms"],
                               "bound_by": timing_da3["k1_bound_by"],
-                              "library_ms": timing_da3["k1_library_ms"]}},
+                              "library_ms": timing_da3["k1_library_ms"]},
+         "da3_giant_global_shape": giant["k1"]},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:951,983",
@@ -5281,7 +5794,8 @@ def main() -> int:
          "da3_frame_shape": {**short_da3, "ms": timing_da3["k4_ms"],
                              "bound_ms": timing_da3["k4_bound_ms"],
                              "bound_by": timing_da3["k4_bound_by"],
-                             "library_ms": timing_da3["k4_library_ms"]}},
+                             "library_ms": timing_da3["k4_library_ms"]},
+         "da3_giant_frame_shape": giant["k4"]},
         {"name": "scatter_min_u32", "route": "cuda",
          "source": "videogpa_torch/csrc/zbuffer_scatter_min.cu",
          "replaces": "videogpa_tpu/geometry/zbuffer_kernel.py:110",

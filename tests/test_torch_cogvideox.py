@@ -54,6 +54,26 @@ def _models(cfg, seed=0):
     return jcfg, params, model.requires_grad_(False)
 
 
+@pytest.fixture(scope="module")
+def models():
+    """``_models`` of each (config, seed), built once a module (JAX's own
+    ``dit_init`` runs eagerly, seconds a config); no test writes into them."""
+    cache = {}
+
+    def get(cfg, seed=0):
+        if (cfg, seed) not in cache:
+            cache[cfg, seed] = _models(cfg, seed)
+        return cache[cfg, seed]
+
+    return get
+
+
+# the JAX forward jitted: eager, it runs op by op
+_j_dit_forward = jax.jit(jax_dit_forward, static_argnums=(4,),
+                         static_argnames=("attn_impl", "compute_dtype", "attn_layout",
+                                          "lora_scaling"))
+
+
 def _inputs(cfg, seed, batch=2):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((batch, cfg.sample_frames, cfg.in_channels,
@@ -65,13 +85,13 @@ def _inputs(cfg, seed, batch=2):
 
 @pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
 @pytest.mark.parametrize("name", list(_CONFIGS))
-def test_dit_forward_matches_jax(name, layout):
+def test_dit_forward_matches_jax(name, layout, models):
     cfg = _CONFIGS[name]
-    jcfg, params, model = _models(cfg)
+    jcfg, params, model = models(cfg)
     x, txt = _inputs(cfg, 1)
     t = np.array([100, 900])
     ofs = np.array([2.0, 2.0], np.float32) if cfg.ofs_embed_dim else None
-    want = jax_dit_forward(
+    want = _j_dit_forward(
         params, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg,
         ofs=None if ofs is None else jnp.asarray(ofs), attn_impl="flash",
         compute_dtype=jnp.float32, attn_layout=layout)
@@ -82,9 +102,9 @@ def test_dit_forward_matches_jax(name, layout):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
-def test_dit_forward_with_lora_matches_jax():
+def test_dit_forward_with_lora_matches_jax(models):
     cfg = _CONFIGS["tiny"]
-    jcfg, params, model = _models(cfg)
+    jcfg, params, model = models(cfg)
     lora = lora_init(jax.random.PRNGKey(4), cfg.num_layers, cfg.hidden_dim, rank=4)
     rng = np.random.default_rng(5)  # PEFT starts B at 0; give it values
     lora = {n: {"lora_A": np.array(ab["lora_A"]),
@@ -92,7 +112,7 @@ def test_dit_forward_with_lora_matches_jax():
             for n, ab in lora.items()}
     x, txt = _inputs(cfg, 6)
     t = np.array([10, 500])
-    want = jax_dit_forward(
+    want = _j_dit_forward(
         params, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg, attn_impl="flash",
         compute_dtype=jnp.float32, lora=jax.tree.map(jnp.asarray, lora), lora_scaling=2.0,
         attn_layout="bnhd")
@@ -143,9 +163,9 @@ def test_scheduler_matches_jax():
 
 
 @pytest.mark.parametrize("sampler,dynamic", [("ddim", False), ("dpm", False), ("dpm", True)])
-def test_denoise_loop_matches_jax(sampler, dynamic):
+def test_denoise_loop_matches_jax(sampler, dynamic, models):
     cfg = CogVideoXConfig.tiny()
-    jcfg, params, model = _models(cfg, seed=3)
+    jcfg, params, model = models(cfg, seed=3)
     rng = np.random.default_rng(8)
     txt = rng.standard_normal((1, cfg.max_text_seq_length, cfg.text_embed_dim), dtype=np.float32)
     neg = rng.standard_normal(txt.shape, dtype=np.float32)
@@ -172,9 +192,9 @@ def test_denoise_loop_matches_jax(sampler, dynamic):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=1e-4)
 
 
-def test_denoise_loop_draws_from_the_generator():
+def test_denoise_loop_draws_from_the_generator(models):
     cfg = CogVideoXConfig.tiny()
-    _, _, model = _models(cfg)
+    _, _, model = models(cfg)
     txt = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim)
     shape = (1, cfg.sample_frames, cfg.vae_latent_channels, cfg.sample_height, cfg.sample_width)
     settings = SamplerSettings(num_inference_steps=2)

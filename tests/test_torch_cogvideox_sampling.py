@@ -50,6 +50,13 @@ def _models(i2v=False):
     return cfg, jcfg, dit, vae, tdit.requires_grad_(False), tvae.eval()
 
 
+@pytest.fixture(scope="module")
+def models():
+    """``_models`` of the T2V and the I2V config, each built once a module;
+    the tests read them and train a separate LoRA (the DiT stays frozen)."""
+    return {False: _models(), True: _models(i2v=True)}
+
+
 def _embeds(cfg, seed):
     rng = np.random.default_rng(seed)
     txt = rng.standard_normal((1, cfg.max_text_seq_length, cfg.text_embed_dim),
@@ -71,8 +78,8 @@ def _loop_draws(key, shape, n):
 RTOL, ATOL = 1e-4, 1e-4
 
 
-def test_sample_t2v_matches_jax():
-    cfg, jcfg, dit, vae, tdit, tvae = _models()
+def test_sample_t2v_matches_jax(models):
+    cfg, jcfg, dit, vae, tdit, tvae = models[False]
     txt, neg = _embeds(cfg, 2)
     key, n = jax.random.PRNGKey(3), 3
     settings = jp.SamplerSettings(num_inference_steps=n, guidance_scale=6.0)
@@ -105,8 +112,8 @@ def test_sample_t2v_rounds_latent_frames_up_to_patch_size_t(monkeypatch):
     assert seen["shape"] == (1, 4, 4, 8, 12)  # 3 latent frames -> 4
 
 
-def test_sample_i2v_matches_jax():
-    cfg, jcfg, dit, vae, tdit, tvae = _models(i2v=True)
+def test_sample_i2v_matches_jax(models):
+    cfg, jcfg, dit, vae, tdit, tvae = models[True]
     txt, neg = _embeds(cfg, 4)
     image = np.random.default_rng(5).uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32)
     key, n = jax.random.PRNGKey(6), 2
@@ -204,10 +211,10 @@ def test_decode_latents_retries_only_on_cuda_oom(tiny_vae, monkeypatch):
     assert calls == [32, 16, 8]
 
 
-def test_i2v_dpo_step_conditions_on_the_encoded_first_frame():
+def test_i2v_dpo_step_conditions_on_the_encoded_first_frame(models):
     """The JAX step with a VAE and ``image_emb`` against the port's, draws
     injected (trainer.py:165-174): metrics, then the LoRA after the update."""
-    cfg, jcfg, dit, vae, tdit, tvae = _models(i2v=True)
+    cfg, jcfg, dit, vae, tdit, tvae = models[True]
     lora_np = _lora_np(5, cfg.num_layers, cfg.hidden_dim, 4)
     batch = _batch(cfg, 6, B=1)
     batch["image_emb"] = np.random.default_rng(9).uniform(

@@ -25,6 +25,9 @@ CFG = CogVideoXConfig.tiny()
 JCFG = JaxConfig(**dataclasses.asdict(CFG))
 # f32 on both sides, one convolution stack: differences are summation order
 RTOL, ATOL = 1e-4, 1e-4
+# the JAX encode and decode jitted: eager, they run op by op
+_j_vae_encode = jax.jit(jv.vae_encode, static_argnums=(2,), static_argnames=("sample",))
+_j_vae_decode = jax.jit(jv.vae_decode, static_argnums=(2,))
 
 
 def _close(got, want, rtol=RTOL, atol=ATOL):
@@ -129,11 +132,11 @@ def test_vae_encode_sampled_and_deterministic_match_jax(trees, invert):
     vid = np.clip(_rand((1, 3, 5, 64, 64), 11), -1, 1)
     det = tv.vae_encode(m, _t(vid), cfg, sample=False)
     assert det.shape == (1, CFG.vae_latent_channels, 2, 8, 8)
-    _close(det, jv.vae_encode(jt, jnp.asarray(vid), jcfg, sample=False))
+    _close(det, _j_vae_encode(jt, jnp.asarray(vid), jcfg, sample=False))
     key = jax.random.PRNGKey(3)
     noise = _posterior_noise(key, det.shape)
     _close(tv.vae_encode(m, _t(vid), cfg, noise=_t(noise)),
-           jv.vae_encode(jt, jnp.asarray(vid), jcfg, key=key, sample=True))
+           _j_vae_encode(jt, jnp.asarray(vid), jcfg, key=key, sample=True))
     # deterministic mode is deterministic; sampling needs a draw
     torch.testing.assert_close(tv.vae_encode(m, _t(vid), cfg, sample=False), det,
                                rtol=0, atol=0)
@@ -146,7 +149,7 @@ def test_vae_decode_matches_jax_and_roundtrip_shapes(trees):
     lat = _rand((1, CFG.vae_latent_channels, 2, 8, 8), 12)  # one tiled-decode tile
     got = tv.vae_decode(m, _t(lat), CFG)
     assert got.shape == (1, 3, 5, 64, 64)
-    _close(got, jv.vae_decode(jt, jnp.asarray(lat), JCFG))
+    _close(got, _j_vae_decode(jt, jnp.asarray(lat), JCFG))
     vid = tv.vae_decode(m, tv.vae_encode(m, got, CFG, sample=False), CFG)
     assert vid.shape == got.shape and bool(torch.isfinite(vid).all())
 

@@ -160,6 +160,8 @@ def test_quant_linear_module_holds_int8_buffers_and_drops_the_float_weight():
 # The three models: bridge, quantisers, forwards
 # ---------------------------------------------------------------------------
 
+# the three models' trees and the JAX quantiser's trees of them, built once a
+# module (``cases`` / ``qtrees``); no test writes into them
 def _dit_case():
     cfg = CogVideoXConfig.tiny()
     jcfg = JaxDiTConfig(**dataclasses.asdict(cfg))
@@ -175,6 +177,30 @@ def _vggt_case():
     tree = random_jax_tree(j_vggt_init, JaxVGGTConfig.tiny(), seed=13)
     tree["camera_head"]["pose_branch"]["fc2"]["bias"][7:9] += 1.0  # regular cameras
     return VGGTConfig.tiny(), JaxVGGTConfig.tiny(), tree
+
+
+@pytest.fixture(scope="module")
+def cases():
+    return {"dit": _dit_case(), "wan": _wan_case(), "vggt": _vggt_case()}
+
+
+@pytest.fixture(scope="module")
+def qtrees(cases):
+    """Each tree through the JAX package's quantiser, as jnp arrays."""
+    quantise = {"dit": jquant.quantize_dit_int8, "wan": jquant.quantize_wan_int8,
+                "vggt": jquant.quantize_vggt_int8}
+    return {name: quantise[name](jax.tree.map(jnp.asarray, tree))
+            for name, (_, _, tree) in cases.items()}
+
+
+# the JAX forwards jitted: eager, the tiny VGGT's int8 forward takes ~30 s
+_j_vggt_forward = jax.jit(j_vggt_forward, static_argnums=(2,),
+                          static_argnames=("attn_impl", "compute_dtype"))
+_j_dit_forward = jax.jit(j_dit_forward, static_argnums=(4,),
+                         static_argnames=("attn_impl", "compute_dtype", "attn_layout",
+                                          "lora_scaling"))
+_j_wan_forward = jax.jit(j_wan_forward, static_argnums=(4,),
+                         static_argnames=("attn_impl", "compute_dtype"))
 
 
 _MODELS = {
@@ -194,10 +220,10 @@ _MODELS = {
 
 
 @pytest.mark.parametrize("name", list(_MODELS))
-def test_bridge_loads_a_jax_quantised_tree_strictly(name):
-    case, make, j_quantize, _, quantised, kept = _MODELS[name]
-    cfg, _, tree = case()
-    qtree = _np(j_quantize(jax.tree.map(jnp.asarray, tree)))
+def test_bridge_loads_a_jax_quantised_tree_strictly(name, cases, qtrees):
+    _, make, _, _, quantised, kept = _MODELS[name]
+    cfg, _, tree = cases[name]
+    qtree = _np(qtrees[name])
     model = load_jax_params(make(cfg), qtree)
     for path in quantised:
         assert isinstance(model.get_submodule(path), tquant.QuantLinear), path
@@ -227,12 +253,12 @@ def test_bridge_loads_a_jax_quantised_tree_strictly(name):
 
 
 @pytest.mark.parametrize("name", list(_MODELS))
-def test_model_quantiser_equals_the_bridge_of_the_jax_quantised_tree(name):
+def test_model_quantiser_equals_the_bridge_of_the_jax_quantised_tree(name, cases, qtrees):
     """``quantize_*_int8`` on the port's module swaps exactly the linears
     the JAX function swaps and gives the same integers and scales."""
-    case, make, j_quantize, t_quantize, quantised, _ = _MODELS[name]
-    cfg, _, tree = case()
-    want = state_dict_from_jax(_np(j_quantize(jax.tree.map(jnp.asarray, tree))))
+    _, make, _, t_quantize, quantised, _ = _MODELS[name]
+    cfg, _, tree = cases[name]
+    want = state_dict_from_jax(_np(qtrees[name]))
     model = load_jax_params(make(cfg), tree)
     n_float = sum(p.numel() for p in model.parameters())
     assert t_quantize(model) is model  # in place
@@ -250,8 +276,8 @@ def test_model_quantiser_equals_the_bridge_of_the_jax_quantised_tree(name):
     assert all(not hasattr(model.get_submodule(p), "weight") for p in quantised)
 
 
-def test_quantize_scorer_params():
-    cfg, _, tree = _vggt_case()
+def test_quantize_scorer_params(cases):
+    cfg, _, tree = cases["vggt"]
     model = load_jax_params(VGGT(cfg), tree)
     out, impl = tquant.quantize_scorer_params("vggt", model)
     assert out is model and impl == "flash_int8"
@@ -284,15 +310,15 @@ INT8_FWD_ATOL = INT8_FWD_RTOL = 1e-3
 
 
 @pytest.mark.parametrize("layout", ["bhnd", "bnhd"])
-def test_int8_dit_forward_matches_jax(layout):
+def test_int8_dit_forward_matches_jax(layout, cases, qtrees):
     """bhnd: every attention through the int8-QK forward (K8's plain version
     against ``_flash_int8`` in interpret mode); bnhd: the tiny model's 80-key
     rows are short, so both packages take the exact short-row kernel."""
-    cfg, jcfg, tree = _dit_case()
-    qtree = jquant.quantize_dit_int8(jax.tree.map(jnp.asarray, tree))
+    cfg, jcfg, tree = cases["dit"]
+    qtree = qtrees["dit"]
     model = load_jax_params(CogVideoXTransformer(cfg), _np(qtree))
     x, txt, t = _dit_inputs(cfg, 21)
-    want = j_dit_forward(qtree, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg,
+    want = _j_dit_forward(qtree, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg,
                          attn_impl="flash_int8", compute_dtype=jnp.float32, attn_layout=layout)
     with torch.no_grad():
         got = dit_forward(model, torch.from_numpy(x), torch.from_numpy(txt), torch.from_numpy(t),
@@ -302,10 +328,10 @@ def test_int8_dit_forward_matches_jax(layout):
                                rtol=INT8_FWD_RTOL)
 
 
-def test_int8_dit_forward_with_lora_on_the_float_path_matches_jax():
+def test_int8_dit_forward_with_lora_on_the_float_path_matches_jax(cases, qtrees):
     """LoRA deltas read the raw activations on top of the int8 product."""
-    cfg, jcfg, tree = _dit_case()
-    qtree = jquant.quantize_dit_int8(jax.tree.map(jnp.asarray, tree))
+    cfg, jcfg, tree = cases["dit"]
+    qtree = qtrees["dit"]
     model = load_jax_params(CogVideoXTransformer(cfg), _np(qtree))
     rng = np.random.default_rng(22)
     r, d, L = 4, cfg.hidden_dim, cfg.num_layers
@@ -313,9 +339,9 @@ def test_int8_dit_forward_with_lora_on_the_float_path_matches_jax():
                 "lora_B": rng.standard_normal((L, d, r), dtype=np.float32) * 0.1}
             for n in ("to_q", "to_k", "to_v", "to_out")}
     x, txt, t = _dit_inputs(cfg, 23)
-    want = j_dit_forward(qtree, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg,
-                         attn_impl="flash_int8", compute_dtype=jnp.float32,
-                         lora=jax.tree.map(jnp.asarray, lora), lora_scaling=2.0)
+    want = _j_dit_forward(qtree, jnp.asarray(x), jnp.asarray(txt), jnp.asarray(t), jcfg,
+                          attn_impl="flash_int8", compute_dtype=jnp.float32,
+                          lora=jax.tree.map(jnp.asarray, lora), lora_scaling=2.0)
     tl = {n: {k: torch.from_numpy(v) for k, v in ab.items()} for n, ab in lora.items()}
     with torch.no_grad():
         got = dit_forward(model, torch.from_numpy(x), torch.from_numpy(txt), torch.from_numpy(t),
@@ -329,9 +355,9 @@ def test_int8_dit_forward_with_lora_on_the_float_path_matches_jax():
                                rtol=INT8_FWD_RTOL)
 
 
-def test_merge_lora_then_quantise_differs_from_quantising_the_base():
+def test_merge_lora_then_quantise_differs_from_quantising_the_base(cases):
     """The order of the generate path: merge the adapters, then quantise."""
-    cfg, _, tree = _dit_case()
+    cfg, _, tree = cases["dit"]
     rng = np.random.default_rng(24)
     r, d, L = 2, cfg.hidden_dim, cfg.num_layers
     lora = {n: {"lora_A": torch.from_numpy(rng.standard_normal((L, r, d), dtype=np.float32)),
@@ -346,18 +372,18 @@ def test_merge_lora_then_quantise_differs_from_quantising_the_base():
     assert torch.equal(base.blocks[0].ff.fc1.w_int8, merged.blocks[0].ff.fc1.w_int8)
 
 
-def test_int8_wan_forward_matches_jax():
+def test_int8_wan_forward_matches_jax(cases, qtrees):
     """head_dim 24 < 128, bhnd: self- and cross-attention through the int8-QK
     forward in both packages (cross: 80 queries on 9 keys)."""
-    cfg, jcfg, tree = _wan_case()
-    qtree = jquant.quantize_wan_int8(jax.tree.map(jnp.asarray, tree))
+    cfg, jcfg, tree = cases["wan"]
+    qtree = qtrees["wan"]
     model = load_jax_params(WanTransformer(cfg), _np(qtree))
     rng = np.random.default_rng(25)
     x = rng.standard_normal((2, cfg.in_channels, 5, 8, 8), dtype=np.float32)
     ctx = rng.standard_normal((2, 9, cfg.text_dim), dtype=np.float32)
     t = np.array([500.0, 20.0], np.float32)
-    want = j_wan_forward(qtree, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), jcfg,
-                         attn_impl="flash_int8", compute_dtype=jnp.float32)
+    want = _j_wan_forward(qtree, jnp.asarray(x), jnp.asarray(t), jnp.asarray(ctx), jcfg,
+                          attn_impl="flash_int8", compute_dtype=jnp.float32)
     with torch.no_grad():
         got = wan_forward(model, torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx),
                           compute_dtype=torch.float32, attn_impl="flash_int8")
@@ -365,16 +391,16 @@ def test_int8_wan_forward_matches_jax():
                                rtol=INT8_FWD_RTOL)
 
 
-def test_int8_vggt_forward_matches_jax():
+def test_int8_vggt_forward_matches_jax(cases, qtrees):
     """The quantised trunk with ``flash_int8``: the tiny model's rows are
     short, so attention is the exact short-row kernel in both packages."""
-    cfg, jcfg, tree = _vggt_case()
-    qtree = jquant.quantize_vggt_int8(jax.tree.map(jnp.asarray, tree))
+    cfg, jcfg, tree = cases["vggt"]
+    qtree = qtrees["vggt"]
     model = load_jax_params(VGGT(cfg), _np(qtree)).eval()
     imgs = np.random.default_rng(26).uniform(0, 1, (1, 3, 3, cfg.img_size, cfg.img_size)
                                              ).astype(np.float32)
-    want = j_vggt_forward(qtree, jnp.asarray(imgs), jcfg, attn_impl="flash_int8",
-                          compute_dtype=jnp.float32)
+    want = _j_vggt_forward(qtree, jnp.asarray(imgs), jcfg, attn_impl="flash_int8",
+                           compute_dtype=jnp.float32)
     with torch.no_grad():
         got = vggt_forward(model, torch.from_numpy(imgs), compute_dtype=torch.float32,
                            attn_impl="flash_int8")
@@ -396,20 +422,19 @@ def _cos_rel(a, b):
     return (float(a @ b / (a.norm() * b.norm())), float((a - b).norm() / b.norm()))
 
 
-def test_int8_denoise_loop_matches_jax_and_tracks_the_exact_loop():
+def test_int8_denoise_loop_matches_jax_and_tracks_the_exact_loop(cases, qtrees):
     """The 10-step CFG DDIM loop of ``tests/test_quant.py::TestTrajectoryDrift``
     with the JAX draw injected: int8 port against int8 JAX (rel-L2 < 5e-3: ten
     steps compound the few integers that flip at a tie), and against the
     exact port with the JAX test's limits (cos > 0.9999, rel < 0.02)."""
-    cfg, jcfg, tree = _dit_case()
-    jtree = jax.tree.map(jnp.asarray, tree)
+    cfg, jcfg, tree = cases["dit"]
     rng = np.random.default_rng(31)
     emb = rng.standard_normal((1, cfg.max_text_seq_length, cfg.text_embed_dim), dtype=np.float32)
     neg = np.zeros_like(emb)
     shape = (1, cfg.sample_frames, cfg.in_channels, cfg.sample_height, cfg.sample_width)
     key = jax.random.PRNGKey(2)
     want = j_denoise_loop(
-        jquant.quantize_dit_int8(jtree), jnp.asarray(emb), jnp.asarray(neg), key, jcfg,
+        qtrees["dit"], jnp.asarray(emb), jnp.asarray(neg), key, jcfg,
         JaxSettings(num_inference_steps=10, guidance_scale=6.0, sampler="ddim"), shape,
         attn_impl="flash_int8", compute_dtype=jnp.float32)
     init = torch.from_numpy(np.array(jax.random.normal(jax.random.split(key)[0], shape,
@@ -457,15 +482,15 @@ def _structured_candidates(size, frames=5):
     return out
 
 
-def test_int8_scorer_matches_jax_and_ranks_like_the_exact_scorer():
+def test_int8_scorer_matches_jax_and_ranks_like_the_exact_scorer(cases, qtrees):
     """The tiny scorer in int8 mode (quantised trunk + ``flash_int8``) through
     ``process_frames``: against the JAX package's int8 scorer on the same
     quantised weights (MSE-only consistency score within 5 flipped z-buffer
     pixels + 1e-4 relative; motion, a function of the poses, within the int8
     forwards' 1e-3), and ranking the four structured candidates as the exact
     port scorer does."""
-    cfg, jcfg, tree = _vggt_case()
-    qtree = jquant.quantize_vggt_int8(jax.tree.map(jnp.asarray, tree))
+    cfg, jcfg, tree = cases["vggt"]
+    qtree = qtrees["vggt"]
     candidates = _structured_candidates(cfg.img_size)
     S = candidates[0].shape[0]
 

@@ -4,6 +4,7 @@ bridge and the same inputs made with numpy."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +34,13 @@ torch.set_num_threads(2)
 # f32 on both sides: every difference is summation order (XLA vs PyTorch's
 # CPU kernels), a few f32 ulps per op, compounded through the layers
 ATOL, RTOL = 1e-5, 1e-5
+# the JAX heads, aggregator and model jitted: eager, they run op by op
+_j_dpt_head = jax.jit(jheads.dpt_head_forward, static_argnums=(2, 3, 4, 5),
+                      static_argnames=("chunk_size",))
+_j_aggregator = jax.jit(jagg.aggregator_forward, static_argnums=(2,),
+                        static_argnames=("attn_impl", "keep_layers"))
+_j_vggt = jax.jit(jmodel.vggt_forward, static_argnums=(2,),
+                  static_argnames=("attn_impl", "compute_dtype", "dpt_chunk"))
 
 
 def _t(x):
@@ -154,9 +162,8 @@ def test_slice_expand_and_flatten_matches_jax():
 def test_aggregator_keep_layers_matches_jax(tiny, images):
     cfg, params, model = tiny
     keep = (0, 2, 3)
-    want, idx = jagg.aggregator_forward(params["aggregator"], jnp.asarray(images),
-                                        JaxVGGTConfig.tiny(), attn_impl="xla",
-                                        keep_layers=keep)
+    want, idx = _j_aggregator(params["aggregator"], jnp.asarray(images),
+                              JaxVGGTConfig.tiny(), attn_impl="xla", keep_layers=keep)
     with torch.no_grad():
         got, tidx = tagg.aggregator_forward(model.aggregator, _t(images), keep_layers=keep)
     assert tidx == idx and got.shape == (3, 2, 3, 21, 2 * cfg.embed_dim)
@@ -182,9 +189,8 @@ def test_dpt_head_chunked_matches_jax(tiny, chunk_size):
     cfg, params, model = tiny
     tokens = np.random.default_rng(10).standard_normal((4, 2, 3, 21, cfg.tokens_dim),
                                                         dtype=np.float32)
-    want = jheads.dpt_head_forward(params["depth_head"], jnp.asarray(tokens),
-                                   JaxVGGTConfig.tiny(), (56, 56), "exp", "expp1",
-                                   chunk_size=chunk_size)
+    want = _j_dpt_head(params["depth_head"], jnp.asarray(tokens), JaxVGGTConfig.tiny(),
+                       (56, 56), "exp", "expp1", chunk_size=chunk_size)
     with torch.no_grad():
         got = theads.dpt_head_forward(model.depth_head, _t(tokens), cfg, (56, 56), "exp",
                                       "expp1", chunk_size=chunk_size)
@@ -217,8 +223,8 @@ def test_uv_pos_embed_matches_jax():
 
 def test_vggt_forward_matches_jax(tiny, images):
     cfg, params, model = tiny
-    want = jmodel.vggt_forward(params, jnp.asarray(images), JaxVGGTConfig.tiny(),
-                               attn_impl="xla", compute_dtype=jnp.float32, dpt_chunk=4)
+    want = _j_vggt(params, jnp.asarray(images), JaxVGGTConfig.tiny(), attn_impl="xla",
+                   compute_dtype=jnp.float32, dpt_chunk=4)
     with torch.no_grad():
         got = vggt_forward(model, _t(images), compute_dtype=torch.float32, dpt_chunk=4)
     for key in ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf"):

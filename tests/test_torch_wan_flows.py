@@ -79,6 +79,12 @@ T5_CFG = T5Config.tiny(per_layer_bias=True)  # umT5's per-layer bias, d_model = 
 LAT = (CFG.vae_z_dim, 3, 8, 8)  # (C, F, H, W): 9 frames at 128 x 128
 
 
+# the JAX encoders jitted (their references here ran eagerly, op by op)
+_j_t5_encode = jax.jit(jt5.t5_encode, static_argnums=(3,))
+_j_wan_vae_encode = jax.jit(jvae.wan_vae_encode, static_argnums=(2,))
+_j_vae_encode = jax.jit(j_vae_encode, static_argnums=(2,), static_argnames=("sample",))
+
+
 def _vae_sd(seed=0):
     torch.manual_seed(seed)
     oracle = WanVAEOracle(dim=CFG.vae_base_ch, dec_dim=CFG.vae_dec_base_ch, z_dim=CFG.vae_z_dim,
@@ -102,11 +108,17 @@ def _vae_pair(seed=0):
 # sample_ti2v
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("with_image", [False, True])
-def test_sample_ti2v_matches_jax_with_its_draws(with_image):
+@pytest.fixture(scope="module")
+def ti2v_models():
+    """The JAX DiT tree and its bridge, the JAX and port Wan VAEs, built once."""
     params = random_jax_tree(jdit.wan_init, JCFG, seed=1)
     model = load_jax_params(WanTransformer(CFG), jax.tree.map(np.asarray, params))
-    vparams, vae = _vae_pair(2)
+    return (params, model) + _vae_pair(2)
+
+
+@pytest.mark.parametrize("with_image", [False, True])
+def test_sample_ti2v_matches_jax_with_its_draws(with_image, ti2v_models):
+    params, model, vparams, vae = ti2v_models
     rng = np.random.default_rng(3)
     ctx = rng.standard_normal((2, CFG.text_len, CFG.text_dim), dtype=np.float32)
     image = rng.uniform(-1, 1, (1, 3, 64, 64)).astype(np.float32) if with_image else None
@@ -468,8 +480,8 @@ def test_encode_main_writes_the_jax_artifacts(tmp_path, monkeypatch, capsys):
                                                ("c", "a dog", "v1.mp4"))):
         cond = np.load(base / "dpo_latents" / f"condition_{gid}.npz")
         ids = FakeTokenizer()(prompt, max_length=cfg.max_text_seq_length)["input_ids"]
-        want = np.asarray(jt5.t5_encode(jt5_params, jnp.asarray(ids), None,
-                                        jt5.T5Config(**dataclasses.asdict(t5_cfg))))[0]
+        want = np.asarray(_j_t5_encode(jt5_params, jnp.asarray(ids), None,
+                                       jt5.T5Config(**dataclasses.asdict(t5_cfg))))[0]
         np.testing.assert_allclose(cond["encoder_hidden_states"], want, atol=1e-4, rtol=0)
         assert ("image_embeds" in cond.files) == (gi == 0)
         if gi == 0:
@@ -487,8 +499,8 @@ def test_encode_main_writes_the_jax_artifacts(tmp_path, monkeypatch, capsys):
                           generator=torch.Generator().manual_seed(gi))[0].numpy()
         np.testing.assert_array_equal(got, mine)
         # with JAX's PRNGKey(gi) draw injected, the port's vae_encode is JAX's
-        want = np.asarray(j_vae_encode(jvae_params, jnp.asarray(vid), jcfg,
-                                       key=jax.random.PRNGKey(gi), sample=True))
+        want = np.asarray(_j_vae_encode(jvae_params, jnp.asarray(vid), jcfg,
+                                        key=jax.random.PRNGKey(gi), sample=True))
         noise = np.array(jax.random.normal(jax.random.PRNGKey(gi),
                                            (1, cfg.vae_latent_channels, 3, 8, 12)))
         port = vae_encode(vae, torch.from_numpy(vid), cfg, noise=torch.from_numpy(noise))
@@ -545,19 +557,19 @@ def test_encode_wan_main_writes_the_jax_artifacts(tmp_path, monkeypatch, capsys)
                                        latents_std=stats["latents_std"])
     cond = np.load(base / "dpo_latents" / "condition_g.npz")
     t = FakeTokenizer()("waves", max_length=CFG.text_len)
-    want = np.asarray(jt5.t5_encode(jt5_params, jnp.asarray(t["input_ids"]),
-                                    jnp.asarray(t["attention_mask"]), jt5_cfg))[0]
+    want = np.asarray(_j_t5_encode(jt5_params, jnp.asarray(t["input_ids"]),
+                                   jnp.asarray(t["attention_mask"]), jt5_cfg))[0]
     assert cond["encoder_hidden_states"].shape == (CFG.text_len, CFG.text_dim)
     np.testing.assert_allclose(cond["encoder_hidden_states"], want, atol=1e-4, rtol=0)
     img = cv2.resize(cv2.cvtColor(cv2.imread(str(base / "img.png")), cv2.COLOR_BGR2RGB),
                      (48, 32), interpolation=cv2.INTER_AREA)
-    want = np.asarray(jvae.wan_vae_encode(vparams, jnp.asarray(
+    want = np.asarray(_j_wan_vae_encode(vparams, jnp.asarray(
         img.astype(np.float32).transpose(2, 0, 1)[None, :, None] / 127.5 - 1.0), JCFG))[0]
     assert cond["image_latent"].shape == (CFG.vae_z_dim, 1, 2, 3)
     np.testing.assert_allclose(cond["image_latent"], want, atol=1e-4, rtol=0)
     frames = np.stack([cv2.resize(f, (48, 32), interpolation=cv2.INTER_AREA)
                        for f in j_read_video_frames(str(base / "v.mp4"), np.arange(9))])
-    want = np.asarray(jvae.wan_vae_encode(vparams, jnp.asarray(
+    want = np.asarray(_j_wan_vae_encode(vparams, jnp.asarray(
         frames.astype(np.float32).transpose(3, 0, 1, 2)[None] / 127.5 - 1.0), JCFG))[0]
     got = np.load(base / "dpo_latents" / "latent_g_2.npz")["data"]
     assert got.shape == (CFG.vae_z_dim, 3, 2, 3)

@@ -36,6 +36,9 @@ torch.set_num_threads(2)
 CFG = WanConfig.tiny()
 JCFG = JaxWanConfig(**dataclasses.asdict(CFG))
 ATOL = 1e-4
+# the JAX encode and decode jitted: eager, they run op by op
+_j_encode = jax.jit(jvae.wan_vae_encode, static_argnums=(2,), static_argnames=("sample",))
+_j_decode = jax.jit(jvae.wan_vae_decode, static_argnums=(2,))
 
 
 @pytest.fixture(scope="module")
@@ -63,7 +66,7 @@ def _video(T, seed):
 def test_encode_matches_jax(vaes, T):
     params, model = vaes
     vid = _video(T, 10 + T)
-    want = np.asarray(jvae.wan_vae_encode(params, jnp.asarray(vid), JCFG))
+    want = np.asarray(_j_encode(params, jnp.asarray(vid), JCFG))
     assert want.shape == (1, CFG.vae_z_dim, 1 + (T - 1) // 4, 2, 2)
     for stream in (True, False):
         got = tvae.wan_vae_encode(model, torch.from_numpy(vid), CFG, stream=stream).numpy()
@@ -76,9 +79,9 @@ def test_encode_sample_matches_jax_with_its_draw(vaes, T):
     params, model = vaes
     vid = _video(T, 20 + T)
     key = jax.random.PRNGKey(T)
-    want = np.asarray(jvae.wan_vae_encode(params, jnp.asarray(vid), JCFG, key=key, sample=True))
+    want = np.asarray(_j_encode(params, jnp.asarray(vid), JCFG, key=key, sample=True))
     noise = np.array(jax.random.normal(key, want.shape, jnp.float32))
-    mean = np.asarray(jvae.wan_vae_encode(params, jnp.asarray(vid), JCFG))
+    mean = np.asarray(_j_encode(params, jnp.asarray(vid), JCFG))
     assert np.abs(want - mean).max() > 1e-2  # the draw moves the latent
     for stream in (True, False):
         got = tvae.wan_vae_encode(model, torch.from_numpy(vid), CFG,
@@ -107,7 +110,7 @@ def test_decode_matches_jax(vaes, T_lat):
     params, model = vaes
     lat = np.random.default_rng(40 + T_lat).standard_normal(
         (1, CFG.vae_z_dim, T_lat, 2, 2)).astype(np.float32)
-    want = np.asarray(jvae.wan_vae_decode(params, jnp.asarray(lat), JCFG))
+    want = np.asarray(_j_decode(params, jnp.asarray(lat), JCFG))
     assert want.shape == (1, 3, 1 + 4 * (T_lat - 1), 32, 32)
     assert (np.abs(want) < 0.999).mean() > 0.5  # the clamp hides little
     for stream in (True, False):

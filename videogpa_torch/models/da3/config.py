@@ -98,9 +98,8 @@ class DA3Config:
         """Resolve a reference preset name (``cfg.py:31-100`` registry).
 
         Multi-view / mono presets return a DA3Config; the nested preset
-        returns an (anyview, metric) pair, the configurations of the JAX
-        package's ``models/da3/nested.py`` (not ported yet).
-        """
+        returns an (anyview, metric) pair, the configurations of
+        ``nested.py``'s two branches (``DA3`` and ``DA3Mono``)."""
         presets = {
             "da3-small": DA3Config.small,
             "da3-base": DA3Config.base,

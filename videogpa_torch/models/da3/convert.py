@@ -14,7 +14,9 @@ aux head's ``output_conv2_aux.3.{0,2,5}``: only the last level's is used);
 the camera decoder's Sequentials (``backbone.{0,2}``, ``fc_fov.0``). A
 checkpoint key that no port key names is not read, as in the JAX converter;
 the camera encoder is converted only when the checkpoint holds it.
-``convert_da3_mono`` waits with the mono model.
+``convert_da3_mono`` reads the mono / metric checkpoints (the same trunk and
+DPT key grammar, every block a ``blocks_pre`` one, the sky branch at
+``head.scratch.sky_output_conv2.{0,2}``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ _RULES = (
     (re.compile(r"^head\.output_conv2a\."), "head.scratch.output_conv2.0."),
     (re.compile(r"^head\.output_conv2b\."), "head.scratch.output_conv2.2."),
     (re.compile(r"^head\.output_conv1_aux\."), "head.scratch.output_conv1_aux."),
+    (re.compile(r"^head\.sky_conv2a\."), "head.scratch.sky_output_conv2.0."),
+    (re.compile(r"^head\.sky_conv2b\."), "head.scratch.sky_output_conv2.2."),
     # Sequential(conv3x3, Permute, LayerNorm, Permute, ReLU, conv1x1)
     (re.compile(r"^head\.output_conv2a_aux\."), "head.scratch.output_conv2_aux.3.0."),
     (re.compile(r"^head\.output_conv2_ln_aux\."), "head.scratch.output_conv2_aux.3.2."),
@@ -75,6 +79,19 @@ def convert_da3(sd: Mapping[str, np.ndarray], cfg: DA3Config) -> Dict[str, np.nd
     encoder. Raises ``KeyError`` naming the first checkpoint key it lacks."""
     return {key: np.asarray(sd[_upstream_key(key, cfg)])
             for key in _port_keys(cfg, _CAM_ENC_MARKER in sd)}
+
+
+def convert_da3_mono(sd: Mapping[str, np.ndarray], cfg: DA3Config) -> Dict[str, np.ndarray]:
+    """A da3mono / da3metric checkpoint (reference ``configs/da3mono-large.yaml``:
+    all ``cfg.depth`` blocks plain, ``model/dpt.py::DPT`` with the sky head)
+    -> ``DA3Mono`` state dict (numpy). The head's input LayerNorm is read
+    where the checkpoint holds ``head.norm`` (build ``DA3Mono(cfg,
+    input_norm=True)`` then), as JAX's ``t_layernorm`` does. Raises
+    ``KeyError`` naming the first checkpoint key it lacks."""
+    from videogpa_torch.models.da3.mono import DA3Mono
+
+    keys = DA3Mono(cfg, input_norm="head.norm.weight" in sd, device="meta").state_dict()
+    return {key: np.asarray(sd[_upstream_key(key, cfg)]) for key in keys}
 
 
 def _convert_part(sd: Mapping[str, np.ndarray], part: nn.Module, port_pfx: str,

@@ -94,7 +94,18 @@ class DA3Prediction:
     extrinsics: np.ndarray  # (S, 3, 4) world->camera
     intrinsics: np.ndarray  # (S, 3, 3)
     processed_images: np.ndarray  # (S, H, W, 3) uint8-scale
-    features: Optional[np.ndarray] = None  # (S, H/14, W/14, C)
+    gaussians: Optional[object] = None  # models.da3.gaussians.Gaussians
+    features: Optional[np.ndarray] = None  # (S, H/14, W/14, C), for feat_vis
+
+
+def _normalised_upload(frames: np.ndarray, device):
+    """(S, H, W, 3) uint8 -> (frames / 255 as f32, (1, S, 3, H, W)
+    ImageNet-normalised f32 on ``device``), normalised on the host as the
+    JAX package does."""
+    imgs = frames.astype(np.float32) / 255.0
+    normed = (imgs - np.asarray(IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD,
+                                                                          np.float32)
+    return imgs, torch.from_numpy(normed.transpose(0, 3, 1, 2)[None].copy()).to(device)
 
 
 @torch.no_grad()
@@ -106,11 +117,7 @@ def da3_inference(model: DA3, frames: np.ndarray, attn_impl: str = "auto",
     device. With gt_extrinsics (S, 3 or 4, 4) the predicted trajectory is
     aligned to them by Umeyama Sim(3), RANSAC at >= 10 views, and the depth
     scaled with it (reference ``api.py:341-365``)."""
-    imgs = frames.astype(np.float32) / 255.0
-    normed = (imgs - np.asarray(IMAGENET_MEAN, np.float32)) / np.asarray(IMAGENET_STD,
-                                                                          np.float32)
-    device = next(model.parameters()).device
-    x = torch.from_numpy(normed.transpose(0, 3, 1, 2)[None].copy()).to(device)
+    imgs, x = _normalised_upload(frames, next(model.parameters()).device)
     out = da3_forward(model, x, attn_impl, compute_dtype, return_features=return_features)
     extr = out["extrinsics"][0].float().cpu().numpy()
     depth = out["depth"][0].float().cpu().numpy()

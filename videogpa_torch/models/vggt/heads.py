@@ -11,7 +11,7 @@ chunk's output written into one preallocated tensor.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -36,6 +36,14 @@ def activate_pose(enc: torch.Tensor) -> torch.Tensor:
     return torch.cat([enc[..., :7], torch.relu(enc[..., 7:])], dim=-1)
 
 
+def _activate_values(xyz: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "exp":
+        return torch.exp(xyz)
+    if activation == "inv_log":
+        return inverse_log_transform(xyz)
+    raise ValueError(f"Unknown activation: {activation}")
+
+
 def activate_head(out: torch.Tensor, activation: str,
                   conf_activation: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, C, H, W) -> ((B, H, W, C-1) points or depth, (B, H, W) conf), f32.
@@ -43,15 +51,14 @@ def activate_head(out: torch.Tensor, activation: str,
     JAX package's other activations serve DA3 (``models/da3/heads.py``)."""
     fmap = out.permute(0, 2, 3, 1).float()
     xyz, conf = fmap[..., :-1], fmap[..., -1]
-    if activation == "exp":
-        pts = torch.exp(xyz)
-    elif activation == "inv_log":
-        pts = inverse_log_transform(xyz)
-    else:
-        raise ValueError(f"Unknown activation: {activation}")
     if conf_activation != "expp1":
         raise ValueError(f"Unknown conf_activation: {conf_activation}")
-    return pts, 1 + torch.exp(conf)
+    return _activate_values(xyz, activation), 1 + torch.exp(conf)
+
+
+def _activate_single(out: torch.Tensor, activation: str) -> torch.Tensor:
+    """A head without confidence (DA3's mono DPT): (B, C, H, W) -> (B, H, W, C)."""
+    return _activate_values(out.permute(0, 2, 3, 1).float(), activation)
 
 
 # ---------------------------------------------------------------------------
@@ -120,11 +127,21 @@ def _fusion_block(f: int, has_residual: bool, **fk) -> nn.Module:
 
 
 class DPTHead(nn.Module):
-    def __init__(self, cfg: VGGTConfig, output_dim: int, device=None, dtype=None):
+    """The DPT head's parameters, named as the JAX tree of ``dpt_head_init``.
+    DA3's options: ``feature_only`` (no output head, ``output_conv1`` keeps
+    the features' width; GSDPT), ``dim_in`` (token width; the mono trunk's
+    C, not 2C), ``sky_head`` (``sky_conv2a`` / ``sky_conv2b`` off the shared
+    ``output_conv1`` features) and ``input_norm=False`` (Identity norm)."""
+
+    def __init__(self, cfg: VGGTConfig, output_dim: int, device=None, dtype=None,
+                 feature_only: bool = False, dim_in: Optional[int] = None,
+                 sky_head: bool = False, input_norm: bool = True):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
-        oc, f, dim_in = cfg.dpt_out_channels, cfg.dpt_features, cfg.tokens_dim
-        self.norm = L.LayerNorm(dim_in, **fk)
+        oc, f = cfg.dpt_out_channels, cfg.dpt_features
+        dim_in = dim_in or cfg.tokens_dim
+        self.feature_only = feature_only
+        self.norm = L.LayerNorm(dim_in, **fk) if input_norm else nn.Identity()
         self.projects = nn.ModuleList(L.Conv2d(dim_in, c, 1, **fk) for c in oc)
         self.resize0 = L.ConvTranspose2d(oc[0], oc[0], 4, stride=4, **fk)
         self.resize1 = L.ConvTranspose2d(oc[1], oc[1], 2, stride=2, **fk)
@@ -134,9 +151,15 @@ class DPTHead(nn.Module):
         self.refinenet2 = _fusion_block(f, True, **fk)
         self.refinenet3 = _fusion_block(f, True, **fk)
         self.refinenet4 = _fusion_block(f, False, **fk)
-        self.output_conv1 = L.Conv2d(f, f // 2, 3, padding=1, **fk)
-        self.output_conv2a = L.Conv2d(f // 2, 32, 3, padding=1, **fk)
-        self.output_conv2b = L.Conv2d(32, output_dim, 1, **fk)
+        if feature_only:
+            self.output_conv1 = L.Conv2d(f, f, 3, padding=1, **fk)
+        else:
+            self.output_conv1 = L.Conv2d(f, f // 2, 3, padding=1, **fk)
+            self.output_conv2a = L.Conv2d(f // 2, 32, 3, padding=1, **fk)
+            self.output_conv2b = L.Conv2d(32, output_dim, 1, **fk)
+        if sky_head:
+            self.sky_conv2a = L.Conv2d(f // 2, 32, 3, padding=1, **fk)
+            self.sky_conv2b = L.Conv2d(32, 1, 1, **fk)
 
 
 def uv_pos_embed(ph: int, pw: int, channels: int, W: int, H: int, device=None) -> torch.Tensor:
@@ -181,8 +204,11 @@ def _fusion(m: nn.Module, x: torch.Tensor, residual=None, size=None,
 
 
 def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
-              activation: str, conf_activation: str, compute_dtype: torch.dtype):
-    """One chunk: taps are the 4 (K, P, 2C) layer outputs the DPT reads."""
+              activation: str, conf_activation: str, compute_dtype: torch.dtype,
+              use_pos_embed: bool = True, with_conf: bool = True, inplace_relu: bool = True):
+    """One chunk: taps are the 4 (K, P, 2C) layer outputs the DPT reads.
+    Returns the (K, f, H, W) features with ``feature_only``, else (preds,
+    conf or None, sky or None)."""
     H, W = img_hw
     ph, pw = H // cfg.patch_size, W // cfg.patch_size
     pyramid = []
@@ -192,7 +218,8 @@ def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
         x = head.norm(x)
         x = x.transpose(1, 2).reshape(K, -1, ph, pw)
         x = head.projects[i](x)
-        x = x + uv_pos_embed(ph, pw, x.shape[1], W, H, x.device).to(x.dtype)
+        if use_pos_embed:
+            x = x + uv_pos_embed(ph, pw, x.shape[1], W, H, x.device).to(x.dtype)
         if i == 0:
             x = head.resize0(x)
         elif i == 1:
@@ -201,38 +228,57 @@ def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
             x = head.resize3(x)
         pyramid.append(x)
     l1, l2, l3, l4 = (head.layer_rn[i](p) for i, p in enumerate(pyramid))
-    out = _fusion(head.refinenet4, l4, size=l3.shape[-2:])
-    out = _fusion(head.refinenet3, out, l3, size=l2.shape[-2:])
-    out = _fusion(head.refinenet2, out, l2, size=l1.shape[-2:])
-    out = _fusion(head.refinenet1, out, l1)
+    out = _fusion(head.refinenet4, l4, size=l3.shape[-2:], inplace_relu=inplace_relu)
+    out = _fusion(head.refinenet3, out, l3, size=l2.shape[-2:], inplace_relu=inplace_relu)
+    out = _fusion(head.refinenet2, out, l2, size=l1.shape[-2:], inplace_relu=inplace_relu)
+    out = _fusion(head.refinenet1, out, l1, inplace_relu=inplace_relu)
     out = head.output_conv1(out)
     out = resize_bilinear(out, (ph * cfg.patch_size, pw * cfg.patch_size), align_corners=True)
-    out = out + uv_pos_embed(out.shape[-2], out.shape[-1], out.shape[1], W, H,
-                             out.device).to(out.dtype)
-    out = head.output_conv2b(torch.relu(head.output_conv2a(out)))
-    return activate_head(out, activation, conf_activation)
+    if use_pos_embed:
+        out = out + uv_pos_embed(out.shape[-2], out.shape[-1], out.shape[1], W, H,
+                                 out.device).to(out.dtype)
+    if head.feature_only:
+        return out
+    feat = out
+    out = head.output_conv2b(torch.relu(head.output_conv2a(feat)))
+    if with_conf:
+        preds, conf = activate_head(out, activation, conf_activation)
+    else:  # DA3's mono DPT: every channel is the prediction
+        preds, conf = _activate_single(out, activation), None
+    sky = None
+    if hasattr(head, "sky_conv2a"):  # sky_activation "relu"
+        sky = torch.relu(head.sky_conv2b(torch.relu(head.sky_conv2a(feat)))[:, 0].float())
+    return preds, conf, sky
 
 
 def dpt_head_forward(head: DPTHead, layer_outputs: torch.Tensor, cfg: VGGTConfig, img_hw,
                      activation: str = "exp", conf_activation: str = "expp1",
-                     chunk_size: int = 8, compute_dtype: torch.dtype = torch.float32
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     chunk_size: int = 8, compute_dtype: torch.dtype = torch.float32,
+                     use_pos_embed: bool = True, with_conf: bool = True,
+                     inplace_relu: bool = True):
     """layer_outputs (L, B, S, P, 2C); ``cfg.dpt_intermediate_layers`` index
-    its first axis. Returns (preds (B, S, H, W, out-1), conf (B, S, H, W)), f32."""
-    H, W = img_hw
+    its first axis. Returns (preds (B, S, H, W, out-1), conf (B, S, H, W)),
+    f32, with ``sky`` (B, S, H, W) third where the head has one; conf is None
+    without ``with_conf`` (then preds keep every channel); with
+    ``feature_only`` the (B, S, f, H, W) features in ``compute_dtype``.
+    ``inplace_relu=False`` gives DA3's fusion residual (raw x)."""
     _, B, S, P, C2 = layer_outputs.shape
     BS = B * S
     chunk = max(c for c in range(1, min(chunk_size, BS) + 1) if BS % c == 0)
     flat = layer_outputs.reshape(layer_outputs.shape[0], BS, P, C2)
     taps = [flat[i] for i in cfg.dpt_intermediate_layers]
-    ph, pw = H // cfg.patch_size, W // cfg.patch_size
-    oh, ow = ph * cfg.patch_size, pw * cfg.patch_size
-    n_out = head.output_conv2b.out_channels
-    preds = torch.empty((BS, oh, ow, n_out - 1), dtype=torch.float32, device=flat.device)
-    conf = torch.empty((BS, oh, ow), dtype=torch.float32, device=flat.device)
+    outs = None
     for s in range(0, BS, chunk):
-        p, c = _dpt_core(head, [t[s:s + chunk] for t in taps], cfg, img_hw, activation,
-                         conf_activation, compute_dtype)
-        preds[s:s + chunk] = p
-        conf[s:s + chunk] = c
-    return preds.reshape(B, S, oh, ow, n_out - 1), conf.reshape(B, S, oh, ow)
+        got = _dpt_core(head, [t[s:s + chunk] for t in taps], cfg, img_hw, activation,
+                        conf_activation, compute_dtype, use_pos_embed, with_conf,
+                        inplace_relu)
+        got = (got,) if head.feature_only else got
+        if outs is None:  # one preallocated output each, filled chunk by chunk
+            outs = [None if t is None else t.new_empty((BS,) + t.shape[1:]) for t in got]
+        for acc, t in zip(outs, got):
+            if t is not None:
+                acc[s:s + chunk] = t
+    outs = [None if t is None else t.reshape(B, S, *t.shape[1:]) for t in outs]
+    if head.feature_only:
+        return outs[0]
+    return tuple(outs) if outs[2] is not None else tuple(outs[:2])
