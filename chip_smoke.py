@@ -186,6 +186,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
              16), peak GB and artefact size. Images decode from memory and
              the video writer keeps its frames (no OpenCV, PIL or mp4 encoder
              on the card's machine).
+   slice_matching — SuperPoint (2,048 keypoints, 256-d) and LightGlue (9
+             layers, d 256, 4 heads) at the published widths on random
+             JAX-layout trees through the bridge (SuperPoint He-scaled: at
+             the published init its scores tie across cells), one pair of
+             518^2 frames,
+             f32 card against CPU: scores and descriptors by rel-norm, how
+             many keypoints differ (a blocky and a textured pair), LightGlue's
+             log-assignment by rel-norm, matches0's agreement; the matching
+             trees (``matcher_trees``) on a pair panned 8 pixels: matches and
+             Epipolar card against CPU; card ms of each stage.
+   replicate_files, lightglue — the same scorer run again with
+             ``SCORE_DESCRIPTOR_TYPE=lightglue`` (the matcher's trees from
+             ``VIDEOGPA_SUPERPOINT_PATH`` / ``VIDEOGPA_LIGHTGLUE_PATH``):
+             clips/min, the matcher's ms a pair by stage, matches a pair, the
+             Epipolar values, K1/K4/K5 launches.
+   da3_eval — ``Evaluator`` in its three modes (pose, recon_posed,
+             recon_unposed) on one ``npz_dir`` scene of 10 x 518^2 with
+             DA3-Large at full width: inference, fusion and chamfer ms,
+             voxels and voxel size, surface points, metrics, peak GB, K1 8 /
+             K4 16 a call; ``fuse_depths_tsdf`` card against CPU on a bumpy
+             scene of 10 x 518^2 at about 8 M voxels.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -1477,9 +1498,13 @@ def synthetic_frames(K: int, S: int, size: int, seed: int):
 
 
 def device_metrics(metrics: dict) -> dict:
-    """The metric set without Epipolar: its SIFT matching needs OpenCV on the
-    host, which the card's machine lacks; the CPU tests hold it."""
-    return {name: m for name, m in metrics.items() if name != "Epipolar"}
+    """The metric set without Epipolar where it matches with SIFT: SIFT needs
+    OpenCV on the host, which the card's machine lacks (the CPU tests hold
+    it). Epipolar through SuperPoint + LightGlue stays."""
+    from videogpa_torch.metrics.epipolar import SIFTMatcher
+
+    return {name: m for name, m in metrics.items()
+            if not (name == "Epipolar" and isinstance(m.matcher, SIFTMatcher))}
 
 
 def phase_slice_scorer() -> None:
@@ -5031,10 +5056,119 @@ def phase_replicate_files(models, steps: int = 2):
     if resumed["rows"] != rows or any(resume_launches.values()):
         fail("a resumed cli.replicate_scorer.main run scored again")
     log(f"[replicate_files] resumed run: {len(resumed['rows'])} rows, nothing scored")
+    lightglue = _replicate_lightglue(root, score_cfg, frames, want, replicate_scorer,
+                                     metrics_pkg, video_io, memory_frames)
     shutil.rmtree(root)
     return {"generate_s": gen_s, "generate_peak_gb": gen_peak, "generate_launches": gen_launches,
             "checkpoint_gb": size_gb, "write_s": write_s, "load_s": load_s, "score_s": score_s,
-            "score_launches": score_launches, "summary": report["summary"]}
+            "score_launches": score_launches, "summary": report["summary"],
+            "lightglue": lightglue}
+
+
+def _replicate_lightglue(root, score_cfg, frames, want, replicate_scorer, metrics_pkg, video_io,
+                         memory_frames):
+    """[replicate_files]'s scorer again over the same clips and DA3-Large
+    checkpoint with ``SCORE_DESCRIPTOR_TYPE=lightglue``: the matcher's trees
+    (``matcher_trees(.., matching=True)``, published widths) written with
+    ``save_pytree`` and named by ``VIDEOGPA_SUPERPOINT_PATH`` /
+    ``VIDEOGPA_LIGHTGLUE_PATH``, its threshold set to 0. Prints clips/min
+    (without ``load_da3``) beside the run without Epipolar, the matcher's ms
+    a pair split into SuperPoint, keypoint extraction (NMS + top-k + the
+    descriptor samples), LightGlue and the host geometry, the matches a
+    pair, the Epipolar values and the launches (those of the run without
+    Epipolar: the matcher launches no kernel)."""
+    import dataclasses
+
+    import torch
+
+    from videogpa_torch.checkpoint import save_pytree
+    from videogpa_torch.metrics import epipolar
+    from videogpa_torch.models import loader
+
+    sp, lg = matcher_trees(85, matching=True)
+    paths = {"VIDEOGPA_SUPERPOINT_PATH": os.path.join(root, "superpoint.npz"),
+             "VIDEOGPA_LIGHTGLUE_PATH": os.path.join(root, "lightglue.npz")}
+    save_pytree(sp, paths["VIDEOGPA_SUPERPOINT_PATH"])
+    save_pytree(lg, paths["VIDEOGPA_LIGHTGLUE_PATH"])
+    old_env = {k: os.environ.get(k) for k in paths}
+    os.environ.update(paths)
+    real_build, real_decode, real_load = (metrics_pkg.build_metrics,
+                                          video_io.sample_uniform_frames, loader.load_da3)
+    real_pair = epipolar.LightGlueMatcher.get_matched_points
+    matchers, pairs, load_s = [], [], []
+
+    def lightglue_build(*a, **k):
+        metrics = real_build(*a, **k)
+        m = metrics["Epipolar"].matcher
+        m.lg_cfg = dataclasses.replace(m.lg_cfg, filter_threshold=0.0)
+        matchers.append(m)
+        return device_metrics(metrics)
+
+    def counted_pair(self, f1, f2):
+        result = real_pair(self, f1, f2)
+        pairs.append(result[2])
+        return result
+
+    def timed_load(*a, **k):
+        t0 = time.perf_counter()
+        result = real_load(*a, **k)
+        load_s.append(time.perf_counter() - t0)
+        return result
+
+    cfg = {**score_cfg, "descriptor_type": "lightglue",
+           "output_csv": os.path.join(root, "scores_lightglue.csv")}
+    stages = ["superpoint_forward", "extract_keypoints", "lightglue_match", "find_fundamental",
+              "sampson_distance"]
+    metrics_pkg.build_metrics, video_io.sample_uniform_frames = lightglue_build, memory_frames
+    loader.load_da3 = timed_load
+    epipolar.LightGlueMatcher.get_matched_points = counted_pair
+    ms, calls, restore = _stage_timers(epipolar, stages)
+    try:
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        report = replicate_scorer.main(cfg, device="cuda")
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        restore()
+        metrics_pkg.build_metrics, video_io.sample_uniform_frames = real_build, real_decode
+        loader.load_da3 = real_load
+        epipolar.LightGlueMatcher.get_matched_points = real_pair
+        for k, v in old_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rows = report["rows"]
+    n_pairs = len(pairs)
+    per_pair = {"superpoint": ms["superpoint_forward"] / max(calls["superpoint_forward"], 1),
+                "keypoints": ms["extract_keypoints"] / max(calls["extract_keypoints"], 1),
+                "lightglue": ms["lightglue_match"] / max(calls["lightglue_match"], 1),
+                "host_geometry": (ms["find_fundamental"] + ms["sampson_distance"])
+                / max(n_pairs, 1)}
+    scoring_s = score_s - sum(load_s)
+    out = {"clips_per_min": len(rows) / scoring_s * 60, "score_s": score_s,
+           "load_da3_s": sum(load_s), "pairs": n_pairs, "matcher_ms_per_pair": per_pair,
+           "matches_per_pair": pairs, "geometry_pairs": calls["find_fundamental"],
+           "epipolar": [r["epipolar"] for r in rows], "launches": launches,
+           "matcher_device": str(matchers[0].device) if matchers else None,
+           "matcher_layers": len(matchers[0].lg_params.layers) if matchers else None}
+    log("[replicate_files] cli.replicate_scorer.main with SCORE_DESCRIPTOR_TYPE=lightglue "
+        "(the matcher's trees from VIDEOGPA_SUPERPOINT_PATH / VIDEOGPA_LIGHTGLUE_PATH, "
+        "threshold 0): " + json.dumps({k: v for k, v in out.items() if k != "launches"})
+        + f"; launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    if len(rows) != 8 or any(r.get("error") for r in rows) or not all(
+            math.isfinite(r["epipolar"]) for r in rows):
+        fail("the lightglue scorer did not score the 8 clips")
+    if out["matcher_device"] != "cuda" or out["matcher_layers"] != 9 or n_pairs != 8 * 9:
+        fail("the lightglue scorer's matcher did not run on the card at full depth")
+    if out["geometry_pairs"] == 0:
+        fail("no pair of the lightglue run reached the fundamental matrix")
+    if launches != want:
+        fail("the lightglue scorer's DA3 launches differ from the run without Epipolar")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -5500,6 +5634,441 @@ def phase_da3_service():
     return {"requests": results, "launches": total, "load_s": load_s}
 
 
+# ---------------------------------------------------------------------------
+# The learned matcher (SuperPoint + LightGlue) behind EpipolarMetric
+# ("lightglue"), and DA3's evaluation half (TSDF fusion, chamfer / F-score,
+# the Evaluator)
+# ---------------------------------------------------------------------------
+
+# f32 on both sides, TF32 off: summation order only, ~1e-7 a layer
+MATCH_REL = 1e-5
+# keypoints in one device's set and not the other's, on a textured pair (no
+# exact plateaus; a near-tie at the top-k boundary or inside an NMS window
+# can still fall the other way by an ulp). Their order is reported, not
+# held: scores 1e-6 apart swap places (LightGlue does not see the order)
+KP_DIFF_SHARE = 1e-2
+# matches0 entries equal card vs CPU, end to end (each side its own keypoints)
+MATCH_AGREE = 0.9
+# Epipolar card vs CPU when both match the same pairs of points: the same
+# host geometry, but the pairs may come in another order (keypoints whose
+# scores lie 1e-6 apart swap places), and an f32 SVD over reordered rows
+# rounds differently
+EPI_REL = 1e-4
+# TSDF fusion card vs CPU: the integration is elementwise, spelt out sum by
+# sum, with true divisions, so the two should agree bit for bit; a voxel
+# whose projection sits within an ulp of a pixel edge may still fall the
+# other way if a device rounds one operation differently
+FUSE_FLIP_SHARE, RECON_REL = 1e-4, 1e-3
+
+
+def matcher_trees(seed: int, matching: bool):
+    """SuperPoint and LightGlue parameter trees in the JAX package's layout
+    (``superpoint_init`` / ``lightglue_init``), at the published widths, as
+    numpy from a seed: kernels U(+-1/sqrt(fan_in)), biases U(+-0.1),
+    layer-norm scales 1 + U(+-0.1) (``tests/test_torch_bridge.py::
+    random_jax_tree``'s draws).
+
+    Random weights match nothing: deep random ReLU convolutions give nearly
+    parallel descriptors, and random attention makes the similarity rank one,
+    so the mutual rule keeps one match a pair. With ``matching`` the trees
+    are made to match: He-scaled SuperPoint kernels (x sqrt(6), activations
+    keep their scale through the 8 ReLU layers), and a LightGlue whose layers
+    still run but add nothing to the residual stream (``fc2`` zero), between
+    an identity input projection, a final projection of 128 x identity (a
+    sharp dual softmax) and a matchability of constant output: the matcher
+    pairs the descriptors' mutual nearest neighbours."""
+    import numpy as np
+
+    from videogpa_torch.models.matching import LightGlueConfig, SuperPointConfig
+
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    def kernel(shape, gain=1.0):
+        fan_in = float(np.prod(shape[:-1]))
+        return (gain * rng.uniform(-1, 1, shape) / fan_in ** 0.5).astype(f32)
+
+    def bias(n):
+        return rng.uniform(-0.1, 0.1, n).astype(f32)
+
+    def lin(i, o, with_bias=True):
+        p = {"kernel": kernel((i, o))}
+        if with_bias:
+            p["bias"] = bias(o)
+        return p
+
+    spc, lgc = SuperPointConfig(), LightGlueConfig()
+    gain = 6 ** 0.5 if matching else 1.0
+    names = ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b"]
+    sp, in_ch = {}, 1
+    for name, out_ch in zip(names, spc.channels):
+        sp[name] = {"kernel": kernel((3, 3, in_ch, out_ch), gain), "bias": bias(out_ch)}
+        in_ch = out_ch
+    for name, i, o, k in (("convPa", in_ch, 256, 3), ("convPb", 256, 65, 1),
+                          ("convDa", in_ch, 256, 3), ("convDb", 256, spc.descriptor_dim, 1)):
+        sp[name] = {"kernel": kernel((k, k, i, o), gain), "bias": bias(o)}
+
+    d = lgc.descriptor_dim
+
+    def ffn():
+        return {"fc1": lin(2 * d, 2 * d),
+                "ln": {"scale": (1 + rng.uniform(-0.1, 0.1, 2 * d)).astype(f32),
+                       "bias": bias(2 * d)},
+                "fc2": lin(2 * d, d)}
+
+    lg = {"input_proj": lin(d, d), "posenc_Wr": lin(2, d // lgc.num_heads // 2, False),
+          "layers": [{"self": {"Wqkv": lin(d, 3 * d), "out_proj": lin(d, d), "ffn": ffn()},
+                      "cross": {"to_qk": lin(d, d), "to_v": lin(d, d), "to_out": lin(d, d),
+                                "ffn": ffn()}} for _ in range(lgc.n_layers)],
+          "final_proj": lin(d, d), "matchability": lin(d, 1)}
+    if matching:
+        eye, zero = np.eye(d, dtype=f32), np.zeros(d, f32)
+        lg["input_proj"] = {"kernel": eye, "bias": zero}
+        lg["final_proj"] = {"kernel": 128 * eye, "bias": zero}
+        lg["matchability"]["kernel"][:] = 0
+        for layer in lg["layers"]:
+            for blk in ("self", "cross"):
+                layer[blk]["ffn"]["fc2"]["kernel"][:] = 0
+                layer[blk]["ffn"]["fc2"]["bias"][:] = 0
+    return sp, lg
+
+
+def matcher_modules(seed: int, matching: bool, device):
+    """``matcher_trees`` through the bridge: (SuperPoint, LightGlue) on ``device``."""
+    from videogpa_torch.convert import load_jax_params
+    from videogpa_torch.models.matching import LightGlue, SuperPoint
+
+    sp, lg = matcher_trees(seed, matching)
+    return (load_jax_params(SuperPoint(), sp).eval().to(device),
+            load_jax_params(LightGlue(), lg).eval().to(device))
+
+
+def textured_frames(T: int, size: int, step: int, seed: int):
+    """(T, size, size, 3) uint8: a bicubic-upsampled random texture panned
+    ``step`` pixels a frame. No flat 8-pixel cells (``synthetic_frames``'),
+    so no exact plateaus of equal keypoint scores."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    rng = np.random.default_rng(seed)
+    tex = torch.from_numpy(rng.uniform(0, 255, (1, 3, size // 4 + 2,
+                                                (size + step * T) // 4 + 2)).astype(np.float32))
+    big = F.interpolate(tex, scale_factor=4, mode="bicubic").clamp(0, 255).round()
+    big = big[0].permute(1, 2, 0).numpy().astype(np.uint8)
+    return np.stack([big[:size, step * t: step * t + size] for t in range(T)])
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def phase_slice_matching():
+    """SuperPoint (2,048 keypoints, 256-d descriptors) and LightGlue (9
+    layers, d 256, 4 heads) at the published widths, JAX-layout random trees
+    through the bridge (SuperPoint's from ``matcher_trees(.., matching=True)``,
+    LightGlue's at the published init), on one pair of 518^2 frames, f32,
+    card against CPU: SuperPoint's scores and descriptors by rel-norm, the
+    keypoints (how many differ in place or in set: on ``synthetic_frames``'
+    blocky pair reported, on a textured pair held), LightGlue's
+    log-assignment on the CPU's keypoints by rel-norm, and matches0 end to
+    end (threshold 0). Then the matching trees (``matcher_trees``) on a
+    textured pair panned 8 pixels: matches, the share that pair each point
+    with itself, and Epipolar card against CPU. Card ms of each stage on the
+    pair (warm)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.metrics.epipolar import LightGlueMatcher, epipolar_error, grey_pair
+    from videogpa_torch.models.matching import (
+        LightGlueConfig, SuperPointConfig, extract_keypoints, lightglue_match, log_assignment,
+        superpoint_forward)
+
+    spc = SuperPointConfig()
+    lgc = dataclasses.replace(LightGlueConfig(), filter_threshold=0.0)
+    out = {}
+    # SuperPoint from the matching trees: at the published init its scores
+    # are bias-dominated, one maximum an 8 x 8 cell at nearly one value, so
+    # their order is the last bits'; LightGlue at the published init
+    sp_cpu = matcher_modules(80, matching=True, device="cpu")[0]
+    lg_cpu = matcher_modules(80, matching=False, device="cpu")[1]
+    sp_dev, lg_dev = copy.deepcopy(sp_cpu).to("cuda"), copy.deepcopy(lg_cpu).to("cuda")
+    pairs = {"synthetic_frames": synthetic_frames(1, 2, 518, seed=81)[0],
+             "textured": textured_frames(2, 518, 8, seed=82)}
+    with torch.no_grad():
+        for tag, pair in pairs.items():
+            imgs = torch.from_numpy(grey_pair(pair[0], pair[1]))
+            hw = tuple(imgs.shape[-2:])
+            s_w, d_w = superpoint_forward(sp_cpu, imgs, spc)
+            s_g, d_g = superpoint_forward(sp_dev, imgs.cuda(), spc)
+            kp_w = extract_keypoints(s_w, d_w, spc)
+            kp_g = extract_keypoints(s_g, d_g, spc)
+            kp_diff = int((kp_g[0].cpu() != kp_w[0]).any(-1).sum())
+            n_kp = kp_w[0].shape[0] * kp_w[0].shape[1]
+            not_shared = sum(len({tuple(p) for p in a.tolist()} ^ {tuple(p) for p in b.tolist()})
+                             for a, b in zip(kp_g[0].cpu(), kp_w[0]))
+            row = {"scores_rel": _rel_norm(s_g, s_w), "descriptors_rel": _rel_norm(d_g, d_w),
+                   "keypoints_differ": kp_diff, "of": n_kp, "keypoints_not_shared": not_shared}
+            if tag == "textured":
+                args = [kp_w[0][:1], kp_w[2][:1], kp_w[3][:1], kp_w[0][1:], kp_w[2][1:],
+                        kp_w[3][1:]]
+                la_w = log_assignment(lg_cpu, *args, hw, lgc)
+                la_g = log_assignment(lg_dev, *[a.cuda() for a in args], hw, lgc)
+                row["log_assignment_rel"] = _rel_norm(la_g, la_w)
+                m_w = lightglue_match(lg_cpu, *args, hw, lgc)[0]
+                m_g = lightglue_match(lg_dev, kp_g[0][:1], kp_g[2][:1], kp_g[3][:1],
+                                      kp_g[0][1:], kp_g[2][1:], kp_g[3][1:], hw, lgc)[0]
+                row["matches0_agree"] = float((m_g.cpu() == m_w).float().mean())
+                row["matches_cpu"] = int((m_w >= 0).sum())
+                # card ms a stage, warm
+                row["card_ms"] = {
+                    "superpoint": cuda_ms(lambda: superpoint_forward(sp_dev, imgs.cuda(), spc),
+                                          3),
+                    "extract_keypoints": cuda_ms(lambda: extract_keypoints(s_g, d_g, spc), 3),
+                    "lightglue": cuda_ms(lambda: lightglue_match(
+                        lg_dev, *[a.cuda() for a in args], hw, lgc), 3)}
+            out[tag] = row
+            log(f"[slice_matching] random SuperPoint (He-scaled) + LightGlue at the published "
+                f"widths, {tag} pair 518^2, f32 card vs CPU: " + json.dumps(
+                    {k: (float(f"{v:.3e}") if isinstance(v, float) else v)
+                     for k, v in row.items()}))
+    tex = out["textured"]
+    if max(tex["scores_rel"], tex["descriptors_rel"], out["synthetic_frames"]["scores_rel"],
+           out["synthetic_frames"]["descriptors_rel"], tex["log_assignment_rel"]) > MATCH_REL:
+        fail(f"SuperPoint or LightGlue on the card disagrees with the CPU (limit {MATCH_REL})")
+    if tex["keypoints_not_shared"] > KP_DIFF_SHARE * tex["of"]:
+        fail("SuperPoint picked other keypoints on the card on the textured pair")
+    if tex["matches0_agree"] < MATCH_AGREE:
+        fail("LightGlue's matches on the card disagree with the CPU's")
+    del sp_cpu, lg_cpu, sp_dev, lg_dev
+
+    # the matching trees: the geometry runs
+    clip = textured_frames(2, 518, 8, seed=83)
+    matchers = {}
+    for dev in ("cpu", "cuda"):
+        sp, lg = matcher_modules(84, matching=True, device=dev)
+        m = LightGlueMatcher(sp_params=sp, lg_params=lg, device=dev)
+        m.lg_cfg = dataclasses.replace(m.lg_cfg, filter_threshold=0.0)
+        matchers[dev] = m
+    res = {dev: m.get_matched_points(clip[0], clip[1]) for dev, m in matchers.items()}
+    epi = {dev: epipolar_error(clip, m) for dev, m in matchers.items()}
+    p1, p2, n = res["cuda"]
+
+    def pair_set(r):
+        return None if r[0] is None else np.unique(np.concatenate([r[0], r[1]], 1), axis=0)
+
+    same = (res["cpu"][2] == n and p1 is not None and res["cpu"][0] is not None
+            and np.array_equal(pair_set(res["cuda"]), pair_set(res["cpu"])))
+    self_share = 0.0 if p1 is None else float((np.abs(p1 - p2 - [8, 0]).max(1) < 0.5).mean())
+    epi_rel = abs(epi["cuda"] - epi["cpu"]) / max(abs(epi["cpu"]), 1e-30)
+    out["matching"] = {"matches": n, "matches_cpu": res["cpu"][2], "same_pairs": same,
+                       "pairs_point_with_itself": self_share, "epipolar": epi["cuda"],
+                       "epipolar_cpu": epi["cpu"], "epipolar_rel": epi_rel}
+    log("[slice_matching] matching trees on a textured pair panned 8 px (518^2): " + json.dumps(
+        out["matching"]) + f" (Epipolar limit {EPI_REL} relative when the pairs agree)")
+    if n < 20 or not math.isfinite(epi["cuda"]) or epi["cuda"] < 0:
+        fail("the matching trees left too few matches for the geometry on the card")
+    if same and epi_rel > EPI_REL:
+        fail("Epipolar on the card disagrees with the CPU on the same pairs")
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stage_timers(module, names):
+    """Wrap ``module``'s functions ``names`` in card-synchronised timers;
+    returns (ms by name, calls by name, restore)."""
+    import torch
+
+    real = {n: getattr(module, n) for n in names}
+    ms, calls = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0)
+
+    def timed(name):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            result = real[name](*a, **k)
+            torch.cuda.synchronize()
+            ms[name] += 1e3 * (time.perf_counter() - t0)
+            calls[name] += 1
+            return result
+        return run
+
+    for n in names:
+        setattr(module, n, timed(n))
+    return ms, calls, lambda: [setattr(module, n, f) for n, f in real.items()]
+
+
+def _eval_scene(root: str, S: int, size: int, seed: int):
+    """An ``npz_dir`` scene: S uint8 frames (``synthetic_frames``), GT poses
+    of a slow pan (x steps of 5 cm, a degree of yaw a frame), pinhole
+    intrinsics, GT points on the plane z = 2 m."""
+    import numpy as np
+
+    frames = synthetic_frames(1, S, size, seed)[0]
+    E = np.tile(np.eye(4, dtype=np.float32)[:3], (S, 1, 1))
+    for s in range(S):
+        a = np.radians(1.0 * s)
+        E[s, :, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        E[s, 0, 3] = -0.05 * s
+    K = np.array([[500.0, 0, size / 2], [0, 500.0, size / 2], [0, 0, 1]], np.float32)
+    gx, gy = np.meshgrid(np.linspace(-1.5, 1.5, 301), np.linspace(-1.2, 1.2, 241))
+    points = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, 2.0)], -1).astype(np.float32)
+    np.savez(os.path.join(root, "pan.npz"), frames=frames, extrinsics=E,
+             intrinsics=np.tile(K, (S, 1, 1)), points=points)
+
+
+def _bumpy_scene(S: int, size: int):
+    """Depths (S, size, size) of a bumpy surface between 1.5 and 3.5 m seen by
+    translated, yawed cameras; intrinsics; world->camera extrinsics; and the
+    surface as the first view's pixels unprojected (the GT cloud)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    depths = np.stack([2.5 + 0.6 * np.sin(xx / 40 + s / 3) * np.cos(yy / 55)
+                       + 0.3 * np.sin((xx + yy) / 17) for s in range(S)]).astype(np.float32)
+    K = np.array([[500.0, 0, size / 2], [0, 500.0, size / 2], [0, 0, 1]], np.float32)
+    E = np.tile(np.eye(4, dtype=np.float32), (S, 1, 1))
+    for s in range(S):
+        a = np.radians(2.0 * s)
+        E[s, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+        E[s, 0, 3] = 0.04 * s
+    cam = np.stack([(xx - size / 2) / 500.0, (yy - size / 2) / 500.0,
+                    np.ones_like(xx)], -1) * depths[0][..., None]
+    gt = (cam.reshape(-1, 3) - E[0, :3, 3]) @ E[0, :3, :3]  # R^T (x_cam - t)
+    return depths, np.tile(K, (S, 1, 1)), E, gt.astype(np.float32)
+
+
+def phase_da3_eval(S: int = 10):
+    """DA3's evaluation half at full size. ``Evaluator`` in its three modes
+    (pose, recon_posed, recon_unposed) on one ``npz_dir`` scene of S x 518^2
+    with DA3-Large at full width (bf16 trunk, f32 heads, random weights,
+    the fov offset applied): per mode the inference ms, the fusion ms, the
+    voxel count and voxel size reached, the surface points, the chamfer ms
+    on the host, the metrics, peak GB and the launches (K1 8, K4 16 a call).
+    Then ``fuse_depths_tsdf`` on the card against the CPU on a synthetic
+    bumpy scene of S x 518^2 at about 8 M voxels: the surface points, and
+    chamfer / F-score against the first view's pixels unprojected."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.da3 import bench, recon
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "da3_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    _eval_scene(root, S, 518, seed=90)
+    model = da3_large(torch.bfloat16, seed=91)
+    grids, surface = [], []
+    real_integrate, real_fuse = recon._tsdf_integrate, bench.fuse_depths_tsdf
+
+    def integrate(centers, depths, intrinsics, extrinsics, trunc, max_depth):
+        grids.append((int(centers.shape[0]), trunc / 4.0))  # trunc is 4 voxels
+        return real_integrate(centers, depths, intrinsics, extrinsics, trunc, max_depth)
+
+    def fuse(*a, **k):
+        pts = real_fuse(*a, **k)
+        surface.append(len(pts))
+        return pts
+
+    recon._tsdf_integrate, bench.fuse_depths_tsdf = integrate, fuse
+    ms, calls, restore = _stage_timers(bench, ["da3_inference", "fuse_depths_tsdf",
+                                               "evaluate_3d_reconstruction"])
+    out = {"modes": {}}
+    old_env = os.environ.get("DA3_BENCH_DIR")
+    os.environ["DA3_BENCH_DIR"] = root
+    try:
+        zero_launches()
+        for mode in ("pose", "recon_posed", "recon_unposed"):
+            for d in (ms, calls):
+                for k in d:
+                    d[k] = type(d[k])(0)
+            grids.clear()
+            surface.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            summary = bench.Evaluator(model, mode=mode).run(bench.DATASET_REGISTRY["npz_dir"]())
+            wall = time.perf_counter() - t0
+            row = {k: v for k, v in summary["rows"][0].items() if k not in ("scene", "views")}
+            out["modes"][mode] = {
+                "wall_ms": 1e3 * wall, "inference_ms": ms["da3_inference"],
+                "fusion_ms": ms["fuse_depths_tsdf"],
+                "chamfer_ms": ms["evaluate_3d_reconstruction"],
+                "voxels": grids[0][0] if grids else None,
+                "voxel_size": grids[0][1] if grids else None,
+                "surface_points": surface[0] if surface else None,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "metrics": row}
+            log(f"[da3_eval] Evaluator(mode={mode!r}), DA3-Large, 1 scene of {S} x 518^2: "
+                + json.dumps(out["modes"][mode]))
+            if summary["scenes"] != 1 or not all(
+                    math.isfinite(v) or (mode == "recon_unposed" and v == float("inf"))
+                    for v in row.values()):
+                fail(f"the Evaluator's {mode} run gave no finite metrics")
+            if mode == "recon_posed" and not (grids and surface and surface[0] > 0):
+                fail("recon_posed fused no surface")
+        out["launches"] = read_launches()
+    finally:
+        restore()
+        recon._tsdf_integrate, bench.fuse_depths_tsdf = real_integrate, real_fuse
+        if old_env is None:
+            os.environ.pop("DA3_BENCH_DIR", None)
+        else:
+            os.environ["DA3_BENCH_DIR"] = old_env
+    want = dict.fromkeys(out["launches"], 0)
+    want.update({"flash_attn_fwd": 3 * 8, "flash_attn_short": 3 * 16})
+    log(f"[da3_eval] launches over the three runs {json.dumps({k: v for k, v in out['launches'].items() if v})} "
+        f"(expected {json.dumps({k: v for k, v in want.items() if v})})")
+    if out["launches"] != want:
+        fail("the Evaluator's DA3 did not run its attention through K1 and K4")
+    del model
+    torch.cuda.empty_cache()
+
+    # fuse_depths_tsdf card vs CPU at ~8 M voxels
+    depths, intr, extr, gt = _bumpy_scene(S, 518)
+    kw = dict(voxel_size=0.0132)
+    grids.clear()
+    recon._tsdf_integrate = integrate
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = recon.fuse_depths_tsdf(depths, intr, extr, device="cuda", **kw)
+        torch.cuda.synchronize()
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        want_pts = recon.fuse_depths_tsdf(depths, intr, extr, device="cpu", **kw)
+        cpu_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        recon._tsdf_integrate = real_integrate
+    ref = gt[::2]
+    t0 = time.perf_counter()
+    m_got = recon.evaluate_3d_reconstruction(got, ref, threshold=0.02)
+    chamfer_ms = 1e3 * (time.perf_counter() - t0)
+    m_want = recon.evaluate_3d_reconstruction(want_pts, ref, threshold=0.02)
+    bit_equal = got.shape == want_pts.shape and np.array_equal(got, want_pts)
+    count_share = abs(len(got) - len(want_pts)) / max(len(want_pts), 1)
+    worst = max(abs(m_got[k] - m_want[k]) / max(abs(m_want[k]), 1e-12)
+                for k in ("acc", "comp", "precision", "recall", "fscore"))
+    out["fusion"] = {"voxels": grids[0][0], "voxel_size": grids[0][1], "card_ms": card_ms,
+                     "cpu_ms": cpu_ms, "peak_gb": peak, "surface_points": len(got),
+                     "surface_points_cpu": len(want_pts), "bit_equal": bit_equal,
+                     "chamfer_ms": chamfer_ms, "metrics_card": m_got, "metrics_cpu": m_want,
+                     "metrics_worst_rel": worst}
+    log(f"[da3_eval] fuse_depths_tsdf, bumpy scene {S} x 518^2, card vs CPU: "
+        + json.dumps(out["fusion"]) + f" (limits: point count {FUSE_FLIP_SHARE} relative, "
+        f"metrics {RECON_REL} relative)")
+    if len(got) == 0 or count_share > FUSE_FLIP_SHARE or worst > RECON_REL:
+        fail("fuse_depths_tsdf on the card disagrees with the CPU")
+    shutil.rmtree(root)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5570,6 +6139,7 @@ def main() -> int:
     phase_slice_wan_vae()
     phase_slice_da3()
     phase_slice_da3_nested()
+    matching_run = phase_slice_matching()
     mark("parity and slices")
     main_run = phase_main()
     sample_run = phase_sample(main_run.pop("dit"))
@@ -5580,7 +6150,8 @@ def main() -> int:
     da3_run = phase_scorer_da3()
     nested_run = phase_da3_nested()
     service_run = phase_da3_service()
-    mark("train, scorer, scorer_da3, da3_nested, da3_service")
+    eval_run = phase_da3_eval()
+    mark("train, scorer, scorer_da3, da3_nested, da3_service, da3_eval")
     score_files_run = phase_score_files()
     log("[score_files] clips/min through score_groups: " + json.dumps(
         {tag: round(r["clips_per_min"], 1) for tag, r in score_files_run["runs"].items()})
@@ -5636,7 +6207,11 @@ def main() -> int:
         "da3_int8_scorer_drift_vs_exact": da3_run["int8"]["drift"],
         "da3_attention": timing_da3,
         "replicate_files": {k: v for k, v in replicate_run.items()
-                            if k not in ("generate_launches", "score_launches")},
+                            if k not in ("generate_launches", "score_launches", "lightglue")},
+        "replicate_files_lightglue": {k: v for k, v in replicate_run["lightglue"].items()
+                                      if k != "launches"},
+        "slice_matching": matching_run,
+        "da3_eval": {k: v for k, v in eval_run.items() if k != "launches"},
         "da3_nested": {k: v for k, v in nested_run.items() if k != "launches"},
         "da3_service": {k: v for k, v in service_run.items() if k != "launches"},
         "da3_giant_attention": giant,
@@ -5750,7 +6325,9 @@ def main() -> int:
             "replicate_files": {k: replicate_run["generate_launches"][k]
                                 + replicate_run["score_launches"][k]
                                 for k in train_run["launches"]},
-            "da3_nested": nested_run["launches"], "da3_service": service_run["launches"]}
+            "replicate_files_lightglue": replicate_run["lightglue"]["launches"],
+            "da3_nested": nested_run["launches"], "da3_service": service_run["launches"],
+            "da3_eval": eval_run["launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""

@@ -340,14 +340,59 @@ def _gallery_tree(root):
     (root / "empty_group").mkdir()
 
 
+# the reference's drag handler never hears pointercancel; the port's does
+_JAX_UP = """      cv.removeEventListener('pointerup', up);
+    };
+    cv.addEventListener('pointermove', mv);
+    cv.addEventListener('pointerup', up);
+"""
+_PORT_UP = """      cv.removeEventListener('pointerup', up);
+      cv.removeEventListener('pointercancel', up);
+    };
+    cv.addEventListener('pointermove', mv);
+    cv.addEventListener('pointerup', up);
+    cv.addEventListener('pointercancel', up);
+"""
+
+
+def _port_page(page):
+    """The JAX package's gallery page with the port's two changes."""
+    assert page.count(_JAX_UP) == 1
+    return page.replace("air-gapped TPU hosts", "air-gapped hosts").replace(_JAX_UP, _PORT_UP)
+
+
+def test_gallery_drag_ends_on_pointercancel(tmp_path):
+    """A drag the browser cancels ends as one released: the served page's
+    script registers ``up`` for pointerup and pointercancel and removes
+    both, so no pointermove listener outlives the gesture."""
+    import re
+
+    server = tgallery.make_server(str(tmp_path), port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        page = urllib.request.urlopen(f"http://127.0.0.1:{server.server_address[1]}/",
+                                      timeout=5).read().decode()
+    finally:
+        server.shutdown()
+        server.server_close()
+    handler = page[page.index("cv.addEventListener('pointerdown'"):]
+    handler = handler[:handler.index("cv.addEventListener('wheel'")]
+    for ev in ("pointerup", "pointercancel"):
+        assert re.search(rf"cv\.addEventListener\('{ev}', up\)", handler), ev
+        assert re.search(rf"cv\.removeEventListener\('{ev}', up\)", handler), ev
+    up = handler[handler.index("const up = () => {"):]
+    up = up[:up.index("};")]
+    assert "removeEventListener('pointermove', mv)" in up
+    assert "pointercancel" not in jgallery.GALLERY_PAGE  # the reference's copy stays
+
+
 def test_gallery_manifests_and_server_match_jax(tmp_path):
     _gallery_tree(tmp_path)
     assert tgallery.build_group_list(str(tmp_path)) == jgallery.build_group_list(str(tmp_path))
     for g in ("kitchens", "parks", "nope"):
         assert (tgallery.build_group_manifest(str(tmp_path), g)
                 == jgallery.build_group_manifest(str(tmp_path), g))
-    assert tgallery.GALLERY_PAGE == jgallery.GALLERY_PAGE.replace("air-gapped TPU hosts",
-                                                                  "air-gapped hosts")
+    assert tgallery.GALLERY_PAGE == _port_page(jgallery.GALLERY_PAGE)
     server = tgallery.make_server(str(tmp_path), port=0)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     base = f"http://127.0.0.1:{server.server_address[1]}"

@@ -79,6 +79,17 @@ def test_mono_init_builds_the_jax_tree():
             == dataclasses.asdict(DA3Config.mono_large()))
 
 
+@pytest.mark.parametrize("kw", [{"large": True}, {"large": False}, {}],
+                         ids=["large", "not_large", "default"])
+def test_mono_config_takes_large_as_jax_does(kw):
+    """``mono_config(large=...)`` is accepted and ignored, as in the JAX
+    package (the port's took no argument and raised ``TypeError``)."""
+    want = dataclasses.asdict(jmono.mono_config(**kw))
+    assert dataclasses.asdict(tmono.mono_config(**kw)) == want
+    if kw:
+        assert dataclasses.asdict(tmono.mono_config(kw["large"])) == want
+
+
 @pytest.mark.parametrize("name", list(CFGS))
 def test_mono_forward_matches_jax(nets, name):
     """Depth and sky of a clip of 2 views at a non-square size (the

@@ -128,8 +128,16 @@ def test_unported_paths_raise(weights, clips):
     assert VideoProcessor({}, backbone="da3", device="cpu").config == DA3Config()
     vp = VideoProcessor({}, model_name="depth-anything/DA3-Large", device="cpu")
     assert vp.backbone == "da3" and vp.config == DA3Config.large()
-    with pytest.raises(NotImplementedError, match="LightGlue"):
-        tm.EpipolarMetric(descriptor_type="lightglue")
+    # the LightGlue matcher is ported (held against JAX in
+    # test_torch_epipolar_lightglue.py): it builds on the metric's device,
+    # the card unless the caller asks for the CPU, and never falls back
+    from videogpa_torch.metrics.epipolar import LightGlueMatcher
+
+    matcher = tm.EpipolarMetric(descriptor_type="lightglue", device="cpu").matcher
+    assert isinstance(matcher, LightGlueMatcher) and matcher.device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tm.EpipolarMetric(descriptor_type="lightglue")
     # frames that are not square (host preprocessing) and the per-metric path
     # are ported: they score (held against JAX in test_torch_score_cli.py)
     vp = _port_scorer(weights, "packed")

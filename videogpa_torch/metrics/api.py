@@ -2,8 +2,9 @@
 ``metric.compute(gt=..., rep=..., **kw) -> float`` over whole clips, with the
 same input-range and layout coercions.
 
-The scorer fuses all but Epipolar on the device; Epipolar (host OpenCV SIFT
-matching on the ground-truth frames, ``metrics.epipolar``) runs on the host.
+The scorer fuses all but Epipolar on the device; Epipolar (``metrics.epipolar``:
+host OpenCV SIFT, or SuperPoint + LightGlue on the metric's device, matching
+the ground-truth frames) runs beside it.
 On the scorer's per-metric path the ground truth is the host's frames and the
 reprojection a device tensor: a metric computes on the reprojection's device.
 """
@@ -21,7 +22,7 @@ from videogpa_torch.checkpoint import load_pytree
 from videogpa_torch.convert import load_jax_params
 from videogpa_torch.device import resolve_device
 from videogpa_torch.metrics import functional as F
-from videogpa_torch.metrics.epipolar import SIFTMatcher, epipolar_error
+from videogpa_torch.metrics.epipolar import LightGlueMatcher, SIFTMatcher, epipolar_error
 from videogpa_torch.models.lpips import LPIPS, lpips_distance
 
 
@@ -139,16 +140,18 @@ class MVCSMetric(Metric):
 
 
 class EpipolarMetric(Metric):
-    """Mean Sampson distance of the ground-truth clip's consecutive frames.
-    ``descriptor_type="lightglue"`` (SuperPoint + LightGlue) is not ported."""
+    """Mean Sampson distance of the ground-truth clip's consecutive frames,
+    matched by SIFT (host OpenCV) or, with ``descriptor_type="lightglue"``,
+    by SuperPoint + LightGlue on ``device`` (the card unless the caller asks
+    for the CPU)."""
 
     def __init__(self, descriptor_type: str = "sift", ratio_thresh: float = 0.75,
-                 min_matches: int = 20, **_):
+                 min_matches: int = 20, device=None, **_):
         super().__init__("Epipolar")
         if descriptor_type == "sift":
             self.matcher = SIFTMatcher(ratio_thresh, min_matches)
         elif descriptor_type == "lightglue":
-            raise NotImplementedError("the LightGlue matcher is not ported yet")
+            self.matcher = LightGlueMatcher(min_matches=min_matches, device=device)
         else:
             raise ValueError(f"Unsupported descriptor type: {descriptor_type}")
 
@@ -192,7 +195,8 @@ def build_metrics(lpips_params: Optional[LPIPS] = None, device=None,
     Without ``lpips_params`` the network is ``_default_lpips(device)``, the
     converted weights that ``VIDEOGPA_LPIPS_PATH`` names; where there are
     none the LPIPS term is 0 (MSE-only consistency score), as in the JAX
-    package. Epipolar matches with ``descriptor_type`` ("sift")."""
+    package. Epipolar matches with ``descriptor_type`` ("sift" or
+    "lightglue", the latter on ``device``)."""
     lp = lpips_params if lpips_params is not None else _default_lpips(device)
     return {
         "MSE": MSEMetric(),
@@ -201,5 +205,5 @@ def build_metrics(lpips_params: Optional[LPIPS] = None, device=None,
         "PSNR": PSNRMetric(),
         "SSIM": SSIMMetric(),
         "LPIPS": LPIPSMetric(lp),
-        "Epipolar": EpipolarMetric(descriptor_type=descriptor_type),
+        "Epipolar": EpipolarMetric(descriptor_type=descriptor_type, device=device),
     }

@@ -9,7 +9,9 @@ Beside it: the mono / metric nets (``mono.py``), the nested
 ``da3nested-giant-large`` (``nested.py``), the Gaussian branch and its
 splatting renderer (``gaussians.py``, ``gs_render.py``), the export pack
 (``export.py``), the ``da3`` CLI (``cli.py``) and its HTTP backend
-(``service.py``).
+(``service.py``); and the evaluation half: TSDF fusion and chamfer / F-score
+(``recon.py``), the ``Evaluator`` (``bench.py``) and its dataset loaders
+(``bench_datasets.py``).
 """
 
 from videogpa_torch.models.da3.config import DA3Config

@@ -334,9 +334,11 @@ const viewer = (() => {
       cv.style.cursor = 'grab';
       cv.removeEventListener('pointermove', mv);
       cv.removeEventListener('pointerup', up);
+      cv.removeEventListener('pointercancel', up);
     };
     cv.addEventListener('pointermove', mv);
     cv.addEventListener('pointerup', up);
+    cv.addEventListener('pointercancel', up);
   });
   cv.addEventListener('wheel', e => {
     e.preventDefault();

@@ -28,8 +28,9 @@ from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.transformer import Block, block_apply
 
 
-def mono_config() -> DA3Config:
-    """da3mono-large / da3metric-large trunk shape (alternating attention off)."""
+def mono_config(large: bool = True) -> DA3Config:
+    """da3mono-large / da3metric-large trunk shape (alternating attention off);
+    ``large`` is taken and ignored, as in the JAX package."""
     return DA3Config.mono_large()
 
 

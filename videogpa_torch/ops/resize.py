@@ -27,18 +27,21 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
 
 def grid_sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Sample an (H, W) image at float pixel coords (u, v) with zero padding,
-    as ``F.grid_sample(align_corners=True, padding_mode='zeros')``."""
-    H, W = img.shape
+    as ``F.grid_sample(align_corners=True, padding_mode='zeros')``. An
+    (H, W, C...) image samples every channel in one gather: the result is
+    u.shape + (C...), each channel as the (H, W) call would give it."""
+    H, W = img.shape[:2]
+    chans = (None,) * (img.dim() - 2)
     x0 = torch.floor(u).to(torch.int64)
     y0 = torch.floor(v).to(torch.int64)
     x1, y1 = x0 + 1, y0 + 1
-    wx = u - x0.to(u.dtype)
-    wy = v - y0.to(v.dtype)
+    wx = (u - x0.to(u.dtype))[(...,) + chans]
+    wy = (v - y0.to(v.dtype))[(...,) + chans]
 
     def tap(yi, xi):
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
         val = img[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
-        return torch.where(inb, val, 0.0)
+        return torch.where(inb[(...,) + chans], val, 0.0)
 
     return (tap(y0, x0) * (1 - wy) * (1 - wx) + tap(y0, x1) * (1 - wy) * wx
             + tap(y1, x0) * wy * (1 - wx) + tap(y1, x1) * wy * wx)
