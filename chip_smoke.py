@@ -207,6 +207,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
              voxels and voxel size, surface points, metrics, peak GB, K1 8 /
              K4 16 a call; ``fuse_depths_tsdf`` card against CPU on a bumpy
              scene of 10 x 518^2 at about 8 M voxels.
+   ring_shards — the ring attention's own per-shard functions
+             (``ops.ring_attention``: ``_pair_forward``, ``_merge``,
+             ``_pair_backward``) rotated over P query shards in one process
+             at full width: the CogVideoX-5B train shape (1, 17,776, 48, 64)
+             at P = 4 and P = 3 (17,778 padded, the last shard 5,924 valid)
+             through K1/K3, Wan2.2's self-attention (1, 18,480, 24, 128) at
+             P = 4 through K6/K7; O and LSE against one whole-sequence
+             forward, dQ/dK/dV against one whole backward, at the parity
+             tolerances; exactly P^2 launches of each (fewer the empty
+             pairs); the summed per-pair kernel ms against the whole call's.
+   ring_nccl — a world-size-1 ``nccl`` process group over a FileStore:
+             ``attention(impl="ring")`` under a mesh with seq = 1 at the
+             train shape against ``impl="flash"`` (O and dK/dV bit for bit),
+             and one CogVideoX-5B DPO mini-step at full width and 4 layers
+             under a mesh with data = 1 (the data-parallel path) against the
+             plain step; the profiler shows the NCCL all-reduces. NCCL
+             between ranks needs more than one card and is not run here.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -909,6 +926,265 @@ def _tiny_dpo_step(model, cfg, lora, batch, draws, compute_dtype, make_step=None
     return ({k: float(v) for k, v in metrics.items()}, grads,
             {n: {k: t.detach().float().cpu() for k, t in ab.items()}
              for n, ab in state.lora.items()})
+
+
+def _ring_case(label, q, k, v, P, gen):
+    """One [ring_shards] case: the ring's own per-shard functions rotated over
+    P query shards in one process, against one whole-sequence call of the
+    forward and backward kernels ``attention()`` picks. Returns the case's
+    numbers; fails on a disagreement or a pair that took a plain version."""
+    import torch
+
+    from videogpa_torch.ops import ring_attention as ring
+    from videogpa_torch.ops.attention import _FlashAttention
+
+    fwd, bwd = _FlashAttention._pair(q)
+    B, N, H, D = q.shape
+    N_pad = -(-N // P) * P
+    L = N_pad // P
+    validity = ring._shard_validity(N, L) if N_pad != N else None
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, N_pad - N)) if N_pad != N else x
+
+    qp, kp, vp = pad(q), pad(k), pad(v)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    dop = pad(do)
+
+    def shard(x, r):
+        return x[:, r * L:(r + 1) * L]
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def run():
+        """Every rank's forward ring, then its backward ring, each pair
+        between CUDA events: (outs, lses, f32 grads, per-pair ms, empty)."""
+        pairs, empty, outs, lses = [], 0, [], []
+        for r in range(P):  # rank r's query shard: its forward ring
+            o = lse = None
+            for i in range(P):
+                s = ring._resident_shard(r, i, P)
+                n_keys = ring._resident_keys(s, L, validity)
+                empty += n_keys == 0
+                e0, e1 = event(), event()
+                e0.record()
+                o_i, lse_i = ring._pair_forward(shard(qp, r), shard(kp, s), shard(vp, s), None,
+                                                n_keys, "bnhd", None)
+                e1.record()
+                pairs.append((e0, e1, "fwd"))
+                o, lse = (o_i, lse_i) if o is None else ring._merge(o, lse, o_i, lse_i, "bnhd")
+            outs.append(o)
+            lses.append(lse)
+        grads = [torch.zeros(qp.shape, dtype=torch.float32, device="cuda") for _ in range(3)]
+        for r in range(P):  # its backward ring: dK/dV of each resident shard
+            for i in range(P):
+                s = ring._resident_shard(r, i, P)
+                n_keys = ring._resident_keys(s, L, validity)
+                e0, e1 = event(), event()
+                e0.record()
+                g = ring._pair_backward(shard(qp, r), shard(kp, s), shard(vp, s), None,
+                                        outs[r], lses[r], shard(dop, r), n_keys, "bnhd", None)
+                e1.record()
+                pairs.append((e0, e1, "bwd"))
+                if g is not None:
+                    shard(grads[0], r).add_(g[0].float())
+                    shard(grads[1], s)[:, :n_keys].add_(g[1].float())
+                    shard(grads[2], s)[:, :n_keys].add_(g[2].float())
+        torch.cuda.synchronize()
+        ms = {"fwd": 0.0, "bwd": 0.0}
+        for e0, e1, kind in pairs:
+            ms[kind] += e0.elapsed_time(e1)
+        return outs, lses, grads, ms, empty
+
+    fwd0, bwd0 = fwd.launches, bwd.launches
+    outs, lses, (dq, dk, dv), _, empty = run()  # checked and counted
+    launched = (fwd.launches - fwd0, bwd.launches - bwd0)
+    want_launches = (P * P - empty, P * P - empty)
+    pair_ms = run()[3]  # timed: the first run pays module loads and first allocations
+    o_ring = torch.cat(outs, dim=1)[:, :N]
+    lse_ring = torch.cat(lses, dim=2)[:, :, :N]
+    grads_ring = [g[:, :N].to(torch.bfloat16) for g in (dq, dk, dv)]
+
+    # the whole sequence: one forward with LSE, one backward (not counted)
+    o_ref, lse_ref = fwd(q, k, v, layout="bnhd", with_lse=True)
+    grads_ref = bwd(q, k, v, o_ref, lse_ref, do, layout="bnhd")
+    whole_fwd_ms = cuda_ms(lambda: fwd(q, k, v, layout="bnhd", with_lse=True), 5)
+    whole_bwd_ms = cuda_ms(lambda: bwd(q, k, v, o_ref, lse_ref, do, layout="bnhd"), 3)
+    o_err, o_atol, lse_err, ok = _check(o_ring, lse_ring, o_ref, lse_ref)
+    g_errs = []
+    for name, g, w in zip(("dQ", "dK", "dV"), grads_ring, grads_ref):
+        err, atol, g_ok = _grad_check(g, w)
+        g_errs.append(err)
+        ok = ok and g_ok
+    log(f"[ring_shards] {label}: P = {P}, shards of {L} (valid keys "
+        f"{[ring._resident_keys(s, L, validity) for s in range(P)]}), {fwd.__name__} "
+        f"{launched[0]} and {bwd.__name__} {launched[1]} launches (want {want_launches[0]} "
+        f"each, {empty} empty pairs); max|dO| {o_err:.3e} (atol {o_atol:.2e} + rtol {O_RTOL}), "
+        f"max|dLSE| {lse_err:.3e}, max|dQ|,|dK|,|dV| {[f'{e:.3e}' for e in g_errs]}; summed "
+        f"per-pair kernel ms fwd {pair_ms['fwd']:.3f} vs whole {whole_fwd_ms:.3f} "
+        f"({pair_ms['fwd'] / whole_fwd_ms:.3f}x), bwd {pair_ms['bwd']:.3f} vs whole "
+        f"{whole_bwd_ms:.3f} ({pair_ms['bwd'] / whole_bwd_ms:.3f}x)")
+    if launched != want_launches:
+        fail(f"[ring_shards] {label}: a pair did not launch its kernel (or launched twice)")
+    if not ok:
+        fail(f"[ring_shards] {label}: the ring disagrees with the whole-sequence kernels")
+    return {"P": P, "shard": L, "launches": {fwd.__name__: launched[0], bwd.__name__: launched[1]},
+            "max_abs_err_o": o_err,
+            "max_abs_err_grads": g_errs, "pairs_fwd_ms": pair_ms["fwd"],
+            "whole_fwd_ms": whole_fwd_ms, "pairs_bwd_ms": pair_ms["bwd"],
+            "whole_bwd_ms": whole_bwd_ms}
+
+
+def phase_ring_shards(train_shape, wan_shape):
+    """[ring_shards]: the ring's per-shard functions at full width in one
+    process (P query shards, each against every resident key shard), for
+    the CogVideoX-5B train shape at P = 4 and 3 (ragged) and Wan2.2's self
+    attention at P = 4. Returns {"cases", "launches"}: the pairs' launches
+    per kernel (not the whole-sequence references')."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    cases, launches = {}, dict.fromkeys(_wrappers(), 0)
+    for label, shape, P in (("CogVideoX-5B", train_shape, 4), ("CogVideoX-5B", train_shape, 3),
+                            ("Wan2.2 self", wan_shape, 4)):
+        B, N, H, D = shape
+        q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+        res = _ring_case(f"{label} {shape} P={P}", q, k, v, P, gen)
+        cases[f"{label} P={P}"] = res
+        for name, n in res["launches"].items():
+            launches[name] += n
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"cases": cases, "launches": launches}
+
+
+def phase_ring_nccl(train_shape):
+    """[ring_nccl]: a world-size-1 ``nccl`` process group over a FileStore:
+    ``attention(impl="ring")`` under a mesh with ``seq`` = 1 at the DiT
+    train shape against ``impl="flash"`` (forward and autograd), and one
+    CogVideoX-5B DPO mini-step at full width, 4 layers, under a mesh with
+    ``data`` = 1 (the data-parallel path: its all-reduces on NCCL) against
+    the plain step. Returns the numbers and the step's launches."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig, dit_init
+    from videogpa_torch.ops.attention import attention, flash_attn_bwd, flash_attn_fwd
+    from videogpa_torch.parallel import MeshAxes, make_mesh, set_mesh
+    from videogpa_torch.train.lora import lora_init
+    from videogpa_torch.train.trainer import (
+        TrainerConfig, init_train_state, make_dpo_train_step)
+
+    store_dir = tempfile.mkdtemp(prefix="videogpa_nccl_")
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{store_dir}/store", rank=0,
+                            world_size=1)
+    try:
+        init_s = time.perf_counter() - t0
+        log(f"[ring_nccl] process group: backend {dist.get_backend()}, world size "
+            f"{dist.get_world_size()}, NCCL {torch.cuda.nccl.version()}, "
+            f"init {init_s:.2f} s")
+        gen = torch.Generator(device="cuda").manual_seed(43)
+        B, N, H, D = train_shape
+        q, k, v = (x.requires_grad_(True) for x in _attn_case(gen, B, N, N, H, D, "bnhd"))
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        f0, b0 = flash_attn_fwd.launches, flash_attn_bwd.launches
+        with set_mesh(make_mesh(MeshAxes(seq=1))):
+            o_ring = attention(q, k, v, impl="ring", layout="bnhd")
+        g_ring = torch.autograd.grad(o_ring, (q, k, v), do)
+        ring_launches = (flash_attn_fwd.launches - f0, flash_attn_bwd.launches - b0)
+        o_flash = attention(q, k, v, impl="flash", layout="bnhd")
+        g_flash = torch.autograd.grad(o_flash, (q, k, v), do)
+        o_equal = torch.equal(o_ring, o_flash)
+        kv_equal = all(torch.equal(a, b) for a, b in zip(g_ring[1:], g_flash[1:]))
+        dq_err, dq_atol, dq_ok = _grad_check(g_ring[0], g_flash[0])
+        log(f"[ring_nccl] attention(impl='ring') under seq = 1 at {train_shape} vs "
+            f"impl='flash': O bit-equal {o_equal}, dK/dV bit-equal {kv_equal}, dQ max|d| "
+            f"{dq_err:.3e} (atol {dq_atol:.2e} + rtol {GRAD_RTOL}: K3's reduce-adds); ring "
+            f"launches K1 {ring_launches[0]}, K3 {ring_launches[1]}")
+        if not (o_equal and kv_equal and dq_ok and ring_launches == (1, 1)):
+            fail("[ring_nccl] attention(impl='ring') at seq = 1 disagrees with impl='flash'")
+        del q, k, v, do, o_ring, o_flash, g_ring, g_flash
+
+        cfg = dataclasses.replace(CogVideoXConfig.cogvideox_5b(), num_layers=4)
+        dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                       dtype=torch.bfloat16).requires_grad_(False)
+        tcfg = TrainerConfig(learning_rate=1e-4, warmup_steps=0, max_steps=10, lora_rank=64,
+                             lora_alpha=128.0, remat=True)
+        shape = (1, cfg.vae_latent_channels, cfg.sample_frames, cfg.sample_height,
+                 cfg.sample_width)
+        g = torch.Generator(device="cuda").manual_seed(44)
+        batch = {"x_win": torch.randn(shape, generator=g, device="cuda"),
+                 "x_lose": torch.randn(shape, generator=g, device="cuda"),
+                 "prompt_emb": torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim,
+                                           generator=g, device="cuda")}
+        draws = {"timesteps": torch.tensor([600], device="cuda"),
+                 "noise": torch.randn((1, cfg.sample_frames, cfg.vae_latent_channels,
+                                       cfg.sample_height, cfg.sample_width), generator=g,
+                                      device="cuda")}
+        lora = lora_init(cfg.num_layers, cfg.hidden_dim, tcfg.lora_rank,
+                         torch.Generator(device="cuda").manual_seed(45), device="cuda")
+        with torch.no_grad():
+            for ab in lora.values():
+                ab["lora_B"].normal_(0.0, 0.01, generator=g)  # every adapter live
+        step, _ = make_dpo_train_step(dit, cfg, tcfg)
+
+        def fresh():
+            return init_train_state({n: {k: t.detach().clone() for k, t in ab.items()}
+                                     for n, ab in lora.items()}, tcfg)
+
+        plain_state, plain_m = step(fresh(), batch, **draws)
+        mesh = make_mesh(MeshAxes(data=1))
+        state = fresh()
+        zero_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            with set_mesh(mesh):
+                state, m = step(state, batch, **draws)
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t1)
+        launches = read_launches()
+        nccl_events = sorted({e.key for e in prof.key_averages()
+                              if "nccl" in e.key.lower() and "reduce" in e.key.lower()})
+        upd = max((a.detach() - b.detach()).abs().max().item()
+                  for n in lora for a, b in zip(state.lora[n].values(),
+                                                plain_state.lora[n].values()))
+        moved = max((a.detach() - b.detach()).abs().max().item()
+                    for n in lora for a, b in zip(state.lora[n].values(), lora[n].values()))
+        m, plain_m = ({k: float(x) for k, x in mm.items()} for mm in (m, plain_m))
+        gn_rel = abs(m["grad_norm"] - plain_m["grad_norm"]) / plain_m["grad_norm"]
+        L = cfg.num_layers
+        want = dict.fromkeys(launches, 0)
+        want.update(flash_attn_fwd=6 * L, flash_attn_bwd=2 * L)
+        log(f"[ring_nccl] CogVideoX-5B DPO mini-step, full width, {L} layers, under data = 1 "
+            f"(NCCL) vs the plain step: loss {m['loss']:.6f} vs {plain_m['loss']:.6f} "
+            f"(bit-equal {m['loss'] == plain_m['loss']}, limit 1e-6 relative), grad_norm "
+            f"{m['grad_norm']:.6e} vs "
+            f"{plain_m['grad_norm']:.6e} (rel {gn_rel:.2e}), LoRA after the update max|d| "
+            f"{upd:.3e} (limit 2.5 x lr = {2.5 * tcfg.learning_rate:.1e}; the update moved it "
+            f"{moved:.3e}); {step_ms:.1f} ms (profiled); NCCL reduce events {nccl_events}; "
+            f"launches {json.dumps(launches)}")
+        if not nccl_events:
+            fail("[ring_nccl] the data-parallel step launched no NCCL all-reduce")
+        if launches != want:
+            fail("[ring_nccl] the data-parallel step did not run its attentions through K1/K3")
+        loss_ok = abs(m["loss"] - plain_m["loss"]) <= 1e-6 * abs(plain_m["loss"])
+        if not (loss_ok and gn_rel <= 1e-2
+                and upd <= 2.5 * tcfg.learning_rate and moved > 0.5 * tcfg.learning_rate):
+            fail("[ring_nccl] the data-parallel step disagrees with the plain step")
+        del dit, lora, state, plain_state
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms, "init_s": init_s,
+            "nccl_events": nccl_events, "lora_max_abs_diff": upd, "grad_norm_rel": gn_rel,
+            "dq_max_abs_err": dq_err}
 
 
 def phase_slice_dpo() -> None:
@@ -6121,6 +6397,9 @@ def main() -> int:
         cam_shape, wan_shape, (vggt_shape, vggt_global_shape))
     k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
         phase_parity_bwd_d128(wan_shape, wcfg.text_len))
+    ring_shards = phase_ring_shards(train_shape, wan_shape)
+    ring_nccl = phase_ring_nccl(train_shape)
+    mark("ring_shards, ring_nccl")
     zbuf_plain_ms = phase_parity_zbuffer()
     k8_err, k9_err, k8_plain_ms, k9_plain_ms, k8_da3 = phase_parity_int8(
         dit_shape, vggt_global_shape, wan_shape, da3_global_shape)
@@ -6215,6 +6494,8 @@ def main() -> int:
         "da3_nested": {k: v for k, v in nested_run.items() if k != "launches"},
         "da3_service": {k: v for k, v in service_run.items() if k != "launches"},
         "da3_giant_attention": giant,
+        "ring_shards": ring_shards["cases"],
+        "ring_nccl": {k: v for k, v in ring_nccl.items() if k != "launches"},
         "flash_attn_fwd_ms_at_dit_shape": timing["fwd_ms"],
         "flash_attn_fwd_tflops": timing["fwd_tflops"],
         "flash_attn_fwd_bound_ms": timing["fwd_bound_ms"],
@@ -6327,7 +6608,8 @@ def main() -> int:
                                 for k in train_run["launches"]},
             "replicate_files_lightglue": replicate_run["lightglue"]["launches"],
             "da3_nested": nested_run["launches"], "da3_service": service_run["launches"],
-            "da3_eval": eval_run["launches"]}
+            "da3_eval": eval_run["launches"],
+            "ring_shards": ring_shards["launches"], "ring_nccl": ring_nccl["launches"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""

@@ -145,8 +145,10 @@ def test_cpu_tensor_never_reaches_the_cuda_module(monkeypatch):
 
 def test_unported_impl_and_layout_raise():
     x = torch.randn(1, 2, 8, 16)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh"):  # ring needs an ambient mesh with 'seq'
         tattn.attention(x, x, x, impl="ring")
+    with pytest.raises(ValueError, match="impl"):
+        tattn.attention(x, x, x, impl="xla")
     with pytest.raises(ValueError):
         tattn.flash_attn_fwd(x, x, x, layout="nbhd")
 

@@ -15,6 +15,8 @@ module names so each function has an obvious counterpart:
 - ``videogpa_torch.metrics``  — the scorer's metric functions and classes
 - ``videogpa_torch.reward``   — the VGGT reward scorer (``VideoProcessor``)
 - ``videogpa_torch.convert``  — JAX parameter tree -> module state
+- ``videogpa_torch.parallel`` — data, tensor and sequence parallelism on
+  ``torch.distributed`` (mesh, sharding rules; ring attention in ``ops``)
 
 It imports neither ``jax`` nor ``videogpa_tpu``. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; CPU tensors take the plain PyTorch

@@ -45,8 +45,10 @@ def save_pytree(tree: Any, path: str) -> None:
     np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
 
 
-def load_pytree(path: str) -> Any:
-    """Rebuild the tree with CPU tensors as leaves."""
+def load_pytree(path: str, to_device: bool = True) -> Any:
+    """Rebuild the tree (``videogpa_tpu/checkpoint.py:41``): torch tensors as
+    leaves (on the CPU: callers move them where they run), or with
+    ``to_device=False`` the numpy arrays as read."""
     if not path.endswith(".npz") and os.path.exists(path + ".npz"):
         path = path + ".npz"
     root: Dict[str, Any] = {}
@@ -56,7 +58,7 @@ def load_pytree(path: str) -> Any:
             node = root
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
-            node[parts[-1]] = torch.from_numpy(data[key])
+            node[parts[-1]] = torch.from_numpy(data[key]) if to_device else data[key]
 
     def listify(node):
         if not isinstance(node, dict):

@@ -29,10 +29,15 @@ def _tree_map(fn, tree):
 
 
 def prefetch_to_device(iterator: Iterable[Any], buffer_size: int = 2,
-                       device=None) -> Iterator[Any]:
+                       sharding: Optional[Any] = None, device=None) -> Iterator[Any]:
     """Wrap an iterator of host batches (trees of numpy arrays or CPU
     tensors) so that up to ``buffer_size`` batches are already on ``device``
     (the card unless ``device="cpu"``) ahead of the consumer.
+
+    ``sharding`` (a ``parallel.shard(mesh, "data")``), as in
+    ``videogpa_tpu/data/prefetch.py:18-37``: each rank stages its own block
+    of every array (``Sharding.local``), so a whole host batch arrives as
+    this rank's ``batch_specs`` slice.
 
     On CUDA each array is pinned and copied with ``non_blocking=True`` on a
     side stream by a producer thread; a batch is yielded once its copy's
@@ -47,6 +52,8 @@ def prefetch_to_device(iterator: Iterable[Any], buffer_size: int = 2,
             x = torch.from_numpy(np.ascontiguousarray(x))
         if not isinstance(x, torch.Tensor):
             return x
+        if sharding is not None:
+            x = sharding.local(x).contiguous()
         if stream is None:
             return x.to(device)
         return x.pin_memory().to(device, non_blocking=True)

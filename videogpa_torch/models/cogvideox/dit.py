@@ -9,7 +9,11 @@ LayerNorm + AdaLN + linear unpatchify.
 The module tree mirrors the JAX parameter tree name for name, with the
 ``lax.scan``-stacked blocks as an ``nn.ModuleList``; ``videogpa_torch.convert``
 maps one onto the other. Attention goes through ``ops.attention.attention``,
-which launches the hand-written flash kernel on CUDA tensors.
+which launches the hand-written flash kernel on CUDA tensors;
+``attn_impl="ring"`` splits the sequence over the ambient mesh's ``seq``
+axis. A DiT that ``parallel.sharding.shard_tree`` split by
+``dit_param_specs`` runs tensor-parallel over the mesh's ``model`` axis
+(``parallel.tp``): each rank attends with the heads of its q/k/v rows.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from videogpa_torch.models.cogvideox.config import CogVideoXConfig
 from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.attention import attention
 from videogpa_torch.ops.rope import apply_rope_interleaved, rope_3d_freqs
+from videogpa_torch.parallel.tp import copy_to, heads_split, lora_block, model_group, row_linear
 from videogpa_torch.train.lora import layer_lora, lora_delta
 
 
@@ -179,14 +184,22 @@ def _joint_attention(
 ):
     B, N_img, C = hidden.shape
     N_txt = encoder.shape[1]
-    x = torch.cat([encoder, hidden], dim=1)
-    H, D = cfg.num_heads, cfg.head_dim
+    D = cfg.head_dim
+    # tensor parallel where shard_tree split to_q's rows: this rank's heads
+    tp = model_group(p.to_q, C, "attn1.to_q")
+    x = copy_to(torch.cat([encoder, hidden], dim=1), tp)
+    lora = lora_block(lora, tp)
 
     def proj(name):
         y = getattr(p, name)(x)
         if lora is not None and name in lora:
             y = y + lora_delta(lora, name, x, lora_scaling)
         return y
+
+    # the head count follows the local width; a width that cuts a head is
+    # gathered to every head (``heads_split``), this rank's columns kept after
+    (q, gathered), (k, _), (v, _) = (heads_split(proj(n), D, tp) for n in ("to_q", "to_k", "to_v"))
+    H = q.shape[-1] // D
 
     if attn_layout == "bnhd":
         # inference path: (B, N, H, D) straight from the projections into the
@@ -198,9 +211,9 @@ def _joint_attention(
         def heads(y):
             return y.reshape(B, -1, H, D).transpose(1, 2)
 
-    q = p.norm_q(heads(proj("to_q")))
-    k = p.norm_k(heads(proj("to_k")))
-    v = heads(proj("to_v"))
+    q = p.norm_q(heads(q))
+    k = p.norm_k(heads(k))
+    v = heads(v)
 
     if rope is not None:
         cos, sin = rope
@@ -217,10 +230,12 @@ def _joint_attention(
     o = attention(q, k, v, impl=attn_impl, layout=attn_layout)
     if attn_layout != "bnhd":
         o = o.transpose(1, 2)
-    o = o.reshape(B, N_txt + N_img, C)
-    out = p.to_out(o)
-    if lora is not None and "to_out" in lora:
-        out = out + lora_delta(lora, "to_out", o, lora_scaling)
+    o = o.reshape(B, N_txt + N_img, H * D)
+    if gathered:
+        o = tp.block(o)
+    delta = (lora_delta(lora, "to_out", o, lora_scaling)
+             if lora is not None and "to_out" in lora else None)
+    out = row_linear(p.to_out, o, tp, delta)
     return out[:, N_txt:], out[:, :N_txt]
 
 
@@ -234,8 +249,9 @@ def _block_apply(p, hidden, encoder, temb, cfg, rope,
     encoder = encoder + e_gate * attn_e
 
     h_n, e_n, gate, e_gate = _adaln_zero(p.norm2, temb, hidden, encoder)
-    x = torch.cat([e_n, h_n], dim=1)
-    ff = p.ff.fc2(L.gelu_tanh(p.ff.fc1(x)))
+    tp = model_group(p.ff.fc1, 4 * hidden.shape[-1], "ff.fc1")
+    x = copy_to(torch.cat([e_n, h_n], dim=1), tp)
+    ff = row_linear(p.ff.fc2, L.gelu_tanh(p.ff.fc1(x)), tp)
     n_txt = encoder.shape[1]
     hidden = hidden + gate * ff[:, n_txt:]
     encoder = encoder + e_gate * ff[:, :n_txt]

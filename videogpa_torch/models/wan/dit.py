@@ -11,7 +11,10 @@ The module tree mirrors the JAX parameter tree name for name, with the
 maps one onto the other. Both attentions go through
 ``ops.attention.attention`` on ``bhnd`` views of the (B, N, H*D) projections
 (the JAX model's layout): at head_dim 128 that is K6 forward and, when the
-LoRA requires grad, K7 backward.
+LoRA requires grad, K7 backward; ``attn_impl="ring"`` splits the sequence
+over the ambient mesh's ``seq`` axis (K6/K7 for each pair of shards). A
+model that ``parallel.sharding.shard_tree`` split by ``wan_param_specs``
+runs tensor-parallel over the mesh's ``model`` axis (``parallel.tp``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ from videogpa_torch.models.wan.config import WanConfig
 from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.attention import attention
 from videogpa_torch.ops.rope import apply_rope_interleaved, rope_3d_freqs
+from videogpa_torch.parallel.tp import (
+    TensorParallel, copy_to, heads_split, lora_block, model_group, row_linear)
+from videogpa_torch.parallel.tp import rmsnorm as tp_rmsnorm
 from videogpa_torch.train.lora import layer_lora, lora_delta
 
 
@@ -134,11 +140,32 @@ def _merge_heads(o: torch.Tensor) -> torch.Tensor:
     return o.transpose(1, 2).reshape(B, N, -1)
 
 
+def _qkv(p: nn.Module, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: WanConfig,
+         tp: Optional[TensorParallel]):
+    """QK-norm (RMS over the whole width, before the head split: under
+    tensor parallelism a sum over the ``model`` group) and the head count of
+    the local width; a width that cuts a head is gathered to every head.
+    Returns (q, k, v, heads, gathered)."""
+    q, k = tp_rmsnorm(q, p.norm_q, tp), tp_rmsnorm(k, p.norm_k, tp)
+    (q, gathered), (k, _), (v, _) = (heads_split(y, cfg.head_dim, tp) for y in (q, k, v))
+    return q, k, v, q.shape[-1] // cfg.head_dim, gathered
+
+
+def _attn_out(p: nn.Module, o: torch.Tensor, tp: Optional[TensorParallel], gathered: bool,
+              delta_fn=None) -> torch.Tensor:
+    """The row-parallel output projection of merged heads ``o``."""
+    if gathered:
+        o = tp.block(o)
+    return row_linear(p.o, o, tp, None if delta_fn is None else delta_fn(o))
+
+
 def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
                     rope: Tuple[torch.Tensor, torch.Tensor],
                     lora: Optional[dict] = None, lora_scaling: float = 1.0,
                     attn_impl: str = "auto") -> torch.Tensor:
-    H = cfg.num_heads
+    tp = model_group(p.q, x.shape[-1], "self_attn.q")
+    x = copy_to(x, tp)
+    lora = lora_block(lora, tp)
 
     def proj(name):
         y = getattr(p, name)(x)
@@ -147,28 +174,25 @@ def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
             y = y + lora_delta(lora, lname, x, lora_scaling)
         return y
 
-    # RMS QK-norm over the full width, before the head split
-    q = p.norm_q(proj("q"))
-    k = p.norm_k(proj("k"))
-    v = proj("v")
+    q, k, v, H, gathered = _qkv(p, proj("q"), proj("k"), proj("v"), cfg, tp)
     cos, sin = rope
     q = apply_rope_interleaved(_heads(q, H), cos, sin)
     k = apply_rope_interleaved(_heads(k, H), cos, sin)
     o = _merge_heads(attention(q, k, _heads(v, H), impl=attn_impl))
-    out = p.o(o)
+    delta_fn = None
     if lora is not None and "to_out" in lora:
-        out = out + lora_delta(lora, "to_out", o, lora_scaling)
-    return out
+        def delta_fn(o):
+            return lora_delta(lora, "to_out", o, lora_scaling)
+    return _attn_out(p, o, tp, gathered, delta_fn)
 
 
 def _cross_attention(p: nn.Module, x: torch.Tensor, context: torch.Tensor,
                      cfg: WanConfig, attn_impl: str = "auto") -> torch.Tensor:
-    H = cfg.num_heads
-    q = p.norm_q(p.q(x))
-    k = p.norm_k(p.k(context))
-    v = p.v(context)
-    return p.o(_merge_heads(attention(_heads(q, H), _heads(k, H), _heads(v, H),
-                                      impl=attn_impl)))
+    tp = model_group(p.q, x.shape[-1], "cross_attn.q")
+    x, context = copy_to(x, tp), copy_to(context, tp)
+    q, k, v, H, gathered = _qkv(p, p.q(x), p.k(context), p.v(context), cfg, tp)
+    o = _merge_heads(attention(_heads(q, H), _heads(k, H), _heads(v, H), impl=attn_impl))
+    return _attn_out(p, o, tp, gathered)
 
 
 def _block_apply(p: nn.Module, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
@@ -184,7 +208,8 @@ def _block_apply(p: nn.Module, x: torch.Tensor, e0: torch.Tensor, context: torch
     x = x + _cross_attention(p.cross_attn, p.norm3(x), context, cfg, attn_impl)
 
     h = _ln(x, cfg.eps).float() * (1 + e[4]) + e[3]
-    y = p.ffn.fc2(L.gelu_tanh(p.ffn.fc1(h.to(x.dtype))))
+    tp = model_group(p.ffn.fc1, cfg.ffn_dim, "ffn.fc1")
+    y = row_linear(p.ffn.fc2, L.gelu_tanh(p.ffn.fc1(copy_to(h.to(x.dtype), tp))), tp)
     return x + (y.float() * e[5]).to(x.dtype)
 
 

@@ -1020,7 +1020,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             shorter than q.
         impl: "auto" or "flash" -> the exact kernels on CUDA, their plain
             versions on CPU. "flash_int8" -> the int8-QK forward where it
-            applies (below), inference only. "ring" is not ported and raises.
+            applies (below), inference only. "ring" -> sequence parallelism
+            over the ambient mesh's ``seq`` axis
+            (``ops.ring_attention.ring_attention_sharded``: each pair of
+            shards through the kernels of the grad route below); raises
+            ``ValueError`` without a mesh (``parallel.set_mesh``) that has
+            that axis.
 
     On CUDA a head_dim D that no kernel takes (any D <= 128 outside 16, 32,
     64, 128, any D > 128 that is no multiple of 64) is zero-padded to
@@ -1059,12 +1064,17 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns:
         Output in the operands' layout, dtype of q.
     """
-    if impl not in ("auto", "flash", "flash_int8"):
-        raise NotImplementedError(
-            f"attention impl {impl!r} is not ported yet (ring attention is a later slice)"
-        )
+    if impl not in ("auto", "flash", "flash_int8", "ring"):
+        raise ValueError(f"unknown attention impl {impl!r}")
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
+    if impl == "ring":
+        from videogpa_torch.parallel.mesh import SEQ_AXIS, get_mesh
+
+        mesh = get_mesh()
+        if mesh is None or SEQ_AXIS not in (mesh.mesh_dim_names or ()):
+            raise ValueError("attention(impl='ring') needs an ambient mesh with a 'seq' axis: "
+                             "wrap the call in parallel.set_mesh(make_mesh(...))")
     if q.is_cpu:
         return _attention(q, k, v, impl, layout, q.shape[-1])
     return _attention_padded(q, k, v, impl, layout)
@@ -1085,6 +1095,11 @@ def _attention(q, k, v, impl: str, layout: str, D: int) -> torch.Tensor:
     """``attention`` on operands of a width some kernel takes (on CUDA), for
     the original head_dim ``D`` (the softmax scale is D's)."""
     scale = None if q.shape[-1] == D else D ** -0.5
+    if impl == "ring":
+        from videogpa_torch.ops.ring_attention import ring_attention_sharded
+        from videogpa_torch.parallel.mesh import get_mesh
+
+        return ring_attention_sharded(q, k, v, get_mesh(), layout=layout, softmax_scale=scale)
     Dk = q.shape[-1]
     needs_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)

@@ -19,6 +19,7 @@ import torch.nn as nn
 from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.attention import attention
 from videogpa_torch.ops.rope import rope_2d
+from videogpa_torch.parallel.tp import copy_to, gather_from, model_group, row_linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,18 +82,31 @@ class Block(nn.Module):
 def self_attention(attn: nn.Module, x: torch.Tensor, cfg: BlockConfig,
                    pos: Optional[torch.Tensor] = None,
                    attn_impl: str = "auto") -> torch.Tensor:
-    """x (B, N, C); pos optional (B, N, 2) integer (y, x) for 2D RoPE."""
+    """x (B, N, C); pos optional (B, N, 2) integer (y, x) for 2D RoPE.
+
+    Under tensor parallelism (a ``vit_param_specs`` shard: each rank holds
+    its block of q's, k's and v's rows of the fused qkv) the head count
+    follows the local width; a width that cuts a head is gathered to every
+    head, and this rank's columns of the output feed the row-parallel proj."""
     B, N, C = x.shape
-    H = cfg.num_heads
-    q, k, v = attn.qkv(x).reshape(B, N, 3, H, C // H).unbind(2)  # (B, N, H, D) views
+    D = C // cfg.num_heads
+    tp = model_group(attn.qkv, 3 * C, "attn.qkv")
+    qkv = attn.qkv(copy_to(x, tp))
+    if tp is not None and qkv.shape[-1] // 3 % D:
+        qkv = torch.cat([gather_from(t, tp) for t in qkv.chunk(3, dim=-1)], dim=-1)
+        gathered = True
+    else:
+        gathered = False
+    H = qkv.shape[-1] // 3 // D
+    q, k, v = qkv.reshape(B, N, 3, H, D).unbind(2)  # (B, N, H, D) views
     if cfg.qk_norm:
         q = attn.q_norm(q)
         k = attn.k_norm(k)
     if pos is not None and cfg.rope_base > 0:
         q = rope_2d(q, pos, cfg.rope_base, layout="bnhd")
         k = rope_2d(k, pos, cfg.rope_base, layout="bnhd")
-    o = attention(q, k, v, impl=attn_impl, layout="bnhd").reshape(B, N, C)
-    return attn.proj(o)
+    o = attention(q, k, v, impl=attn_impl, layout="bnhd").reshape(B, N, H * D)
+    return row_linear(attn.proj, tp.block(o) if gathered else o, tp)
 
 
 def block_apply(blk: Block, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
@@ -103,7 +117,11 @@ def block_apply(blk: Block, x: torch.Tensor, pos: Optional[torch.Tensor] = None,
         h = h * blk.ls1.gamma.to(h.dtype)
     x = x + h
     h2 = blk.norm2(x)
-    h = L.swiglu(blk.mlp, h2) if cfg.ffn == "swiglu" else L.mlp(blk.mlp, h2)
+    if cfg.ffn == "swiglu":
+        h = L.swiglu(blk.mlp, h2)
+    else:
+        tp = model_group(blk.mlp.fc1, int(cfg.dim * cfg.mlp_ratio), "mlp.fc1")
+        h = row_linear(blk.mlp.fc2, L.gelu(blk.mlp.fc1(copy_to(h2, tp))), tp)
     if blk.ls2 is not None:
         h = h * blk.ls2.gamma.to(h.dtype)
     return x + h

@@ -33,6 +33,9 @@ from videogpa_torch.models.cogvideox.dit import CogVideoXTransformer, dit_forwar
 from videogpa_torch.models.cogvideox.scheduler import CogVideoXScheduler
 from videogpa_torch.models.cogvideox.vae import CogVideoXVAE, vae_encode
 from videogpa_torch.ops.resize import resize_bilinear
+from videogpa_torch.parallel.mesh import get_mesh
+from videogpa_torch.parallel.sharding import data_rows, mean_over_data, reduce_grads, take_rows
+from videogpa_torch.parallel.tp import is_sharded
 from videogpa_torch.train.lora import lora_leaves
 from videogpa_torch.train.loss import DPOLoss
 
@@ -185,12 +188,23 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
     tensors on the model's device: loss, reward_margin, reward_accuracy,
     winner_reward, loser_reward and, from ``train_step``, grad_norm (the
     unclipped global norm of this call's gradients).
+
+    Under an ambient mesh (``parallel.set_mesh``), as JAX's step under
+    ``jax.set_mesh``: ``batch`` is this rank's ``batch_specs`` slice, and
+    the draws (made here or given) are for the whole batch of dp slices,
+    of which each rank keeps its rows; ``model`` may be a
+    ``dit_param_specs`` shard and ``tcfg.attn_impl`` "ring". The LoRA
+    gradients are summed over ``model`` (where the DiT is sharded) and
+    averaged over ``data`` before the norm, the clip and AdamW, and the
+    metrics are averaged over ``data``: the numbers of one process on the
+    whole batch.
     """
     scheduler = CogVideoXScheduler()
     loss_fn = DPOLoss(beta=tcfg.beta)
     optimizer = make_optimizer(tcfg)
     lora_scaling = tcfg.lora_alpha / tcfg.lora_rank
     device = next(model.parameters()).device
+    tensor_parallel = is_sharded(model.blocks[0].attn1.to_q, cfg.hidden_dim)
 
     def as_f32(x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
@@ -217,18 +231,28 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
             x_win = x_win[:, :nf, :, :nh, :nw]
             x_lose = x_lose[:, :nf, :, :nh, :nw]
         prompt_emb = as_f32(batch["prompt_emb"])
-        B = x_win.shape[0]
+        # under a mesh with data parallelism the batch is this rank's slice:
+        # draws are made for the whole batch and this rank keeps its rows
+        B, rows = data_rows(get_mesh(), x_win.shape[0])
+        i2v = "image_emb" in batch and vae is not None
 
         if timesteps is None:
             timesteps = torch.randint(0, scheduler.num_train_timesteps, (B,),
                                       generator=generator, device=device)
         if noise is None:
-            noise = torch.randn(x_win.shape, generator=generator, device=device,
+            noise = torch.randn((B,) + x_win.shape[1:], generator=generator, device=device,
                                 dtype=torch.float32)
-        timesteps = torch.as_tensor(timesteps, device=device).long()
-        noise = as_f32(noise)
+        if i2v and rows is not None and posterior_noise is None:
+            # the draw vae_encode makes for the first frame's posterior
+            posterior_noise = torch.randn((B, x_win.shape[2], 1) + x_win.shape[3:],
+                                          generator=generator, device=device)
+        timesteps = take_rows(torch.as_tensor(timesteps, device=device).long(), rows, B,
+                              "timesteps")
+        noise = take_rows(as_f32(noise), rows, B, "noise")
+        if posterior_noise is not None:
+            posterior_noise = take_rows(as_f32(posterior_noise), rows, B, "posterior_noise")
 
-        if "image_emb" in batch and vae is not None:
+        if i2v:
             img_cond = _i2v_condition(vae, as_f32(batch["image_emb"]), x_win, cfg,
                                       generator=generator, noise=posterior_noise).float()
         elif cfg.in_channels > cfg.out_channels:
@@ -273,6 +297,10 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
         loss, metrics = shared_step(state.lora, batch, generator, timesteps, noise,
                                     posterior_noise)
         grads = torch.autograd.grad(loss, params)
+        # the whole step's gradients before the norm, the clip and AdamW
+        mesh = get_mesh()
+        grads = reduce_grads(grads, mesh, tensor_parallel)
+        metrics = mean_over_data(metrics, mesh)
         metrics["grad_norm"] = global_norm(grads)
         optimizer.update(grads, state.opt_state, params)
         state.step += 1
@@ -283,6 +311,7 @@ def make_dpo_train_step(model: CogVideoXTransformer, cfg: CogVideoXConfig,
                   timesteps: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None,
                   posterior_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        return shared_step(state.lora, batch, generator, timesteps, noise, posterior_noise)[1]
+        metrics = shared_step(state.lora, batch, generator, timesteps, noise, posterior_noise)[1]
+        return mean_over_data(metrics, get_mesh())
 
     return train_step, eval_step

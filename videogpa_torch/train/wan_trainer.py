@@ -30,6 +30,9 @@ from videogpa_torch.models.wan.flow_match import (
     sigma_from_timestep,
     ti2v_timestep_tokens,
 )
+from videogpa_torch.parallel.mesh import get_mesh
+from videogpa_torch.parallel.sharding import data_rows, mean_over_data, reduce_grads, take_rows
+from videogpa_torch.parallel.tp import is_sharded
 from videogpa_torch.train.lora import lora_leaves
 from videogpa_torch.train.loss import DPOLoss
 from videogpa_torch.train.trainer import TrainerConfig, TrainState, global_norm, make_optimizer
@@ -49,6 +52,11 @@ def make_wan_dpo_train_step_unbound(cfg: WanConfig,
     metrics. Metrics are 0-d f32 tensors on the model's device: loss,
     reward_margin, reward_accuracy and, from ``train_step``, grad_norm (the
     unclipped global norm of this call's gradients).
+
+    Under an ambient mesh, as the CogVideoX step (``make_dpo_train_step``):
+    ``batch`` is this rank's slice, the draws are for the whole batch, the
+    model may be a ``wan_param_specs`` shard and ``attn_impl`` "ring"; the
+    LoRA gradients are summed over ``model`` and averaged over ``data``.
     """
     loss_fn = DPOLoss(beta=tcfg.beta)
     optimizer = make_optimizer(tcfg)
@@ -72,16 +80,18 @@ def make_wan_dpo_train_step_unbound(cfg: WanConfig,
         x_lose = as_f32(batch["x_lose"])
         context = as_f32(batch["prompt_emb"])
         image_latent = batch.get("image_latent")
-        B, _, F, H, W = x_win.shape
+        _, _, F, H, W = x_win.shape
+        # under data parallelism: draws for the whole batch, this rank's rows
+        B, rows = data_rows(get_mesh(), x_win.shape[0])
 
         if timesteps is None:
             timesteps = torch.randint(1, cfg.num_train_timesteps, (B,), generator=generator,
                                       device=device)
         if noise is None:
-            noise = torch.randn(x_win.shape, generator=generator, device=device,
+            noise = torch.randn((B,) + x_win.shape[1:], generator=generator, device=device,
                                 dtype=torch.float32)
-        timesteps = torch.as_tensor(timesteps, device=device)
-        noise = as_f32(noise)
+        timesteps = take_rows(torch.as_tensor(timesteps, device=device), rows, B, "timesteps")
+        noise = take_rows(as_f32(noise), rows, B, "noise")
         sigma = sigma_from_timestep(timesteps, cfg.num_train_timesteps, cfg.shift)
 
         x_win_noisy = flow_add_noise(x_win, noise, sigma)
@@ -117,6 +127,9 @@ def make_wan_dpo_train_step_unbound(cfg: WanConfig,
         params = lora_leaves(state.lora)
         loss, metrics = shared_step(model, state.lora, batch, generator, timesteps, noise)
         grads = torch.autograd.grad(loss, params)
+        mesh = get_mesh()
+        grads = reduce_grads(grads, mesh, is_sharded(model.blocks[0].self_attn.q, cfg.dim))
+        metrics = mean_over_data(metrics, mesh)
         metrics["grad_norm"] = global_norm(grads)
         optimizer.update(grads, state.opt_state, params)
         state.step += 1
@@ -127,7 +140,8 @@ def make_wan_dpo_train_step_unbound(cfg: WanConfig,
                   generator: Optional[torch.Generator] = None,
                   timesteps: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-        return shared_step(model, state.lora, batch, generator, timesteps, noise)[1]
+        metrics = shared_step(model, state.lora, batch, generator, timesteps, noise)[1]
+        return mean_over_data(metrics, get_mesh())
 
     return train_step, eval_step
 
