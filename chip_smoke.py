@@ -224,6 +224,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
              under a mesh with data = 1 (the data-parallel path) against the
              plain step; the profiler shows the NCCL all-reduces. NCCL
              between ranks needs more than one card and is not run here.
+   slice_track — f32 on the card against the CPU on damped trackers (flow
+             heads and feature updaters x 0.02: random weights make the
+             refinement chaotic): the tiny VGGT with a reduced track head
+             through ``vggt_forward(query_points=)``, and the VGGSfM tracker
+             at its published widths with fine tracking on 2 frames of
+             192^2; tracks, vis and conf by max |d|, every track at its
+             query at frame 0.
+   vggt_track — ``predict_tracks`` at full width on one clip of 10 x 518^2
+             with random weights: VGGT-1B with its published track head (256
+             queries x 2 query frames, 4 iterations), then the published
+             VGGSfM tracker (6 coarse iterations, fine tracking at pradius
+             15); a cold and a warm run of each, wall ms split into trunk,
+             other heads, track head or tracker, and host, peak GB; shapes,
+             finiteness, vis/conf in [0, 1], each track at its query at its
+             query frame, and K1 24, K4 48, K6 f32 16 launches a forward.
 7. timing  — ms per denoise step, train mini-step and scorer batch; each
              kernel's ms at its main-path shape beside its bound, its plain
              version and one PyTorch call computing the same function; for
@@ -396,9 +411,11 @@ def _check(o, lse, ro, rl):
     return d_o.max().item(), o_atol, d_lse.max().item(), ok
 
 
-def phase_parity(dit_shape, vggt_global_shape, da3_global_shape):
+def phase_parity(dit_shape, vggt_global_shape, da3_global_shape, track_global_shape=None):
     """K1 vs its plain version; returns (max O error, plain ms at the DiT
-    shape, {"max_abs_err", "plain_ms"} at the DA3 global shape)."""
+    shape, {"max_abs_err", "plain_ms"} at the DA3 global shape).
+    ``track_global_shape``: VGGT's global rows as [vggt_track] gives them
+    (one clip, batch 1), checked too."""
     import torch
 
     from videogpa_torch.ops.attention import flash_attn_fwd, flash_attn_fwd_reference
@@ -442,13 +459,17 @@ def phase_parity(dit_shape, vggt_global_shape, da3_global_shape):
     worst, plain_ms = _parity_full(f"DiT shape {dit_shape}", q, k, v)
     errs.append(worst)
     del q, k, v
-    B, N, H, D = vggt_global_shape
-    q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
-        torch.bfloat16).unbind(2)
-    worst, _ = _parity_full(f"VGGT global shape {vggt_global_shape} (v a strided view)",
-                            q.contiguous(), k.contiguous(), v)
-    errs.append(worst)
-    del q, k, v
+    for label, shape in (("VGGT global", vggt_global_shape),
+                         ("VGGT tracking global", track_global_shape)):
+        if shape is None:
+            continue
+        B, N, H, D = shape
+        q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
+            torch.bfloat16).unbind(2)
+        worst, _ = _parity_full(f"{label} shape {shape} (v a strided view)",
+                                q.contiguous(), k.contiguous(), v)
+        errs.append(worst)
+        del q, k, v
     B, N, H, D = da3_global_shape
     q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
         torch.bfloat16).unbind(2)
@@ -1483,9 +1504,11 @@ def _timed(fn):
     return out, start.elapsed_time(end)
 
 
-def phase_parity_short(vggt_shape, da3_shape):
+def phase_parity_short(vggt_shape, da3_shape, track_shape=None):
     """K4 against its plain version in bf16; returns (max |dO|, plain ms at
-    the VGGT frame-attention shape, {"max_abs_err", "plain_ms"} at DA3's)."""
+    the VGGT frame-attention shape, {"max_abs_err", "plain_ms"} at DA3's).
+    ``track_shape``: VGGT's frame rows as [vggt_track] gives them (one clip),
+    checked too."""
     import torch
 
     from videogpa_torch.ops.attention import flash_attn_short, flash_attn_short_reference
@@ -1523,7 +1546,10 @@ def phase_parity_short(vggt_shape, da3_shape):
     # the VGGT and DA3 frame-attention shapes (1,374 and 1,370 keys: other
     # ragged last tiles), q/k/v as views of one packed projection
     full = {}
-    for label, (B, N, H, D) in (("VGGT", vggt_shape), ("DA3", da3_shape)):
+    shapes = [("VGGT", vggt_shape), ("DA3", da3_shape)]
+    if track_shape is not None:
+        shapes.append(("VGGT tracking", track_shape))
+    for label, (B, N, H, D) in shapes:
         q, k, v = torch.randn(B, N, 3, H, D, generator=gen, device="cuda").to(
             torch.bfloat16).unbind(2)
         o = flash_attn_short(q, k, v)
@@ -1541,10 +1567,11 @@ def phase_parity_short(vggt_shape, da3_shape):
     return max(errs), full["VGGT"]["plain_ms"], full["DA3"]
 
 
-def phase_parity_d128(cam_shape, wan_shape, f32_long_shapes):
-    """K6 against its plain version: the float32 entry (camera head, every
-    head dim it takes, B*H past the grid y limit and the f32 scorer's frame
-    and global rows ``f32_long_shapes``) and bf16 at head_dim 128; returns
+def phase_parity_d128(cam_shape, wan_shape, f32_long_shapes, track_cam_shape=None):
+    """K6 against its plain version: the float32 entry (camera head, at the
+    scorer's batch and at [vggt_track]'s ``track_cam_shape``, every head dim
+    it takes, B*H past the grid y limit and the f32 scorer's frame and
+    global rows ``f32_long_shapes``) and bf16 at head_dim 128; returns
     (max |dO| f32, max |dO| bf16, plain ms at the camera-head shape, plain ms
     at the Wan shape)."""
     import torch
@@ -1567,6 +1594,10 @@ def phase_parity_d128(cam_shape, wan_shape, f32_long_shapes):
         ("f32 D=64 N=300 bnhd", "bnhd", f32(1, 300, 300, 2, 64, "bnhd")),
         ("f32 D=32 N=50 bhnd", "bhnd", f32(1, 50, 50, 2, 32, "bhnd")),
     ]
+    if track_cam_shape is not None:
+        f32_cases.append((f"f32 camera head, tracking {tuple(track_cam_shape)} bnhd", "bnhd",
+                          f32(*track_cam_shape[:2], track_cam_shape[1], *track_cam_shape[2:],
+                              "bnhd")))
     # base addresses off 16 bytes: the kernel stages rows by 4-byte copies
     f32_cases.append(("f32 operands 4 bytes off 16-byte alignment N=70 bnhd D=64", "bnhd",
                       tuple(torch.randn(70 * 2 * 64 + 1, generator=gen, device="cuda")[1:]
@@ -6345,6 +6376,310 @@ def phase_da3_eval(S: int = 10):
     return out
 
 
+# [slice_track]: the VGGT track head (on the tiny VGGT, through vggt_forward)
+# and the VGGSfM tracker at its published widths, f32 on the card against the
+# same weights in f32 on the CPU. Random weights make the trackers' refinement
+# chaotic (an f32 rounding difference grows about 100x an iteration), so the
+# update formers' flow heads and the feature updaters are damped by
+# TRACK_DAMP. tests/test_torch_vggt_track.py and
+# tests/test_torch_vggsfm_tracker.py damp by 0.05, enough for JAX against the
+# port on the CPU; the card's f32 convolutions and products differ from the
+# CPU's by more, and at 0.05 the VGGSfM coarse tracks of an f32 and a float64
+# run on the CPU already differ by 0.05-0.07 px (1.2e-3 px at 0.02). With it
+# the iterations contract and the two devices differ by summation order. Limits: tracked pixels
+# within TRACK_COORD_ATOL, vis and conf within TRACK_PROB_ATOL (the CPU tests
+# hold the same functions to 1e-3 px and 1e-5 against JAX); at the query frame
+# each track is its query point, bit for bit.
+TRACK_DAMP, TRACK_COORD_ATOL, TRACK_PROB_ATOL = 0.02, 1e-2, 1e-4
+
+
+def damp_trackers_(module, factor: float = TRACK_DAMP) -> None:
+    """Scale every update former's flow head and every feature updater."""
+    import torch
+
+    with torch.no_grad():
+        for name, m in module.named_modules():
+            if name.endswith(("flow_head", "ffeat_updater")):
+                m.weight.mul_(factor)
+                m.bias.mul_(factor)
+
+
+def _max_abs(got, want) -> float:
+    return float((got.float().cpu() - want.float()).abs().max())
+
+
+def phase_slice_track() -> dict:
+    """The tiny VGGT with a reduced track head (features 16, hidden 32, 3
+    levels of radius 2, depth 2; 4 frames of 56^2, 8 queries, 4 iterations)
+    and the published VGGSfM tracker (2 frames of 192^2, 16 queries, 6 coarse
+    iterations, fine tracking at pradius 15), f32 on the card against the CPU."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+    from videogpa_torch.models.vggt.track import track_head_init
+    from videogpa_torch.models.vggt.vggsfm_tracker import (
+        vggsfm_tracker_forward, vggsfm_tracker_init)
+
+    cfg = VGGTConfig.tiny()
+    ref = vggt_init(cfg, torch.Generator().manual_seed(140), device="cpu").eval()
+    ref.track_head = track_head_init(cfg, features=16, generator=torch.Generator().manual_seed(141),
+                                     device="cpu", hidden_size=32, corr_levels=3,
+                                     corr_radius=2, depth=2).eval()
+    damp_trackers_(ref)
+    dev = copy.deepcopy(ref).cuda()
+    rng = np.random.default_rng(142)
+    imgs = torch.from_numpy(np.stack(synthetic_frames(1, 4, cfg.img_size, seed=142))).float()
+    imgs = imgs.permute(0, 1, 4, 2, 3) / 255.0
+    qp = torch.from_numpy(rng.uniform(4, cfg.img_size - 4, (1, 8, 2)).astype(np.float32))
+    kw = dict(compute_dtype=torch.float32, track_kwargs={"corr_levels": 3, "corr_radius": 2})
+    with torch.no_grad():
+        want = vggt_forward(ref, imgs, query_points=qp, **kw)
+        zero_launches()
+        got = vggt_forward(dev, imgs.cuda(), query_points=qp.cuda(), **kw)
+        torch.cuda.synchronize()
+    head_launches = {k: v for k, v in read_launches().items() if v}
+    head = {k: _max_abs(got[k], want[k]) for k in ("track", "vis", "conf")}
+    head_reset = bool(torch.equal(got["track"][:, 0].cpu(), qp))
+
+    tref = vggsfm_tracker_init(torch.Generator().manual_seed(143), device="cpu").eval()
+    damp_trackers_(tref)
+    tdev = copy.deepcopy(tref).cuda()
+    # inputs whose coarse tracks lie 0.069 px or more off integers on the CPU,
+    # over 10x the coarse tracks' f32 error: both devices crop the same patches
+    frames = torch.from_numpy(np.stack(synthetic_frames(1, 2, 192, seed=144))).float()
+    frames = frames.permute(0, 1, 4, 2, 3) / 255.0
+    tq = torch.from_numpy(np.random.default_rng(144).uniform(24, 168, (1, 16, 2))
+                          .astype(np.float32))
+    with torch.no_grad():
+        w_fine, w_coarse, w_vis, _ = vggsfm_tracker_forward(tref, frames, tq)
+        g_fine, g_coarse, g_vis, g_score = vggsfm_tracker_forward(tdev, frames.cuda(), tq.cuda())
+        torch.cuda.synchronize()
+        card_ms = cuda_ms(lambda: vggsfm_tracker_forward(tdev, frames.cuda(), tq.cuda()), iters=2,
+                          warmup=1)
+    tracker = {"fine": _max_abs(g_fine, w_fine), "coarse": _max_abs(g_coarse, w_coarse),
+               "vis": _max_abs(g_vis, w_vis)}
+    frac = w_coarse[:, 1:] % 1.0
+    margin = float(torch.minimum(frac, 1 - frac).min())
+    tracker_reset = bool(torch.equal(g_fine[:, 0].cpu(), tq))
+    out = {"track_head": head, "track_head_launches": head_launches, "vggsfm": tracker,
+           "vggsfm_card_ms": card_ms, "coarse_distance_from_integers": margin}
+    log(f"[slice_track] f32 card vs CPU, max|d| (limits {TRACK_COORD_ATOL} px, vis/conf "
+        f"{TRACK_PROB_ATOL}): the tiny VGGT's track head " + json.dumps(
+            {k: float(f"{v:.3e}") for k, v in head.items()})
+        + f", launches {json.dumps(head_launches)}; the published VGGSfM tracker "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in tracker.items()})
+        + f" ({card_ms:.1f} ms on the card; the coarse tracks lie {margin:.3f} px or more off "
+        f"integers, where the fine crop's floor could pick another patch)")
+    if max(head["track"], tracker["fine"], tracker["coarse"]) > TRACK_COORD_ATOL:
+        fail("the tracks on the card disagree with the CPU")
+    if max(head["vis"], head["conf"], tracker["vis"]) > TRACK_PROB_ATOL:
+        fail("vis or conf on the card disagree with the CPU")
+    if not (head_reset and tracker_reset and g_score is None):
+        fail("a track on the card left its query point at the query frame")
+    return out
+
+
+def conv_census(module, run, top: int = 4) -> list:
+    """Each convolution of ``module`` as ``run()`` calls it (its module name,
+    input and weight shapes), then each called once alone on a random input
+    of that shape under the profiler: device ms, the peak allocated above
+    its input and output (cuDNN's workspace), and its kernels' names.
+    Returns the ``top`` slowest."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen, hooks = {}, []
+
+    def record(name):
+        def hook(m, inp, out):  # returns None: the output stays as it is
+            seen.setdefault((name, tuple(inp[0].shape)), m)
+        return hook
+
+    for name, m in module.named_modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            hooks.append(m.register_forward_hook(record(name)))
+    try:
+        with torch.no_grad():
+            run()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    rows = []
+    for (name, shape), m in seen.items():
+        x = torch.randn(shape, device="cuda", dtype=m.weight.dtype)
+        with torch.no_grad():
+            y = m(x)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated() + y.numel() * y.element_size()
+            del y
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                m(x)
+                torch.cuda.synchronize()
+        kernels = {}
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                us = getattr(evt, "self_device_time_total", None)
+                kernels[evt.key[:70]] = (evt.self_cuda_time_total if us is None else us) / 1e3
+        rows.append({"conv": name, "input": list(shape), "weight": list(m.weight.shape),
+                     "device_ms": sum(kernels.values()),
+                     "workspace_gb": max(0, torch.cuda.max_memory_allocated() - base) / 1e9,
+                     "kernels_ms": {k: round(v, 3) for k, v in
+                                    sorted(kernels.items(), key=lambda kv: -kv[1])[:3]}})
+        del x
+    torch.cuda.empty_cache()
+    return sorted(rows, key=lambda r: -r["device_ms"])[:top]
+
+
+def phase_vggt_track(query_pts: int = 256, query_frames: int = 2, runs: int = 2) -> dict:
+    """``predict_tracks`` at full width on one clip of 10 x 518^2: VGGT-1B
+    (bf16 trunk and DPT heads' weights, f32 camera and track heads) with the
+    published track head (features 128, hidden 384, 7 levels of radius 4,
+    depth 6, 4 iterations), then the published VGGSfM tracker (6 coarse
+    iterations, fine tracking at pradius 15), random weights from seeds;
+    ``query_pts`` queries from each of ``query_frames`` query frames; a cold
+    and a warm run of each route. Prints each run's wall ms split into trunk,
+    the other heads, the track head or tracker, and host, and the peak
+    allocated GB (the track head also into its DPT and its tracker);
+    checks shapes, finiteness, vis/conf in [0, 1], each track at its query
+    point at its query frame, and that every attention of each
+    ``vggt_forward`` launched its kernel (K1 24, K4 48, K6 f32 16). Then
+    one profiled call on the head with one query frame, the track head's
+    DPT's own peak, and its slowest convolutions (``conv_census``)."""
+    import numpy as np
+    import torch
+
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_init
+    from videogpa_torch.models.vggt import model as vmodel
+    from videogpa_torch.models.vggt import sfm
+    from videogpa_torch.models.vggt import track as vtrack
+    from videogpa_torch.models.vggt.vggsfm_tracker import vggsfm_tracker_init
+
+    cfg = VGGTConfig()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = vggt_init(cfg, torch.Generator(device="cuda").manual_seed(150), device="cuda",
+                      dtype=torch.bfloat16, enable_track=True).eval()
+    regular_camera_(model)
+    model.camera_head.float()
+    model.track_head.float()
+    tracker = vggsfm_tracker_init(torch.Generator(device="cuda").manual_seed(151),
+                                  device="cuda").eval()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_head = sum(p.numel() for p in model.track_head.parameters())
+    n_tracker = sum(p.numel() for p in tracker.parameters())
+    frames = synthetic_frames(1, 10, cfg.img_size, seed=152)[0]
+    images = frames.transpose(0, 3, 1, 2).astype(np.float32) / 255.0
+    S, _, H, W = images.shape
+    per_forward = dict.fromkeys(read_launches(), 0)
+    per_forward.update(flash_attn_fwd=cfg.depth, flash_attn_short=cfg.backbone_depth + cfg.depth,
+                       flash_attn_fwd_f32=cfg.camera_trunk_depth * cfg.camera_iterations)
+    routes = {"vggt_head": ({}, 1 + query_frames, "track_head_forward"),
+              "vggsfm": ({"tracker": tracker, "track_kwargs": {
+                  "coarse_iters": 6, "fine_tracking": True, "fine_pradius": 15}}, 1,
+                  "vggsfm_tracker_forward")}
+    grid = np.linspace(0, H * W - 1, query_pts).astype(int)
+    queries = np.stack([grid % W, grid // W], axis=1).astype(np.float32)
+    result = {"init_s": init_s, "track_head_params": n_head, "tracker_params": n_tracker,
+              "routes": {}, "launches": {}}
+    for route, (kw, forwards, tracking) in routes.items():
+        want = {k: v * forwards for k, v in per_forward.items()}
+        total, timed = dict.fromkeys(want, 0), []
+        for r in range(runs):
+            ms, _, restore = _stage_timers(vmodel, ("aggregator_forward", "camera_head_forward",
+                                                    "dpt_head_forward", "track_head_forward"))
+            tms, _, trestore = _stage_timers(sfm, ("vggsfm_tracker_forward",))
+            hms, _, hrestore = _stage_timers(vtrack, ("dpt_head_forward", "tracker_forward"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            t0 = time.perf_counter()
+            try:
+                out = sfm.predict_tracks(model, images, max_query_pts=query_pts,
+                                         query_frame_num=query_frames, **kw)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+                trestore()
+                hrestore()
+            wall = 1e3 * (time.perf_counter() - t0)
+            launches = read_launches()
+            for k, v in launches.items():
+                total[k] += v
+            track_ms = ms["track_head_forward"] + tms["vggsfm_tracker_forward"]
+            run = {"wall_ms": wall, "trunk_ms": ms["aggregator_forward"],
+                   "other_heads_ms": ms["camera_head_forward"] + ms["dpt_head_forward"],
+                   f"{tracking.split('_forward')[0]}_ms": track_ms,
+                   **({"track_dpt_ms": hms["dpt_head_forward"],
+                       "tracker_ms": hms["tracker_forward"]} if route == "vggt_head" else {}),
+                   "host_ms": wall - sum(ms.values()) - tms["vggsfm_tracker_forward"],
+                   "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "track_range": [float(out["tracks"].min()), float(out["tracks"].max())],
+                   "vis_mean": float(out["vis"].mean())}
+            timed.append(run)
+            log(f"[vggt_track] {route} run {r} ({'cold' if r == 0 else 'warm'}): " + json.dumps(
+                {k: (round(v, 3) if isinstance(v, float) else v) for k, v in run.items()})
+                + f"; query frames {out['query_frames']}; launches "
+                + json.dumps({k: v for k, v in launches.items() if v}))
+            Q = query_frames
+            if launches != want:
+                fail(f"[vggt_track] {route} launched {launches}, not {want}")
+            if not (out["tracks"].shape == (Q, S, query_pts, 2)
+                    and out["vis"].shape == out["conf"].shape == (Q, S, query_pts)):
+                fail(f"[vggt_track] {route} returned tracks of the wrong shape")
+            if not all(np.isfinite(out[k]).all() for k in ("tracks", "vis", "conf")):
+                fail(f"[vggt_track] {route} returned non-finite tracks, vis or conf")
+            if not all(((out[k] >= 0) & (out[k] <= 1)).all() for k in ("vis", "conf")):
+                fail(f"[vggt_track] {route} returned vis or conf outside [0, 1]")
+            for q, qf in enumerate(out["query_frames"]):
+                if not np.array_equal(out["tracks"][q, qf], queries):
+                    fail(f"[vggt_track] {route}: the tracks left their queries at frame {qf}")
+        result["routes"][route] = timed
+        result["launches"][route] = total
+    real_dpt, dpt_mem, dpt_args = vtrack.dpt_head_forward, [], []
+
+    def dpt_with_peak(*a, **k):
+        if not dpt_args:
+            dpt_args.append((a, k))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats = real_dpt(*a, **k)
+        torch.cuda.synchronize()
+        dpt_mem.append([base / 1e9, torch.cuda.max_memory_allocated() / 1e9])
+        return feats
+
+    vtrack.dpt_head_forward = dpt_with_peak
+    try:
+        result["profile"] = profile_device_time(
+            "one predict_tracks call on the VGGT head, 1 query frame (profiled)",
+            lambda: sfm.predict_tracks(model, images, max_query_pts=query_pts,
+                                       query_frame_num=1))
+    finally:
+        vtrack.dpt_head_forward = real_dpt
+    result["track_dpt_allocated_before_and_peak_gb"] = dpt_mem
+    log(f"[vggt_track] the track head's DPT (f32, width 128): allocated before and peak "
+        f"GB {json.dumps([[round(a, 3), round(b, 3)] for a, b in dpt_mem])}")
+    (a, k), = dpt_args
+    result["track_dpt_convs"] = conv_census(model.track_head.feature_extractor,
+                                            lambda: real_dpt(*a, **k))
+    del a, k, dpt_args
+    log("[vggt_track] the track head's DPT, slowest convolutions alone (f32, cuDNN's "
+        "heuristic pick): " + json.dumps(result["track_dpt_convs"]))
+    log(f"[vggt_track] VGGT-1B with its track head ({n_head / 1e6:.1f} M parameters, f32) and "
+        f"the VGGSfM tracker ({n_tracker / 1e6:.1f} M, f32), drawn on the card in {init_s:.1f} s; "
+        f"{query_pts} queries x {query_frames} query frames on 10 x {H}^2; launches a forward "
+        + json.dumps({k: v for k, v in per_forward.items() if v}))
+    del model, tracker
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -6372,6 +6707,10 @@ def main() -> int:
     vggt_shape = (4 * 10, n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
     vggt_global_shape = (4, 10 * n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
     cam_shape = (4, 10, vcfg.num_heads, vcfg.tokens_dim // vcfg.num_heads)
+    # [vggt_track]'s forwards: one clip of 10 frames, batch 1
+    track_shape = (10, n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
+    track_global_shape = (1, 10 * n_frame, vcfg.num_heads, vcfg.embed_dim // vcfg.num_heads)
+    track_cam_shape = (1, 10, vcfg.num_heads, vcfg.tokens_dim // vcfg.num_heads)
     from videogpa_torch.models.wan import WanConfig
 
     wcfg = WanConfig.ti2v_5b()
@@ -6390,11 +6729,12 @@ def main() -> int:
 
     phase_build()
     fwd_err, fwd_plain_ms, fwd_da3 = phase_parity(dit_shape, vggt_global_shape,
-                                                  da3_global_shape)
+                                                  da3_global_shape, track_global_shape)
     bwd_err, bwd_plain_ms = phase_parity_bwd(train_shape)
-    short_err, short_plain_ms, short_da3 = phase_parity_short(vggt_shape, da3_local_shape)
+    short_err, short_plain_ms, short_da3 = phase_parity_short(vggt_shape, da3_local_shape,
+                                                              track_shape)
     d128_f32_err, d128_bf16_err, cam_plain_ms, wan_plain_ms = phase_parity_d128(
-        cam_shape, wan_shape, (vggt_shape, vggt_global_shape))
+        cam_shape, wan_shape, (vggt_shape, vggt_global_shape), track_cam_shape)
     k7_err, k7_plain_ms, k7_cross_plain_ms, k6_wan_err, k6_cross_plain_ms = (
         phase_parity_bwd_d128(wan_shape, wcfg.text_len))
     ring_shards = phase_ring_shards(train_shape, wan_shape)
@@ -6419,6 +6759,7 @@ def main() -> int:
     phase_slice_da3()
     phase_slice_da3_nested()
     matching_run = phase_slice_matching()
+    track_slice = phase_slice_track()
     mark("parity and slices")
     main_run = phase_main()
     sample_run = phase_sample(main_run.pop("dit"))
@@ -6430,7 +6771,8 @@ def main() -> int:
     nested_run = phase_da3_nested()
     service_run = phase_da3_service()
     eval_run = phase_da3_eval()
-    mark("train, scorer, scorer_da3, da3_nested, da3_service, da3_eval")
+    track_run = phase_vggt_track()
+    mark("train, scorer, scorer_da3, da3_nested, da3_service, da3_eval, vggt_track")
     score_files_run = phase_score_files()
     log("[score_files] clips/min through score_groups: " + json.dumps(
         {tag: round(r["clips_per_min"], 1) for tag, r in score_files_run["runs"].items()})
@@ -6496,6 +6838,8 @@ def main() -> int:
         "da3_giant_attention": giant,
         "ring_shards": ring_shards["cases"],
         "ring_nccl": {k: v for k, v in ring_nccl.items() if k != "launches"},
+        "slice_track": track_slice,
+        "vggt_track": {k: v for k, v in track_run.items() if k != "launches"},
         "flash_attn_fwd_ms_at_dit_shape": timing["fwd_ms"],
         "flash_attn_fwd_tflops": timing["fwd_tflops"],
         "flash_attn_fwd_bound_ms": timing["fwd_bound_ms"],
@@ -6609,7 +6953,9 @@ def main() -> int:
             "replicate_files_lightglue": replicate_run["lightglue"]["launches"],
             "da3_nested": nested_run["launches"], "da3_service": service_run["launches"],
             "da3_eval": eval_run["launches"],
-            "ring_shards": ring_shards["launches"], "ring_nccl": ring_nccl["launches"]}
+            "ring_shards": ring_shards["launches"], "ring_nccl": ring_nccl["launches"],
+            "vggt_track": track_run["launches"]["vggt_head"],
+            "vggt_track_vggsfm": track_run["launches"]["vggsfm"]}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""

@@ -21,14 +21,16 @@ encoder's ``trunk``) carry every layer along a leading axis; they are
 unstacked into ``<node>.{i}.*``. List nodes (``projects``, ``layer_rn``,
 ``convs``, ``lins``, DA3's ``blocks_alt``) become ``<node>.{i}.*``, lists of
 lists (DA3's ``output_conv1_aux``) ``<node>.{i}.{j}.*``.
-Tokens, tables, the Wan blocks' and head's ``modulation`` and the Wan VAE's
-``latents_mean`` / ``latents_std`` (``_VERBATIM``), and the ``gamma`` of
+Tokens, tables, the Wan blocks' and head's ``modulation``, the Wan VAE's
+``latents_mean`` / ``latents_std`` and the trackers' ``virtual_tracks`` /
+``query_ref_token`` (``_VERBATIM``), and the ``gamma`` of
 LayerScale's ``ls1/ls2`` and of the Wan VAE's RMS norms (``_GAMMA_OWNERS``)
 are copied as they are.
 Covers the CogVideoX DiT and VAE (5-D conv kernels, GroupNorm
 ``scale``/``bias``, the ``down``/``up``/``resnets`` lists),
 ``t5_encoder_init`` (``embed`` and ``rel_bias`` copied), ``wan_init``,
-``wan_vae_init``, ``vggt_init``, ``lpips_init`` and ``da3_init`` trees. Any leaf the
+``wan_vae_init``, ``vggt_init`` (with the track head), ``vggsfm_tracker_init``,
+``lpips_init`` and ``da3_init`` trees. Any leaf the
 bridge cannot name raises, and loading is strict, so nothing is left
 unmapped on either side.
 """
@@ -46,7 +48,8 @@ from videogpa_torch.ops.quant import QuantLinear
 # leaves copied as they are, by name
 _VERBATIM = ("pos_embedding", "camera_token", "register_token", "cls_token",
              "register_tokens", "pos_embed", "empty_pose_tokens", "modulation",
-             "embed", "rel_bias", "latents_mean", "latents_std")
+             "embed", "rel_bias", "latents_mean", "latents_std", "virtual_tracks",
+             "query_ref_token")
 # owners whose ``gamma`` is copied as it is: LayerScale, the Wan VAE's RMS norms
 _GAMMA_OWNERS = ("ls1", "ls2", "norm1", "norm2", "norm", "head_norm")
 # nodes whose leaves stack every layer along a leading axis

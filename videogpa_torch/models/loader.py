@@ -157,6 +157,21 @@ def load_vggt(model_name_or_path: str = "facebook/VGGT-1B", cfg=None,
                                    dtype), cfg
 
 
+def load_vggsfm_tracker(model_path: str, device=None) -> torch.nn.Module:
+    """The VGGSfM tracker's ``vggsfm_v2_tracker.pt`` (a torch state dict,
+    optionally under ``"state_dict"``) -> ``VGGSfMTracker`` in f32 on
+    ``device`` (the card unless ``device="cpu"``)."""
+    from videogpa_torch.models.vggt.vggsfm_tracker import VGGSfMTracker, convert_vggsfm_tracker
+
+    sd = torch.load(model_path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    model = VGGSfMTracker(device="meta").to_empty(device=resolve_device(device))
+    model.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                           for k, v in convert_vggsfm_tracker(sd).items()}, strict=True)
+    return model.requires_grad_(False)
+
+
 def load_da3(model_name_or_path: str = "depth-anything/DA3-Large", cfg=None,
              dtype: torch.dtype = torch.float32, device=None):
     """A DA3 checkpoint directory (safetensors, the HF-hub layout or a raw

@@ -50,6 +50,25 @@ def _upstream_key(key: str) -> str:
     return key
 
 
+# one DINOv2 block's keys, the same in the upstream checkpoint and the port
+_DINOV2_BLOCK = tuple(f"{m}.{leaf}" for m in ("norm1", "attn.qkv", "attn.proj", "norm2",
+                                              "mlp.fc1", "mlp.fc2")
+                      for leaf in ("weight", "bias")) + ("ls1.gamma", "ls2.gamma")
+
+
+def convert_dinov2(sd: Mapping[str, np.ndarray], pfx: str, depth: int) -> Dict[str, np.ndarray]:
+    """The DINOv2 ViT under ``pfx`` of an upstream state dict (``depth``
+    blocks) -> ``DinoV2``'s state dict (numpy arrays)."""
+    out = {"patch_embed.weight": sd[f"{pfx}.patch_embed.proj.weight"],
+           "patch_embed.bias": sd[f"{pfx}.patch_embed.proj.bias"]}
+    for name in ("cls_token", "register_tokens", "pos_embed", "norm.weight", "norm.bias"):
+        out[name] = sd[f"{pfx}.{name}"]
+    for i in range(depth):
+        for name in _DINOV2_BLOCK:
+            out[f"blocks.{i}.{name}"] = sd[f"{pfx}.blocks.{i}.{name}"]
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
 def _port_keys(cfg: VGGTConfig):
     from videogpa_torch.models.vggt.model import VGGT
 

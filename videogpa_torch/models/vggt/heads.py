@@ -131,14 +131,17 @@ class DPTHead(nn.Module):
     DA3's options: ``feature_only`` (no output head, ``output_conv1`` keeps
     the features' width; GSDPT), ``dim_in`` (token width; the mono trunk's
     C, not 2C), ``sky_head`` (``sky_conv2a`` / ``sky_conv2b`` off the shared
-    ``output_conv1`` features) and ``input_norm=False`` (Identity norm)."""
+    ``output_conv1`` features) and ``input_norm=False`` (Identity norm).
+    ``features`` is the fusion pyramid's width (``cfg.dpt_features`` when
+    None; VGGT's track head takes 128)."""
 
     def __init__(self, cfg: VGGTConfig, output_dim: int, device=None, dtype=None,
                  feature_only: bool = False, dim_in: Optional[int] = None,
-                 sky_head: bool = False, input_norm: bool = True):
+                 sky_head: bool = False, input_norm: bool = True,
+                 features: Optional[int] = None):
         super().__init__()
         fk = {"device": device, "dtype": dtype}
-        oc, f = cfg.dpt_out_channels, cfg.dpt_features
+        oc, f = cfg.dpt_out_channels, features or cfg.dpt_features
         dim_in = dim_in or cfg.tokens_dim
         self.feature_only = feature_only
         self.norm = L.LayerNorm(dim_in, **fk) if input_norm else nn.Identity()
@@ -205,10 +208,11 @@ def _fusion(m: nn.Module, x: torch.Tensor, residual=None, size=None,
 
 def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
               activation: str, conf_activation: str, compute_dtype: torch.dtype,
-              use_pos_embed: bool = True, with_conf: bool = True, inplace_relu: bool = True):
+              use_pos_embed: bool = True, with_conf: bool = True, inplace_relu: bool = True,
+              down_ratio: int = 1):
     """One chunk: taps are the 4 (K, P, 2C) layer outputs the DPT reads.
-    Returns the (K, f, H, W) features with ``feature_only``, else (preds,
-    conf or None, sky or None)."""
+    Returns the (K, f, H / down_ratio, W / down_ratio) features with
+    ``feature_only``, else (preds, conf or None, sky or None)."""
     H, W = img_hw
     ph, pw = H // cfg.patch_size, W // cfg.patch_size
     pyramid = []
@@ -233,7 +237,8 @@ def _dpt_core(head: DPTHead, taps: List[torch.Tensor], cfg: VGGTConfig, img_hw,
     out = _fusion(head.refinenet2, out, l2, size=l1.shape[-2:], inplace_relu=inplace_relu)
     out = _fusion(head.refinenet1, out, l1, inplace_relu=inplace_relu)
     out = head.output_conv1(out)
-    out = resize_bilinear(out, (ph * cfg.patch_size, pw * cfg.patch_size), align_corners=True)
+    out = resize_bilinear(out, (ph * cfg.patch_size // down_ratio,
+                                pw * cfg.patch_size // down_ratio), align_corners=True)
     if use_pos_embed:
         out = out + uv_pos_embed(out.shape[-2], out.shape[-1], out.shape[1], W, H,
                                  out.device).to(out.dtype)
@@ -255,13 +260,15 @@ def dpt_head_forward(head: DPTHead, layer_outputs: torch.Tensor, cfg: VGGTConfig
                      activation: str = "exp", conf_activation: str = "expp1",
                      chunk_size: int = 8, compute_dtype: torch.dtype = torch.float32,
                      use_pos_embed: bool = True, with_conf: bool = True,
-                     inplace_relu: bool = True):
+                     inplace_relu: bool = True, down_ratio: int = 1):
     """layer_outputs (L, B, S, P, 2C); ``cfg.dpt_intermediate_layers`` index
     its first axis. Returns (preds (B, S, H, W, out-1), conf (B, S, H, W)),
     f32, with ``sky`` (B, S, H, W) third where the head has one; conf is None
     without ``with_conf`` (then preds keep every channel); with
     ``feature_only`` the (B, S, f, H, W) features in ``compute_dtype``.
-    ``inplace_relu=False`` gives DA3's fusion residual (raw x)."""
+    ``inplace_relu=False`` gives DA3's fusion residual (raw x);
+    ``down_ratio`` divides the output's height and width (the track head's
+    features: 2)."""
     _, B, S, P, C2 = layer_outputs.shape
     BS = B * S
     chunk = max(c for c in range(1, min(chunk_size, BS) + 1) if BS % c == 0)
@@ -271,7 +278,7 @@ def dpt_head_forward(head: DPTHead, layer_outputs: torch.Tensor, cfg: VGGTConfig
     for s in range(0, BS, chunk):
         got = _dpt_core(head, [t[s:s + chunk] for t in taps], cfg, img_hw, activation,
                         conf_activation, compute_dtype, use_pos_embed, with_conf,
-                        inplace_relu)
+                        inplace_relu, down_ratio)
         got = (got,) if head.feature_only else got
         if outs is None:  # one preallocated output each, filled chunk by chunk
             outs = [None if t is None else t.new_empty((BS,) + t.shape[1:]) for t in got]

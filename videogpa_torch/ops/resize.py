@@ -25,13 +25,21 @@ def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = False) -> tor
     return y.reshape(*lead, Ho, Wo)
 
 
-def grid_sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def grid_sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         batched: bool = False) -> torch.Tensor:
     """Sample an (H, W) image at float pixel coords (u, v) with zero padding,
     as ``F.grid_sample(align_corners=True, padding_mode='zeros')``. An
     (H, W, C...) image samples every channel in one gather: the result is
-    u.shape + (C...), each channel as the (H, W) call would give it."""
-    H, W = img.shape[:2]
-    chans = (None,) * (img.dim() - 2)
+    u.shape + (C...), each channel as the (H, W) call would give it.
+
+    ``batched``: img is (B, H, W, C...) and u, v are (B, M...); entry b of
+    the result, (M..., C...), is the unbatched call on img[b], u[b], v[b],
+    with one gather a tap over all B images."""
+    lead = 1 if batched else 0
+    H, W = img.shape[lead:lead + 2]
+    chans = (None,) * (img.dim() - 2 - lead)
+    bi = ((torch.arange(img.shape[0], device=img.device).reshape((-1,) + (1,) * (u.dim() - 1)),)
+          if batched else ())
     x0 = torch.floor(u).to(torch.int64)
     y0 = torch.floor(v).to(torch.int64)
     x1, y1 = x0 + 1, y0 + 1
@@ -40,7 +48,7 @@ def grid_sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor) ->
 
     def tap(yi, xi):
         inb = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
-        val = img[yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        val = img[bi + (yi.clamp(0, H - 1), xi.clamp(0, W - 1))]
         return torch.where(inb[(...,) + chans], val, 0.0)
 
     return (tap(y0, x0) * (1 - wy) * (1 - wx) + tap(y0, x1) * (1 - wy) * wx
