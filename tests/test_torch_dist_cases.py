@@ -297,3 +297,130 @@ def parallel_cases(rank: int, workdir: str) -> dict:
                                                  dpt_chunk=4)["depth"])
     out["rank"] = np.int64(dist.get_rank())
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism of the DiTs' residual streams
+# ---------------------------------------------------------------------------
+
+# lengths that neither tp 2 nor tp 4 divides: CogVideoX 3 x 5 x 7 = 105
+# video and 8 text tokens, Wan 3 x 3 x 5 = 45 tokens
+COG_SP = dataclasses.replace(COG_TINY, sample_height=10, sample_width=14)
+WAN_SP_LATENT = (WAN_TP.in_channels, 3, 6, 10)
+SP_TRAIN_KW = dict(TRAIN_KW, accumulate_grad_batches=2)
+
+
+def grads_step(model, cfg, lora_np, batch, draws, mesh=None, wan=False):
+    """One train-step call with accumulate 2 (no update yet): (metrics, the
+    LoRA gradients the optimiser holds), numpy."""
+    from videogpa_torch.parallel import set_mesh
+    from videogpa_torch.parallel.sharding import batch_specs, shard_tree
+    from videogpa_torch.train.trainer import (
+        TrainerConfig, init_train_state, make_dpo_train_step)
+    from videogpa_torch.train.wan_trainer import make_wan_dpo_train_step
+
+    tcfg = TrainerConfig(compute_dtype=torch.float32, **SP_TRAIN_KW)
+    lora = {n: {k: _t(v).requires_grad_(True) for k, v in ab.items()}
+            for n, ab in lora_np.items()}
+    state = init_train_state(lora, tcfg)
+    step, _ = (make_wan_dpo_train_step if wan else make_dpo_train_step)(model, cfg, tcfg)
+    batch = {k: _t(v) for k, v in batch.items()}
+    local = batch if mesh is None else shard_tree(batch, batch_specs(batch), mesh)
+    with set_mesh(mesh):
+        state, metrics = step(state, local, timesteps=_t(draws["timesteps"]),
+                              noise=_t(draws["noise"]))
+    names = [f"{n}.{k}" for n in lora for k in ("lora_A", "lora_B")]  # lora_leaves' order
+    return ({k: np.float64(v) for k, v in metrics.items()},
+            {n: _np(g) for n, g in zip(names, state.opt_state["acc_grads"])})
+
+
+def _block_bytes(make, cfg, dim, forward, mesh, specs):
+    """What one checkpointed block keeps for the backward on this rank: the
+    bytes a remat forward saves through two blocks, less through one
+    (``train.memory.saved_bytes``)."""
+    from videogpa_torch.parallel import set_mesh
+    from videogpa_torch.parallel.sharding import shard_tree
+    from videogpa_torch.train.lora import lora_init
+    from videogpa_torch.train.memory import saved_bytes
+
+    saved = []
+    for depth in (2, 1):
+        torch.manual_seed(0)
+        model = make(dataclasses.replace(cfg, num_layers=depth)).requires_grad_(False)
+        if mesh is not None:
+            model = shard_tree(model, specs(model), mesh)
+        lora = lora_init(2, dim, 4, torch.Generator().manual_seed(1), device="cpu")
+        with set_mesh(mesh):
+            saved.append(saved_bytes(lambda: forward(model, lora),
+                                     list(model.parameters()))[0])
+    return np.int64(saved[0] - saved[1])
+
+
+def seq_shard_cases(rank: int, workdir: str) -> dict:
+    """Every multi-rank case of ``test_torch_seq_shard.py`` on this rank."""
+    from videogpa_torch.convert import load_jax_params
+    from videogpa_torch.models.cogvideox import CogVideoXTransformer, dit_forward
+    from videogpa_torch.models.wan import WanTransformer, wan_forward
+    from videogpa_torch.parallel import MeshAxes, make_mesh, set_mesh
+    from videogpa_torch.parallel.sharding import dit_param_specs, shard_tree, wan_param_specs
+    from videogpa_torch.train.lora import lora_leaves
+
+    inp = _inputs(workdir, "seq_shard")
+    meshes = {"dp2_tp2": make_mesh(MeshAxes(data=2, model=2), device_type="cpu"),
+              "tp4": make_mesh(MeshAxes(model=4), device_type="cpu")}
+    out: dict = {}
+    def cog_shard(mesh):
+        model = _cog(COG_SP, inp["cog"]["params"])
+        return shard_tree(model, dit_param_specs(model), mesh)
+
+    for tag, mesh in meshes.items():
+        c = inp["cog"]
+        model = cog_shard(mesh)
+        out[f"cog_{tag}"] = grads_step(model, COG_SP, c["lora"], c["batch"], c["draws"], mesh)
+        c = inp["wan"]
+        wan = load_jax_params(WanTransformer(WAN_TP), c["params"]).requires_grad_(False)
+        wan = shard_tree(wan, wan_param_specs(wan), mesh)
+        out[f"wan_{tag}"] = grads_step(wan, WAN_TP, c["lora"], c["batch"], c["draws"], mesh,
+                                       wan=True)
+
+    # the bytes a remat block keeps on this rank, at tp 1 (no mesh), 2 and 4
+    x = _t(inp["cog"]["batch"]["x_win"][:1]).transpose(1, 2)
+    txt = _t(inp["cog"]["batch"]["prompt_emb"][:1])
+    w = inp["wan"]["batch"]
+
+    def cog_fwd(model, lora):
+        return dit_forward(model, x, txt, torch.tensor([500]), compute_dtype=torch.float32,
+                           lora=lora, remat=True)
+
+    def wan_fwd(model, lora):
+        return wan_forward(model, _t(w["x_win"][:1]), torch.tensor([500.0]),
+                           _t(w["prompt_emb"][:1]), remat=True, compute_dtype=torch.float32,
+                           lora=lora)
+
+    for tag, mesh in (("tp1", None), *meshes.items()):
+        out[f"cog_block_bytes_{tag}"] = _block_bytes(CogVideoXTransformer, COG_SP,
+                                                     COG_SP.hidden_dim, cog_fwd, mesh,
+                                                     dit_param_specs)
+        out[f"wan_block_bytes_{tag}"] = _block_bytes(WanTransformer, WAN_TP, WAN_TP.dim, wan_fwd,
+                                                     mesh, wan_param_specs)
+
+    # the remat recompute runs in the backward: called after the mesh's
+    # context has ended, it must still run under the mesh of the forward
+    c = inp["cog"]
+    lora = {n: {k: _t(v).requires_grad_(True) for k, v in ab.items()}
+            for n, ab in c["lora"].items()}
+    model = cog_shard(meshes["tp4"])
+    grads = {}
+    for where in ("inside", "after"):
+        with set_mesh(meshes["tp4"]):
+            y = cog_fwd(model, lora)
+            if where == "inside":
+                (y * y).sum().backward()
+        if where == "after":
+            (y * y).sum().backward()
+        grads[where] = [_np(t.grad) for t in lora_leaves(lora)]
+        for t in lora_leaves(lora):
+            t.grad = None
+    out["backward_after_the_mesh_context"] = np.float64(max(
+        np.abs(a - b).max() for a, b in zip(grads["inside"], grads["after"])))
+    return out

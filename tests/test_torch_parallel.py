@@ -135,12 +135,15 @@ def test_lora_and_batch_specs():
 def test_local_slice_splits_fused_qkv_per_third():
     """A rank's block of a fused q | k | v weight holds the same rows of each
     third: whole heads of q, k and v."""
-    class _Mesh:  # the two queries local_slice makes of a mesh
+    class _Mesh:  # the queries local_slice makes of a mesh
         mesh_dim_names = ("data", "seq", "model")
         mesh = torch.zeros(1, 1, 2)
 
         def __init__(self, r):
             self.r = r
+
+        def size(self, dim):
+            return self.mesh.shape[dim]
 
         def get_coordinate(self):
             return (0, 0, self.r)

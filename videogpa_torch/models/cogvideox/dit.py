@@ -14,6 +14,10 @@ which launches the hand-written flash kernel on CUDA tensors;
 axis. A DiT that ``parallel.sharding.shard_tree`` split by
 ``dit_param_specs`` runs tensor-parallel over the mesh's ``model`` axis
 (``parallel.tp``): each rank attends with the heads of its q/k/v rows.
+Under a ``model`` axis above 1 the two residual streams (text and video)
+are sequence-sharded between the blocks (``parallel.sharding.seq_shard``,
+where JAX constrains its scan carries): each rank keeps its block of each,
+and only the q/k/v projections and the FFN's first see the whole sequence.
 """
 
 from __future__ import annotations
@@ -31,7 +35,10 @@ from videogpa_torch.models.cogvideox.config import CogVideoXConfig
 from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.attention import attention
 from videogpa_torch.ops.rope import apply_rope_interleaved, rope_3d_freqs
-from videogpa_torch.parallel.tp import copy_to, heads_split, lora_block, model_group, row_linear
+from videogpa_torch.parallel.mesh import get_mesh, in_mesh
+from videogpa_torch.parallel.sharding import seq_shard
+from videogpa_torch.parallel.tp import (
+    SeqShard, copy_to, heads_split, lora_block, model_group, row_linear, seq_group)
 from videogpa_torch.train.lora import layer_lora, lora_delta
 
 
@@ -171,6 +178,28 @@ def _adaln_zero(p: nn.Module, temb: torch.Tensor, hidden: torch.Tensor,
     return h, e, gate[:, None], e_gate[:, None]
 
 
+def _joint_in(encoder: torch.Tensor, hidden: torch.Tensor, tp, seq) -> torch.Tensor:
+    """[text ‖ video], the input of column-parallel layers: Megatron's f,
+    or under sequence sharding each stream gathered from its blocks."""
+    if seq is None:
+        return copy_to(torch.cat([encoder, hidden], dim=1), tp)
+    return torch.cat([seq[0].gather(encoder, tp), seq[1].gather(hidden, tp)], dim=1)
+
+
+def _joint_reduce(tp, seq):
+    """The sum of a row-parallel layer's partial outputs over [text ‖
+    video]: ``row_linear``'s own all-reduce (None), or under sequence
+    sharding [this rank's text rows ‖ its video rows]."""
+    if seq is None:
+        return None
+    n_txt = seq[0].n
+
+    def reduce(y):
+        return torch.cat([seq[0].scatter(y[:, :n_txt], tp), seq[1].scatter(y[:, n_txt:], tp)],
+                         dim=1)
+    return reduce
+
+
 def _joint_attention(
     p: nn.Module,
     hidden: torch.Tensor,
@@ -181,13 +210,18 @@ def _joint_attention(
     lora_scaling: float = 1.0,
     attn_layout: str = "bhnd",
     attn_impl: str = "auto",
+    seq: Optional[Tuple[SeqShard, SeqShard]] = None,
 ):
-    B, N_img, C = hidden.shape
-    N_txt = encoder.shape[1]
+    """``seq``: the (text, video) ``SeqShard`` of sequence-sharded streams,
+    whose blocks ``encoder`` and ``hidden`` then are; the outputs are this
+    rank's blocks too."""
+    C = hidden.shape[-1]
     D = cfg.head_dim
     # tensor parallel where shard_tree split to_q's rows: this rank's heads
     tp = model_group(p.to_q, C, "attn1.to_q")
-    x = copy_to(torch.cat([encoder, hidden], dim=1), tp)
+    x = _joint_in(encoder, hidden, tp, seq)
+    B = x.shape[0]
+    N_txt = encoder.shape[1] if seq is None else seq[0].n  # the whole text stream
     lora = lora_block(lora, tp)
 
     def proj(name):
@@ -230,29 +264,30 @@ def _joint_attention(
     o = attention(q, k, v, impl=attn_impl, layout=attn_layout)
     if attn_layout != "bnhd":
         o = o.transpose(1, 2)
-    o = o.reshape(B, N_txt + N_img, H * D)
+    o = o.reshape(B, x.shape[1], H * D)
     if gathered:
         o = tp.block(o)
     delta = (lora_delta(lora, "to_out", o, lora_scaling)
              if lora is not None and "to_out" in lora else None)
-    out = row_linear(p.to_out, o, tp, delta)
-    return out[:, N_txt:], out[:, :N_txt]
+    out = row_linear(p.to_out, o, tp, delta, _joint_reduce(tp, seq))
+    n_txt = encoder.shape[1]
+    return out[:, n_txt:], out[:, :n_txt]
 
 
 def _block_apply(p, hidden, encoder, temb, cfg, rope,
-                 lora=None, lora_scaling=1.0, attn_layout="bhnd", attn_impl="auto"):
+                 lora=None, lora_scaling=1.0, attn_layout="bhnd", attn_impl="auto", seq=None):
     h_n, e_n, gate, e_gate = _adaln_zero(p.norm1, temb, hidden, encoder)
     attn_h, attn_e = _joint_attention(
-        p.attn1, h_n, e_n, cfg, rope, lora, lora_scaling, attn_layout, attn_impl,
+        p.attn1, h_n, e_n, cfg, rope, lora, lora_scaling, attn_layout, attn_impl, seq,
     )
     hidden = hidden + gate * attn_h
     encoder = encoder + e_gate * attn_e
 
     h_n, e_n, gate, e_gate = _adaln_zero(p.norm2, temb, hidden, encoder)
     tp = model_group(p.ff.fc1, 4 * hidden.shape[-1], "ff.fc1")
-    x = copy_to(torch.cat([e_n, h_n], dim=1), tp)
-    ff = row_linear(p.ff.fc2, L.gelu_tanh(p.ff.fc1(x)), tp)
+    x = _joint_in(e_n, h_n, tp, seq)
     n_txt = encoder.shape[1]
+    ff = row_linear(p.ff.fc2, L.gelu_tanh(p.ff.fc1(x)), tp, reduce=_joint_reduce(tp, seq))
     hidden = hidden + gate * ff[:, n_txt:]
     encoder = encoder + e_gate * ff[:, :n_txt]
     return hidden, encoder
@@ -330,14 +365,23 @@ def dit_forward(
         rope = rope_3d_freqs((grid_t, grid_h, grid_w), cfg.head_dim, cfg.rope_theta,
                              device=x.device)
 
-    # 3. transformer blocks
+    # 3. transformer blocks; under a model axis above 1 the streams are
+    # sequence-sharded between them, so remat keeps 1/tp of each
+    sp = seq_group()
+    seq = None if sp is None else (SeqShard(sp, encoder.shape[1]), SeqShard(sp, x.shape[1]))
+    x, encoder = seq_shard(x), seq_shard(encoder)
     for i, blk in enumerate(model.blocks):
         args = (blk, x, encoder, temb, cfg, rope, layer_lora(lora, i), lora_scaling,
-                attn_layout, attn_impl)
+                attn_layout, attn_impl, seq)
         if remat:
-            x, encoder = checkpoint(_block_apply, *args, use_reentrant=False)
+            # the recompute runs under this mesh (``in_mesh``); no block draws
+            # random numbers, so there is no RNG state to keep for it
+            x, encoder = checkpoint(in_mesh, get_mesh(), _block_apply, *args,
+                                    use_reentrant=False, preserve_rng_state=False)
         else:
             x, encoder = _block_apply(*args)
+    if seq is not None:
+        encoder, x = seq[0].gather(encoder, None), seq[1].gather(x, None)
 
     # 4. output head
     n_txt = encoder.shape[1]

@@ -14,7 +14,11 @@ maps one onto the other. Both attentions go through
 LoRA requires grad, K7 backward; ``attn_impl="ring"`` splits the sequence
 over the ambient mesh's ``seq`` axis (K6/K7 for each pair of shards). A
 model that ``parallel.sharding.shard_tree`` split by ``wan_param_specs``
-runs tensor-parallel over the mesh's ``model`` axis (``parallel.tp``).
+runs tensor-parallel over the mesh's ``model`` axis (``parallel.tp``);
+under a ``model`` axis above 1 the residual stream is sequence-sharded
+between the blocks (``parallel.sharding.seq_shard``, where JAX constrains
+its scan carry), and only the q/k/v projections and the FFN's first see
+the whole sequence.
 """
 
 from __future__ import annotations
@@ -31,8 +35,11 @@ from videogpa_torch.models.wan.config import WanConfig
 from videogpa_torch.ops import layers as L
 from videogpa_torch.ops.attention import attention
 from videogpa_torch.ops.rope import apply_rope_interleaved, rope_3d_freqs
+from videogpa_torch.parallel.mesh import get_mesh, in_mesh
+from videogpa_torch.parallel.sharding import seq_shard
 from videogpa_torch.parallel.tp import (
-    TensorParallel, copy_to, heads_split, lora_block, model_group, row_linear)
+    SeqShard, TensorParallel, copy_to, heads_split, lora_block, model_group, row_linear,
+    seq_group)
 from videogpa_torch.parallel.tp import rmsnorm as tp_rmsnorm
 from videogpa_torch.train.lora import layer_lora, lora_delta
 
@@ -151,20 +158,35 @@ def _qkv(p: nn.Module, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: W
     return q, k, v, q.shape[-1] // cfg.head_dim, gathered
 
 
+def _seq_in(x: torch.Tensor, tp: Optional[TensorParallel], seq: Optional[SeqShard]):
+    """The input of column-parallel layers: Megatron's f, or under sequence
+    sharding the whole sequence gathered from the blocks."""
+    return copy_to(x, tp) if seq is None else seq.gather(x, tp)
+
+
+def _seq_reduce(tp: Optional[TensorParallel], seq: Optional[SeqShard]):
+    """``row_linear``'s reduce: its own all-reduce (None), or under sequence
+    sharding this rank's rows of the sum."""
+    return None if seq is None else (lambda y: seq.scatter(y, tp))
+
+
 def _attn_out(p: nn.Module, o: torch.Tensor, tp: Optional[TensorParallel], gathered: bool,
-              delta_fn=None) -> torch.Tensor:
+              delta_fn=None, seq: Optional[SeqShard] = None) -> torch.Tensor:
     """The row-parallel output projection of merged heads ``o``."""
     if gathered:
         o = tp.block(o)
-    return row_linear(p.o, o, tp, None if delta_fn is None else delta_fn(o))
+    return row_linear(p.o, o, tp, None if delta_fn is None else delta_fn(o),
+                      _seq_reduce(tp, seq))
 
 
 def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
                     rope: Tuple[torch.Tensor, torch.Tensor],
                     lora: Optional[dict] = None, lora_scaling: float = 1.0,
-                    attn_impl: str = "auto") -> torch.Tensor:
+                    attn_impl: str = "auto", seq: Optional[SeqShard] = None) -> torch.Tensor:
+    """``seq``: the ``SeqShard`` of a sequence-sharded stream, whose block
+    ``x`` then is; so is the output."""
     tp = model_group(p.q, x.shape[-1], "self_attn.q")
-    x = copy_to(x, tp)
+    x = _seq_in(x, tp, seq)
     lora = lora_block(lora, tp)
 
     def proj(name):
@@ -183,33 +205,38 @@ def _self_attention(p: nn.Module, x: torch.Tensor, cfg: WanConfig,
     if lora is not None and "to_out" in lora:
         def delta_fn(o):
             return lora_delta(lora, "to_out", o, lora_scaling)
-    return _attn_out(p, o, tp, gathered, delta_fn)
+    return _attn_out(p, o, tp, gathered, delta_fn, seq)
 
 
 def _cross_attention(p: nn.Module, x: torch.Tensor, context: torch.Tensor,
-                     cfg: WanConfig, attn_impl: str = "auto") -> torch.Tensor:
+                     cfg: WanConfig, attn_impl: str = "auto",
+                     seq: Optional[SeqShard] = None) -> torch.Tensor:
     tp = model_group(p.q, x.shape[-1], "cross_attn.q")
-    x, context = copy_to(x, tp), copy_to(context, tp)
+    x, context = _seq_in(x, tp, seq), copy_to(context, tp)
     q, k, v, H, gathered = _qkv(p, p.q(x), p.k(context), p.v(context), cfg, tp)
     o = _merge_heads(attention(_heads(q, H), _heads(k, H), _heads(v, H), impl=attn_impl))
-    return _attn_out(p, o, tp, gathered)
+    return _attn_out(p, o, tp, gathered, seq=seq)
 
 
 def _block_apply(p: nn.Module, x: torch.Tensor, e0: torch.Tensor, context: torch.Tensor,
                  cfg: WanConfig, rope, lora: Optional[dict] = None,
-                 lora_scaling: float = 1.0, attn_impl: str = "auto") -> torch.Tensor:
-    """x: (B, L, d); e0: (B, L_or_1, 6, d) per-token modulation, f32."""
+                 lora_scaling: float = 1.0, attn_impl: str = "auto",
+                 seq: Optional[SeqShard] = None) -> torch.Tensor:
+    """x: (B, L, d), or this rank's block of its sequence under ``seq``;
+    e0: (B, L_or_1, 6, d) per-token modulation, f32 (its block likewise)."""
     e = (p.modulation.float()[:, None] + e0.float()).unbind(2)  # 6 x (B, L_or_1, d)
 
     h = _ln(x, cfg.eps).float() * (1 + e[1]) + e[0]
-    y = _self_attention(p.self_attn, h.to(x.dtype), cfg, rope, lora, lora_scaling, attn_impl)
+    y = _self_attention(p.self_attn, h.to(x.dtype), cfg, rope, lora, lora_scaling, attn_impl,
+                        seq)
     x = x + (y.float() * e[2]).to(x.dtype)
 
-    x = x + _cross_attention(p.cross_attn, p.norm3(x), context, cfg, attn_impl)
+    x = x + _cross_attention(p.cross_attn, p.norm3(x), context, cfg, attn_impl, seq)
 
     h = _ln(x, cfg.eps).float() * (1 + e[4]) + e[3]
     tp = model_group(p.ffn.fc1, cfg.ffn_dim, "ffn.fc1")
-    y = row_linear(p.ffn.fc2, L.gelu_tanh(p.ffn.fc1(copy_to(h.to(x.dtype), tp))), tp)
+    y = row_linear(p.ffn.fc2, L.gelu_tanh(p.ffn.fc1(_seq_in(h.to(x.dtype), tp, seq))), tp,
+                   reduce=_seq_reduce(tp, seq))
     return x + (y.float() * e[5]).to(x.dtype)
 
 
@@ -265,12 +292,23 @@ def wan_forward(
     rope = rope_3d_freqs(grid, cfg.head_dim, cfg.rope_theta, cfg.rope_axis_dims,
                          device=h.device)
 
+    # under a model axis above 1 the stream (and a per-token e0) is
+    # sequence-sharded between the blocks, so remat keeps 1/tp of it
+    sp = seq_group()
+    seq = None if sp is None else SeqShard(sp, h.shape[1])
+    e_blk = e0 if seq is None or n_t == 1 else seq_shard(e0)
+    h = seq_shard(h)
     for i, blk in enumerate(model.blocks):
-        args = (blk, h, e0, ctx, cfg, rope, layer_lora(lora, i), lora_scaling, attn_impl)
+        args = (blk, h, e_blk, ctx, cfg, rope, layer_lora(lora, i), lora_scaling, attn_impl, seq)
         if remat:
-            h = checkpoint(_block_apply, *args, use_reentrant=False)
+            # the recompute runs under this mesh (``in_mesh``); no block draws
+            # random numbers, so there is no RNG state to keep for it
+            h = checkpoint(in_mesh, get_mesh(), _block_apply, *args, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
             h = _block_apply(*args)
+    if seq is not None:
+        h = seq.gather(h, None)
 
     # head: modulated non-affine LN + linear
     he = model.head.modulation.float()[:, None] + temb[:, :, None].float()  # (B, L_or_1, 2, d)

@@ -56,6 +56,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from videogpa_torch.ops import _kernels
 
@@ -129,8 +130,10 @@ def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int, int, int, i
 def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
     """The rule of TMA and of 16-byte copies: a base address and (b, n, h)
     strides that are multiples of 16 bytes. Raises ``ValueError`` otherwise;
-    the kernels never copy an operand to meet it."""
-    if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+    the kernels never copy an operand to meet it. A traced operand
+    (``traced``) has no address: only its strides are checked."""
+    misaligned = not traced(x) and x.data_ptr() % 16
+    if misaligned or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
         raise ValueError(
             f"{fn}: {name} must be 16-byte aligned with (b, n, h) strides that are "
             f"multiples of 16 bytes, got strides {tuple(x.stride())} of {x.element_size()}-byte "
@@ -186,8 +189,22 @@ def _call(fn_name: str, entry: str, device: torch.device, *args) -> None:
 
 
 def _on_card(x: torch.Tensor) -> bool:
-    """Whether a wrapper launches its kernel for ``x``: a CUDA tensor."""
-    return x.is_cuda
+    """Whether a wrapper takes the card's route for ``x``: a CUDA tensor,
+    or a traced one on ``meta`` (``traced``)."""
+    return x.is_cuda or (x.is_meta and traced(x))
+
+
+def traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a FakeTensor (a tensor of ``FakeTensorMode``: a
+    shape, a dtype and a device, no storage). The wrappers of K1, K3, K4, K6
+    and K7 and of the f32 and wide entries take a traced operand on the
+    card's route with the same checks, but of addresses, and the same
+    allocations of outputs and scratch, and launch and count nothing:
+    ``train.memory`` reckons a step's peak so. A traced tensor sits on "cuda"
+    where PyTorch is built with CUDA; a CPU-only build has no CUDA device for
+    autograd to record, so there it sits on "meta" in the card's stead. A
+    real CUDA tensor launches its kernel or raises."""
+    return isinstance(x, FakeTensor)
 
 
 def _ptr(x: Optional[torch.Tensor]):
@@ -246,8 +263,9 @@ def _launch_fwd(fn_name: str, entry: str, q, k, v, layout, with_lse, dtype, head
                                 build)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = q.new_empty(lse_shape, dtype=torch.float32) if with_lse else None
-    _call(fn_name, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-          _ptr(lse), *args)
+    if not traced(q):
+        _call(fn_name, entry, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+              _ptr(lse), *args)
     return o, lse
 
 
@@ -279,7 +297,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn_fwd: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd", "flash_attn_fwd", q, k, v, layout, with_lse,
                       torch.bfloat16, KERNEL_HEAD_DIMS, softmax_scale)
-    flash_attn_fwd.launches += 1
+    if not traced(q):
+        flash_attn_fwd.launches += 1
     return out
 
 
@@ -356,7 +375,8 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.T
         raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
     grads = _launch_bwd("flash_attn_bwd", KERNEL_HEAD_DIMS, BWD_QUERIES,
                         q, k, v, o, lse, do, layout, softmax_scale)
-    flash_attn_bwd.launches += 1
+    if not traced(q):
+        flash_attn_bwd.launches += 1
     return grads
 
 
@@ -415,7 +435,8 @@ def flash_attn_short(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not _on_card(q):
         raise ValueError(f"flash_attn_short: unsupported device {q.device}")
     o = _launch_short(q, k, v, n_valid, softmax_scale)
-    flash_attn_short.launches += 1
+    if not traced(q):
+        flash_attn_short.launches += 1
     return o
 
 
@@ -425,6 +446,8 @@ def _launch_short(q, k, v, n_valid: int, softmax_scale=None) -> torch.Tensor:
     if not short_eligible(Nk, H, D, q.element_size()):
         raise ValueError(f"flash_attn_short: key row of {Nk} x {H} heads x {D} is not short")
     o = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if traced(q):
+        return o
     strides = []
     for x in (q, k, v, o):
         strides += _dims(x, "bnhd")[4:]
@@ -456,7 +479,8 @@ def flash_attn_fwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn_fwd_d128: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_d128", "flash_attn_fwd_d128_bf16", q, k, v, layout,
                       with_lse, torch.bfloat16, (128,), softmax_scale)
-    flash_attn_fwd_d128.launches += 1
+    if not traced(q):
+        flash_attn_fwd_d128.launches += 1
     return out
 
 
@@ -487,7 +511,8 @@ def flash_attn_bwd_d128(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError(f"flash_attn_bwd_d128: unsupported device {q.device}")
     grads = _launch_bwd("flash_attn_bwd_d128", (128,), BWD_D128_QUERIES,
                         q, k, v, o, lse, do, layout, softmax_scale)
-    flash_attn_bwd_d128.launches += 1
+    if not traced(q):
+        flash_attn_bwd_d128.launches += 1
     return grads
 
 
@@ -552,6 +577,8 @@ def _launch_bwd(fn_name: str, head_dims, q_tile: int, q, k, v, o, lse, do, layou
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if traced(q):
+        return dq, dk, dv
     strides = []
     for x in (q, k, v, o, do, dq, dk, dv):
         strides += _dims(x, layout)[4:]
@@ -589,7 +616,8 @@ def flash_attn_fwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn_fwd_f32: unsupported device {q.device}")
     out = _launch_fwd("flash_attn_fwd_f32", "flash_attn_fwd_f32", q, k, v, layout, with_lse,
                       torch.float32, F32_HEAD_DIMS, softmax_scale)
-    flash_attn_fwd_f32.launches += 1
+    if not traced(q):
+        flash_attn_fwd_f32.launches += 1
     return out
 
 
@@ -629,7 +657,8 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         raise ValueError(f"flash_attn_bwd_f32: unsupported device {q.device}")
     grads = _launch_bwd_f32("flash_attn_bwd_f32", "flash_attn_bwd_f32", F32_HEAD_DIMS,
                             torch.float32, q, k, v, o, lse, do, layout, softmax_scale)
-    flash_attn_bwd_f32.launches += 1
+    if not traced(q):
+        flash_attn_bwd_f32.launches += 1
     return grads
 
 
@@ -675,7 +704,8 @@ def flash_attn_bwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     entry = "flash_attn_bwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_bwd_wide_f32"
     grads = _launch_bwd_f32("flash_attn_bwd_wide", entry, WIDE_HEAD_DIMS, q.dtype,
                             q, k, v, o, lse, do, layout, softmax_scale)
-    flash_attn_bwd_wide.launches += 1
+    if not traced(q):
+        flash_attn_bwd_wide.launches += 1
     return grads
 
 
@@ -719,8 +749,10 @@ def _launch_bwd_f32(fn_name: str, entry: str, head_dims, dtype, q, k, v, o, lse,
                                                ("q", "k", "v", "o", "do"),
                                                (q, k, v, o, do, lse), build)
     scratch = lse.new_empty(n_delta + n_acc + n_turn)  # f32, on q's device
-    base = scratch.data_ptr()
     dq, dk, dv = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+    if traced(q):
+        return dq, dk, dv
+    base = scratch.data_ptr()
     _call(fn_name, entry, q.device,
           *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv)), base,
           base + 4 * n_delta if n_acc else None, base + 4 * (n_delta + n_acc), *args)
@@ -755,7 +787,8 @@ def flash_attn_fwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     entry = "flash_attn_fwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_fwd_wide_f32"
     out = _launch_fwd("flash_attn_fwd_wide", entry, q, k, v, layout, with_lse, q.dtype,
                       WIDE_HEAD_DIMS, softmax_scale)
-    flash_attn_fwd_wide.launches += 1
+    if not traced(q):
+        flash_attn_fwd_wide.launches += 1
     return out
 
 

@@ -77,7 +77,7 @@ def make_mesh(axes: Optional[MeshAxes] = None, device_type: str = "cuda",
 def axis_size(mesh, axis: str) -> int:
     """The size of ``axis`` in ``mesh`` (1 for an axis the mesh does not have)."""
     names = mesh.mesh_dim_names or ()
-    return mesh.mesh.shape[names.index(axis)] if axis in names else 1
+    return mesh.size(names.index(axis)) if axis in names else 1
 
 
 def axis_rank(mesh, axis: str) -> int:
@@ -189,3 +189,12 @@ def set_mesh(mesh):
 def get_mesh():
     """The ambient mesh, or None."""
     return _MESH.get()
+
+
+def in_mesh(mesh, fn, *args):
+    """``fn(*args)`` with ``mesh`` the ambient mesh. A remat block takes its
+    caller's mesh along so: its recompute runs in the backward, which the
+    autograd engine runs on a thread of its own for CUDA tensors, where the
+    caller's ``set_mesh`` is not in force."""
+    with set_mesh(mesh):
+        return fn(*args)

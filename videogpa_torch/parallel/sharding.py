@@ -25,6 +25,7 @@ import torch.nn as nn
 
 from videogpa_torch.parallel.mesh import (
     DATA_AXIS, MODEL_AXIS, P, axis_rank, axis_size, local_slice)
+from videogpa_torch.parallel.tp import SeqShard, seq_group
 
 # nodes whose JAX leaves stack every layer on a leading axis: JAX's rules
 # shard only stacked (3-D) kernels, so a list node of blocks stays replicated
@@ -101,11 +102,17 @@ def vit_param_specs(model: nn.Module) -> Dict[str, P]:
 def seq_shard(x: torch.Tensor) -> torch.Tensor:
     """Megatron-style sequence sharding of a DiT residual (``sharding.py:99``).
 
-    In JAX it is a no-op without a ``model`` axis and otherwise a layout
-    constraint that leaves the values as they are. The port has the same
-    contract and values: it returns ``x``; the residuals stay whole on each
-    rank (keeping them 1/tp is open work)."""
-    return x
+    Under an ambient mesh whose ``model`` axis is above 1: this rank's
+    block of ``x``'s sequence (dim 1), padded with zero rows where tp does
+    not divide its length (``parallel.tp.SeqShard``), so the carries that
+    remat keeps for the backward are 1/tp on each rank (1/(dp·tp) of the
+    global batch, as JAX's (data, model) constraint lays them out); the
+    backward all-gathers. Otherwise ``x`` itself, as JAX's is a no-op
+    without a ``model`` axis. The DiTs run each block on the blocks and
+    gather the sequence into the column-parallel layers, so their numbers
+    are the replicated ones."""
+    tp = seq_group()
+    return x if tp is None else SeqShard(tp, x.shape[1]).scatter(x, None)
 
 
 def _tree_map(fn, tree):

@@ -16,6 +16,17 @@ forward; backward sum over the group and keep the local block), attends on
 every head, and keeps its own columns of the output for the row-parallel
 projection: the same numbers as the replicated layer, at the cost of the
 gather.
+
+Sequence parallelism (Megatron's, the layout JAX's ``seq_shard``
+constraint gives the DiTs' scan carries): under a ``model`` axis above 1 a
+DiT keeps its residual stream as each rank's block of the sequence
+(``SeqShard``; ``parallel.sharding.seq_shard``), so the inputs that remat
+keeps for the backward are 1/tp on each rank. The norms, modulations,
+gates and residual adds run on the block; the input of a column-parallel
+layer is all-gathered along the sequence (``SeqShard.gather``: its
+backward reduce-scatters) in place of f, and the row-parallel output is
+reduce-scattered along the sequence (``SeqShard.scatter``: its backward
+all-gathers) in place of g's all-reduce.
 """
 
 from __future__ import annotations
@@ -134,6 +145,111 @@ class _GatherFrom(torch.autograd.Function):
         return ctx.tp.block(_all_reduce(g, ctx.tp.group)).contiguous(), None
 
 
+def _seq_major(x: torch.Tensor) -> torch.Tensor:
+    """(B, N, ...) -> a contiguous (N, B, ...): the collectives' first dim."""
+    return x.movedim(1, 0).contiguous()
+
+
+def _gather_rows(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Every rank's (B, rows, ...) block in rank order: (B, size * rows, ...)."""
+    import torch.distributed as dist
+
+    src = _seq_major(x)
+    out = src.new_empty((tp.size * src.shape[0],) + src.shape[1:])
+    dist.all_gather_into_tensor(out, src, group=tp.group)
+    return out.movedim(0, 1)
+
+
+def _scatter_rows(y: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum over the group of the (B, size * rows, ...) ``y``, this rank's rows."""
+    import torch.distributed as dist
+
+    src = _seq_major(y)
+    out = src.new_empty((src.shape[0] // tp.size,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=tp.group)
+    return out.movedim(0, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """A sequence of ``n`` rows (dim 1) held in blocks over the ``model``
+    axis ``tp``: rank r holds rows [r * rows, (r + 1) * rows) of the
+    sequence padded with zero rows to ``tp.size * rows``. No pad row
+    reaches a real one: ``gather`` drops them before the layer, and they
+    go into no attention and no sum over the sequence."""
+
+    tp: TensorParallel
+    n: int
+
+    @property
+    def rows(self) -> int:
+        return -(-self.n // self.tp.size)
+
+    def pad(self, x: torch.Tensor) -> torch.Tensor:
+        extra = self.tp.size * self.rows - self.n
+        if extra == 0:
+            return x
+        return torch.cat([x, x.new_zeros((x.shape[0], extra) + x.shape[2:])], dim=1)
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a whole (B, n, ...) ``x``, padded: a tensor
+        of its own, so that keeping it does not keep the whole sequence."""
+        return self.pad(x).narrow(1, self.tp.rank * self.rows, self.rows).clone(
+            memory_format=torch.contiguous_format)
+
+    def gather(self, x: torch.Tensor, layer: Optional[TensorParallel]) -> torch.Tensor:
+        """The whole sequence of each rank's block ``x``, the input of a
+        layer: a column-parallel one (``layer`` given), whose backward sums
+        every rank's share of the gradient and keeps this rank's rows
+        (reduce-scatter), or a replicated one (None), whose gradient is
+        whole on each rank and of which the backward keeps the block."""
+        return _SeqGather.apply(x, self, layer is not None)
+
+    def scatter(self, y: torch.Tensor, layer: Optional[TensorParallel]) -> torch.Tensor:
+        """This rank's block of a whole-sequence output ``y``: the sum over
+        the group of a row-parallel layer's partial outputs (``layer``
+        given; reduce-scatter), or the block of a replicated one (None)."""
+        return _SeqScatter.apply(y, self, layer is not None)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ss: SeqShard, reduce_grad: bool):
+        ctx.ss, ctx.reduce_grad = ss, reduce_grad
+        return _gather_rows(x, ss.tp).narrow(1, 0, ss.n)
+
+    @staticmethod
+    def backward(ctx, g):
+        ss = ctx.ss
+        if ctx.reduce_grad:
+            return _scatter_rows(ss.pad(g), ss.tp), None, None
+        return ss.block(g), None, None
+
+
+class _SeqScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, ss: SeqShard, reduce: bool):
+        ctx.ss = ss
+        if reduce:
+            return _scatter_rows(ss.pad(y), ss.tp)
+        return ss.block(y)
+
+    @staticmethod
+    def backward(ctx, g):
+        ss = ctx.ss
+        return _gather_rows(g.contiguous(), ss.tp).narrow(1, 0, ss.n), None, None
+
+
+def seq_group() -> Optional[TensorParallel]:
+    """The ambient mesh's ``model`` axis when it is above 1: the group over
+    which the DiTs shard their residual streams by the sequence; else None."""
+    mesh = get_mesh()
+    if mesh is None or axis_size(mesh, MODEL_AXIS) == 1:
+        return None
+    return TensorParallel(mesh.get_group(MODEL_AXIS), axis_size(mesh, MODEL_AXIS),
+                          axis_rank(mesh, MODEL_AXIS))
+
+
 def copy_to(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
     """Megatron's f: the input of column-parallel layers."""
     return x if tp is None else _CopyTo.apply(x, tp.group)
@@ -166,17 +282,22 @@ def heads_split(y: torch.Tensor, head_dim: int, tp: Optional[TensorParallel]):
 
 
 def row_linear(lin: nn.Module, x: torch.Tensor, tp: Optional[TensorParallel],
-               delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+               delta: Optional[torch.Tensor] = None, reduce=None) -> torch.Tensor:
     """A row-parallel linear: this rank's columns of the weight on its
     columns of ``x``, the partial sums (with ``delta``, a LoRA's partial
-    share) reduced over the group, the replicated bias added once."""
+    share) reduced over the group, the replicated bias added once.
+    ``reduce(y)``, where given, takes the place of that all-reduce (and
+    runs on the whole output of an unsplit ``lin`` too): the
+    sequence-parallel blocks pass ``SeqShard.scatter``, whose output is
+    this rank's rows."""
     if tp is None:
         y = lin(x)
-        return y if delta is None else y + delta
+        y = y if delta is None else y + delta
+        return y if reduce is None else reduce(y)
     y = L.linear(x, lin.weight)
     if delta is not None:
         y = y + delta
-    y = reduce_from(y, tp)
+    y = reduce_from(y, tp) if reduce is None else reduce(y)
     return y if lin.bias is None else y + lin.bias.to(y.dtype)
 
 
