@@ -113,7 +113,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              padded to the next kernel width with the original scale): bf16
              forward on long and short rows and autograd, f32 forward and
              autograd, ``impl="flash_int8"`` at 40 and 80; at 160 (padded to
-             192), 256 and 512 in bf16 and f32: forward, autograd and
+             192), 256, 320 and 512 in bf16 and f32: forward, autograd and
              ``impl="flash_int8"`` (the exact route, bit for bit, no int8
              launch) through ``flash_attn_fwd_wide`` / ``flash_attn_bwd_wide``;
              the int8 route with f32 operands at 40, 64 and 96 through
@@ -121,15 +121,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
              against the plain version; the launch counters show K1, K3, K4,
              K6 (bf16 and f32), K7, K8, K9, the f32 backward and the three new
              entries ran.
-   parity_f32_bwd — the CUDA-core backward against its plain version:
-             ``flash_attn_bwd_f32`` at the camera head, the frame rows, one
-             long row and B*H = 66,000, ``flash_attn_bwd_wide`` at (1, 4,096,
-             16, 256) in f32 and bf16, and edge cases (cross and ragged
-             lengths, head dims 16-512, both layouts, strided views, operands
-             off 16-byte alignment, more key tiles than the grid's CTAs);
-             two runs bit-equal at every shape; ``attention()`` autograd in
-             f32; its ms beside its bound and SDPA's backward in the same
-             dtype.
+   parity_f32_bwd — the bit-stable backwards against their plain
+             versions: ``flash_attn_bwd_f32`` at the camera head, the frame
+             rows, one long row and B*H = 66,000, ``flash_attn_bwd_wide`` at
+             (1, 4,096, 16, 256) in f32 (CUDA cores) and bf16 (two wgmma
+             kernels), and edge cases (cross and ragged lengths, head dims
+             16-512, both layouts, strided views, operands off 16-byte
+             alignment, B*H = 66,000 at D = 192 in bf16, more key tiles than
+             the grid's CTAs); the forward's O too; two runs bit-equal at
+             every shape; ``attention()`` autograd in f32; its ms beside its
+             bound and SDPA's backward in the same dtype, and for the bf16
+             wide entry the bound of its seven products; registers and
+             shared memory of the wide bf16 kernels.
    score_files — random VGGT-1B weights written in the upstream key layout
              as safetensors and read by ``load_vggt`` (same outputs as the
              module written); ``cli.score.main`` on 3 groups x 4 clips of 10
@@ -262,8 +265,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              exact kernel at the same shape (K1, K6 bf16); for K6 f32 its
              device time a call beside its time a call at the camera head,
              and its time at the f32 scorer's frame and global rows;
-             ``flash_attn_fwd_wide`` at (1, 4,096, 16, 256) in f32 and bf16
-             and ``flash_attn_int8_f32`` at the f32 scorer's global rows,
+             ``flash_attn_fwd_wide`` at (1, 4,096, 16, 256) in f32 (CUDA
+             cores) and bf16 (wgmma + TMA) and ``flash_attn_int8_f32`` at
+             the f32 scorer's global rows,
              each against its plain version, beside its bound and SDPA; K4
              at DA3-Large's frame rows (40, 1,370, 16, 64), K1 and K8 at its
              global rows (4, 13,700, 16, 64); K1 at DA3-Giant's global rows
@@ -4293,16 +4297,17 @@ def _bwd_f32_bound(B, Nq, Nk, H, D, dtype):
 
 
 def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
-    """One case of the CUDA-core backward (``flash_attn_bwd_f32`` or
-    ``flash_attn_bwd_wide``): the forward ``fwd`` with LSE, the backward
-    twice (bit-equal), each gradient against the plain version over chunks
+    """One case of a bit-stable backward (``flash_attn_bwd_f32``, or
+    ``flash_attn_bwd_wide``: the CUDA-core kernel in f32, the two wgmma
+    kernels in bf16): the forward ``fwd`` with LSE, the backward twice
+    (bit-equal), O and each gradient against the plain versions over chunks
     of heads (f32 tolerances for f32 operands, bf16 ones for bf16). With
     ``iters``, also times the kernel, and SDPA's backward in the same dtype.
     Returns a dict of the case."""
     import torch
     import torch.nn.functional as F
 
-    from videogpa_torch.ops.attention import flash_attn_bwd_reference
+    from videogpa_torch.ops.attention import flash_attn_bwd_reference, flash_attn_fwd_reference
 
     o, lse = fwd(q, k, v, layout=layout, with_lse=True)
     grads = bwd(q, k, v, o, lse, do, layout=layout)
@@ -4317,10 +4322,20 @@ def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
     D = q.shape[-1]
     check = _f32_grad_check if q.dtype == torch.float32 else _grad_check
     chunk = max(1, 2 ** 29 // (4 * B * Nq * Nk))  # heads a 0.5 GB score matrix holds
-    plain_ms, worst, atols = 0.0, [0.0, 0.0, 0.0], []
+    plain_ms, worst, atols, o_err = 0.0, [0.0, 0.0, 0.0], [], 0.0
     for h in range(0, H, chunk):
         hs = slice(h, h + chunk)
         sl = (slice(None), slice(None), hs) if layout == "bnhd" else (slice(None), hs)
+        ro = flash_attn_fwd_reference(q[sl], k[sl], v[sl], layout)[0]
+        if q.dtype == torch.float32:
+            d = (o[sl] - ro).abs()
+            err, ok = d.max().item(), bool((d <= F32_O_ATOL + F32_O_RTOL * ro.abs()).all())
+        else:
+            err, _, ok = _check_o(o[sl], ro)
+        o_err = max(o_err, err)
+        if not ok:
+            fail(f"{fwd.__name__} disagrees with its plain version at the {label}, heads {h}..")
+        del ro
         want, ms = _timed(lambda: flash_attn_bwd_reference(
             q[sl], k[sl], v[sl], o[sl], lse[:, hs].contiguous(), do[sl], layout=layout))
         plain_ms += ms
@@ -4333,11 +4348,12 @@ def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
                      f"heads {h}.., gradient {'QKV'[i]}")
         del want
     out = {"shape": [B, Nq, Nk, H, D], "layout": layout, "dtype": str(q.dtype).split(".")[-1],
-           "plain_ms": plain_ms, "max_abs_err": max(worst), "bit_equal": bit_equal}
+           "plain_ms": plain_ms, "max_abs_err": max(worst), "o_max_abs_err": o_err,
+           "bit_equal": bit_equal}
     msg = (f"[parity_f32_bwd] {bwd.__name__} {label} {str(q.dtype)[6:]} {layout}, heads in "
-           f"chunks of {min(chunk, H)}: max|dQ| {worst[0]:.3e}, max|dK| {worst[1]:.3e}, "
-           f"max|dV| {worst[2]:.3e} (atol {min(atols):.2e}..{max(atols):.2e}) ok; two runs "
-           f"bit-equal")
+           f"chunks of {min(chunk, H)}: max|dO| {o_err:.3e} (the forward), max|dQ| "
+           f"{worst[0]:.3e}, max|dK| {worst[1]:.3e}, max|dV| {worst[2]:.3e} (atol "
+           f"{min(atols):.2e}..{max(atols):.2e}) ok; two runs bit-equal")
     if iters:
         ms = cuda_ms(lambda: bwd(q, k, v, o, lse, do, layout=layout), iters=iters)
         tr = (lambda x: x.transpose(1, 2)) if layout == "bnhd" else (lambda x: x)
@@ -4352,6 +4368,18 @@ def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
         msg += (f"; kernel {ms:.4f} ms ({out['tflops']:.1f} TFLOP/s counting five products), "
                 f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.1f} ms, SDPA "
                 f"{str(q.dtype)[6:]} backward {lib_ms:.4f} ms")
+        if q.dtype == torch.bfloat16 and D > 128:
+            # the two wgmma kernels recompute S and dP: seven products
+            out["two_kernel_bound_ms"] = _bound(14.0 * B * H * Nq * Nk * D, 0.0,
+                                                PEAK_BF16_FLOPS)[0]
+            out["device_ms"] = {part: _device_ms_per_call(
+                lambda: bwd(q, k, v, o, lse, do, layout=layout), 3, name)
+                for part, name in (("prologue", "bwd_wide_prologue"),
+                                   ("dk_dv", "bwd_wide_kernel<true"),
+                                   ("dq", "bwd_wide_kernel<false"))}
+            msg += (f", the two kernels' seven products' bound "
+                    f"{out['two_kernel_bound_ms']:.4f} ms; device ms by kernel (torch.profiler) "
+                    f"{json.dumps(out['device_ms'])}")
         del qt, kt, vt, ot, dot
     log(msg)
     del o, lse, grads
@@ -4360,14 +4388,17 @@ def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
 
 
 def phase_parity_f32_bwd(cam_shape, vggt_shape):
-    """The CUDA-core backward against its plain version: ``flash_attn_bwd_f32``
-    at the camera head, the frame rows, one long row and B*H = 66,000, and
-    ``flash_attn_bwd_wide`` at (1, 4,096, 16, 256) in f32 and bf16, each two
-    runs bit-equal and timed beside its bound and SDPA's backward in the same
-    dtype; edge cases (cross and ragged lengths, head dims 16 and 32, the
-    bhnd layout, strided views, operands off 16-byte alignment, more key
-    tiles than the grid holds CTAs: the in-order dQ walk); ``attention()``
-    autograd in f32 through K6's f32 entry and this one. Returns a dict."""
+    """The bit-stable backwards against their plain versions:
+    ``flash_attn_bwd_f32`` at the camera head, the frame rows, one long row
+    and B*H = 66,000, and ``flash_attn_bwd_wide`` at (1, 4,096, 16, 256) in
+    f32 (the CUDA-core kernel) and bf16 (the two wgmma kernels), each two
+    runs bit-equal, the forward's O checked too, timed beside its bound and
+    SDPA's backward in the same dtype; edge cases (cross and ragged lengths,
+    head dims 16, 32 and 192-512, the bhnd layout, strided views, operands
+    off 16-byte alignment (the wide bf16 entries copy them), B*H = 66,000 at
+    D = 192, more key tiles than the grid holds CTAs: the in-order dQ walk);
+    ``attention()`` autograd in f32 through K6's f32 entry and this one.
+    Returns a dict."""
     import torch
 
     from videogpa_torch.ops import _kernels
@@ -4388,7 +4419,7 @@ def phase_parity_f32_bwd(cam_shape, vggt_shape):
               ("long row", f32, (1, 4096, 16, 64), torch.float32, 5),
               ("B*H = 2 x 33,000 = 66,000", f32, (2, 24, 33000, 64), torch.float32, 5),
               ("long row D=256 f32", wide, (1, 4096, 16, 256), torch.float32, 2),
-              ("long row D=256 bf16", wide, (1, 4096, 16, 256), torch.bfloat16, 2)]
+              ("long row D=256 bf16", wide, (1, 4096, 16, 256), torch.bfloat16, 10)]
     for label, (fwd, bwd), shape, dtype, iters in shapes:
         q, k, v, do = (rnd(shape, dtype) for _ in range(4))
         out["shapes"][label] = _bwd_f32_run(label, fwd, bwd, q, k, v, do, "bnhd", iters=iters)
@@ -4411,25 +4442,37 @@ def phase_parity_f32_bwd(cam_shape, vggt_shape):
         ("cross Nq=333 Nk=200 D=192 strided (B, H, N, D) views", wide, "bhnd",
          tuple(rnd((2, n, 3 * 192)).view(2, n, 3, 192).transpose(1, 2)
                for n in (333, 200, 200, 333))),
+        ("cross Nq=333 Nk=200 D=192 bf16 strided (B, H, N, D) views", wide, "bhnd",
+         tuple(rnd((2, n, 3 * 192), torch.bfloat16).view(2, n, 3, 192).transpose(1, 2)
+               for n in (333, 200, 200, 333))),
         ("cross Nq=300 Nk=130 D=512 bf16", wide, "bnhd",
          tuple(rnd((1, n, 2, 512), torch.bfloat16) for n in (300, 130, 130, 300))),
         ("ragged N=200 D=320 bf16 bhnd", wide, "bhnd",
          tuple(bhnd(2, 200, 2, 320, torch.bfloat16) for _ in range(4))),
+        ("bf16 operands 2 bytes off 16-byte alignment N=70 D=256 (copied)", wide, "bnhd",
+         tuple(rnd(70 * 2 * 256 + 1, torch.bfloat16)[1:].view(1, 70, 2, 256) for _ in range(4))),
+        ("B*H = 2 x 33,000 = 66,000 N=24 D=192 bf16", wide, "bnhd",
+         tuple(rnd((2, 24, 33000, 192), torch.bfloat16) for _ in range(4))),
     ]
+    runs = list(out["shapes"].values())
     for label, (fwd, bwd), layout, (q, k, v, do) in edges:
         r = _bwd_f32_run(label, fwd, bwd, q, k, v, do.contiguous(), layout)
         out["edge_cases"][label] = r["max_abs_err"]
+        runs.append(r)
         del q, k, v, do
     del edges, unaligned
-    # the largest error of each entry (bf16 gradients are held by bf16 tolerances)
-    for key, entry in (("max_abs_err", "flash_attn_bwd_f32"),
-                       ("wide_max_abs_err", "flash_attn_bwd_wide")):
-        out[key] = max(r["max_abs_err"] for r in out["shapes"].values()
-                       if (entry == "flash_attn_bwd_wide") == (r["shape"][-1] > 128))
+    # the largest error of each kernel (bf16 gradients are held by bf16 tolerances)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in runs if r["shape"][-1] <= 128)
+    out["wide_max_abs_err"] = {
+        dt: max(max(r["max_abs_err"], r["o_max_abs_err"]) for r in runs
+                if r["shape"][-1] > 128 and r["dtype"] == dt) for dt in ("float32", "bfloat16")}
     for key, args in (("registers_smem_d64", ("flash_attn_bwd_f32", 64)),
                       ("registers_smem_d128", ("flash_attn_bwd_f32", 128)),
                       ("registers_smem_d16", ("flash_attn_bwd_f32", 16)),
-                      ("registers_smem_wide_bf16", ("flash_attn_bwd_wide_bf16",))):
+                      ("registers_smem_wide_bf16_dkv_d256", ("flash_attn_bwd_wide_bf16", 256, 1)),
+                      ("registers_smem_wide_bf16_dq_d256", ("flash_attn_bwd_wide_bf16", 256, 0)),
+                      ("registers_smem_wide_bf16_dkv_d512", ("flash_attn_bwd_wide_bf16", 512, 1)),
+                      ("registers_smem_wide_bf16_dq_d512", ("flash_attn_bwd_wide_bf16", 512, 0))):
         attrs = _kernels.kernel_attrs(*args)
         out[key] = [attrs["registers"], attrs["smem_bytes"]]
     log(f"[parity_f32_bwd] registers a thread and shared memory a CTA: " + json.dumps(
@@ -4550,8 +4593,8 @@ def phase_parity_headdim():
 
 
 def _parity_wide_head_dims(gen):
-    """``attention()`` at head dims above 128 (160 padded to 192, 256, 512)
-    in bf16 (bhnd) and f32 (bnhd): inference through ``flash_attn_fwd_wide``,
+    """``attention()`` at head dims above 128 (160 padded to 192, 256, 320,
+    512) in bf16 (bhnd) and f32 (bnhd): inference through ``flash_attn_fwd_wide``,
     ``impl="flash_int8"`` taking the same exact route (the JAX package's rule
     at D >= 128: no int8 launch, the same O bit for bit), and autograd through
     ``flash_attn_fwd_wide`` + ``flash_attn_bwd_wide``, each against the plain
@@ -4563,7 +4606,7 @@ def _parity_wide_head_dims(gen):
         flash_attn_fwd_wide, flash_attn_int8, flash_attn_int8_d128, flash_attn_int8_f32)
 
     worst = {"bfloat16": 0.0, "float32": 0.0}
-    for D in (160, 256, 512):
+    for D in (160, 256, 320, 512):
         for dtype, layout in ((torch.bfloat16, "bhnd"), (torch.float32, "bnhd")):
             def rnd(n):
                 shape = (2, 4, n, D) if layout == "bhnd" else (2, n, 4, D)
@@ -4648,11 +4691,13 @@ def _parity_int8_f32(gen):
 
 
 def phase_timing_wide():
-    """The new CUDA-core forwards alone: ``flash_attn_fwd_wide`` at (1, 4,096,
-    16, 256) in f32 and bf16 and ``flash_attn_int8_f32`` at the f32 scorer's
+    """The forwards above head_dim 128 and the int8 route in f32 alone:
+    ``flash_attn_fwd_wide`` at (1, 4,096, 16, 256) in f32 (CUDA cores) and
+    bf16 (wgmma + TMA) and ``flash_attn_int8_f32`` at the f32 scorer's
     global rows (4, 13,740, 16, 64), each held against its plain version
     (over chunks of heads) and timed beside its bound and one PyTorch call
-    computing the same function (SDPA; none computes int8-QK attention).
+    computing the same function (SDPA; none computes int8-QK attention);
+    registers and shared memory of the wide kernels at several head dims.
     Returns a dict."""
     import torch
     import torch.nn.functional as F
@@ -4685,9 +4730,11 @@ def phase_timing_wide():
             if not ok:
                 fail(f"flash_attn_fwd_wide disagrees at {(B, N, H, D)} {name}, heads {h}..")
             del ro
-        ms = cuda_ms(lambda: flash_attn_fwd_wide(q, k, v, layout="bnhd"), iters=3)
+        ms = cuda_ms(lambda: flash_attn_fwd_wide(q, k, v, layout="bnhd"),
+                     iters=3 if dtype == torch.float32 else 20)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                         iters=3 if dtype == torch.float32 else 20)
         bound_ms, bound_by = _bound(4.0 * B * H * N * N * D,
                                     q.element_size() * 4.0 * B * N * H * D, _peak_flops(dtype))
         out[name] = {"shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms,
@@ -4722,7 +4769,11 @@ def phase_timing_wide():
     t_bytes = B * H * N * (2 * (D + 4) + 8 * D) / PEAK_HBM_BYTES
     bound_ms = 1e3 * max(t_ops, t_bytes)
     attrs = {name: _kernels.kernel_attrs(*args) for name, args in (
-        ("fwd_wide_f32", ("flash_attn_fwd_wide", 0)), ("fwd_wide_bf16", ("flash_attn_fwd_wide", 1)),
+        ("fwd_wide_f32_d256", ("flash_attn_fwd_wide_f32", 256)),
+        ("fwd_wide_f32_d320", ("flash_attn_fwd_wide_f32", 320)),
+        ("fwd_wide_bf16_d256", ("flash_attn_fwd_wide_bf16", 256)),
+        ("fwd_wide_bf16_d192", ("flash_attn_fwd_wide_bf16", 192)),
+        ("fwd_wide_bf16_d512", ("flash_attn_fwd_wide_bf16", 512)),
         ("int8_f32_d64", ("flash_attn_int8_f32", 64)),
         ("int8_f32_d128", ("flash_attn_int8_f32", 128)))}
     out["int8_f32"] = {"shape_bnhd": [B, N, H, D], "ms": ms, "plain_ms": plain_ms,
@@ -6997,10 +7048,12 @@ def main() -> int:
     zbuf_plain_ms = phase_parity_zbuffer()
     k8_err, k9_err, k8_plain_ms, k9_plain_ms, k8_da3 = phase_parity_int8(
         dit_shape, vggt_global_shape, wan_shape, da3_global_shape)
+    mark("parity_zbuffer, parity_int8")
     headdim = phase_parity_headdim()
     headdim_launches = headdim["launches"]
     f32_bwd = phase_parity_f32_bwd(cam_shape, vggt_shape)
     wide = phase_timing_wide()
+    mark("parity_headdim, parity_f32_bwd, timing_wide")
     phase_parity_quant(dit_shape)
     phase_slice()
     phase_slice_dpo()
@@ -7369,29 +7422,51 @@ def main() -> int:
         # no model of the repo has such a head or runs int8 in f32, so every
         # main path launches them 0 times; they ran in [parity_headdim],
         # [parity_f32_bwd] and [timing]
-        {"name": "flash_attn_fwd_wide", "route": "cuda",
+        {"name": "flash_attn_fwd_wide_bf16", "wrapper": "flash_attn_fwd_wide", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_fwd_wide_bf16.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:65",
+         **by_path("flash_attn_fwd_wide"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_fwd_wide"],
+         "max_abs_err": max(headdim["wide_max_abs_err"]["bfloat16"],
+                            wide["bfloat16"]["max_abs_err"],
+                            f32_bwd["wide_max_abs_err"]["bfloat16"]),
+         **{k: wide["bfloat16"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                             "library_ms", "shape_bnhd")},
+         "registers_smem": {k: v for k, v in wide["registers_smem"].items()
+                            if k.startswith("fwd_wide_bf16")}},
+        {"name": "flash_attn_fwd_wide_f32", "wrapper": "flash_attn_fwd_wide", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_fwd_wide.cu",
          "replaces": "videogpa_tpu/ops/attention.py:65",
          **by_path("flash_attn_fwd_wide"),
          "launches_in_parity_phases": headdim_launches["flash_attn_fwd_wide"],
-         "max_abs_err": max(headdim["wide_max_abs_err"]["float32"], wide["float32"]["max_abs_err"]),
+         "max_abs_err": max(headdim["wide_max_abs_err"]["float32"], wide["float32"]["max_abs_err"],
+                            f32_bwd["wide_max_abs_err"]["float32"]),
          **{k: wide["float32"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "shape_bnhd")},
-         "bf16": {**wide["bfloat16"],
-                  "max_abs_err_headdim": headdim["wide_max_abs_err"]["bfloat16"]},
          "registers_smem": {k: v for k, v in wide["registers_smem"].items()
-                            if k.startswith("fwd_wide")}},
-        {"name": "flash_attn_bwd_wide", "route": "cuda",
+                            if k.startswith("fwd_wide_f32")}},
+        {"name": "flash_attn_bwd_wide_bf16", "wrapper": "flash_attn_bwd_wide", "route": "cuda",
+         "source": "videogpa_torch/csrc/flash_attn_bwd_wide.cu",
+         "replaces": "videogpa_tpu/ops/attention.py:883,908",
+         **by_path("flash_attn_bwd_wide"),
+         "launches_in_parity_phases": headdim_launches["flash_attn_bwd_wide"],
+         "max_abs_err": max(f32_bwd["wide_max_abs_err"]["bfloat16"],
+                            headdim["wide_max_abs_err"]["bfloat16"]),
+         **{k: f32_bwd["shapes"]["long row D=256 bf16"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+                      "two_kernel_bound_ms")},
+         "registers_smem": {k[len("registers_smem_wide_bf16_"):]: v for k, v in f32_bwd.items()
+                            if k.startswith("registers_smem_wide_bf16")}},
+        {"name": "flash_attn_bwd_wide_f32", "wrapper": "flash_attn_bwd_wide", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd_f32.cu",
          "replaces": "videogpa_tpu/ops/attention.py:883,908",
          **by_path("flash_attn_bwd_wide"),
          "launches_in_parity_phases": headdim_launches["flash_attn_bwd_wide"],
-         "max_abs_err": f32_bwd["wide_max_abs_err"],
+         "max_abs_err": max(f32_bwd["wide_max_abs_err"]["float32"],
+                            headdim["wide_max_abs_err"]["float32"]),
          **{k: f32_bwd["shapes"]["long row D=256 f32"][k]
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-         "bf16": f32_bwd["shapes"]["long row D=256 bf16"],
-         "registers_smem": {"f32": f32_bwd["registers_smem_d128"],
-                            "bf16": f32_bwd["registers_smem_wide_bf16"]}},
+         "registers_smem": f32_bwd["registers_smem_d128"]},
         {"name": "flash_attn_int8_f32", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_fwd_wide.cu",
          "replaces": "videogpa_tpu/ops/attention.py:640",

@@ -7,6 +7,7 @@ against another checkout's on one NVIDIA GPU, in one process.
 
     python3 kernel_ab.py OTHER_CHECKOUT
     python3 kernel_ab.py --f32-bwd OTHER_CHECKOUT  # the f32 backward alone
+    python3 kernel_ab.py --wide OTHER_CHECKOUT     # the entries above head_dim 128
     python3 kernel_ab.py --variant NAME DEST   # a copy of this tree's kernels
                                                # with one design choice reverted
 
@@ -37,10 +38,17 @@ the card and one JSON line.
 ``--f32-bwd`` times only the CUDA-core backward (``flash_attn_bwd_f32``,
 ``csrc/flash_attn_bwd_f32.cu``) against OTHER_CHECKOUT's, in turns, at the
 camera head (4, 10, 16, 128), the scorer's frame rows (40, 1,374, 16, 64),
-one long row (1, 4,096, 16, 64) and B*H = 66,000 at N 24, and the wide f32
-and bf16 entries at (1, 4,096, 16, 256) when both sides have them. The
-other side may have this interface or the one before the kernel's redesign
-(three launches, delta taken as scratch, seven products).
+one long row (1, 4,096, 16, 64) and B*H = 66,000 at N 24. The other side
+may have this interface or the one before the kernel's redesign (three
+launches, delta taken as scratch, seven products).
+
+``--wide`` times the entries above head_dim 128 (``flash_attn_fwd_wide``,
+``flash_attn_bwd_wide``) in f32 and bf16 at (1, 4,096, 16, 256) against
+OTHER_CHECKOUT's, in turns, through this checkout's wrappers with the other's
+C entries: its bf16 entries in ``flash_attn_fwd_wide_bf16.cu`` /
+``flash_attn_bwd_wide.cu`` where it has them, else the CUDA-core ones of
+``flash_attn_fwd_wide.cu`` / ``flash_attn_bwd_f32.cu`` (whose bf16 backward
+takes the CUDA-core backward's scratch).
 
 ``--variant`` writes DEST/videogpa_torch/csrc: this checkout's sources with
 one of the design choices of ``VARIANTS`` reverted, for a run against it.
@@ -199,6 +207,16 @@ def _other_f32_call_ms(other: str) -> float:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def _swapped(name: str, fn, call):
+    """``call()`` with the C entry ``name`` replaced by ``fn``."""
+    mine = _kernels.kernel(name)
+    _kernels._loaded[name] = fn
+    try:
+        return call()
+    finally:
+        _kernels._loaded[name] = mine
+
+
 def _f32_bwd_ab(other: str) -> dict:
     """``--f32-bwd``: this checkout's f32 backward against OTHER's, in turns
     (other / this / this / other) on the same operands; both must agree."""
@@ -215,33 +233,16 @@ def _f32_bwd_ab(other: str) -> dict:
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(93)
     res = {}
-    cases = [("camera_head", (4, 10, 16, 128), torch.float32, 200),
-             ("frame_rows", (40, 1374, 16, 64), torch.float32, 3),
-             ("long_row", (1, 4096, 16, 64), torch.float32, 5),
-             ("bh_66000", (2, 24, 33000, 64), torch.float32, 5)]
-    if new_interface and "videogpa_flash_attn_bwd_wide_f32" in src:
-        cases += [("wide_f32_d256", (1, 4096, 16, 256), torch.float32, 2),
-                  ("wide_bf16_d256", (1, 4096, 16, 256), torch.bfloat16, 2)]
-    for tag, (B, N, H, D), dtype, iters in cases:
-        q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device="cuda").to(dtype)
-                       for _ in range(4))
-        wide = D > 128
-        fwd = A.flash_attn_fwd_wide if wide else A.flash_attn_fwd_f32
-        bwd = A.flash_attn_bwd_wide if wide else A.flash_attn_bwd_f32
-        name = ("flash_attn_bwd_wide_" + ("bf16" if dtype == torch.bfloat16 else "f32")
-                if wide else "flash_attn_bwd_f32")
-        o, lse = fwd(q, k, v, layout="bnhd", with_lse=True)
+    bwd = A.flash_attn_bwd_f32
+    cases = [("camera_head", (4, 10, 16, 128), 200), ("frame_rows", (40, 1374, 16, 64), 3),
+             ("long_row", (1, 4096, 16, 64), 5), ("bh_66000", (2, 24, 33000, 64), 5)]
+    for tag, (B, N, H, D), iters in cases:
+        q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device="cuda") for _ in range(4))
+        o, lse = A.flash_attn_fwd_f32(q, k, v, layout="bnhd", with_lse=True)
         if new_interface:  # this checkout's wrapper, the other's entry
-            other_entry = getattr(lib, f"videogpa_{name}")
-            other_entry.argtypes, other_entry.restype = _kernels._BWD_F32_ARGS, ctypes.c_int
-
-            def old(name=name, other_entry=other_entry):
-                mine = _kernels.kernel(name)
-                _kernels._loaded[name] = other_entry
-                try:
-                    return bwd(q, k, v, o, lse, do, layout="bnhd")
-                finally:
-                    _kernels._loaded[name] = mine
+            def old():
+                return _swapped("flash_attn_bwd_f32", entry,
+                                lambda: bwd(q, k, v, o, lse, do, layout="bnhd"))
         else:
             def old():
                 delta = torch.empty((B * H, N), dtype=torch.float32, device="cuda")
@@ -255,14 +256,91 @@ def _f32_bwd_ab(other: str) -> dict:
             return bwd(q, k, v, o, lse, do, layout="bnhd")
 
         for a, b in zip(old(), new()):
-            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-            if not torch.allclose(a.float(), b.float(), atol=tol, rtol=tol):
+            if not torch.allclose(a, b, atol=1e-4, rtol=1e-4):
                 raise SystemExit(f"kernel_ab: the two f32 backwards disagree at {tag}")
         t = [cs.cuda_ms(f, iters) for f in (old, new, new, old)]
         res[tag] = {"shape_bnhd": [B, N, H, D], "other_ms": [t[0], t[3]],
                     "this_ms": [t[1], t[2]]}
-        cs.log(f"[ab] f32 backward {tag} {(B, N, H, D)} {str(dtype)[6:]}: other "
+        cs.log(f"[ab] f32 backward {tag} {(B, N, H, D)}: other "
                f"{t[0]:.4f} / {t[3]:.4f} ms, this {t[1]:.4f} / {t[2]:.4f} ms")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return res
+
+
+def _wide_ab(other: str) -> dict:
+    """``--wide``: this checkout's entries above head_dim 128 against OTHER's,
+    forward and backward in f32 and bf16 at (1, 4,096, 16, 256), in turns
+    (other / this / this / other) on the same operands; both must agree."""
+    import torch
+
+    from videogpa_torch.ops import attention as A
+
+    csrc = os.path.join(other, "videogpa_torch", "csrc")
+    has = {n: os.path.exists(os.path.join(csrc, f"{n}.cu"))
+           for n in ("flash_attn_fwd_wide_bf16", "flash_attn_bwd_wide")}
+    libs = _build_all(other, ("flash_attn_fwd_wide", "flash_attn_bwd_f32",
+                              *(n for n, there in has.items() if there)))
+    _kernels.build(("flash_attn_fwd_wide", "flash_attn_fwd_wide_bf16", "flash_attn_bwd_wide",
+                    "flash_attn_bwd_f32"))
+    fwd_bf16_lib = libs["flash_attn_fwd_wide_bf16" if has["flash_attn_fwd_wide_bf16"]
+                        else "flash_attn_fwd_wide"]
+    others = {
+        "flash_attn_fwd_wide_f32": _entry(libs["flash_attn_fwd_wide"],
+                                          "videogpa_flash_attn_fwd_wide_f32", _kernels._FWD_ARGS),
+        "flash_attn_fwd_wide_bf16": _entry(fwd_bf16_lib, "videogpa_flash_attn_fwd_wide_bf16",
+                                           _kernels._FWD_ARGS),
+        "flash_attn_bwd_wide_f32": _entry(libs["flash_attn_bwd_f32"],
+                                          "videogpa_flash_attn_bwd_wide_f32",
+                                          _kernels._BWD_F32_ARGS),
+    }
+    if has["flash_attn_bwd_wide"]:
+        others["flash_attn_bwd_wide_bf16"] = _entry(
+            libs["flash_attn_bwd_wide"], "videogpa_flash_attn_bwd_wide_bf16",
+            _kernels._BWD_WIDE_ARGS)
+    else:  # the CUDA-core bf16 entry, with the CUDA-core backward's scratch
+        _kernels._loaded["other:flash_attn_bwd_wide_bf16"] = _entry(
+            libs["flash_attn_bwd_f32"], "videogpa_flash_attn_bwd_wide_bf16",
+            _kernels._BWD_F32_ARGS)
+    gen = torch.Generator(device="cuda").manual_seed(94)
+    res = {}
+    B, N, H, D = 1, 4096, 16, 256
+    for dtype, suffix, fwd_iters, bwd_iters in ((torch.bfloat16, "bf16", 20, 10),
+                                                 (torch.float32, "f32", 3, 2)):
+        q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+        fwd_entry, bwd_entry = f"flash_attn_fwd_wide_{suffix}", f"flash_attn_bwd_wide_{suffix}"
+
+        def fwd_new():
+            return A.flash_attn_fwd_wide(q, k, v, layout="bnhd", with_lse=True)
+
+        def fwd_old():
+            return _swapped(fwd_entry, others[fwd_entry], fwd_new)
+
+        o, lse = fwd_new()
+
+        def bwd_new():
+            return A.flash_attn_bwd_wide(q, k, v, o, lse, do, layout="bnhd")
+
+        if bwd_entry in others:
+            def bwd_old():
+                return _swapped(bwd_entry, others[bwd_entry], bwd_new)
+        else:
+            def bwd_old():
+                return A._launch_bwd_f32("flash_attn_bwd_wide", "other:flash_attn_bwd_wide_bf16",
+                                         A.WIDE_HEAD_DIMS, dtype, q, k, v, o, lse, do, "bnhd")
+
+        for tag, old, new, iters in ((f"wide_fwd_{suffix}_d256", fwd_old, fwd_new, fwd_iters),
+                                     (f"wide_{suffix}_d256", bwd_old, bwd_new, bwd_iters)):
+            for a, b in zip(old(), new()):
+                if not torch.allclose(a.float(), b.float(), atol=tol, rtol=tol):
+                    raise SystemExit(f"kernel_ab: the two versions disagree at {tag}")
+            t = [cs.cuda_ms(f, iters) for f in (old, new, new, old)]
+            res[tag] = {"shape_bnhd": [B, N, H, D], "other_ms": [t[0], t[3]],
+                        "this_ms": [t[1], t[2]]}
+            cs.log(f"[ab] {tag} {(B, N, H, D)}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
+                   f"{t[1]:.4f} / {t[2]:.4f} ms")
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     return res
@@ -284,6 +362,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--f32-bwd" and torch.cuda.is_available():
         cs.log(cs.gpu_name_and_power())
         cs.log("[ab] " + json.dumps({"f32_bwd": _f32_bwd_ab(sys.argv[2])}))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--wide" and torch.cuda.is_available():
+        cs.log(cs.gpu_name_and_power())
+        cs.log("[ab] " + json.dumps({"wide": _wide_ab(sys.argv[2])}))
         return 0
     if len(sys.argv) != 2 or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)

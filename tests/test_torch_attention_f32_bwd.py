@@ -1,6 +1,7 @@
 """The CUDA-core backward (``csrc/flash_attn_bwd_f32.cu``: the float32 entry
-of K3/K7, ``flash_attn_bwd_f32``, and the entry above head_dim 128 in f32 and
-bf16, ``flash_attn_bwd_wide``) on the CPU.
+of K3/K7, ``flash_attn_bwd_f32``, and the float32 entry above head_dim 128 of
+``flash_attn_bwd_wide``) on the CPU; the bf16 wide entry's scratch on
+``meta`` operands (its tiling: ``tests/test_torch_attention_wide.py``).
 
 The kernel cannot run here, so its tiling is emulated in plain PyTorch:
 delta = rowsum(O * dO) in a prologue; one work item per 64-key tile (the
@@ -156,9 +157,9 @@ def test_bnhd_wrapper_and_a_non_default_scale_match_the_plain_formulas():
 
 
 def test_emulated_tiling_in_bf16_matches_the_plain_version_and_jax():
-    """The wide entry in bf16 at D = 256: the emulation (P and dS rounded
-    where the kernel rounds them) against the plain version and the JAX vjp
-    on the same bf16 operands."""
+    """This tiling with bf16 rounding at D = 256 (P and dS rounded where the
+    JAX kernels round them) against the wide entry's plain version and the
+    JAX vjp on the same bf16 operands."""
     d, nq, nk = 256, 100, 130
     q, do = (torch.from_numpy(x).to(torch.bfloat16) for x in _randn(5, *[(1, 2, nq, d)] * 2))
     k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _randn(6, *[(1, 2, nk, d)] * 2))
@@ -273,11 +274,11 @@ def test_attention_under_grad_takes_the_f32_entries_on_the_card_route(monkeypatc
 
 @pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
 def test_wide_backward_launches_at_70000_heads_with_its_scratch(monkeypatch, layout):
-    """The bf16 entry above head_dim 128, B*H = 70,000, 130 queries and 65
-    keys: three query tiles, two key tiles and four 64-column slices. The
-    scratch is delta (rounded up to 16 bytes), the dQ partial sums over whole
-    query tiles and a turn counter per (head, slice, query tile) with the
-    work counter."""
+    """The bf16 entry above head_dim 128 (``csrc/flash_attn_bwd_wide.cu``),
+    B*H = 70,000, 130 queries and 65 keys: nine operand pointers and one f32
+    scratch, the base-2 LSE and then delta over the query rows padded to
+    whole 64-row tiles (3 x 64 = 192 a head), then B, H, Nq, Nk, D, the 24
+    strides and the scale."""
     calls = _record(monkeypatch)
     B, H, D = 2, 35000, 256
     shape_q = (B, 130, H, D) if layout == "bnhd" else (B, H, 130, D)
@@ -290,11 +291,34 @@ def test_wide_backward_launches_at_70000_heads_with_its_scratch(monkeypatch, lay
     assert dq.shape == shape_q and dk.shape == dv.shape == shape_k and dq.dtype == torch.bfloat16
     [(entry, args)] = calls
     assert entry == "flash_attn_bwd_wide_bf16" and tattn.flash_attn_bwd_wide.launches == before + 1
+    assert len(args) == 10 + 5 + 24 + 1
+    assert tuple(_val(a) for a in args[10:15]) == (B, H, 130, 65, D)
+    assert _val(args[-1]) == pytest.approx(D ** -0.5, rel=1e-7)
+    with pytest.raises(NotImplementedError, match="head_dim 200"):
+        x = torch.empty((1, 10, 2, 200), device="meta")
+        tattn.flash_attn_bwd_wide(x, x, x, x, torch.empty((1, 2, 10), device="meta"), x)
+
+
+@pytest.mark.parametrize("layout", ["bnhd", "bhnd"])
+def test_wide_f32_backward_launches_with_its_slices_scratch(monkeypatch, layout):
+    """The float32 entry above head_dim 128 (the CUDA-core kernel), B*H =
+    70,000, 130 queries and 65 keys: three query tiles, two key tiles and
+    four 64-column slices. The scratch is delta (rounded up to 16 bytes), the
+    dQ partial sums over whole query tiles and a turn counter per (head,
+    slice, query tile) with the work counter."""
+    calls = _record(monkeypatch)
+    B, H, D = 2, 35000, 256
+    shape_q = (B, 130, H, D) if layout == "bnhd" else (B, H, 130, D)
+    shape_k = (B, 65, H, D) if layout == "bnhd" else (B, H, 65, D)
+    q = torch.empty(shape_q, device="meta")
+    k = torch.empty(shape_k, device="meta")
+    lse = torch.empty((B, H, 130), device="meta")
+    dq, dk, dv = tattn.flash_attn_bwd_wide(q, k, k, q, lse, q, layout=layout)
+    assert dq.shape == shape_q and dk.shape == dv.shape == shape_k and dq.dtype == torch.float32
+    [(entry, args)] = calls
+    assert entry == "flash_attn_bwd_wide_f32"
     assert tuple(_val(a) for a in args[12:17]) == (B, H, 130, 65, D)
     n_delta = -(-B * H * 130 // 4) * 4
     n_acc = B * H * 3 * 64 * D
     assert args[10] - args[9] == 4 * n_delta and args[11] - args[10] == 4 * n_acc
     assert tattn.bwd_f32_slices(D) == 4
-    with pytest.raises(NotImplementedError, match="head_dim 200"):
-        x = torch.empty((1, 10, 2, 200), device="meta")
-        tattn.flash_attn_bwd_wide(x, x, x, x, torch.empty((1, 2, 10), device="meta"), x)

@@ -8,9 +8,11 @@ the padded route runs with the kernels' plain versions and is held against
 the JAX ``attention(impl="xla")`` at the original D, forward and gradients,
 f32 and bf16; the unpadded CPU route too; above 128 also against the JAX
 ``attention(impl="flash")`` vjp in Pallas interpret mode, with a plain
-emulation of the wide forward's tiling (``csrc/flash_attn_fwd_wide.cu``:
-64-column slices of O, S summed over 64-column chunks, P rounded to the
-operands' dtype) against the JAX ``_flash_fwd``. The int8 route with f32
+emulation of the wide forward's tiling (slices of O, S summed over 64-column
+chunks once a key tile for each slice, P rounded to the operands' dtype: the
+wide entries' slices of up to 256 columns, and 64-column slices) against the
+JAX ``_flash_fwd``; ``tests/test_torch_attention_wide.py`` holds the wide
+entries' tilings at more head dims. The int8 route with f32
 operands (``flash_attn_int8_f32``'s plain version, and an emulation of its
 online softmax) is held against the JAX ``attention(impl="flash_int8")`` in
 interpret mode. On ``meta`` operands, with the C entry points recorded, the
@@ -30,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 import videogpa_tpu.ops.attention as jattn
 from videogpa_torch.ops import attention as tattn
@@ -181,21 +184,23 @@ def test_wide_head_dims_match_the_jax_flash_vjp(interpret_mode, D, dtype):
         np.testing.assert_allclose(t.grad.float().numpy(), w, atol=atol_g * scale, rtol=rtol)
 
 
-def _wide_fwd_emulated(q, k, v, scale, dtype):
-    """The wide forward's tiling on (B, H, N, D) f32 images of operands of
-    ``dtype``: one CTA a (64-query tile, 64-column slice of O), S summed over
-    64-column chunks of Q and K for each 64-key tile, an online softmax in
-    the log2 domain, P rounded to ``dtype`` before P V, the row sum of the
-    unrounded P."""
+def _wide_fwd_emulated(q, k, v, scale, dtype, slice_cols=64):
+    """A wide forward's tiling on (B, H, N, D) f32 images of operands of
+    ``dtype``: one CTA a (64-query tile, slice of ``slice_cols`` columns of
+    O, the last one possibly narrower), S summed over 64-column chunks of Q
+    and K once for each 64-key tile, an online softmax in the log2 domain, P
+    rounded to ``dtype`` before P V, the row sum of the unrounded P. The wide
+    entries cut O into slices of up to 256 columns."""
     block = 64
     Nq, Nk, D = q.shape[2], k.shape[2], q.shape[3]
     o = torch.zeros_like(q)
     for q0 in range(0, Nq, block):
         qt = q[:, :, q0:q0 + block]
-        for c0 in range(0, D, block):  # one CTA a slice of O's columns
+        for c0 in range(0, D, slice_cols):  # one CTA a slice of O's columns
+            c1 = min(c0 + slice_cols, D)
             m = torch.full(qt.shape[:3] + (1,), -float("inf"))
             l = torch.zeros_like(m)
-            acc = torch.zeros(qt.shape[:3] + (block,))
+            acc = torch.zeros(qt.shape[:3] + (c1 - c0,))
             for k0 in range(0, Nk, block):
                 s = torch.zeros(qt.shape[:3] + (min(block, Nk - k0),))
                 for d0 in range(0, D, block):  # chunks of the contraction
@@ -204,21 +209,23 @@ def _wide_fwd_emulated(q, k, v, scale, dtype):
                 m_new = torch.maximum(m, s.amax(-1, keepdim=True))
                 alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
                 l = l * alpha + p.sum(-1, keepdim=True)
-                acc = acc * alpha + p.to(dtype).float() @ v[:, :, k0:k0 + block, c0:c0 + block]
+                acc = acc * alpha + p.to(dtype).float() @ v[:, :, k0:k0 + block, c0:c1]
                 m = m_new
-            o[:, :, q0:q0 + block, c0:c0 + block] = acc / l
+            o[:, :, q0:q0 + block, c0:c1] = acc / l
     return o.to(dtype)
 
 
+@pytest.mark.parametrize("slice_cols", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_wide_forward_tiling_matches_jax_flash_fwd(interpret_mode, dtype):
-    """The emulated tiling at D = 256, ragged in both lengths, against the
-    JAX ``_flash_fwd`` (``_fwd_kernel`` in interpret mode) and the plain
-    version."""
+def test_wide_forward_tiling_matches_jax_flash_fwd(interpret_mode, dtype, slice_cols):
+    """The emulated tiling at D = 256, ragged in both lengths, with 64-column
+    slices of O and with the wide entries' one slice of 256 (S once a key
+    tile), against the JAX ``_flash_fwd`` (``_fwd_kernel`` in interpret
+    mode) and the plain version."""
     D, jdt = 256, (jnp.float32 if dtype == torch.float32 else jnp.bfloat16)
     q, k, v = _randn(17, (1, 2, 100, D), (1, 2, 70, D), (1, 2, 70, D))
     tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
-    got = _wide_fwd_emulated(tq.float(), tk.float(), tv.float(), D ** -0.5, dtype)
+    got = _wide_fwd_emulated(tq.float(), tk.float(), tv.float(), D ** -0.5, dtype, slice_cols)
     pad = lambda x, n: np.pad(x.reshape(2, -1, D), ((0, 0), (0, n - x.shape[2]), (0, 0)))  # noqa: E731
     want, _ = jattn._flash_fwd(jnp.asarray(pad(q, 128), jdt), jnp.asarray(pad(k, 128), jdt),
                                jnp.asarray(pad(v, 128), jdt), 70, 128, 128, with_lse=False)
@@ -405,17 +412,42 @@ def test_int8_route_with_f32_operands_launches_the_f32_entry(card_route, D, widt
 @pytest.mark.parametrize("D,width,dtype", [(129, 192, torch.bfloat16), (200, 256, torch.float32),
                                            (512, 512, torch.bfloat16)])
 def test_wide_launch_allocates_the_slices_scratch(card_route, D, width, dtype):
-    """Under grad above 128: the backward's scratch holds a turn counter per
-    (head, 64-column slice, 64-query tile) and the work counter, and the dQ
-    partial sums over whole query tiles when a tile has more than one key
-    tile."""
+    """Under grad above 128, 130 queries and 65 keys: the forward launches
+    the wide entry of the dtype at the padded width with an LSE; the bf16
+    backward (``csrc/flash_attn_bwd_wide.cu``) gets one f32 scratch, the
+    base-2 LSE and delta over the query rows padded to whole 64-row tiles;
+    the f32 backward's scratch holds delta, the dQ partial sums over whole
+    query tiles (a query tile has two key tiles) and a turn counter per
+    (head, 64-column slice, 64-query tile) with the work counter. On traced
+    operands the same calls launch nothing."""
     shape = (2, 3, 130, D)
     q = _meta(shape, dtype, grad=True)
     k = _meta((2, 3, 65, D), dtype, grad=True)
+    before = (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches)
     o = tattn.attention(q, k, k)
     o.sum().backward()
     assert q.grad.shape == shape and k.grad.shape == (2, 3, 65, D)
-    (e_fwd, _), (e_bwd, _) = card_route
+    (e_fwd, a_fwd), (e_bwd, a_bwd) = card_route
     suffix = "bf16" if dtype == torch.bfloat16 else "f32"
     assert (e_fwd, e_bwd) == (f"flash_attn_fwd_wide_{suffix}", f"flash_attn_bwd_wide_{suffix}")
-    assert tattn.bwd_f32_slices(width) == width // 64
+    assert a_fwd[4] is not None and _scale_arg(a_fwd[9]) == width  # the LSE, the padded D
+    if dtype == torch.bfloat16:
+        # nine operand pointers and the scratch, then B, H, Nq, Nk, D
+        assert len(a_bwd) == 10 + 5 + 24 + 1
+        assert tuple(_scale_arg(x) for x in a_bwd[10:15]) == (2, 3, 130, 65, width)
+    else:
+        n_delta = -(-2 * 3 * 130 // 4) * 4
+        n_acc = 2 * 3 * 3 * 64 * width
+        assert a_bwd[10] - a_bwd[9] == 4 * n_delta and a_bwd[11] - a_bwd[10] == 4 * n_acc
+        assert tattn.bwd_f32_slices(width) == width // 64
+    assert (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches) == (
+        before[0] + 1, before[1] + 1)
+    with FakeTensorMode():
+        fq, fk = (torch.empty(x.shape, dtype=dtype, device="meta") for x in (q, k))
+        fq, fk = (tattn._pad_head_dim(x, width) for x in (fq, fk))
+        fo, flse = tattn.flash_attn_fwd_wide(fq, fk, fk, layout="bhnd", with_lse=True)
+        grads = tattn.flash_attn_bwd_wide(fq, fk, fk, fo, flse, fo, layout="bhnd")
+    assert [g.shape for g in grads] == [fq.shape, fk.shape, fk.shape]
+    assert len(card_route) == 2 and (
+        tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches) == (
+        before[0] + 1, before[1] + 1)

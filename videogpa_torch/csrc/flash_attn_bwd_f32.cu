@@ -1,24 +1,22 @@
 // Flash-attention backward on the CUDA cores (sm_90a): the float32 entry of
-// K3/K7, and the entry of every dtype at head_dim > 128.
+// K3/K7, and the float32 entry at head_dim > 128.
 //
 // Replaces, for float32 operands, the TPU Pallas backward kernels of
 // videogpa_tpu/ops/attention.py: `_dq_kernel_T` / `_dkv_kernel_T` (:951, :983;
 // calls at :1050, :1064) at head_dim < 128 and `_dq_kernel` / `_dkv_kernel`
-// (:883, :908; calls at :1110, :1131) at head_dim >= 128; and, for float32
-// and bf16 operands at head_dim > 128 (any multiple of 64), `_dq_kernel` /
-// `_dkv_kernel`, which the JAX package runs at any D >= 128. The port's
-// wgmma kernels K3 and K7 take bf16 at D <= 128 only. Given Q, K, V, O, the
-// natural-log LSE of the forward and dO:
+// (:883, :908; calls at :1110, :1131) at head_dim >= 128, which the JAX
+// package runs at any D >= 128 (here any multiple of 64 above 128). The
+// port's wgmma kernels take bf16 only: K3 and K7 at D <= 128,
+// flash_attn_bwd_wide.cu above. Given Q, K, V, O, the natural-log LSE of the
+// forward and dO:
 //
 //   P = exp(S * scale - LSE), S = Q K^T;  delta = rowsum(O * dO)
 //   dV = P^T dO;  dS = P * (dO V^T - delta);  dQ = dS K * scale;  dK = dS^T Q * scale
 //
 // Arithmetic is f32 FMA on the CUDA cores, never TF32: the numbers are the
-// JAX package's f32 numbers. bf16 operands are widened on load; P is rounded
-// to bf16 before dV, and dS before dQ and dK, as `_dkv_kernel` (:919-923,
-// :929-934) and `_dq_kernel` (:894-899) round them. Bound: the five products,
-// 10*B*H*Nq*Nk*D operations over the 67 TFLOP/s f32 peak; at short rows the
-// bytes of the operands over 3.35 TB/s.
+// JAX package's f32 numbers. Bound: the five products, 10*B*H*Nq*Nk*D
+// operations over the 67 TFLOP/s f32 peak; at short rows the bytes of the
+// operands over 3.35 TB/s.
 //
 // Design: a prologue and one fused kernel on one stream.
 //  1. The prologue writes delta (B*H, Nq), one thread a query row, and zeroes
@@ -92,7 +90,6 @@
 //     the (B, N, H, D) and (B, H, N, D) layouts and strided views go in
 //     without a copy.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -158,20 +155,6 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T's precision, as a float
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -224,14 +207,9 @@ __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
-// four consecutive elements of a shared-memory row, widened to f32
+// four consecutive elements of a shared-memory row
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
 }
 // dQ's partial sums, W consecutive columns: stored by the first
 // contributor, added by the others (one 16-byte operation at W = 4)
@@ -264,7 +242,7 @@ __device__ __forceinline__ void sts_w(float* p, const float* x) {
   }
 }
 
-// W consecutive elements of a shared-memory row, widened to f32
+// W consecutive elements of a shared-memory row
 template <int W, typename T>
 __device__ __forceinline__ void ldw(const T* p, float* out) {
   if constexpr (W == 4) {
@@ -272,7 +250,7 @@ __device__ __forceinline__ void ldw(const T* p, float* out) {
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
   } else {
 #pragma unroll
-    for (int e = 0; e < W; ++e) out[e] = to_f(p[e]);
+    for (int e = 0; e < W; ++e) out[e] = p[e];
   }
 }
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -323,7 +301,7 @@ __global__ void __launch_bounds__(256) prologue_kernel(const Params p, long long
   const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + n * p.do_sn;
   float s = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < p.D; ++d) s = fmaf(to_f(o[d]), to_f(g[d]), s);
+  for (int d = 0; d < p.D; ++d) s = fmaf(o[d], g[d], s);
   p.delta[r] = s;
 }
 
@@ -531,7 +509,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
         }
         if (half == 0) {
           bar_arrive(kBarP, kThreads);
-        } else {  // dS = P (dP - delta), rounded to T
+        } else {  // dS = P (dP - delta)
           bar_sync(kBarP, kThreads);
 #pragma unroll
           for (int c = 0; c < 8; ++c) {
@@ -543,26 +521,20 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
               const int key = kr + 4 * i;
               const float pv = sP[qq * kPStride + key];
               sDS[qq * kPStride + key] =
-                  q_live && key < kn ? round_to<T>(pv * (sacc[i][c] - dl)) : 0.f;
+                  q_live && key < kn ? pv * (sacc[i][c] - dl) : 0.f;
             }
           }
           bar_sync(kBarSecondHalf, kThreads / 2);
           bar_arrive(kBarDS, kThreads);
         }
-        {  // dV += P^T dO (first half, P rounded to T) or dK += dS^T Q (second half)
+        {  // dV += P^T dO (first half) or dK += dS^T Q (second half)
           const float* coef = (half ? sDS : sP) + r3;
           const T* rhs = (half ? sQ : sG) + c3;
 #pragma unroll 2
           for (int qq = 0; qq < qn; ++qq) {
             const float4 a0 = ld4(coef + qq * kPStride);
             const float4 a1 = ld4(coef + qq * kPStride + 4);
-            float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-            if constexpr (sizeof(T) == 2) {
-              if (half == 0) {
-#pragma unroll
-                for (int i = 0; i < 8; ++i) a[i] = round_to<T>(a[i]);
-              }
-            }
+            const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
             float r[2 * kW];
             ldw<kW>(rhs + qq * kRS, r);
             ldw<kW>(rhs + qq * kRS + DC / 2, r + kW);
@@ -680,7 +652,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
                 const int col = e < kW ? e : DC / 2 + e - kW;
                 float x = sum[i][e];
                 if (rank > 0) x = __ldcg(acc + 4 * i * p.D + col) + x;
-                out[row * p.dq_sn + col] = from_f<T>(x * p.scale);
+                out[row * p.dq_sn + col] = x * p.scale;
               }
             }
           } else if (rank == 0) {
@@ -722,8 +694,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
       if (key >= p.Nk) continue;
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
-        dst[key * sn + e] = from_f<T>(gacc[i][e] * mul);
-        dst[key * sn + DC / 2 + e] = from_f<T>(gacc[i][kW + e] * mul);
+        dst[key * sn + e] = gacc[i][e] * mul;
+        dst[key * sn + DC / 2 + e] = gacc[i][kW + e] * mul;
       }
     }
   }
@@ -815,7 +787,6 @@ int entry(const void* q, const void* k, const void* v, const void* o, const void
   bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
   for (int i : {0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14}) vec = vec && st[i] % kV == 0;
-  if (sizeof(T) == 2 && !vec) return cudaErrorInvalidValue;  // bf16 copies are 16-byte
   p.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D > 64) {  // wide heads: 64-column chunks and slices
@@ -870,18 +841,12 @@ extern "C" int videogpa_flash_attn_bwd_f32(VIDEOGPA_BWD_ARGS) {
                       st, scale, stream);
 }
 
-// float32 or bf16 at any head_dim > 128 that is a multiple of 64
+// float32 at any head_dim > 128 that is a multiple of 64
 extern "C" int videogpa_flash_attn_bwd_wide_f32(VIDEOGPA_BWD_ARGS) {
   VIDEOGPA_BWD_STRIDES;
   if (D <= 128) return cudaErrorInvalidValue;
   return entry<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turn, B, H, Nq, Nk, D,
                       st, scale, stream);
-}
-extern "C" int videogpa_flash_attn_bwd_wide_bf16(VIDEOGPA_BWD_ARGS) {
-  VIDEOGPA_BWD_STRIDES;
-  if (D <= 128) return cudaErrorInvalidValue;
-  return entry<__nv_bfloat16>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turn, B, H, Nq,
-                              Nk, D, st, scale, stream);
 }
 
 // The main kernel's registers a thread and dynamic shared memory a CTA at
@@ -895,7 +860,4 @@ extern "C" int videogpa_flash_attn_bwd_f32_attrs(int D, int* regs, int* smem_byt
   }
   if (D >= 128 && D % kWideChunk == 0) return attrs<float, kWideChunk, true>(regs, smem_bytes);
   return cudaErrorInvalidValue;
-}
-extern "C" int videogpa_flash_attn_bwd_wide_bf16_attrs(int* regs, int* smem_bytes) {
-  return attrs<__nv_bfloat16, kWideChunk, true>(regs, smem_bytes);
 }

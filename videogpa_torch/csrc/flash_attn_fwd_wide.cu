@@ -1,26 +1,31 @@
 // Attention forwards on the CUDA cores where the port's tensor-core kernels
 // do not apply (sm_90a): O = softmax(S) V, non-causal.
 //
-// 1. Any head_dim > 128 that is a multiple of 64, in float32 and bf16, with
-//    an optional natural-log LSE: `_fwd_kernel` (videogpa_tpu/ops/attention.py
+// 1. Any head_dim > 128 that is a multiple of 64, in float32, with an
+//    optional natural-log LSE: `_fwd_kernel` (videogpa_tpu/ops/attention.py
 //    :65; calls at :175 with LSE and :186 without), which the JAX package runs
-//    at every D >= 128 (at D % 128 != 0 with its ones-column, :138-144). The
-//    port's wgmma kernels end at D = 128; `attention()` zero-pads any other
-//    D > 128 to the next multiple of 64 and passes D's scale. S = Q K^T * scale
-//    in the log2 domain, an exact online softmax, P rounded to the operands'
-//    dtype before P V (`p.astype(v_ref.dtype)`, :107-110), the row sum of the
-//    unrounded P, O rounded once. Bound: 4*B*H*Nq*Nk*D operations over the 67
-//    TFLOP/s f32 peak (the kernel runs on the CUDA cores in both dtypes).
-//    Design: at D = 128 the 64-row f32 tiles of K6's tiled kernel already take
-//    186 KB of the 227 KB a CTA may have, so D > 128 cannot widen the tile.
-//    Instead O's columns are split over the grid: one CTA per (64-query tile,
-//    64-column slice of O, b*h) on a flat grid (any B*H), and each CTA
-//    recomputes S over all of D, streaming 64-column chunks of Q and K of each
-//    64-key tile through two cp.async stages (the key tile's V slice rides
-//    with its last chunk). The thread layout is K6 f32's: 16 row groups of 4
-//    queries x 16 column groups, S a 4 x 4 micro-tile a thread, each row's 64
-//    keys reduced over a half-warp, P through shared memory as P^T, O a 4 x 4
-//    micro-tile a thread. A simple kernel: the wide heads run on no main path.
+//    at every D >= 128 (at D % 128 != 0 with its ones-column, :138-144), on
+//    f32 operands. bf16 operands at these widths run on the tensor cores
+//    (flash_attn_fwd_wide_bf16.cu); f32 stays on the CUDA cores, since TF32
+//    would move the numbers away from the JAX package's. `attention()`
+//    zero-pads any other D > 128 to the next multiple of 64 and passes D's
+//    scale. S = Q K^T * scale in the log2 domain, an exact online softmax, P
+//    V in f32, O / l. Bound: 4*B*H*Nq*Nk*D operations over the 67 TFLOP/s f32
+//    peak; at (1, 4,096, 16, 256) 4.10 ms.
+//    Design: one CTA per (64-query tile, slice of O, b*h) on a flat grid (any
+//    B*H). A slice is at most 256 columns of O (D <= 256 is one slice; above,
+//    D's nc 64-column chunks are cut into ceil(nc / 4) slices of three or
+//    four chunks, the last possibly narrower), so O stays in registers: 4
+//    rows x 4 columns of each chunk a thread, 64 floats at 256 columns. For
+//    each 64-key tile the CTA computes S once, streaming 64-column chunks of
+//    Q and K through two cp.async stages, then streams the slice's V chunks
+//    through the same stages (a V chunk takes Q's place) for P V. The thread
+//    layout is K6 f32's: 16 row groups of 4 queries x 16 column groups, S a
+//    4 x 4 micro-tile a thread, each row's 64 keys reduced over a half-warp,
+//    P through shared memory as P^T, a V chunk's columns 4 a thread. The
+//    earlier design computed S again for every 64-column slice of O (10*N^2*D
+//    operations where 4*N^2*D are needed at D = 256); this one does 4*N^2*D
+//    at D <= 256 and 2*N^2*D*(1 + n_slices) above.
 //
 // 2. int8 QK^T with a float32 V at head_dim 16/32/64/128 (65-127 zero-padded
 //    to 128 by `attention()`): `_fwd_kernel_T8` (:640, call at :732) on float32
@@ -38,7 +43,6 @@
 // addressed through (b, n, h) element strides. Plain C interface (ctypes);
 // each entry returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -50,21 +54,9 @@ namespace {
 constexpr int kBlock = 64;            // queries a CTA, keys a tile
 constexpr int kThreads = 256;         // 16 row groups of 4 queries x 16 column groups
 constexpr int kPStride = kBlock + 4;  // floats a row of P^T
-constexpr int kChunk = 64;            // columns a chunk of Q, K and a slice of O and V
+constexpr int kChunk = 64;            // columns a chunk of Q, K, V and O
+constexpr int kMaxSlice = 4;          // chunks a slice of O holds at most (256 columns)
 constexpr float kLn2 = 0.6931471805599453f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -83,14 +75,6 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
-}
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(r.x << 16), __uint_as_float(r.x & 0xffff0000u),
-                     __uint_as_float(r.y << 16), __uint_as_float(r.y & 0xffff0000u));
 }
 
 // Rows [row0, min(row0 + 64, n)) of an operand (row stride sn elements, W
@@ -145,15 +129,15 @@ __device__ __forceinline__ void softmax_step(float (&s)[4][4], float (&m)[4], fl
   }
 }
 
-// ---- 1. head_dim > 128, float32 or bf16 ----
+// ---- 1. head_dim > 128, float32 ----
 
 struct WideParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
+  const float* q;
+  const float* k;
+  const float* v;
+  float* o;
   float* lse;  // (B*H, Nq) or nullptr
-  int H, Nq, Nk, D, n_qt, n_slices, vec;
+  int H, Nq, Nk, nc, n_slices, n_qt, vec;
   long long q_sb, q_sn, q_sh;
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -161,23 +145,19 @@ struct WideParams {
   float scale_log2;
 };
 
-template <typename T>
-struct WideCfg {
-  static constexpr int kRS = kChunk + 16 / static_cast<int>(sizeof(T));  // elements a row
-  static constexpr int kTileElems = kBlock * kRS;
-  static constexpr int kStageBytes = 3 * kTileElems * static_cast<int>(sizeof(T));  // Q, K, V
-  static constexpr int kOffP = 2 * kStageBytes;
-  static constexpr int kBytes = kOffP + kBlock * kPStride * 4;
-};
+constexpr int kRS = kChunk + 4;  // floats a row of a chunk tile (16-byte padded)
+constexpr int kTileFloats = kBlock * kRS;
+constexpr int kStageFloats = 2 * kTileFloats;  // Q and K chunks, or a V chunk in Q's place
+constexpr int kWideBytes = (2 * kStageFloats + kBlock * kPStride) * 4;
 
-// One CTA per item = (b*h * n_slices + slice) * n_qt + query tile. Thread t
-// holds rows 4 (t / 16) + 0..3 of the tile; for S the keys t % 16 + 16 c of
-// the key tile, for O the slice's columns 4 (t % 16) + 0..3.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) attn_wide_kernel(const WideParams p) {
-  using C = WideCfg<T>;
-  constexpr int kRS = C::kRS;
-  extern __shared__ __align__(16) unsigned char smem[];
+// One CTA per item = (b*h * n_slices + slice) * n_qt + query tile; NCS
+// chunks a slice. Thread t holds rows 4 (t / 16) + 0..3 of the tile; for S
+// the keys t % 16 + 16 c of the key tile, for O the columns 4 (t % 16) + 0..3
+// of each of the slice's chunks. Stage s = key tile * (nc + live) + r: r < nc
+// brings chunk r of Q and K, r >= nc chunk c0 + r - nc of V.
+template <int NCS>
+__global__ void __launch_bounds__(kThreads) attn_wide_f32_kernel(const WideParams p) {
+  extern __shared__ __align__(16) float smw[];
   const int item = blockIdx.x;
   const int i_tile = item % p.n_qt;
   const int grp = item / p.n_qt;
@@ -185,42 +165,44 @@ __global__ void __launch_bounds__(kThreads) attn_wide_kernel(const WideParams p)
   const int bh = grp / p.n_slices;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
   const bool vec = p.vec != 0;
   const int rg = threadIdx.x / 16;
   const int cg = threadIdx.x % 16;
   const int q0 = i_tile * kBlock;
   const bool rows_live = 4 * rg < p.Nq - q0;
-  const int n_ch = p.D / kChunk;
+  const int c0 = slice * NCS;
+  const int live = min(NCS, p.nc - c0);
+  const int n_per = p.nc + live;  // stages a key tile
   const int n_kt = (p.Nk + kBlock - 1) / kBlock;
-  const int n_stages = n_kt * n_ch;
-  float* sp = reinterpret_cast<float*>(smem + C::kOffP);
+  const int n_stages = n_kt * n_per;
+  float* sp = smw + 2 * kStageFloats;
 
-  // stage s = key tile * n_ch + chunk: Q's and K's chunk, and with the last
-  // chunk the key tile's V slice
   auto issue = [&](int s) {
-    T* sQ = reinterpret_cast<T*>(smem + (s & 1) * C::kStageBytes);
-    const int j = s / n_ch;
-    const int u = s % n_ch;
-    load_rows<T, kChunk, kRS>(sQ, q + u * kChunk, p.q_sn, q0, p.Nq, vec);
-    load_rows<T, kChunk, kRS>(sQ + C::kTileElems, k + u * kChunk, p.k_sn, j * kBlock, p.Nk, vec);
-    if (u == n_ch - 1) {
-      load_rows<T, kChunk, kRS>(sQ + 2 * C::kTileElems, v + slice * kChunk, p.v_sn, j * kBlock,
-                                p.Nk, vec);
+    float* buf = smw + (s & 1) * kStageFloats;
+    const int j = s / n_per;
+    const int r = s % n_per;
+    if (r < p.nc) {
+      load_rows<float, kChunk, kRS>(buf, q + r * kChunk, p.q_sn, q0, p.Nq, vec);
+      load_rows<float, kChunk, kRS>(buf + kTileFloats, k + r * kChunk, p.k_sn, j * kBlock, p.Nk,
+                                    vec);
+    } else {
+      load_rows<float, kChunk, kRS>(buf, v + (c0 + r - p.nc) * kChunk, p.v_sn, j * kBlock, p.Nk,
+                                    vec);
     }
   };
   issue(0);
   cp_async_commit();
 
-  float acc[4][4], m[4], l[4], s[4][4];
+  float acc[4][NCS * 4], m[4], l[4], s[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    for (int e = 0; e < NCS * 4; ++e) acc[i][e] = 0.f;
   }
 
   for (int st = 0; st < n_stages; ++st) {
@@ -228,84 +210,89 @@ __global__ void __launch_bounds__(kThreads) attn_wide_kernel(const WideParams p)
     cp_async_commit();   // possibly empty: keeps the group count uniform
     cp_async_wait<1>();  // everything but the prefetch has landed
     __syncthreads();
-    const T* sQ = reinterpret_cast<const T*>(smem + (st & 1) * C::kStageBytes);
-    const T* sK = sQ + C::kTileElems;
-    const T* sV = sQ + 2 * C::kTileElems;
-    const int j = st / n_ch;
-    const int u = st % n_ch;
+    const float* buf = smw + (st & 1) * kStageFloats;
+    const int j = st / n_per;
+    const int r = st % n_per;
     const int key0 = j * kBlock;
     const int kn = min(kBlock, p.Nk - key0);  // live keys in this tile
-    if (u == 0) {
+    if (r < p.nc) {
+      if (r == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+          for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+        }
       }
-    }
-    if (rows_live && cg < kn) {  // S += Q K^T over this chunk
-      const T* qa = sQ + 4 * rg * kRS;
-      const T* kb = sK + cg * kRS;
+      if (rows_live && cg < kn) {  // S += Q K^T over this chunk
+        const float* qa = buf + 4 * rg * kRS;
+        const float* kb = buf + kTileFloats + cg * kRS;
 #pragma unroll 4
-      for (int d = 0; d < kChunk; d += 4) {
-        float4 x[4], y[4];
+        for (int d = 0; d < kChunk; d += 4) {
+          float4 x[4], y[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = ld4(qa + i * kRS + d);
+          for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const float4*>(qa + i * kRS + d);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) y[c] = ld4(kb + 16 * c * kRS + d);
+          for (int c = 0; c < 4; ++c) {
+            y[c] = *reinterpret_cast<const float4*>(kb + 16 * c * kRS + d);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              s[i][c] = fmaf(x[i].x, y[c].x, s[i][c]);
+              s[i][c] = fmaf(x[i].y, y[c].y, s[i][c]);
+              s[i][c] = fmaf(x[i].z, y[c].z, s[i][c]);
+              s[i][c] = fmaf(x[i].w, y[c].w, s[i][c]);
+            }
+          }
+        }
+      }
+      if (r == p.nc - 1) {  // S is whole: the softmax, P^T, the rescale of O
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            s[i][c] = fmaf(x[i].x, y[c].x, s[i][c]);
-            s[i][c] = fmaf(x[i].y, y[c].y, s[i][c]);
-            s[i][c] = fmaf(x[i].z, y[c].z, s[i][c]);
-            s[i][c] = fmaf(x[i].w, y[c].w, s[i][c]);
+            s[i][c] = key0 + cg + 16 * c < p.Nk ? s[i][c] * p.scale_log2 : -INFINITY;
+          }
+        }
+        float alpha[4];
+        softmax_step(s, m, l, alpha);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kPStride + 4 * rg) =
+              make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int e = 0; e < NCS * 4; ++e) acc[i][e] *= alpha[i];
+        }
+      }
+    } else {  // O[:, chunk] += P V[:, chunk]; P^T was written a stage earlier
+      const int u = r - p.nc;
+      const float* vcol = buf + 4 * cg;
+#pragma unroll
+      for (int w = 0; w < NCS; ++w) {
+        if (w != u) continue;
+#pragma unroll 4
+        for (int key = 0; key < (rows_live ? kn : 0); ++key) {
+          const float4 pk = *reinterpret_cast<const float4*>(sp + key * kPStride + 4 * rg);
+          const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
+          const float4 x = *reinterpret_cast<const float4*>(vcol + key * kRS);
+          const float vv[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][4 * w + e] = fmaf(pr[i], vv[e], acc[i][4 * w + e]);
           }
         }
       }
     }
-    if (u == n_ch - 1) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          s[i][c] = key0 + cg + 16 * c < p.Nk ? s[i][c] * p.scale_log2 : -INFINITY;
-        }
-      }
-      float alpha[4];
-      softmax_step(s, m, l, alpha);
-      // P^T, rounded to the operands' dtype for P V
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kPStride + 4 * rg) =
-            make_float4(round_to<T>(s[0][c]), round_to<T>(s[1][c]), round_to<T>(s[2][c]),
-                        round_to<T>(s[3][c]));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[i];
-      }
-      const T* vcol = sV + 4 * cg;
-#pragma unroll 4
-      for (int key = 0; key < (rows_live ? kn : 0); ++key) {
-        const float4 pk = *reinterpret_cast<const float4*>(sp + key * kPStride + 4 * rg);
-        const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
-        const float4 x = ld4(vcol + key * kRS);
-        const float vv[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(pr[i], vv[e], acc[i][e]);
-        }
-      }
-    }
-    __syncthreads();  // this stage's buffers and P^T are rewritten next
+    __syncthreads();  // this stage's buffer (and, after the last V chunk, P^T) is rewritten next
   }
 
   // epilogue: the row sums over the half-warp, O / l through the strides, LSE
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh + slice * kChunk + 4 * cg;
+  float* o = p.o + b * p.o_sb + h * p.o_sh + kChunk * c0 + 4 * cg;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -314,44 +301,30 @@ __global__ void __launch_bounds__(kThreads) attn_wide_kernel(const WideParams p)
     if (row >= p.Nq) continue;
     const float inv = 1.f / l[i];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[row * p.o_sn + e] = from_f<T>(acc[i][e] * inv);
+    for (int w = 0; w < NCS; ++w) {
+      if (w >= live) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[row * p.o_sn + kChunk * w + e] = acc[i][4 * w + e] * inv;
+    }
     if (p.lse != nullptr && slice == 0 && cg == 0) {
       p.lse[static_cast<long long>(bh) * p.Nq + row] = (m[i] + log2f(l[i])) * kLn2;
     }
   }
 }
 
-template <typename T>
-int wide_entry(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
-               int Nq, int Nk, int D, const long long* st, float scale_log2, void* stream) {
-  using C = WideCfg<T>;
-  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || D <= 128 || D % kChunk != 0) {
-    return cudaErrorInvalidValue;
-  }
-  WideParams p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.lse = static_cast<float*>(lse);
-  p.H = H; p.Nq = Nq; p.Nk = Nk; p.D = D;
-  p.n_qt = (Nq + kBlock - 1) / kBlock;
-  p.n_slices = D / kChunk;
-  p.q_sb = st[0]; p.q_sn = st[1]; p.q_sh = st[2];
-  p.k_sb = st[3]; p.k_sn = st[4]; p.k_sh = st[5];
-  p.v_sb = st[6]; p.v_sn = st[7]; p.v_sh = st[8];
-  p.o_sb = st[9]; p.o_sn = st[10]; p.o_sh = st[11];
-  p.scale_log2 = scale_log2;
-  constexpr long long kV = 16 / sizeof(T);
-  bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-              reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  for (int i = 0; i < 9; ++i) vec = vec && st[i] % kV == 0;
-  if (sizeof(T) == 2 && !vec) return cudaErrorInvalidValue;  // bf16 copies are 16-byte
-  p.vec = vec ? 1 : 0;
-  const long long items = static_cast<long long>(B) * H * p.n_slices * p.n_qt;
-  if (items > INT_MAX) return cudaErrorInvalidValue;
+// The slice geometry at head_dim D: chunks, slices and chunks a slice.
+void slices_of(int D, int* nc, int* n_slices, int* ncs) {
+  *nc = D / kChunk;
+  *n_slices = (*nc + kMaxSlice - 1) / kMaxSlice;
+  *ncs = (*nc + *n_slices - 1) / *n_slices;
+}
+
+template <int NCS>
+cudaError_t launch_wide(const WideParams& p, long long items, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
-      attn_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+      attn_wide_f32_kernel<NCS>, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBytes);
   if (err != cudaSuccess) return err;
-  attn_wide_kernel<T><<<static_cast<unsigned int>(items), kThreads, C::kBytes,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  attn_wide_f32_kernel<NCS><<<static_cast<unsigned int>(items), kThreads, kWideBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -386,7 +359,7 @@ struct Int8Cfg {
 };
 
 // One CTA per (64-query tile, b*h), item = b*h * n_qt + query tile; the
-// thread layout of attn_wide_kernel, O over all D columns (kChunks x kW).
+// thread layout of attn_wide_f32_kernel, O over all D columns (kChunks x kW).
 template <int D>
 __global__ void __launch_bounds__(kThreads) attn_int8_f32_kernel(const Int8Params p) {
   using C = Int8Cfg<D>;
@@ -576,23 +549,40 @@ cudaError_t attrs_of(K kernel, int bytes, int* regs, int* smem_bytes) {
 
 }  // namespace
 
-#define VIDEOGPA_WIDE_ARGS                                                                      \
-  const void *q, const void *k, const void *v, void *o, void *lse, int B, int H, int Nq,       \
-      int Nk, int D, long long q_sb, long long q_sn, long long q_sh, long long k_sb,           \
-      long long k_sn, long long k_sh, long long v_sb, long long v_sn, long long v_sh,          \
-      long long o_sb, long long o_sn, long long o_sh, float scale_log2, void *stream
-#define VIDEOGPA_WIDE_STRIDES                                                                   \
-  const long long st[12] = {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh,              \
-                            o_sb, o_sn, o_sh}
-
-extern "C" int videogpa_flash_attn_fwd_wide_f32(VIDEOGPA_WIDE_ARGS) {
-  VIDEOGPA_WIDE_STRIDES;
-  return wide_entry<float>(q, k, v, o, lse, B, H, Nq, Nk, D, st, scale_log2, stream);
-}
-
-extern "C" int videogpa_flash_attn_fwd_wide_bf16(VIDEOGPA_WIDE_ARGS) {
-  VIDEOGPA_WIDE_STRIDES;
-  return wide_entry<__nv_bfloat16>(q, k, v, o, lse, B, H, Nq, Nk, D, st, scale_log2, stream);
+extern "C" int videogpa_flash_attn_fwd_wide_f32(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B, int H, int Nq,
+    int Nk, int D, long long q_sb, long long q_sn, long long q_sh, long long k_sb,
+    long long k_sn, long long k_sh, long long v_sb, long long v_sn, long long v_sh,
+    long long o_sb, long long o_sn, long long o_sh, float scale_log2, void* stream) {
+  if (B < 1 || H < 1 || Nq < 1 || Nk < 1 || D <= 128 || D % kChunk != 0) {
+    return cudaErrorInvalidValue;
+  }
+  int ncs = 0;
+  WideParams p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<float*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.H = H; p.Nq = Nq; p.Nk = Nk;
+  slices_of(D, &p.nc, &p.n_slices, &ncs);
+  p.n_qt = (Nq + kBlock - 1) / kBlock;
+  p.q_sb = q_sb; p.q_sn = q_sn; p.q_sh = q_sh;
+  p.k_sb = k_sb; p.k_sn = k_sn; p.k_sh = k_sh;
+  p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
+  p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
+  p.scale_log2 = scale_log2;
+  // 16-byte copies when every row of q, k and v starts on 16 bytes
+  bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+              reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+  for (long long s : {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh, v_sb, v_sn, v_sh}) {
+    vec = vec && s % 4 == 0;
+  }
+  p.vec = vec ? 1 : 0;
+  const long long items = static_cast<long long>(B) * H * p.n_slices * p.n_qt;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return ncs == 3 ? launch_wide<3>(p, items, s) : launch_wide<4>(p, items, s);
 }
 
 // strides: (b, n, h) of q8, sq, k8, sk, v, o in that order (K8's interface)
@@ -641,11 +631,13 @@ extern "C" int videogpa_flash_attn_int8_f32(
 }
 
 // registers a thread and dynamic shared memory a CTA, for reports: the wide
-// kernel in f32 (bf16 = 0) or bf16, the int8 / f32 kernel at head_dim D
-extern "C" int videogpa_flash_attn_fwd_wide_attrs(int bf16, int* regs, int* smem_bytes) {
-  return bf16 ? attrs_of(attn_wide_kernel<__nv_bfloat16>, WideCfg<__nv_bfloat16>::kBytes, regs,
-                         smem_bytes)
-              : attrs_of(attn_wide_kernel<float>, WideCfg<float>::kBytes, regs, smem_bytes);
+// f32 kernel at head_dim D, the int8 / f32 kernel at head_dim D
+extern "C" int videogpa_flash_attn_fwd_wide_f32_attrs(int D, int* regs, int* smem_bytes) {
+  if (D <= 128 || D % kChunk != 0) return cudaErrorInvalidValue;
+  int nc = 0, n_slices = 0, ncs = 0;
+  slices_of(D, &nc, &n_slices, &ncs);
+  return ncs == 3 ? attrs_of(attn_wide_f32_kernel<3>, kWideBytes, regs, smem_bytes)
+                  : attrs_of(attn_wide_f32_kernel<4>, kWideBytes, regs, smem_bytes);
 }
 
 extern "C" int videogpa_flash_attn_int8_f32_attrs(int D, int* regs, int* smem_bytes) {

@@ -31,6 +31,8 @@ SOURCES = {
     "flash_attn_int8": _CSRC / "flash_attn_int8.cu",
     "flash_attn_bwd_f32": _CSRC / "flash_attn_bwd_f32.cu",
     "flash_attn_fwd_wide": _CSRC / "flash_attn_fwd_wide.cu",
+    "flash_attn_fwd_wide_bf16": _CSRC / "flash_attn_fwd_wide_bf16.cu",
+    "flash_attn_bwd_wide": _CSRC / "flash_attn_bwd_wide.cu",
 }
 HEADERS = (_CSRC / "wgmma_sm90.cuh",)
 NVCC_FLAGS = [
@@ -47,10 +49,13 @@ _BWD_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
 # q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream.
 # The kernel needs every query scale sq > 0, as quantize_qk_int8 makes them.
 _INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
-# the CUDA-core backward (f32, and every dtype above head_dim 128): q, k, v,
-# o, do, lse, dq, dk, dv and the scratch (delta, dq_acc, turn counters); B, H,
-# Nq, Nk, D; (b, n, h) strides of q, k, v, o, do, dq, dk, dv; scale; stream
+# the CUDA-core backward (f32): q, k, v, o, do, lse, dq, dk, dv and the
+# scratch (delta, dq_acc, turn counters); B, H, Nq, Nk, D; (b, n, h) strides
+# of q, k, v, o, do, dq, dk, dv; scale; stream
 _BWD_F32_ARGS = [_P] * 12 + [_I] * 5 + [_LL] * 24 + [_F, _P]
+# the bf16 backward above head_dim 128: the same with one f32 scratch (LSE2,
+# then delta)
+_BWD_WIDE_ARGS = [_P] * 10 + [_I] * 5 + [_LL] * 24 + [_F, _P]
 # entry point -> (source, C symbol, argtypes)
 _SIGNATURES = {
     "flash_attn_fwd": ("flash_attn_fwd", "videogpa_flash_attn_fwd", _FWD_ARGS),
@@ -70,11 +75,11 @@ _SIGNATURES = {
     "flash_attn_bwd_wide_f32": (
         "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_wide_f32", _BWD_F32_ARGS),
     "flash_attn_bwd_wide_bf16": (
-        "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_wide_bf16", _BWD_F32_ARGS),
+        "flash_attn_bwd_wide", "videogpa_flash_attn_bwd_wide_bf16", _BWD_WIDE_ARGS),
     "flash_attn_fwd_wide_f32": (
         "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_f32", _FWD_ARGS),
     "flash_attn_fwd_wide_bf16": (
-        "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_bf16", _FWD_ARGS),
+        "flash_attn_fwd_wide_bf16", "videogpa_flash_attn_fwd_wide_bf16", _FWD_ARGS),
     "flash_attn_int8_f32": ("flash_attn_fwd_wide", "videogpa_flash_attn_int8_f32", _INT8_ARGS),
     # reports, not kernels: registers a thread and dynamic shared memory a CTA
     "flash_attn_fwd_attrs": ("flash_attn_fwd", "videogpa_flash_attn_fwd_attrs", [_I, _P, _P]),
@@ -91,9 +96,11 @@ _SIGNATURES = {
     "flash_attn_bwd_f32_attrs": (
         "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_f32_attrs", [_I, _P, _P]),
     "flash_attn_bwd_wide_bf16_attrs": (
-        "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_wide_bf16_attrs", [_P, _P]),
-    "flash_attn_fwd_wide_attrs": (
-        "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_attrs", [_I, _P, _P]),
+        "flash_attn_bwd_wide", "videogpa_flash_attn_bwd_wide_bf16_attrs", [_I, _I, _P, _P]),
+    "flash_attn_fwd_wide_f32_attrs": (
+        "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_f32_attrs", [_I, _P, _P]),
+    "flash_attn_fwd_wide_bf16_attrs": (
+        "flash_attn_fwd_wide_bf16", "videogpa_flash_attn_fwd_wide_bf16_attrs", [_I, _P, _P]),
     "flash_attn_int8_f32_attrs": (
         "flash_attn_fwd_wide", "videogpa_flash_attn_int8_f32_attrs", [_I, _P, _P]),
     "flash_attn_int8_d128": (
@@ -170,10 +177,12 @@ def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
     report entry (``flash_attn_fwd``, ``flash_attn_fwd_f32``,
     ``flash_attn_short``, ``flash_attn_bwd``, ``flash_attn_bwd_f32``,
-    ``flash_attn_int8`` (K8 and K9) and ``flash_attn_int8_f32`` at head dim
-    ``args[0]``, ``flash_attn_fwd_wide`` (``args[0]`` 1 for bf16, 0 for f32),
-    ``flash_attn_fwd_d128`` (its bf16 kernel), ``flash_attn_bwd_d128``,
-    ``flash_attn_bwd_wide_bf16``), as the card reports them."""
+    ``flash_attn_int8`` (K8 and K9), ``flash_attn_int8_f32``,
+    ``flash_attn_fwd_wide_f32`` and ``flash_attn_fwd_wide_bf16`` at head dim
+    ``args[0]``, ``flash_attn_bwd_wide_bf16`` at head dim ``args[0]`` (its
+    dK/dV kernel with ``args[1]`` 1, its dQ kernel with 0),
+    ``flash_attn_fwd_d128`` (its bf16 kernel), ``flash_attn_bwd_d128``), as the
+    card reports them."""
     regs, smem = ctypes.c_int(0), ctypes.c_int(0)
     rc = kernel(f"{name}_attrs")(*args, ctypes.byref(regs), ctypes.byref(smem))
     if rc != 0:

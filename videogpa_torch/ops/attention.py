@@ -24,11 +24,15 @@ the kernel or raises. There is no fallback from one to the other.
   cores, a delta prologue and one fused kernel over key tiles (a persistent
   grid) that sums dQ across key tiles in a fixed order, so runs are
   bit-stable.
-- ``flash_attn_fwd_wide`` (``csrc/flash_attn_fwd_wide.cu``) and
-  ``flash_attn_bwd_wide`` (``csrc/flash_attn_bwd_f32.cu``): the forward and
-  backward at any head_dim above 128 that is a multiple of 64, float32 or
-  bf16, on CUDA cores (64-column slices of O and of the gradients, S
-  recomputed over all of D by each slice).
+- ``flash_attn_fwd_wide`` and ``flash_attn_bwd_wide``: the forward and
+  backward at any head_dim above 128 that is a multiple of 64. bf16 runs on
+  wgmma + TMA (``csrc/flash_attn_fwd_wide_bf16.cu``: K6's persistent scheme
+  with S computed once a key tile for slices of O of up to 256 columns;
+  ``csrc/flash_attn_bwd_wide.cu``: a dK/dV kernel over key tiles and a dQ
+  kernel over query tiles, bit-stable); float32 on the CUDA cores
+  (``csrc/flash_attn_fwd_wide.cu``: S once a key tile for slices of up to
+  256 columns; ``csrc/flash_attn_bwd_f32.cu``: 64-column slices of the
+  gradients, each recomputing S and dP).
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
   ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128; QK^T
@@ -127,13 +131,19 @@ def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int, int, int, i
     return B, n2, n1, D, sb, s2, s1
 
 
-def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
-    """The rule of TMA and of 16-byte copies: a base address and (b, n, h)
-    strides that are multiples of 16 bytes. Raises ``ValueError`` otherwise;
-    the kernels never copy an operand to meet it. A traced operand
-    (``traced``) has no address: only its strides are checked."""
+def _misses_16_bytes(x: torch.Tensor) -> bool:
+    """Whether ``x`` breaks the rule of TMA and of 16-byte copies: a base
+    address and (b, n, h) strides that are multiples of 16 bytes. A traced
+    operand (``traced``) has no address: only its strides are checked."""
     misaligned = not traced(x) and x.data_ptr() % 16
-    if misaligned or any(st * x.element_size() % 16 for st in x.stride()[:-1]):
+    return bool(misaligned or any(st * x.element_size() % 16 for st in x.stride()[:-1]))
+
+
+def check_16_bytes(fn: str, name: str, x: torch.Tensor) -> None:
+    """Raises ``ValueError`` where ``x`` breaks the 16-byte rule
+    (``_misses_16_bytes``). Only the wide bf16 entries copy such an operand
+    instead (``_tma_ready``); the other kernels never do."""
+    if _misses_16_bytes(x):
         raise ValueError(
             f"{fn}: {name} must be 16-byte aligned with (b, n, h) strides that are "
             f"multiples of 16 bytes, got strides {tuple(x.stride())} of {x.element_size()}-byte "
@@ -664,14 +674,17 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
 
 flash_attn_bwd_f32.launches = 0
 
-# The CUDA-core backward's tiles (csrc/flash_attn_bwd_f32.cu): 64 keys a work
-# item, 64 queries a tile, and above head_dim 64 the gradients in slices of
-# 64 columns, each slice an item of its own.
+# The CUDA-core backward's tiles (csrc/flash_attn_bwd_f32.cu, float32 only):
+# 64 keys a work item, 64 queries a tile, and above head_dim 64 the gradients
+# in slices of 64 columns, each slice an item of its own.
 BWD_F32_BLOCK, BWD_F32_SLICE = 64, 64
+# The bf16 wide backward's tiles (csrc/flash_attn_bwd_wide.cu): 64 rows on
+# both sides; its LSE2 and delta cover the query rows padded to whole tiles.
+BWD_WIDE_BLOCK = 64
 
 
 def bwd_f32_slices(D: int) -> int:
-    """Column slices of the CUDA-core backward at head_dim ``D``."""
+    """Column slices of the CUDA-core (float32) backward at head_dim ``D``."""
     return 1 if D <= BWD_F32_SLICE else D // BWD_F32_SLICE
 
 
@@ -681,17 +694,23 @@ def flash_attn_bwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     """The backward at any head_dim above 128 that is a multiple of 64, in
     float32 or bf16: the gradients of ``flash_attn_fwd_wide`` given its
     output O, its natural-log LSE and dO (``_dq_kernel`` / ``_dkv_kernel``,
-    which the JAX package runs at every D >= 128). The kernel of
+    which the JAX package runs at every D >= 128). Same arguments and
+    results as ``flash_attn_bwd``; two runs give the same bits.
+
+    bf16 (``csrc/flash_attn_bwd_wide.cu``): the JAX package's split on wgmma
+    + TMA, a prologue (delta, the base-2 LSE), a dK/dV kernel over 64-key
+    tiles and a dQ kernel over 64-query tiles, each recomputing S and dP
+    (seven products) and summing nothing across CTAs; slices of at most 256
+    gradient columns, each recomputing S and dP. P is rounded to bf16 before dV and dS
+    before dQ and dK, as the JAX kernels round them. float32: the kernel of
     ``flash_attn_bwd_f32`` with 64-column slices of the gradients, each
-    slice's items recomputing S and dP over all of D; bf16 operands are
-    widened on load, P is rounded to bf16 before dV and dS before dQ and dK,
-    as the JAX kernels round them. Same arguments and results as
-    ``flash_attn_bwd``; two runs give the same bits.
+    slice's items recomputing S and dP over all of D.
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
-    tensors must be float32 or bf16 (bf16 meeting ``check_16_bytes``) with D
-    in ``WIDE_HEAD_DIMS``, at any B*H; anything else raises. Each call adds
-    one to ``flash_attn_bwd_wide.launches``.
+    tensors must be float32 or bf16 with D in ``WIDE_HEAD_DIMS``, at any
+    B*H; anything else raises. A bf16 operand that misses TMA's 16-byte rule
+    (``check_16_bytes``) is copied first. Each call adds one to
+    ``flash_attn_bwd_wide.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -699,11 +718,15 @@ def flash_attn_bwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
     if not _on_card(q):
         raise ValueError(f"flash_attn_bwd_wide: unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype == torch.bfloat16:
+        grads = _launch_bwd_wide(*(_tma_ready(x) for x in (q, k, v, o)), lse, _tma_ready(do),
+                                 layout, softmax_scale)
+    elif q.dtype == torch.float32:
+        grads = _launch_bwd_f32("flash_attn_bwd_wide", "flash_attn_bwd_wide_f32",
+                                WIDE_HEAD_DIMS, q.dtype, q, k, v, o, lse, do, layout,
+                                softmax_scale)
+    else:
         raise TypeError(f"flash_attn_bwd_wide: q must be float32 or bfloat16, got {q.dtype}")
-    entry = "flash_attn_bwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_bwd_wide_f32"
-    grads = _launch_bwd_f32("flash_attn_bwd_wide", entry, WIDE_HEAD_DIMS, q.dtype,
-                            q, k, v, o, lse, do, layout, softmax_scale)
     if not traced(q):
         flash_attn_bwd_wide.launches += 1
     return grads
@@ -713,6 +736,7 @@ flash_attn_bwd_wide.launches = 0
 
 
 _BWD_F32_TYPES = _kernels._BWD_F32_ARGS[12:-1]  # B, H, Nq, Nk, D, 24 strides, scale
+_BWD_WIDE_TYPES = _kernels._BWD_WIDE_ARGS[10:-1]  # the same
 
 
 def _contiguous_strides(shape, layout):
@@ -720,6 +744,50 @@ def _contiguous_strides(shape, layout):
     _, n1, n2, D = shape
     strides = (n1 * n2 * D, n2 * D, D)
     return strides if layout == "bnhd" else (strides[0], strides[2], strides[1])
+
+
+def _bwd_strides(layout, q, k, v, o, do):
+    """The (b, n, h) strides of q, k, v, o and do, then of new contiguous dQ,
+    dK and dV, as the backward C interfaces take them."""
+    strides = []
+    for x in (q, k, v, o, do):
+        strides += _dims(x, layout)[4:]
+    for x in (q, k, v):  # dq, dk, dv
+        strides += _contiguous_strides(x.shape, layout)
+    return strides
+
+
+def _tma_ready(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a new contiguous copy of it where it misses TMA's 16-byte
+    rule (``_misses_16_bytes``): the wide bf16 entries copy such an operand
+    rather than refuse it."""
+    return x.clone(memory_format=torch.contiguous_format) if _misses_16_bytes(x) else x
+
+
+def _launch_bwd_wide(q, k, v, o, lse, do, layout, softmax_scale=None):
+    """Validate the bf16 wide backward's operands and launch it (a prologue
+    and two flat grids: any B*H). The wrapper allocates the gradients and one
+    f32 scratch, the base-2 LSE and then delta over the query rows padded to
+    whole 64-row tiles, both written by the prologue."""
+    fn_name, entry = "flash_attn_bwd_wide", "flash_attn_bwd_wide_bf16"
+
+    def build():
+        B, Nq, H, D, Nk = _check_bwd_operands(fn_name, layout, WIDE_HEAD_DIMS, q, k, v, o, lse,
+                                              do)
+        args = (B, H, Nq, Nk, D, *_bwd_strides(layout, q, k, v, o, do),
+                _scale(D, softmax_scale))
+        n_scratch = 2 * B * H * _round_up(Nq, BWD_WIDE_BLOCK)
+        return n_scratch, tuple(t(x) for t, x in zip(_BWD_WIDE_TYPES, args))
+
+    n_scratch, args = _geometry(fn_name, entry, layout, softmax_scale, torch.bfloat16,
+                                ("q", "k", "v", "o", "do"), (q, k, v, o, do, lse), build)
+    scratch = lse.new_empty(n_scratch)  # f32, on q's device
+    dq, dk, dv = q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+    if traced(q):
+        return dq, dk, dv
+    _call(fn_name, entry, q.device, *(x.data_ptr() for x in (q, k, v, o, do, lse, dq, dk, dv)),
+          scratch.data_ptr(), *args)
+    return dq, dk, dv
 
 
 def _launch_bwd_f32(fn_name: str, entry: str, head_dims, dtype, q, k, v, o, lse, do, layout,
@@ -737,12 +805,8 @@ def _launch_bwd_f32(fn_name: str, entry: str, head_dims, dtype, q, k, v, o, lse,
         n_delta = _round_up(B * H * Nq, 4)  # the partial sums start on 16 bytes
         n_acc = B * H * n_qt * BWD_F32_BLOCK * D if n_kt > 1 else 0
         n_turn = B * H * bwd_f32_slices(D) * n_qt + 1
-        strides = []
-        for x in (q, k, v, o, do):
-            strides += _dims(x, layout)[4:]
-        for x in (q, k, v):  # dq, dk, dv
-            strides += _contiguous_strides(x.shape, layout)
-        args = (B, H, Nq, Nk, D, *strides, _scale(D, softmax_scale))
+        args = (B, H, Nq, Nk, D, *_bwd_strides(layout, q, k, v, o, do),
+                _scale(D, softmax_scale))
         return (n_delta, n_acc, n_turn), tuple(t(x) for t, x in zip(_BWD_F32_TYPES, args))
 
     (n_delta, n_acc, n_turn), args = _geometry(fn_name, entry, layout, softmax_scale, dtype,
@@ -766,15 +830,20 @@ def flash_attn_fwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32 or bf16 (``_fwd_kernel``, which the JAX package runs at every D >=
     128). Same arguments and results as ``flash_attn_fwd``.
 
-    A tiled kernel on the CUDA cores: one CTA per (64-query tile, 64-column
-    slice of O, b*h) streams 64-column chunks of Q and K and recomputes S
-    over all of D; P is rounded to the operands' dtype before P V, as the JAX
-    kernel rounds it.
+    O is cut into slices of at most 256 columns (one slice at D <= 256),
+    each computing S once for every key tile. bf16
+    (``csrc/flash_attn_fwd_wide_bf16.cu``): K6's scheme on wgmma + TMA, a
+    persistent grid of 128-query items, Q kept in shared memory at D <= 256,
+    64-key tiles, P rounded to bf16 before P V as the JAX kernel rounds it.
+    float32 (``csrc/flash_attn_fwd_wide.cu``): a tiled kernel on the CUDA
+    cores, one CTA per (64-query tile, slice, b*h) streaming 64-column
+    chunks of Q and K for S and of V for P V.
 
     CPU tensors take the plain version (``flash_attn_fwd_reference``). CUDA
-    tensors must be float32 or bf16 (bf16 meeting ``check_16_bytes``) with D
-    in ``WIDE_HEAD_DIMS``, at any B*H; anything else raises. Each launch adds
-    one to ``flash_attn_fwd_wide.launches``.
+    tensors must be float32 or bf16 with D in ``WIDE_HEAD_DIMS``, at any
+    B*H; anything else raises. A bf16 operand that misses TMA's 16-byte rule
+    (``check_16_bytes``) is copied first. Each launch adds one to
+    ``flash_attn_fwd_wide.launches``.
     """
     if layout not in ("bnhd", "bhnd"):
         raise ValueError(f"layout must be 'bnhd' or 'bhnd', got {layout!r}")
@@ -782,9 +851,13 @@ def flash_attn_fwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attn_fwd_reference(q, k, v, layout, with_lse, softmax_scale)
     if not _on_card(q):
         raise ValueError(f"flash_attn_fwd_wide: unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype == torch.bfloat16:
+        entry = "flash_attn_fwd_wide_bf16"
+        q, k, v = (_tma_ready(x) for x in (q, k, v))
+    elif q.dtype == torch.float32:
+        entry = "flash_attn_fwd_wide_f32"
+    else:
         raise TypeError(f"flash_attn_fwd_wide: q must be float32 or bfloat16, got {q.dtype}")
-    entry = "flash_attn_fwd_wide_bf16" if q.dtype == torch.bfloat16 else "flash_attn_fwd_wide_f32"
     out = _launch_fwd("flash_attn_fwd_wide", entry, q, k, v, layout, with_lse, q.dtype,
                       WIDE_HEAD_DIMS, softmax_scale)
     if not traced(q):
@@ -1075,7 +1148,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       backward (``flash_attn_bwd_f32``); D < 128, K1 with LSE and K3
       backward; D = 128, K6 (``flash_attn_fwd_d128``) with LSE and K7
       (``flash_attn_bwd_d128``);
-    - D > 128 -> ``flash_attn_fwd_wide`` (float32 or bf16, on the CUDA cores);
+    - D > 128 -> ``flash_attn_fwd_wide`` (bf16 on the tensor cores, float32
+      on the CUDA cores);
     - float32 operands -> ``flash_attn_fwd_f32`` (K6's f32 entry, tiled on
       the CUDA cores), at any length: the camera head's short rows and the
       f32 scorer's long ones, which run far slower than bf16 rows on the
