@@ -124,15 +124,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    parity_f32_bwd — the bit-stable backwards against their plain
              versions: ``flash_attn_bwd_f32`` at the camera head, the frame
              rows, one long row and B*H = 66,000, ``flash_attn_bwd_wide`` at
-             (1, 4,096, 16, 256) in f32 (CUDA cores) and bf16 (two wgmma
-             kernels), and edge cases (cross and ragged lengths, head dims
-             16-512, both layouts, strided views, operands off 16-byte
-             alignment, B*H = 66,000 at D = 192 in bf16, more key tiles than
-             the grid's CTAs); the forward's O too; two runs bit-equal at
-             every shape; ``attention()`` autograd in f32; its ms beside its
-             bound and SDPA's backward in the same dtype, and for the bf16
-             wide entry the bound of its seven products; registers and
-             shared memory of the wide bf16 kernels.
+             (1, 4,096, 16, 256) in f32 (the CUDA-core cluster kernel; its
+             walk and grid) and bf16 (two wgmma kernels), and edge cases
+             (cross and ragged lengths, head dims 16-1,088, both layouts,
+             strided views, operands off 16-byte alignment, B*H = 66,000 at
+             D = 128 in f32 and 192 in f32 and bf16, more key tiles than the
+             grid's CTAs, a spare slot, two groups of chunks); the forward's
+             O too; two runs bit-equal at every shape; ``attention()``
+             autograd in f32; its ms beside its bound and SDPA's backward in
+             the same dtype, and for the bf16 wide entry the bound of its
+             seven products; registers and shared memory of the wide
+             kernels.
    score_files — random VGGT-1B weights written in the upstream key layout
              as safetensors and read by ``load_vggt`` (same outputs as the
              module written); ``cli.score.main`` on 3 groups x 4 clips of 10
@@ -4365,6 +4367,11 @@ def _bwd_f32_run(label, fwd, bwd, q, k, v, do, layout, iters=0):
         bound_ms, bound_by = _bwd_f32_bound(B, Nq, Nk, H, D, q.dtype)
         out.update({"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                     "tflops": 10.0 * B * H * Nq * Nk * D / ms / 1e9})
+        if q.dtype == torch.float32 and D >= 128:  # the cluster kernel's walk and grid
+            from videogpa_torch.ops import _kernels
+
+            out["walk"] = _kernels.bwd_wide_f32_walk()
+            msg += f"; walk {json.dumps(out['walk'])}"
         msg += (f"; kernel {ms:.4f} ms ({out['tflops']:.1f} TFLOP/s counting five products), "
                 f"bound {bound_ms:.4f} ms ({bound_by}), plain {plain_ms:.1f} ms, SDPA "
                 f"{str(q.dtype)[6:]} backward {lib_ms:.4f} ms")
@@ -4442,6 +4449,18 @@ def phase_parity_f32_bwd(cam_shape, vggt_shape):
         ("cross Nq=333 Nk=200 D=192 strided (B, H, N, D) views", wide, "bhnd",
          tuple(rnd((2, n, 3 * 192)).view(2, n, 3, 192).transpose(1, 2)
                for n in (333, 200, 200, 333))),
+        ("cross Nq=300 Nk=130 D=512 f32 (a cluster of four CTAs)", wide, "bnhd",
+         tuple(rnd((1, n, 2, 512)) for n in (300, 130, 130, 300))),
+        ("ragged N=200 D=320 f32 bhnd (a cluster of three)", wide, "bhnd",
+         tuple(bhnd(2, 200, 2, 320) for _ in range(4))),
+        ("B*H = 2 x 33,000 = 66,000 N=24 D=192 f32 (a spare slot)", wide, "bnhd",
+         tuple(rnd((2, 24, 33000, 192)) for _ in range(4))),
+        ("B*H = 2 x 33,000 = 66,000 N=24 D=128 f32 (clusters of one CTA)", f32, "bnhd",
+         tuple(rnd((2, 24, 33000, 128)) for _ in range(4))),
+        ("cross Nq=150 Nk=260 D=576 f32 (five CTAs, a spare slot)", wide, "bnhd",
+         tuple(rnd((1, n, 2, 576)) for n in (150, 260, 260, 150))),
+        ("ragged N=130 D=1088 f32 bhnd (two groups of chunks, streamed)", wide, "bhnd",
+         tuple(bhnd(1, 130, 2, 1088) for _ in range(4))),
         ("cross Nq=333 Nk=200 D=192 bf16 strided (B, H, N, D) views", wide, "bhnd",
          tuple(rnd((2, n, 3 * 192), torch.bfloat16).view(2, n, 3, 192).transpose(1, 2)
                for n in (333, 200, 200, 333))),
@@ -4467,8 +4486,10 @@ def phase_parity_f32_bwd(cam_shape, vggt_shape):
         dt: max(max(r["max_abs_err"], r["o_max_abs_err"]) for r in runs
                 if r["shape"][-1] > 128 and r["dtype"] == dt) for dt in ("float32", "bfloat16")}
     for key, args in (("registers_smem_d64", ("flash_attn_bwd_f32", 64)),
-                      ("registers_smem_d128", ("flash_attn_bwd_f32", 128)),
+                      ("registers_smem_d128", ("flash_attn_bwd_wide_f32", 128)),
                       ("registers_smem_d16", ("flash_attn_bwd_f32", 16)),
+                      ("registers_smem_wide_f32_d256", ("flash_attn_bwd_wide_f32", 256)),
+                      ("registers_smem_wide_f32_d1088", ("flash_attn_bwd_wide_f32", 1088)),
                       ("registers_smem_wide_bf16_dkv_d256", ("flash_attn_bwd_wide_bf16", 256, 1)),
                       ("registers_smem_wide_bf16_dq_d256", ("flash_attn_bwd_wide_bf16", 256, 0)),
                       ("registers_smem_wide_bf16_dkv_d512", ("flash_attn_bwd_wide_bf16", 512, 1)),
@@ -7417,7 +7438,7 @@ def main() -> int:
          "edge_cases_max_abs_err": f32_bwd["edge_cases"],
          "registers_smem": {"d16": f32_bwd["registers_smem_d16"],
                             "d64": f32_bwd["registers_smem_d64"],
-                            "d128": f32_bwd["registers_smem_d128"]}},
+                            "d128 (flash_attn_bwd_wide_f32.cu)": f32_bwd["registers_smem_d128"]}},
         # the entries above head_dim 128 and the int8 route with f32 operands:
         # no model of the repo has such a head or runs int8 in f32, so every
         # main path launches them 0 times; they ran in [parity_headdim],
@@ -7458,17 +7479,18 @@ def main() -> int:
          "registers_smem": {k[len("registers_smem_wide_bf16_"):]: v for k, v in f32_bwd.items()
                             if k.startswith("registers_smem_wide_bf16")}},
         {"name": "flash_attn_bwd_wide_f32", "wrapper": "flash_attn_bwd_wide", "route": "cuda",
-         "source": "videogpa_torch/csrc/flash_attn_bwd_f32.cu",
+         "source": "videogpa_torch/csrc/flash_attn_bwd_wide_f32.cu",
          "replaces": "videogpa_tpu/ops/attention.py:883,908",
          **by_path("flash_attn_bwd_wide"),
          "launches_in_parity_phases": headdim_launches["flash_attn_bwd_wide"],
          "max_abs_err": max(f32_bwd["wide_max_abs_err"]["float32"],
                             headdim["wide_max_abs_err"]["float32"]),
          **{k: f32_bwd["shapes"]["long row D=256 f32"][k]
-            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
-         "registers_smem": f32_bwd["registers_smem_d128"]},
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "walk")},
+         "registers_smem": {k[len("registers_smem_wide_f32_"):]: v for k, v in f32_bwd.items()
+                            if k.startswith("registers_smem_wide_f32")}},
         {"name": "flash_attn_int8_f32", "route": "cuda",
-         "source": "videogpa_torch/csrc/flash_attn_fwd_wide.cu",
+         "source": "videogpa_torch/csrc/flash_attn_int8_f32.cu",
          "replaces": "videogpa_tpu/ops/attention.py:640",
          **by_path("flash_attn_int8_f32"),
          "launches_in_parity_phases": headdim_launches["flash_attn_int8_f32"],

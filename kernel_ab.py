@@ -8,6 +8,7 @@ against another checkout's on one NVIDIA GPU, in one process.
     python3 kernel_ab.py OTHER_CHECKOUT
     python3 kernel_ab.py --f32-bwd OTHER_CHECKOUT  # the f32 backward alone
     python3 kernel_ab.py --wide OTHER_CHECKOUT     # the entries above head_dim 128
+    python3 kernel_ab.py --int8-f32 OTHER_CHECKOUT # the int8-QK forward with an f32 V
     python3 kernel_ab.py --variant NAME DEST   # a copy of this tree's kernels
                                                # with one design choice reverted
 
@@ -35,20 +36,30 @@ timed with that eager reduction, as its wrapper ran it. The other checkout's
 sources must have this checkout's C interfaces or those older ones. Prints
 the card and one JSON line.
 
-``--f32-bwd`` times only the CUDA-core backward (``flash_attn_bwd_f32``,
-``csrc/flash_attn_bwd_f32.cu``) against OTHER_CHECKOUT's, in turns, at the
-camera head (4, 10, 16, 128), the scorer's frame rows (40, 1,374, 16, 64),
-one long row (1, 4,096, 16, 64) and B*H = 66,000 at N 24. The other side
-may have this interface or the one before the kernel's redesign (three
-launches, delta taken as scratch, seven products).
+``--f32-bwd`` times only the CUDA-core backward (``flash_attn_bwd_f32``:
+``csrc/flash_attn_bwd_f32.cu``, at head_dim 128 ``csrc/flash_attn_bwd_wide_f32.cu``)
+against OTHER_CHECKOUT's, in turns, at the camera head (4, 10, 16, 128), the
+scorer's frame rows (40, 1,374, 16, 64), one long row (1, 4,096, 16, 64) and
+B*H = 66,000 at N 24. The other side may have this interface or the one
+before the kernel's redesign (three launches, delta taken as scratch, seven
+products); its entry at head_dim 128 is ``videogpa_flash_attn_bwd_f32`` of
+its ``flash_attn_bwd_f32.cu`` where it has no ``flash_attn_bwd_wide_f32.cu``.
 
 ``--wide`` times the entries above head_dim 128 (``flash_attn_fwd_wide``,
-``flash_attn_bwd_wide``) in f32 and bf16 at (1, 4,096, 16, 256) against
-OTHER_CHECKOUT's, in turns, through this checkout's wrappers with the other's
-C entries: its bf16 entries in ``flash_attn_fwd_wide_bf16.cu`` /
-``flash_attn_bwd_wide.cu`` where it has them, else the CUDA-core ones of
-``flash_attn_fwd_wide.cu`` / ``flash_attn_bwd_f32.cu`` (whose bf16 backward
-takes the CUDA-core backward's scratch).
+``flash_attn_bwd_wide``) in f32 and bf16 at (1, 4,096, 16, 256), and the f32
+backward also at (1, 4,096, 8, 512), against OTHER_CHECKOUT's, in turns,
+through this checkout's wrappers with the other's C entries: its bf16
+entries in ``flash_attn_fwd_wide_bf16.cu`` / ``flash_attn_bwd_wide.cu`` where
+it has them, else the CUDA-core ones of ``flash_attn_fwd_wide.cu`` /
+``flash_attn_bwd_f32.cu`` (whose bf16 backward takes the CUDA-core
+backward's scratch); its f32 backward in ``flash_attn_bwd_wide_f32.cu`` where
+it has one, else in ``flash_attn_bwd_f32.cu``.
+
+``--int8-f32`` times ``flash_attn_int8_f32`` at the f32 scorer's global rows
+(4, 13,740, 16, 64), and at head_dim 16, 32 and 128 on the same rows,
+against OTHER_CHECKOUT's C entry (in its ``flash_attn_int8_f32.cu``, else its
+``flash_attn_fwd_wide.cu``) on the same ``quantize_qk_int8`` operands, in
+turns.
 
 ``--variant`` writes DEST/videogpa_torch/csrc: this checkout's sources with
 one of the design choices of ``VARIANTS`` reverted, for a run against it.
@@ -105,13 +116,11 @@ VARIANTS = {
     # the f32 backward at D = 64 with two cp.async stages and so one CTA an
     # SM, instead of one stage (issued before the dQ product) and two CTAs
     "f32_bwd_two_stages": ("flash_attn_bwd_f32", [
-        (r"static constexpr int kStages = DC <= 32 \? 2 : 1;",
-         "static constexpr int kStages = DC <= 32 || !kWide ? 2 : 1;")]),
+        (r"static constexpr int kStages = DC <= 32 \? 2 : 1;", "static constexpr int kStages = 2;")]),
     # the f32 backward issuing the next tile's copies at the top of the step
     # instead of before the dQ product
     "f32_bwd_late_issue": ("flash_attn_bwd_f32", [
-        (r"static constexpr bool kEarly = kStages == 1 && !kWide;",
-         "static constexpr bool kEarly = false;")]),
+        (r"static constexpr bool kEarly = kStages == 1;", "static constexpr bool kEarly = false;")]),
     # the f32 backward adding dQ's partials by scalar red.add instead of
     # 16-byte vector red.add
     "f32_bwd_scalar_red": ("flash_attn_bwd_f32", [
@@ -125,6 +134,22 @@ VARIANTS = {
     # diagonal order while a head's key tiles fit the grid
     "f32_bwd_in_order": ("flash_attn_bwd_f32", [
         (r"p\.diag = p\.n_kt > 1 && p\.n_kt <= grid \? 1 : 0;", "p.diag = 0;")]),
+    # the f32 wide backward visiting the query tiles and adding dQ's partials
+    # in order of the key tiles at every shape, instead of the diagonal order
+    # while a head's key tiles fit the grid of clusters
+    "f32_bwd_wide_in_order": ("flash_attn_bwd_wide_f32", [
+        (r"p\.diag = p\.n_kt > 1 && p\.n_kt <= grid \? 1 : 0;", "p.diag = 0;")]),
+    # K8 f32 with two consumer warpgroups at head_dim <= 64 instead of three
+    "int8_f32_two_consumer_wgs": ("flash_attn_int8_f32", [
+        (r"static constexpr int kWGs = D == 128 \? 2 : 3;", "static constexpr int kWGs = 2;")]),
+    # K8 f32 converting the s32 scores by the integer-add trick instead of
+    # one I2F (exact: |s| < 2^22)
+    "int8_f32_magic": ("flash_attn_int8_f32", [
+        (r"static_cast<float>\(si\[4 \* c \+ e\]\)",
+         "(__int_as_float(si[4 * c + e] + 0x4B400000) - 12582912.f)")]),
+    # K8 f32 with a three-stage K8 / V ring at head_dim <= 64 instead of two
+    "int8_f32_three_stages": ("flash_attn_int8_f32", [
+        (r"static constexpr int kStages = 2;", "static constexpr int kStages = D == 128 ? 2 : 3;")]),
     # K6 f32 computing whole 64 x 64 tiles: no skip of rows past Nq or keys
     # past Nk (those rows are loaded as copies of the last live row, so their
     # values stay finite)
@@ -224,12 +249,18 @@ def _f32_bwd_ab(other: str) -> dict:
 
     from videogpa_torch.ops import attention as A
 
-    lib = _build_all(other, ("flash_attn_bwd_f32",))["flash_attn_bwd_f32"]
-    src = open(os.path.join(other, "videogpa_torch", "csrc", "flash_attn_bwd_f32.cu")).read()
+    csrc = os.path.join(other, "videogpa_torch", "csrc")
+    has_wide = os.path.exists(os.path.join(csrc, "flash_attn_bwd_wide_f32.cu"))
+    libs = _build_all(other, ("flash_attn_bwd_f32",) + (("flash_attn_bwd_wide_f32",)
+                                                         if has_wide else ()))
+    src = open(os.path.join(csrc, "flash_attn_bwd_f32.cu")).read()
     new_interface = "dq_acc" in src
-    entry = _entry(lib, "videogpa_flash_attn_bwd_f32",
+    entry = _entry(libs["flash_attn_bwd_f32"], "videogpa_flash_attn_bwd_f32",
                    _kernels._BWD_F32_ARGS if new_interface else OLD_BWD_F32_ARGS)
-    _kernels.build(("flash_attn_bwd_f32",))
+    # the other's entry at head_dim 128
+    entry_128 = (_entry(libs["flash_attn_bwd_wide_f32"], "videogpa_flash_attn_bwd_wide_f32",
+                        _kernels._BWD_F32_ARGS) if has_wide else entry)
+    _kernels.build(("flash_attn_bwd_f32", "flash_attn_bwd_wide_f32"))
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator(device="cuda").manual_seed(93)
     res = {}
@@ -241,7 +272,10 @@ def _f32_bwd_ab(other: str) -> dict:
         o, lse = A.flash_attn_fwd_f32(q, k, v, layout="bnhd", with_lse=True)
         if new_interface:  # this checkout's wrapper, the other's entry
             def old():
-                return _swapped("flash_attn_bwd_f32", entry,
+                if D < 128:
+                    return _swapped("flash_attn_bwd_f32", entry,
+                                    lambda: bwd(q, k, v, o, lse, do, layout="bnhd"))
+                return _swapped("flash_attn_bwd_wide_f32", entry_128,
                                 lambda: bwd(q, k, v, o, lse, do, layout="bnhd"))
         else:
             def old():
@@ -278,11 +312,13 @@ def _wide_ab(other: str) -> dict:
 
     csrc = os.path.join(other, "videogpa_torch", "csrc")
     has = {n: os.path.exists(os.path.join(csrc, f"{n}.cu"))
-           for n in ("flash_attn_fwd_wide_bf16", "flash_attn_bwd_wide")}
+           for n in ("flash_attn_fwd_wide_bf16", "flash_attn_bwd_wide", "flash_attn_bwd_wide_f32")}
     libs = _build_all(other, ("flash_attn_fwd_wide", "flash_attn_bwd_f32",
                               *(n for n, there in has.items() if there)))
     _kernels.build(("flash_attn_fwd_wide", "flash_attn_fwd_wide_bf16", "flash_attn_bwd_wide",
-                    "flash_attn_bwd_f32"))
+                    "flash_attn_bwd_wide_f32"))
+    bwd_f32_lib = libs["flash_attn_bwd_wide_f32" if has["flash_attn_bwd_wide_f32"]
+                       else "flash_attn_bwd_f32"]
     fwd_bf16_lib = libs["flash_attn_fwd_wide_bf16" if has["flash_attn_fwd_wide_bf16"]
                         else "flash_attn_fwd_wide"]
     others = {
@@ -290,8 +326,7 @@ def _wide_ab(other: str) -> dict:
                                           "videogpa_flash_attn_fwd_wide_f32", _kernels._FWD_ARGS),
         "flash_attn_fwd_wide_bf16": _entry(fwd_bf16_lib, "videogpa_flash_attn_fwd_wide_bf16",
                                            _kernels._FWD_ARGS),
-        "flash_attn_bwd_wide_f32": _entry(libs["flash_attn_bwd_f32"],
-                                          "videogpa_flash_attn_bwd_wide_f32",
+        "flash_attn_bwd_wide_f32": _entry(bwd_f32_lib, "videogpa_flash_attn_bwd_wide_f32",
                                           _kernels._BWD_F32_ARGS),
     }
     if has["flash_attn_bwd_wide"]:
@@ -304,9 +339,10 @@ def _wide_ab(other: str) -> dict:
             _kernels._BWD_F32_ARGS)
     gen = torch.Generator(device="cuda").manual_seed(94)
     res = {}
-    B, N, H, D = 1, 4096, 16, 256
-    for dtype, suffix, fwd_iters, bwd_iters in ((torch.bfloat16, "bf16", 20, 10),
-                                                 (torch.float32, "f32", 3, 2)):
+    for dtype, suffix, (B, N, H, D), fwd_iters, bwd_iters in (
+            (torch.bfloat16, "bf16", (1, 4096, 16, 256), 20, 10),
+            (torch.float32, "f32", (1, 4096, 16, 256), 3, 2),
+            (torch.float32, "f32", (1, 4096, 8, 512), 0, 1)):
         q, k, v, do = (torch.randn(B, N, H, D, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
         tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
@@ -331,8 +367,10 @@ def _wide_ab(other: str) -> dict:
                 return A._launch_bwd_f32("flash_attn_bwd_wide", "other:flash_attn_bwd_wide_bf16",
                                          A.WIDE_HEAD_DIMS, dtype, q, k, v, o, lse, do, "bnhd")
 
-        for tag, old, new, iters in ((f"wide_fwd_{suffix}_d256", fwd_old, fwd_new, fwd_iters),
-                                     (f"wide_{suffix}_d256", bwd_old, bwd_new, bwd_iters)):
+        cases = [(f"wide_{suffix}_d{D}", bwd_old, bwd_new, bwd_iters)]
+        if fwd_iters:
+            cases.insert(0, (f"wide_fwd_{suffix}_d{D}", fwd_old, fwd_new, fwd_iters))
+        for tag, old, new, iters in cases:
             for a, b in zip(old(), new()):
                 if not torch.allclose(a.float(), b.float(), atol=tol, rtol=tol):
                     raise SystemExit(f"kernel_ab: the two versions disagree at {tag}")
@@ -341,7 +379,49 @@ def _wide_ab(other: str) -> dict:
                         "this_ms": [t[1], t[2]]}
             cs.log(f"[ab] {tag} {(B, N, H, D)}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
                    f"{t[1]:.4f} / {t[2]:.4f} ms")
+        if dtype == torch.float32:
+            res[f"wide_f32_d{D}"]["walk"] = _kernels.bwd_wide_f32_walk()
         del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    return res
+
+
+def _int8_f32_ab(other: str) -> dict:
+    """``--int8-f32``: this checkout's ``flash_attn_int8_f32`` against
+    OTHER's C entry at (4, 13,740, 16, D) for D = 64, 16, 32 and 128, in
+    turns (other / this / this / other) on the same quantised operands; both
+    must agree."""
+    import torch
+
+    from videogpa_torch.ops import attention as A
+
+    source = ("flash_attn_int8_f32" if os.path.exists(os.path.join(
+        other, "videogpa_torch", "csrc", "flash_attn_int8_f32.cu")) else "flash_attn_fwd_wide")
+    other_entry = _entry(_build_all(other, (source,))[source], "videogpa_flash_attn_int8_f32",
+                         _kernels._INT8_ARGS)
+    _kernels.build(("flash_attn_int8_f32",))
+    gen = torch.Generator(device="cuda").manual_seed(95)
+    res = {}
+    for D in (64, 16, 32, 128):
+        B, N, H = 4, 13740, 16
+        q, k, v = (torch.randn(B, N, H, D, generator=gen, device="cuda") for _ in range(3))
+        ops = A.quantize_qk_int8(q, k + 0.5, "bnhd")
+
+        def new():
+            return (A.flash_attn_int8_f32(*ops, v, layout="bnhd"),)
+
+        def old():
+            return _swapped("flash_attn_int8_f32", other_entry, new)
+
+        for a, b in zip(old(), new()):
+            if not torch.allclose(a, b, atol=1e-5, rtol=1e-5):
+                raise SystemExit(f"kernel_ab: the two int8 f32 forwards disagree at D = {D}")
+        t = [cs.cuda_ms(f, 3 if D <= 64 else 2) for f in (old, new, new, old)]
+        cs.log(f"[ab] int8_f32 {(B, N, H, D)}: other {t[0]:.4f} / {t[3]:.4f} ms, this "
+               f"{t[1]:.4f} / {t[2]:.4f} ms")
+        res[f"int8_f32_d{D}"] = {"shape_bnhd": [B, N, H, D], "other_ms": [t[0], t[3]],
+                                 "this_ms": [t[1], t[2]]}
+        del q, k, v, ops
         torch.cuda.empty_cache()
     return res
 
@@ -362,6 +442,10 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--f32-bwd" and torch.cuda.is_available():
         cs.log(cs.gpu_name_and_power())
         cs.log("[ab] " + json.dumps({"f32_bwd": _f32_bwd_ab(sys.argv[2])}))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--int8-f32" and torch.cuda.is_available():
+        cs.log(cs.gpu_name_and_power())
+        cs.log("[ab] " + json.dumps({"int8_f32": _int8_f32_ab(sys.argv[2])}))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--wide" and torch.cuda.is_available():
         cs.log(cs.gpu_name_and_power())

@@ -14,18 +14,24 @@ wide entries' slices of up to 256 columns, and 64-column slices) against the
 JAX ``_flash_fwd``; ``tests/test_torch_attention_wide.py`` holds the wide
 entries' tilings at more head dims. The int8 route with f32
 operands (``flash_attn_int8_f32``'s plain version, and an emulation of its
-online softmax) is held against the JAX ``attention(impl="flash_int8")`` in
-interpret mode. On ``meta`` operands, with the C entry points recorded, the
-padded route launches the kernel of the padded width with the original D's
-scale and hands back O and the gradients at D; above 128 and for f32 int8
-it launches the new entries.
+tiling: integer S over k-steps of 32 bytes, 64-key tiles, P V key by key in
+the register tile) is held against the JAX ``attention(impl="flash_int8")``
+in interpret mode, the emulation also at head dims 16-128 against its kernel
+and with S bit for bit against the plain version's scores. On ``meta``
+operands, with the C entry points recorded, the padded route launches the
+kernel of the padded width with the original D's scale and hands back O and
+the gradients at D; above 128 and for f32 int8 it launches the new entries.
 
 Tolerances: f32, atol 1e-5 (forward) and 5e-5 (gradients): the same
 formulas summed in another order; bf16, atol and rtol 2e-2: one bf16 ulp of
 O (2^-7) on both sides plus the order of the f32 sums; the int8 route in
 f32, atol 2e-5 on JAX's own quantised operands, as
-``tests/test_torch_attention_int8.py`` holds K8's plain version to it.
+``tests/test_torch_attention_int8.py`` holds K8's plain version to it (the
+emulated tiling, 1e-5).
 """
+
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +52,14 @@ TOL = {torch.float32: (1e-5, 5e-5), torch.bfloat16: (2e-2, 2e-2)}
 # (< 0.1 % of them, ``test_quantize_qk_int8_matches_jax``); one such step
 # moves O by up to ~1e-3 of its scale
 INT8_F32_ATOL = 1e-3
+# XLA without its costly LLVM passes, for the jitted JAX references (as
+# tests/test_torch_vggt_track.py compiles them)
+FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
+# keys a tile of ``flash_attn_int8_f32`` (csrc/flash_attn_int8_f32.cu)
+INT8_F32_BLOCK = int(re.search(
+    r"constexpr int kBlockN = (\d+);",
+    (Path(tattn.__file__).resolve().parents[1] / "csrc" / "flash_attn_int8_f32.cu").read_text()
+).group(1))
 
 
 @pytest.fixture
@@ -238,22 +252,32 @@ def test_wide_forward_tiling_matches_jax_flash_fwd(interpret_mode, dtype, slice_
 
 
 def _int8_f32_emulated(q8, sq, k8, sk, v):
-    """``flash_attn_int8_f32``'s online softmax on (B, H, N, D) operands:
-    exact integer scores times sq and sk, 64-key tiles, base 2, P and P V in
-    f32."""
-    block = 64
+    """``flash_attn_int8_f32``'s tiling on (B, H, N, D) operands: for each
+    key tile (``INT8_F32_BLOCK`` keys, read from the source) the integer
+    scores summed over k-steps of 32 bytes (exact, as the s8 wgmma sums
+    them), S = (s * sq) * sk, the base-2 online softmax, O rescaled and then
+    P V accumulated key by key into each thread's 8-query register tile (an
+    f32 FMA chain: emulated in f64, rounded once a key), O / l. Returns (O,
+    S), S over all keys."""
     m = torch.full(q8.shape[:3] + (1,), -float("inf"))
     l = torch.zeros_like(m)
     acc = torch.zeros(q8.shape[:3] + (v.shape[-1],))
-    for k0 in range(0, k8.shape[2], block):
-        s = (q8.double() @ k8[:, :, k0:k0 + block].double().mT).float()
-        s = s * sq[..., None] * sk[:, :, None, k0:k0 + block]
+    scores = []
+    for k0 in range(0, k8.shape[2], INT8_F32_BLOCK):
+        kt = k8[:, :, k0:k0 + INT8_F32_BLOCK].double()
+        si = sum(q8[..., d:d + 32].double() @ kt[..., d:d + 32].mT
+                 for d in range(0, q8.shape[-1], 32))
+        s = si.float() * sq[..., None] * sk[:, :, None, k0:k0 + INT8_F32_BLOCK]
+        scores.append(s)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
         l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + p @ v[:, :, k0:k0 + block]
+        acc = acc * alpha
+        for kk in range(p.shape[-1]):
+            acc = (acc.double() + p[..., kk:kk + 1].double()
+                   * v[:, :, k0 + kk, None, :].double()).float()
         m = m_new
-    return acc / l
+    return acc / l, torch.cat(scores, -1)
 
 
 @pytest.mark.parametrize("D,Nq,Nk", [(40, 333, 200), (64, 130, 517)])
@@ -282,7 +306,7 @@ def test_int8_f32_route_matches_jax_flash_int8(interpret_mode, D, Nq, Nk):
            k8[:, :Nk].reshape(B, H, Nk, D), sk[:, :Nk].reshape(B, H, Nk))
     tv = torch.from_numpy(v)
     plain = tattn.flash_attn_int8_f32(*ops, tv, layout="bhnd")  # CPU: the plain version
-    emulated = _int8_f32_emulated(*ops, tv)
+    emulated = _int8_f32_emulated(*ops, tv)[0]
     assert plain.dtype == torch.float32 and plain.shape == (B, H, Nq, D)
     for got in (plain, emulated):
         np.testing.assert_allclose(got.numpy(), want, atol=2e-5)
@@ -294,6 +318,40 @@ def test_int8_f32_route_matches_jax_flash_int8(interpret_mode, D, Nq, Nk):
     route = np.asarray(jattn.attention(*(jnp.asarray(x) for x in (q, k, v)), impl="flash_int8",
                                        block_q=128, block_k=128))
     np.testing.assert_allclose(padded.numpy(), route, atol=INT8_F32_ATOL)
+
+
+@pytest.mark.parametrize("D,Nq,Nk,layout", [(16, 150, 200, "bnhd"), (32, 70, 130, "bhnd"),
+                                          (64, 130, 190, "bnhd"), (128, 100, 140, "bhnd")])
+def test_int8_f32_tiling_matches_the_plain_version_and_jax(interpret_mode, D, Nq, Nk, layout):
+    """The tiling of ``flash_attn_int8_f32`` (integer S over k-steps of 32
+    bytes, 64-key tiles, P V in the 8-query register tile) on JAX's own
+    quantised operands: S bit for bit against the plain version's scores
+    (``_int8_scores``), O against ``flash_attn_int8_reference`` and against
+    the JAX ``_flash_int8`` (``attention(impl="flash_int8")``'s kernel at D
+    < 128) or ``_flash_int8_128`` (the same function at D = 128), each
+    jitted, in interpret mode, atol 1e-5 (f32 sums in another order)."""
+    B, H = 1, 2
+    q, k, v = _randn(D + Nq + Nk, (B * H, Nq, D), (B * H, Nk, D), (B * H, Nk, D))
+    k = k + 0.5
+    bq, bk, Nq_p, Nk_p = jattn._block_geometry(Nq, Nk, 128, 128, D)
+    pad = lambda x, n: jnp.pad(jnp.asarray(x), ((0, 0), (0, n - x.shape[1]), (0, 0)))  # noqa: E731
+    flash = jattn._flash_int8 if D < 128 else jattn._flash_int8_128
+    want = np.asarray(jax.jit(flash, static_argnums=(3, 4, 5), compiler_options=FAST_COMPILE)(
+        pad(q, Nq_p), pad(k, Nk_p), pad(v, Nk_p), Nk, bq, bk))[:, :Nq].reshape(B, H, Nq, D)
+    q8, sq, k8, sk = (torch.from_numpy(np.array(x)) for x in jattn._quantize_qk_int8(
+        pad(q, Nq_p), pad(k, Nk_p), Nk))
+    ops = (q8[:, :Nq].reshape(B, H, Nq, D), sq[:, :Nq].reshape(B, H, Nq),
+           k8[:, :Nk].reshape(B, H, Nk, D), sk[:, :Nk].reshape(B, H, Nk))
+    tv = torch.from_numpy(v).reshape(B, H, Nk, D)
+    got, scores = _int8_f32_emulated(*ops, tv)
+    assert torch.equal(scores, tattn._int8_scores(*ops))
+    if layout == "bnhd":  # the plain version in the other layout
+        plain = tattn.flash_attn_int8_f32(*(x.transpose(1, 2) for x in ops), tv.transpose(1, 2),
+                                          layout="bnhd").transpose(1, 2)
+    else:
+        plain = tattn.flash_attn_int8_f32(*ops, tv, layout="bhnd")
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
 # ---- the card's route on meta operands, the C entry points recorded ----
@@ -334,8 +392,11 @@ def test_padded_launch_passes_the_original_scale_and_slices_back(card_route, D, 
     for x in (q, k, v):
         assert x.grad.shape == shape
     (e_fwd, a_fwd), (e_bwd, a_bwd) = card_route
-    assert (e_fwd, e_bwd) == (fwd, bwd)
     width = tattn.padded_head_dim(D)
+    # the f32 backward's wrapper launches the cluster kernel at width 128
+    if bwd == "flash_attn_bwd_f32" and width == 128:
+        bwd = "flash_attn_bwd_wide_f32"
+    assert (e_fwd, e_bwd) == (fwd, bwd)
     # the forward entries take scale * log2(e) as an f32, the backward ones the scale
     assert _scale_arg(a_fwd[-1]) == pytest.approx(D ** -0.5 * tattn._LOG2E, rel=1e-7)
     assert _scale_arg(a_bwd[-1]) == pytest.approx(D ** -0.5, rel=1e-7)
@@ -416,14 +477,16 @@ def test_wide_launch_allocates_the_slices_scratch(card_route, D, width, dtype):
     the wide entry of the dtype at the padded width with an LSE; the bf16
     backward (``csrc/flash_attn_bwd_wide.cu``) gets one f32 scratch, the
     base-2 LSE and delta over the query rows padded to whole 64-row tiles;
-    the f32 backward's scratch holds delta, the dQ partial sums over whole
+    the f32 backward (``csrc/flash_attn_bwd_wide_f32.cu``, one CTA of a
+    cluster a 64-column chunk) gets delta, the dQ partial sums over whole
     query tiles (a query tile has two key tiles) and a turn counter per
-    (head, 64-column slice, 64-query tile) with the work counter. On traced
+    (head, 64-column chunk, 64-query tile) with the work counter. On traced
     operands the same calls launch nothing."""
     shape = (2, 3, 130, D)
     q = _meta(shape, dtype, grad=True)
     k = _meta((2, 3, 65, D), dtype, grad=True)
     before = (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches)
+    tattn._GEOMETRY.clear()
     o = tattn.attention(q, k, k)
     o.sum().backward()
     assert q.grad.shape == shape and k.grad.shape == (2, 3, 65, D)
@@ -440,6 +503,8 @@ def test_wide_launch_allocates_the_slices_scratch(card_route, D, width, dtype):
         n_acc = 2 * 3 * 3 * 64 * width
         assert a_bwd[10] - a_bwd[9] == 4 * n_delta and a_bwd[11] - a_bwd[10] == 4 * n_acc
         assert tattn.bwd_f32_slices(width) == width // 64
+        [geo] = [g for key, g in tattn._GEOMETRY.items() if key[0] == "flash_attn_bwd_wide_f32"]
+        assert geo[0] == (n_delta, n_acc, 2 * 3 * (width // 64) * 3 + 1)
     assert (tattn.flash_attn_fwd_wide.launches, tattn.flash_attn_bwd_wide.launches) == (
         before[0] + 1, before[1] + 1)
     with FakeTensorMode():

@@ -14,7 +14,12 @@ interpret mode (jitted once a shape), and against the plain versions:
 - the bf16 backward (``csrc/flash_attn_bwd_wide.cu``): a dK/dV kernel over
   64-key tiles and a dQ kernel over 64-query tiles, each recomputing S and dP
   over all of D with the slice's own chunks last, P rounded before dV and dS
-  before dQ and dK, the gradients in the same slices.
+  before dQ and dK, the gradients in the same slices;
+- the f32 backward (``csrc/flash_attn_bwd_wide_f32.cu``): one 128-thread
+  slot a 64-column chunk, two a CTA, the CTAs of a key tile in a cluster that
+  sums the slots' partial S and dP in a fixed order, so S and dP are computed
+  once a (key tile, query tile) pair, dQ summed over key tiles in the walk's
+  order (``tests/test_torch_attention_f32_bwd.py::_f32_bwd_emulated``).
 
 At head dims 192, 256, 320 and 512 (one slice of three and of four chunks,
 two slices of three (the last one two) and of four), Nq != Nk, both layouts,
@@ -37,6 +42,7 @@ import pytest
 import torch
 
 import videogpa_tpu.ops.attention as jattn
+from test_torch_attention_f32_bwd import _f32_bwd_emulated
 from test_torch_attention_headdim import TOL, _randn, _wide_fwd_emulated
 from videogpa_torch.ops import attention as tattn
 
@@ -199,6 +205,26 @@ def test_two_kernel_backward_tiling_matches_jax_and_the_plain_version(D, Nq, Nk,
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, atol=atol * scale, rtol=rtol)
         np.testing.assert_allclose(g, p.float().numpy(), atol=atol * scale, rtol=rtol)
+
+
+@pytest.mark.parametrize("D,Nq,Nk,layout", CASES)
+def test_f32_cluster_backward_tiling_matches_jax_and_the_plain_version(D, Nq, Nk, layout):
+    """The f32 backward's tiling (one cluster of two-slot CTAs, S and dP once
+    a tile pair) on the operands of the two-kernel test, against the JAX
+    vjp in interpret mode and the plain version, f32 atol 5e-5."""
+    q, k, v, do = _operands(D, Nq, Nk, layout, torch.float32, 7 * D + Nk)
+    _, *want = _jax_flash(q, k, v, do, layout, torch.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = tattn.flash_attn_fwd_reference(tq, tk, tv, layout=layout, with_lse=True)
+    got = _f32_bwd_emulated(*(_bhnd(x, layout) for x in (tq, tk, tv, o)), lse,
+                            _bhnd(tdo, layout), D ** -0.5)
+    plain = tattn.flash_attn_bwd_wide(tq, tk, tv, o, lse, tdo, layout=layout)  # CPU: plain
+    atol = TOL[torch.float32][1]
+    for g, p, w in zip(got, plain, want):
+        g = _bhnd(g, layout).numpy()
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=atol, rtol=0)
+        np.testing.assert_allclose(g, p.numpy(), atol=atol, rtol=0)
 
 
 def test_wide_slices_follow_the_sources():

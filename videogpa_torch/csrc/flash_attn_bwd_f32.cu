@@ -1,14 +1,13 @@
 // Flash-attention backward on the CUDA cores (sm_90a): the float32 entry of
-// K3/K7, and the float32 entry at head_dim > 128.
+// K3 at head_dim 16, 32 and 64.
 //
 // Replaces, for float32 operands, the TPU Pallas backward kernels of
-// videogpa_tpu/ops/attention.py: `_dq_kernel_T` / `_dkv_kernel_T` (:951, :983;
-// calls at :1050, :1064) at head_dim < 128 and `_dq_kernel` / `_dkv_kernel`
-// (:883, :908; calls at :1110, :1131) at head_dim >= 128, which the JAX
-// package runs at any D >= 128 (here any multiple of 64 above 128). The
-// port's wgmma kernels take bf16 only: K3 and K7 at D <= 128,
-// flash_attn_bwd_wide.cu above. Given Q, K, V, O, the natural-log LSE of the
-// forward and dO:
+// videogpa_tpu/ops/attention.py `_dq_kernel_T` / `_dkv_kernel_T` (:951, :983;
+// calls at :1050, :1064), which the JAX package runs at head_dim < 128. The
+// port's wgmma kernels take bf16 only; float32 at head_dim 128 and above runs
+// flash_attn_bwd_wide_f32.cu, this kernel's design at 64 columns a CTA with
+// the CTAs of one key tile joined in a cluster. Given Q, K, V, O, the
+// natural-log LSE of the forward and dO:
 //
 //   P = exp(S * scale - LSE), S = Q K^T;  delta = rowsum(O * dO)
 //   dV = P^T dO;  dS = P * (dO V^T - delta);  dQ = dS K * scale;  dK = dS^T Q * scale
@@ -22,15 +21,9 @@
 //  1. The prologue writes delta (B*H, Nq), one thread a query row, and zeroes
 //     the dQ turn counters and the work counter.
 //  2. The main kernel runs a persistent grid of 128-thread CTAs, two an SM;
-//     each CTA takes work items (64-key tile j, column slice, b*h) in
-//     increasing order from an atomic counter, item = (b*h * slices + slice)
-//     * n_kt + j. A slice is DC = D columns of dK, dV and dQ at D <= 64, and
-//     64 columns at D >= 128: the 64-row tiles of four operands at D = 128
-//     f32 no longer leave room for two CTAs an SM (or, beyond, for one), so
-//     wide heads cut their gradients into 64-column slices and each slice's
-//     CTA recomputes S and dP over all of D, streaming Q, dO, K and V in
-//     64-column chunks (the chunk of its own slice last, so that it stays
-//     for the products). A CTA walks the 64-query tiles of its key tile. Per
+//     each CTA takes work items (64-key tile j, b*h) in increasing order from
+//     an atomic counter, item = b*h * n_kt + j, keeps the key tile's K and V
+//     in shared memory and walks the 64-query tiles of its key tile. Per
 //     query tile:
 //      - S^T and dP^T (64 keys x 64 queries each) on the CUDA cores: the
 //        CTA's first two warps compute S^T, the other two dP^T, each thread
@@ -46,8 +39,8 @@
 //        flush-to-zero SFU instruction) to shared memory as [query][key]; the
 //        second reads it and writes dS = P (dP - delta) as [query][key].
 //      - The first half accumulates dV += P^T dO, the second dK += dS^T Q,
-//        8 keys x DC/8 columns a thread in registers (8 x 8 at DC = 64); then
-//        the query tile's dQ partial dS K, 8 queries x DC/8 columns a thread
+//        8 keys x D/8 columns a thread in registers (8 x 8 at D = 64); then
+//        the query tile's dQ partial dS K, 8 queries x D/8 columns a thread
 //        and four keys a step, the first half over keys 0-31 and the second
 //        over 32-63 (a 4 x 4 tile over all keys would load 1.5 float4s per 16
 //        FMAs); the halves swap half of their rows and each adds the first
@@ -56,7 +49,7 @@
 //        other waits), so the first half goes from dV to dQ while the second
 //        still runs dK.
 //      - Five products: dQ is summed across key tiles, in a fixed order. Each
-//        (b*h, slice, query tile) has a turn counter; the CTA of key tile j
+//        (b*h, query tile) has a turn counter; the CTA of key tile j
 //        waits until the counter equals its rank among the tile's
 //        contributors, stores its partial into an f32 buffer (rank 0), adds
 //        it (red.add) or, as the last contributor, adds the buffer and writes
@@ -80,9 +73,9 @@
 //        than the in-order walk at the scorer's frame rows, 18-21 % at a
 //        4,096-key row and 14-17 % at head_dim 256 (kernel_ab.py --variant
 //        f32_bwd_in_order).
-//     The Q and dO tiles (with K and V chunks at wide heads) are copied by
-//     cp.async, in two stages at D <= 32; above, one stage leaves room for
-//     two CTAs an SM, and each covers the other's copies, barriers and turns.
+//     The Q and dO tiles are copied by cp.async, in two stages at D <= 32; at
+//     64 one stage leaves room for two CTAs an SM, and each covers the
+//     other's copies, barriers and turns.
 //     Rows past Nq or Nk are never loaded: P and dS are zero there (selects,
 //     not products, so garbage in unloaded rows never reaches a sum), the
 //     products stop at the tile's last live row, and nothing past them is
@@ -101,27 +94,23 @@ namespace {
 constexpr int kBlock = 64;             // keys a work item, queries a tile
 constexpr int kThreads = 128;          // two halves of two warps; two CTAs an SM
 constexpr int kPStride = kBlock + 4;   // floats a row of P or dS, [query][key]
-constexpr int kWideChunk = 64;         // columns a chunk and a slice at head_dim >= 128
 constexpr int kQueriesPerPass = 8;     // S^T / dP^T micro-tile: 8 keys x this many queries a pass
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one CTA: the key tile's K and V (head_dim <= 64), the
-// stages (Q, dO and, at wide heads, the K and V chunks; the query tile's LSE
-// and delta), P and dS. Two stages where two CTAs still fit an SM (head_dim
-// <= 32), else one, so that two CTAs fit an SM: at head_dim 64 the next
-// tile's copies start as soon as this tile's dV and dK have read Q and dO
-// and run under the dQ product and turn; at wide heads each chunk's copies
-// wait, and the other CTA on the SM covers them (two stages and one CTA an
-// SM measured 1.3x slower at D = 256 in f32).
-template <typename T, int DC, bool kWide>
+// Shared memory of one CTA: the key tile's K and V, the stages (Q, dO, the
+// query tile's LSE and delta), P and dS. Two stages where two CTAs still fit
+// an SM (head_dim <= 32), else one, so that two CTAs fit an SM: at head_dim
+// 64 the next tile's copies start as soon as this tile's dV and dK have read
+// Q and dO and run under the dQ product and turn.
+template <int DC>
 struct Cfg {
-  static constexpr int kRS = DC + 16 / static_cast<int>(sizeof(T));  // elements a tile row
+  static constexpr int kRS = DC + 4;  // floats a tile row (16-byte padded)
   static constexpr int kTileElems = kBlock * kRS;
-  static constexpr int kTileBytes = kTileElems * static_cast<int>(sizeof(T));
-  static constexpr int kResBytes = kWide ? 0 : 2 * kTileBytes;
-  static constexpr int kStageTiles = kWide ? 4 : 2;
+  static constexpr int kTileBytes = kTileElems * 4;
+  static constexpr int kResBytes = 2 * kTileBytes;
+  static constexpr int kStageTiles = 2;
   static constexpr int kStages = DC <= 32 ? 2 : 1;
-  static constexpr bool kEarly = kStages == 1 && !kWide;  // issue the next stage before dQ
+  static constexpr bool kEarly = kStages == 1;  // issue the next stage before dQ
   static constexpr int kStageBytes = kStageTiles * kTileBytes + 2 * kBlock * 4;
   static constexpr int kOffStage = kResBytes;
   static constexpr int kOffP = kOffStage + kStages * kStageBytes;
@@ -131,19 +120,19 @@ struct Cfg {
 };
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* o;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* o;
+  const float* dout;
   const float* lse;  // (B*H, Nq), natural log
-  void* dq;
-  void* dk;
-  void* dv;
+  float* dq;
+  float* dk;
+  float* dv;
   float* delta;      // (B*H, Nq), written by the prologue
   float* dq_acc;     // (B*H, n_qt * 64, D): dQ partial sums (unused when n_kt == 1)
   int* turn;         // n_turn dQ turn counters, then the work counter
-  int H, Nq, Nk, D, n_qt, n_kt, n_slices, items, n_turn, diag, vec;
+  int H, Nq, Nk, D, n_qt, n_kt, items, n_turn, diag, vec;
   long long q_sb, q_sn, q_sh;
   long long k_sb, k_sn, k_sh;
   long long v_sb, v_sn, v_sh;
@@ -242,9 +231,9 @@ __device__ __forceinline__ void sts_w(float* p, const float* x) {
   }
 }
 
-// W consecutive elements of a shared-memory row
-template <int W, typename T>
-__device__ __forceinline__ void ldw(const T* p, float* out) {
+// W consecutive floats of a shared-memory row
+template <int W>
+__device__ __forceinline__ void ldw(const float* p, float* out) {
   if constexpr (W == 4) {
     const float4 x = ld4(p);
     out[0] = x.x; out[1] = x.y; out[2] = x.z; out[3] = x.w;
@@ -261,15 +250,15 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
 }
 
 // Rows [row0, min(row0 + 64, n)) of an operand (row stride sn elements, DC
-// contiguous elements from src) into shared-memory rows of kRS elements;
-// rows past n are not written. 16-byte copies when every row starts on 16
-// bytes (vec), else 4-byte copies (float32 only).
-template <typename T, int DC>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, int row0, int n,
-                                          bool vec, int lane0 = threadIdx.x,
+// contiguous floats from src) into shared-memory rows of kRS floats; rows
+// past n are not written. 16-byte copies when every row starts on 16 bytes
+// (vec), else 4-byte copies.
+template <int DC>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long long sn, int row0,
+                                          int n, bool vec, int lane0 = threadIdx.x,
                                           int lanes = kThreads) {
-  constexpr int kRS = DC + 16 / static_cast<int>(sizeof(T));
-  constexpr int kV = 16 / static_cast<int>(sizeof(T));
+  constexpr int kRS = Cfg<DC>::kRS;
+  constexpr int kV = 4;
   const int rows = min(kBlock, n - row0);
   src += static_cast<long long>(row0) * sn;
   if (vec) {
@@ -288,7 +277,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, long long sn, in
 }
 
 // delta = rowsum(O * dO) for every query row, and the counters zeroed
-template <typename T>
 __global__ void __launch_bounds__(256) prologue_kernel(const Params p, long long rows) {
   const long long r = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r <= p.n_turn) p.turn[r] = 0;
@@ -297,8 +285,8 @@ __global__ void __launch_bounds__(256) prologue_kernel(const Params p, long long
   const int n = static_cast<int>(r % p.Nq);
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const T* o = static_cast<const T*>(p.o) + b * p.o_sb + h * p.o_sh + n * p.o_sn;
-  const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh + n * p.do_sn;
+  const float* o = p.o + b * p.o_sb + h * p.o_sh + n * p.o_sn;
+  const float* g = p.dout + b * p.do_sb + h * p.do_sh + n * p.do_sn;
   float s = 0.f;
 #pragma unroll 8
   for (int d = 0; d < p.D; ++d) s = fmaf(o[d], g[d], s);
@@ -322,9 +310,9 @@ __device__ __forceinline__ int dq_rank(const Params& p, int i, int t, int j) {
   return a * t + below_b + j / p.n_qt;
 }
 
-template <typename T, int DC, bool kWide>
+template <int DC>
 __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
-  using C = Cfg<T, DC, kWide>;
+  using C = Cfg<DC>;
   constexpr int kRS = C::kRS;
   constexpr int kW = C::kW;
   constexpr int kStages = C::kStages;
@@ -347,9 +335,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
   const int rq = wh * 32 + lr;
   float* sP = reinterpret_cast<float*>(smem + C::kOffP);
   float* sDS = reinterpret_cast<float*>(smem + C::kOffDS);
-  T* resK = reinterpret_cast<T*>(smem);
-  T* resV = resK + C::kTileElems;
-  const int n_ch = kWide ? p.D / DC : 1;
+  float* resK = reinterpret_cast<float*>(smem);
+  float* resV = resK + C::kTileElems;
   const bool vec = p.vec != 0;
 
   for (;;) {
@@ -359,54 +346,39 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
     const int item = s_item;
     if (item >= p.items) return;
     const int j = item % p.n_kt;
-    const int grp = item / p.n_kt;
-    const int slice = grp % p.n_slices;
-    const int bh = grp / p.n_slices;
+    const int bh = item / p.n_kt;
     const int b = bh / p.H;
     const int h = bh % p.H;
-    const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-    const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-    const T* g = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    const float* q = p.q + b * p.q_sb + h * p.q_sh;
+    const float* k = p.k + b * p.k_sb + h * p.k_sh;
+    const float* v = p.v + b * p.v_sb + h * p.v_sh;
+    const float* g = p.dout + b * p.do_sb + h * p.do_sh;
     const float* lse = p.lse + static_cast<long long>(bh) * p.Nq;
     const float* delta = p.delta + static_cast<long long>(bh) * p.Nq;
     const int k0 = j * kBlock;
     const int kn = min(kBlock, p.Nk - k0);  // live keys of this item
-    const int col0 = slice * DC;
-    const int n_stages = p.n_qt * n_ch;
+    const int n_stages = p.n_qt;  // one stage a query tile
     // the query tile of step t
     auto tile_of = [&](int t) { return p.diag ? ((t - j) % p.n_qt + p.n_qt) % p.n_qt : t; };
-    // stage s = step * n_ch + chunk u: the query tile's Q and dO chunk (and
-    // K and V chunks at wide heads); with the last chunk, LSE and delta
+    // stage s: the query tile's Q and dO, LSE and delta
     auto issue = [&](int s, int lane0, int lanes) {
       unsigned char* st = smem + C::kOffStage + (s % kStages) * C::kStageBytes;
-      T* sQ = reinterpret_cast<T*>(st);
-      T* sG = sQ + C::kTileElems;
+      float* sQ = reinterpret_cast<float*>(st);
+      float* sG = sQ + C::kTileElems;
       float* sL = reinterpret_cast<float*>(st + C::kStageTiles * C::kTileBytes);
-      const int u = s % n_ch;
-      const int ch = kWide ? (slice + 1 + u) % n_ch : 0;
-      const int q0 = tile_of(s / n_ch) * kBlock;
-      load_tile<T, DC>(sQ, q + ch * DC, p.q_sn, q0, p.Nq, vec, lane0, lanes);
-      load_tile<T, DC>(sG, g + ch * DC, p.do_sn, q0, p.Nq, vec, lane0, lanes);
-      if constexpr (kWide) {
-        load_tile<T, DC>(sG + C::kTileElems, k + ch * DC, p.k_sn, k0, p.Nk, vec, lane0, lanes);
-        load_tile<T, DC>(sG + 2 * C::kTileElems, v + ch * DC, p.v_sn, k0, p.Nk, vec, lane0,
-                         lanes);
-      }
-      if (u == n_ch - 1) {
-        const int qn = min(kBlock, p.Nq - q0);
-        for (int r = lane0; r < 2 * kBlock; r += lanes) {  // LSE, then delta
-          if (r % kBlock < qn) {
-            cp_async_4(sL + r, (r < kBlock ? lse : delta) + q0 + r % kBlock);
-          }
+      const int q0 = tile_of(s) * kBlock;
+      load_tile<DC>(sQ, q, p.q_sn, q0, p.Nq, vec, lane0, lanes);
+      load_tile<DC>(sG, g, p.do_sn, q0, p.Nq, vec, lane0, lanes);
+      const int qn = min(kBlock, p.Nq - q0);
+      for (int r = lane0; r < 2 * kBlock; r += lanes) {  // LSE, then delta
+        if (r % kBlock < qn) {
+          cp_async_4(sL + r, (r < kBlock ? lse : delta) + q0 + r % kBlock);
         }
       }
     };
 
-    if constexpr (!kWide) {
-      load_tile<T, DC>(resK, k, p.k_sn, k0, p.Nk, vec);
-      load_tile<T, DC>(resV, v, p.v_sn, k0, p.Nk, vec);
-    }
+    load_tile<DC>(resK, k, p.k_sn, k0, p.Nk, vec);
+    load_tile<DC>(resV, v, p.v_sn, k0, p.Nk, vec);
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < n_stages) issue(s, tid, kThreads);
@@ -434,30 +406,27 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
       cp_async_wait<kStages - 1>();
       __syncthreads();
       const unsigned char* st = smem + C::kOffStage + (s % kStages) * C::kStageBytes;
-      const T* sQ = reinterpret_cast<const T*>(st);
-      const T* sG = sQ + C::kTileElems;
-      const T* sK = kWide ? sG + C::kTileElems : resK;
-      const T* sV = kWide ? sG + 2 * C::kTileElems : resV;
+      const float* sQ = reinterpret_cast<const float*>(st);
+      const float* sG = sQ + C::kTileElems;
+      const float* sK = resK;
+      const float* sV = resV;
       const float* sL = reinterpret_cast<const float*>(st + C::kStageTiles * C::kTileBytes);
-      const int t = s / n_ch;
-      const int u = s % n_ch;
+      const int t = s;
       const int i_tile = tile_of(t);
       const int q0 = i_tile * kBlock;
       const int qn = min(kBlock, p.Nq - q0);  // live queries of this tile
 
-      if (u == 0) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < 8; ++i) {
 #pragma unroll
-          for (int c = 0; c < 8; ++c) sacc[i][c] = 0.f;
-        }
+        for (int c = 0; c < 8; ++c) sacc[i][c] = 0.f;
       }
-      // S^T = K Q^T (first half) or dP^T = V dO^T (second half) over this
-      // chunk, 8 keys x kQueriesPerPass queries a pass; a warp whose 32 keys
-      // are all past Nk has nothing to compute
+      // S^T = K Q^T (first half) or dP^T = V dO^T (second half), 8 keys x
+      // kQueriesPerPass queries a pass; a warp whose 32 keys are all past Nk
+      // has nothing to compute
       if (wh * 32 < kn) {
-        const T* ka = (half ? sV : sK) + kr * kRS;
-        const T* qa = (half ? sG : sQ) + lc * kRS;
+        const float* ka = (half ? sV : sK) + kr * kRS;
+        const float* qa = (half ? sG : sQ) + lc * kRS;
 #pragma unroll
         for (int pass = 0; pass < 8 / kQueriesPerPass; ++pass) {
 #pragma unroll 1
@@ -481,7 +450,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
         }
       }
 
-      if (u == n_ch - 1) {
+      {
         // publish the previous step's turn: the barrier at this step's top
         // ordered every thread's adds before thread 0's fence and release
         // (as a grid barrier does), and this tile's products gave them time
@@ -529,7 +498,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
         }
         {  // dV += P^T dO (first half) or dK += dS^T Q (second half)
           const float* coef = (half ? sDS : sP) + r3;
-          const T* rhs = (half ? sQ : sG) + c3;
+          const float* rhs = (half ? sQ : sG) + c3;
 #pragma unroll 2
           for (int qq = 0; qq < qn; ++qq) {
             const float4 a0 = ld4(coef + qq * kPStride);
@@ -572,7 +541,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
         }
         {
           const float* coef = sDS + rq * kPStride;
-          const T* rhs = sK + c3;
+          const float* rhs = sK + c3;
           const int kb = half * 32;
           const int ke = min(kn, kb + 32);
           const int ke4 = kb + (max(ke - kb, 0) & ~3);
@@ -619,7 +588,7 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
         }
 
         // wait for this tile's turn; the first contributor finds it open
-        const int tix = (bh * p.n_slices + slice) * p.n_qt + i_tile;
+        const int tix = bh * p.n_qt + i_tile;
         const int rank = dq_rank(p, i_tile, t, j);
         if (tid == 0 && rank > 0) {
           while (ld_acquire(p.turn + tix) != rank) __nanosleep(32);
@@ -640,9 +609,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
           }
           float* acc = p.dq_acc +
                        (static_cast<long long>(bh) * p.n_qt * kBlock + q0 + rq + 4 * mine) * p.D +
-                       col0 + c3;
+                       c3;
           if (rank == p.n_kt - 1) {  // the last contributor writes dQ
-            T* out = static_cast<T*>(p.dq) + b * p.dq_sb + h * p.dq_sh + col0 + c3;
+            float* out = p.dq + b * p.dq_sb + h * p.dq_sh + c3;
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int row = q0 + rq + 4 * (mine + i);
@@ -684,8 +653,8 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
     }
 
     // dV (first half) or dK * scale (second half) of the live keys
-    T* dst = static_cast<T*>(half ? p.dk : p.dv) + b * (half ? p.dk_sb : p.dv_sb) +
-             h * (half ? p.dk_sh : p.dv_sh) + col0 + c3;
+    float* dst = (half ? p.dk : p.dv) + b * (half ? p.dk_sb : p.dv_sb) +
+                 h * (half ? p.dk_sh : p.dv_sh) + c3;
     const long long sn = half ? p.dk_sn : p.dv_sn;
     const float mul = half ? p.scale : 1.f;
 #pragma unroll
@@ -701,9 +670,9 @@ __global__ void __launch_bounds__(kThreads, 2) bwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int DC, bool kWide>
+template <int DC>
 cudaError_t launch(Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<T, DC, kWide>;
+  using C = Cfg<DC>;
   // the shared-memory opt-in and the occupancy once a device
   static int per_sm[64] = {}, sm_count[64] = {};
   int device = 0;
@@ -714,11 +683,11 @@ cudaError_t launch(Params& p, int B, cudaStream_t stream) {
   if (occ == 0) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(bwd_kernel<T, DC, kWide>,
+    err = cudaFuncSetAttribute(bwd_kernel<DC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, bwd_kernel<T, DC, kWide>,
-                                                          kThreads, C::kBytes);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, bwd_kernel<DC>, kThreads,
+                                                          C::kBytes);
     }
     if (err != cudaSuccess) return err;
     if (occ < 1) return cudaErrorInvalidConfiguration;
@@ -728,8 +697,8 @@ cudaError_t launch(Params& p, int B, cudaStream_t stream) {
     }
   }
   const long long bh = static_cast<long long>(B) * p.H;
-  const long long items = bh * p.n_slices * p.n_kt;
-  const long long n_turn = bh * p.n_slices * p.n_qt;
+  const long long items = bh * p.n_kt;
+  const long long n_turn = bh * p.n_qt;
   const long long rows = bh * p.Nq;
   const long long cover = rows > n_turn + 1 ? rows : n_turn + 1;
   if (items > INT_MAX || n_turn >= INT_MAX || (cover + 255) / 256 > INT_MAX) {
@@ -740,7 +709,7 @@ cudaError_t launch(Params& p, int B, cudaStream_t stream) {
   const long long cap = static_cast<long long>(sms) * occ;
   const int grid = static_cast<int>(items < cap ? items : cap);
   p.diag = p.n_kt > 1 && p.n_kt <= grid ? 1 : 0;
-  prologue_kernel<T><<<static_cast<unsigned int>((cover + 255) / 256), 256, 0, stream>>>(p, rows);
+  prologue_kernel<<<static_cast<unsigned int>((cover + 255) / 256), 256, 0, stream>>>(p, rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (p.diag) {
@@ -748,25 +717,30 @@ cudaError_t launch(Params& p, int B, cudaStream_t stream) {
     // launch starts it only so, or refuses it (fewer SMs than counted, as
     // under an MPS limit), and then the in-order walk runs instead
     void* args[] = {&p};
-    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bwd_kernel<T, DC, kWide>),
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(bwd_kernel<DC>),
                                       dim3(grid), dim3(kThreads), args, C::kBytes, stream);
     if (err != cudaErrorCooperativeLaunchTooLarge) return err;
     (void)cudaGetLastError();
     p.diag = 0;
   }
-  bwd_kernel<T, DC, kWide><<<grid, kThreads, C::kBytes, stream>>>(p);
+  bwd_kernel<DC><<<grid, kThreads, C::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
 int entry(const void* q, const void* k, const void* v, const void* o, const void* dout,
           const void* lse, void* dq, void* dk, void* dv, void* delta, void* dq_acc, void* turn,
           int B, int H, int Nq, int Nk, int D, const long long* st, float scale, void* stream) {
   if (B < 1 || H < 1 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
   Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o; p.dout = dout;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.o = static_cast<const float*>(o);
+  p.dout = static_cast<const float*>(dout);
   p.lse = static_cast<const float*>(lse);
-  p.dq = dq; p.dk = dk; p.dv = dv;
+  p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
   p.delta = static_cast<float*>(delta);
   p.dq_acc = static_cast<float*>(dq_acc);
   p.turn = static_cast<int*>(turn);
@@ -783,36 +757,26 @@ int entry(const void* q, const void* k, const void* v, const void* o, const void
   p.dv_sb = st[21]; p.dv_sn = st[22]; p.dv_sh = st[23];
   p.scale = scale;
   // 16-byte copies when every row of the four staged operands starts on 16 bytes
-  constexpr long long kV = 16 / sizeof(T);
   bool vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
               reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) % 16 == 0;
-  for (int i : {0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14}) vec = vec && st[i] % kV == 0;
+  for (int i : {0, 1, 2, 3, 4, 5, 6, 7, 8, 12, 13, 14}) vec = vec && st[i] % 4 == 0;
   p.vec = vec ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D > 64) {  // wide heads: 64-column chunks and slices
-    if (D % kWideChunk != 0) return cudaErrorInvalidValue;
-    p.n_slices = D / kWideChunk;
-    return launch<T, kWideChunk, true>(p, B, s);
+  switch (D) {
+    case 16: return launch<16>(p, B, s);
+    case 32: return launch<32>(p, B, s);
+    case 64: return launch<64>(p, B, s);
+    default: return cudaErrorInvalidValue;
   }
-  p.n_slices = 1;
-  if constexpr (sizeof(T) == 4) {
-    switch (D) {
-      case 16: return launch<float, 16, false>(p, B, s);
-      case 32: return launch<float, 32, false>(p, B, s);
-      case 64: return launch<float, 64, false>(p, B, s);
-      default: break;
-    }
-  }
-  return cudaErrorInvalidValue;
 }
 
-template <typename T, int DC, bool kWide>
+template <int DC>
 cudaError_t attrs(int* regs, int* smem_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, bwd_kernel<T, DC, kWide>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, bwd_kernel<DC>);
   if (err == cudaSuccess) {
     *regs = a.numRegs;
-    *smem_bytes = Cfg<T, DC, kWide>::kBytes;
+    *smem_bytes = Cfg<DC>::kBytes;
   }
   return err;
 }
@@ -833,31 +797,20 @@ cudaError_t attrs(int* regs, int* smem_bytes) {
                             v_sh,  o_sb,  o_sn,  o_sh,  do_sb, do_sn, do_sh, dq_sb,            \
                             dq_sn, dq_sh, dk_sb, dk_sn, dk_sh, dv_sb, dv_sn, dv_sh}
 
-// float32 at head_dim 16/32/64/128 (128 through the 64-column slices)
+// float32 at head_dim 16, 32 or 64 (128 and above: flash_attn_bwd_wide_f32.cu)
 extern "C" int videogpa_flash_attn_bwd_f32(VIDEOGPA_BWD_ARGS) {
   VIDEOGPA_BWD_STRIDES;
-  if (D != 16 && D != 32 && D != 64 && D != 128) return cudaErrorInvalidValue;
-  return entry<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turn, B, H, Nq, Nk, D,
-                      st, scale, stream);
-}
-
-// float32 at any head_dim > 128 that is a multiple of 64
-extern "C" int videogpa_flash_attn_bwd_wide_f32(VIDEOGPA_BWD_ARGS) {
-  VIDEOGPA_BWD_STRIDES;
-  if (D <= 128) return cudaErrorInvalidValue;
-  return entry<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turn, B, H, Nq, Nk, D,
-                      st, scale, stream);
+  return entry(q, k, v, o, dout, lse, dq, dk, dv, delta, dq_acc, turn, B, H, Nq, Nk, D, st,
+               scale, stream);
 }
 
 // The main kernel's registers a thread and dynamic shared memory a CTA at
-// head_dim D (f32; D > 128 reads the wide f32 kernel), for reports.
+// head_dim D, for reports.
 extern "C" int videogpa_flash_attn_bwd_f32_attrs(int D, int* regs, int* smem_bytes) {
   switch (D) {
-    case 16: return attrs<float, 16, false>(regs, smem_bytes);
-    case 32: return attrs<float, 32, false>(regs, smem_bytes);
-    case 64: return attrs<float, 64, false>(regs, smem_bytes);
-    default: break;
+    case 16: return attrs<16>(regs, smem_bytes);
+    case 32: return attrs<32>(regs, smem_bytes);
+    case 64: return attrs<64>(regs, smem_bytes);
+    default: return cudaErrorInvalidValue;
   }
-  if (D >= 128 && D % kWideChunk == 0) return attrs<float, kWideChunk, true>(regs, smem_bytes);
-  return cudaErrorInvalidValue;
 }

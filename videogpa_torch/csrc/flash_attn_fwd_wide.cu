@@ -1,47 +1,37 @@
-// Attention forwards on the CUDA cores where the port's tensor-core kernels
-// do not apply (sm_90a): O = softmax(S) V, non-causal.
+// Attention forward on the CUDA cores at any head_dim > 128 that is a
+// multiple of 64, in float32, with an optional natural-log LSE (sm_90a):
+// O = softmax(S) V, non-causal.
 //
-// 1. Any head_dim > 128 that is a multiple of 64, in float32, with an
-//    optional natural-log LSE: `_fwd_kernel` (videogpa_tpu/ops/attention.py
-//    :65; calls at :175 with LSE and :186 without), which the JAX package runs
-//    at every D >= 128 (at D % 128 != 0 with its ones-column, :138-144), on
-//    f32 operands. bf16 operands at these widths run on the tensor cores
-//    (flash_attn_fwd_wide_bf16.cu); f32 stays on the CUDA cores, since TF32
-//    would move the numbers away from the JAX package's. `attention()`
-//    zero-pads any other D > 128 to the next multiple of 64 and passes D's
-//    scale. S = Q K^T * scale in the log2 domain, an exact online softmax, P
-//    V in f32, O / l. Bound: 4*B*H*Nq*Nk*D operations over the 67 TFLOP/s f32
-//    peak; at (1, 4,096, 16, 256) 4.10 ms.
-//    Design: one CTA per (64-query tile, slice of O, b*h) on a flat grid (any
-//    B*H). A slice is at most 256 columns of O (D <= 256 is one slice; above,
-//    D's nc 64-column chunks are cut into ceil(nc / 4) slices of three or
-//    four chunks, the last possibly narrower), so O stays in registers: 4
-//    rows x 4 columns of each chunk a thread, 64 floats at 256 columns. For
-//    each 64-key tile the CTA computes S once, streaming 64-column chunks of
-//    Q and K through two cp.async stages, then streams the slice's V chunks
-//    through the same stages (a V chunk takes Q's place) for P V. The thread
-//    layout is K6 f32's: 16 row groups of 4 queries x 16 column groups, S a
-//    4 x 4 micro-tile a thread, each row's 64 keys reduced over a half-warp,
-//    P through shared memory as P^T, a V chunk's columns 4 a thread. The
-//    earlier design computed S again for every 64-column slice of O (10*N^2*D
-//    operations where 4*N^2*D are needed at D = 256); this one does 4*N^2*D
-//    at D <= 256 and 2*N^2*D*(1 + n_slices) above.
+// Replaces `_fwd_kernel` (videogpa_tpu/ops/attention.py:65; calls at :175
+// with LSE and :186 without), which the JAX package runs at every D >= 128
+// (at D % 128 != 0 with its ones-column, :138-144), on f32 operands. bf16
+// operands at these widths run on the tensor cores
+// (flash_attn_fwd_wide_bf16.cu); f32 stays on the CUDA cores, since TF32
+// would move the numbers away from the JAX package's. `attention()`
+// zero-pads any other D > 128 to the next multiple of 64 and passes D's
+// scale. S = Q K^T * scale in the log2 domain, an exact online softmax, P V
+// in f32, O / l. Bound: 4*B*H*Nq*Nk*D operations over the 67 TFLOP/s f32
+// peak; at (1, 4,096, 16, 256) 4.10 ms.
 //
-// 2. int8 QK^T with a float32 V at head_dim 16/32/64/128 (65-127 zero-padded
-//    to 128 by `attention()`): `_fwd_kernel_T8` (:640, call at :732) on float32
-//    operands, which casts P to V's dtype, here f32. S = int32(q8 k8^T) * sq *
-//    sk (exact integer scores by __dp4a, then the two scales; q8 carries
-//    scale * log2 e), an exact base-2 online softmax, P and P V in f32, O / l
-//    in f32. The operands are `quantize_qk_int8`'s. Bound: 2*B*H*Nq*Nk*D int8
-//    operations over the 1,979 TOP/s int8 peak plus 2*B*H*Nq*Nk*D f32 over 67
-//    TFLOP/s: the f32 P V. Design: K6 f32's tiled kernel with the q8 tile
-//    staged once, k8, its key scales and f32 V tiles of 64 keys double
-//    buffered by cp.async, S a 4 x 4 micro-tile of __dp4a sums a thread.
+// Design: one CTA per (64-query tile, slice of O, b*h) on a flat grid (any
+// B*H). A slice is at most 256 columns of O (D <= 256 is one slice; above,
+// D's nc 64-column chunks are cut into ceil(nc / 4) slices of three or four
+// chunks, the last possibly narrower), so O stays in registers: 4 rows x 4
+// columns of each chunk a thread, 64 floats at 256 columns. For each 64-key
+// tile the CTA computes S once, streaming 64-column chunks of Q and K
+// through two cp.async stages, then streams the slice's V chunks through the
+// same stages (a V chunk takes Q's place) for P V. The thread layout is K6
+// f32's: 16 row groups of 4 queries x 16 column groups, S a 4 x 4
+// micro-tile a thread, each row's 64 keys reduced over a half-warp, P
+// through shared memory as P^T, a V chunk's columns 4 a thread. The earlier
+// design computed S again for every 64-column slice of O (10*N^2*D
+// operations where 4*N^2*D are needed at D = 256); this one does 4*N^2*D at
+// D <= 256 and 2*N^2*D*(1 + n_slices) above.
 //
 // Rows past Nq or Nk are never loaded; scores of keys past Nk are masked to
 // -inf before they are read, rows past Nq are never stored. Operands are
 // addressed through (b, n, h) element strides. Plain C interface (ctypes);
-// each entry returns cudaGetLastError() after its launch.
+// the entry returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
 
@@ -102,7 +92,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, long long sn, in
   }
 }
 
-// The online-softmax step shared by both kernels: scores s (4 rows x keys cg
+// The online-softmax step: scores s (4 rows x keys cg
 // + 16 c, already in the log2 domain, keys >= Nk at -inf) update the running
 // max m and this thread's share of the row sums l; s becomes P; alpha is the
 // rescale of O. Each row's 64 keys are spread over the 16 lanes of a
@@ -128,8 +118,6 @@ __device__ __forceinline__ void softmax_step(float (&s)[4][4], float (&m)[4], fl
     l[i] = l[i] * alpha[i] + rs;
   }
 }
-
-// ---- 1. head_dim > 128, float32 ----
 
 struct WideParams {
   const float* q;
@@ -328,214 +316,6 @@ cudaError_t launch_wide(const WideParams& p, long long items, cudaStream_t strea
   return cudaGetLastError();
 }
 
-// ---- 2. int8 QK^T, float32 V ----
-
-struct Int8Params {
-  const int8_t* q8;
-  const float* sq;
-  const int8_t* k8;
-  const float* sk;
-  const float* v;
-  float* o;
-  int H, Nq, Nk, n_qt, vec;
-  long long q_sb, q_sn, q_sh;
-  long long sq_sb, sq_sn, sq_sh;
-  long long k_sb, k_sn, k_sh;
-  long long sk_sb, sk_sn, sk_sh;
-  long long v_sb, v_sn, v_sh;
-  long long o_sb, o_sn, o_sh;
-};
-
-template <int D>
-struct Int8Cfg {
-  static constexpr int kQS = D + 16;  // bytes a row of q8 or k8
-  static constexpr int kVS = D + 4;   // floats a row of V
-  static constexpr int kStageBytes = kBlock * kQS + kBlock * 4 + kBlock * kVS * 4;  // k8, sk, V
-  static constexpr int kOffStage = kBlock * kQS;  // after the q8 tile
-  static constexpr int kOffP = kOffStage + 2 * kStageBytes;
-  static constexpr int kBytes = kOffP + kBlock * kPStride * 4;
-  static constexpr int kW = D >= 64 ? 4 : D / 16;  // O columns a thread holds per chunk
-  static constexpr int kChunks = D / 16 / kW;     // chunks of kW columns, 16 * kW apart
-};
-
-// One CTA per (64-query tile, b*h), item = b*h * n_qt + query tile; the
-// thread layout of attn_wide_f32_kernel, O over all D columns (kChunks x kW).
-template <int D>
-__global__ void __launch_bounds__(kThreads) attn_int8_f32_kernel(const Int8Params p) {
-  using C = Int8Cfg<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int item = blockIdx.x;
-  const int bh = item / p.n_qt;
-  const int q0 = (item % p.n_qt) * kBlock;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const int8_t* q8 = p.q8 + b * p.q_sb + h * p.q_sh;
-  const int8_t* k8 = p.k8 + b * p.k_sb + h * p.k_sh;
-  const float* sk = p.sk + b * p.sk_sb + h * p.sk_sh;
-  const float* v = p.v + b * p.v_sb + h * p.v_sh;
-  const bool vec = p.vec != 0;
-  const int rg = threadIdx.x / 16;
-  const int cg = threadIdx.x % 16;
-  const int n_kt = (p.Nk + kBlock - 1) / kBlock;
-  const bool rows_live = 4 * rg < p.Nq - q0;
-  float* sp = reinterpret_cast<float*>(smem + C::kOffP);
-
-  auto issue = [&](int j) {
-    unsigned char* st = smem + C::kOffStage + (j & 1) * C::kStageBytes;
-    const int key0 = j * kBlock;
-    load_rows<int8_t, D, C::kQS>(reinterpret_cast<int8_t*>(st), k8, p.k_sn, key0, p.Nk, true);
-    if (static_cast<int>(threadIdx.x) < min(kBlock, p.Nk - key0)) {
-      cp_async_4(st + kBlock * C::kQS + 4 * threadIdx.x, sk + (key0 + threadIdx.x) * p.sk_sn);
-    }
-    load_rows<float, D, C::kVS>(reinterpret_cast<float*>(st + kBlock * C::kQS + kBlock * 4), v,
-                                p.v_sn, key0, p.Nk, vec);
-  };
-  load_rows<int8_t, D, C::kQS>(reinterpret_cast<int8_t*>(smem), q8, p.q_sn, q0, p.Nq, true);
-  issue(0);
-  cp_async_commit();
-
-  float sqr[4];  // the rows' scales
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * rg + i;
-    sqr[i] = row < p.Nq ? p.sq[b * p.sq_sb + row * p.sq_sn + h * p.sq_sh] : 0.f;
-  }
-  float acc[4][C::kChunks * C::kW], m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int e = 0; e < C::kChunks * C::kW; ++e) acc[i][e] = 0.f;
-  }
-  const unsigned char* sq8 = smem + 4 * rg * C::kQS;
-
-  for (int j = 0; j < n_kt; ++j) {
-    if (j + 1 < n_kt) issue(j + 1);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const unsigned char* st = smem + C::kOffStage + (j & 1) * C::kStageBytes;
-    const float* ssk = reinterpret_cast<const float*>(st + kBlock * C::kQS);
-    const float* sv = ssk + kBlock;
-    const int key0 = j * kBlock;
-    const int kn = min(kBlock, p.Nk - key0);
-
-    // the exact integer scores: 4 rows x 4 keys a thread, 16 bytes a step
-    int si[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) si[i][c] = 0;
-    }
-    if (rows_live && cg < kn) {
-      const unsigned char* skb = st + cg * C::kQS;
-#pragma unroll
-      for (int d = 0; d < D; d += 16) {
-        int4 x[4], y[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = *reinterpret_cast<const int4*>(sq8 + i * C::kQS + d);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          y[c] = *reinterpret_cast<const int4*>(skb + 16 * c * C::kQS + d);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            si[i][c] = __dp4a(x[i].x, y[c].x, si[i][c]);
-            si[i][c] = __dp4a(x[i].y, y[c].y, si[i][c]);
-            si[i][c] = __dp4a(x[i].z, y[c].z, si[i][c]);
-            si[i][c] = __dp4a(x[i].w, y[c].w, si[i][c]);
-          }
-        }
-      }
-    }
-    // S = s * sq * sk in the log2 domain; keys >= Nk at -inf
-    float s[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int key = cg + 16 * c;
-      const bool live = key0 + key < p.Nk;
-      const float skv = live ? ssk[key] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][c] = live ? static_cast<float>(si[i][c]) * sqr[i] * skv : -INFINITY;
-      }
-    }
-    float alpha[4];
-    softmax_step(s, m, l, alpha);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      *reinterpret_cast<float4*>(sp + (cg + 16 * c) * kPStride + 4 * rg) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-    }
-    __syncthreads();
-
-    // O = O * alpha + P V in f32
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int e = 0; e < C::kChunks * C::kW; ++e) acc[i][e] *= alpha[i];
-    }
-    const float* vcol = sv + C::kW * cg;
-#pragma unroll 4
-    for (int key = 0; key < (rows_live ? kn : 0); ++key) {
-      const float4 pk = *reinterpret_cast<const float4*>(sp + key * kPStride + 4 * rg);
-      const float pr[4] = {pk.x, pk.y, pk.z, pk.w};
-#pragma unroll
-      for (int c = 0; c < C::kChunks; ++c) {
-        float vv[C::kW];
-        const float* vrow = vcol + key * C::kVS + 16 * C::kW * c;
-        if constexpr (C::kW == 4) {
-          const float4 x = *reinterpret_cast<const float4*>(vrow);
-          vv[0] = x.x; vv[1] = x.y; vv[2] = x.z; vv[3] = x.w;
-        } else {
-#pragma unroll
-          for (int e = 0; e < C::kW; ++e) vv[e] = vrow[e];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int e = 0; e < C::kW; ++e) {
-            acc[i][c * C::kW + e] = fmaf(pr[i], vv[e], acc[i][c * C::kW + e]);
-          }
-        }
-      }
-    }
-    __syncthreads();  // buffer j & 1 and P^T are rewritten next
-  }
-
-  float* o = p.o + b * p.o_sb + h * p.o_sh + C::kW * cg;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int row = q0 + 4 * rg + i;
-    if (row >= p.Nq) continue;
-    const float inv = 1.f / l[i];
-#pragma unroll
-    for (int c = 0; c < C::kChunks; ++c) {
-#pragma unroll
-      for (int e = 0; e < C::kW; ++e) {
-        o[row * p.o_sn + 16 * C::kW * c + e] = acc[i][c * C::kW + e] * inv;
-      }
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_int8(const Int8Params& p, int B, cudaStream_t stream) {
-  constexpr int bytes = Int8Cfg<D>::kBytes;
-  const long long items = static_cast<long long>(B) * p.H * p.n_qt;
-  if (items > INT_MAX) return cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      attn_int8_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  attn_int8_f32_kernel<D><<<static_cast<unsigned int>(items), kThreads, bytes, stream>>>(p);
-  return cudaGetLastError();
-}
-
 template <typename K>
 cudaError_t attrs_of(K kernel, int bytes, int* regs, int* smem_bytes) {
   cudaFuncAttributes a;
@@ -585,67 +365,11 @@ extern "C" int videogpa_flash_attn_fwd_wide_f32(
   return ncs == 3 ? launch_wide<3>(p, items, s) : launch_wide<4>(p, items, s);
 }
 
-// strides: (b, n, h) of q8, sq, k8, sk, v, o in that order (K8's interface)
-extern "C" int videogpa_flash_attn_int8_f32(
-    const void* q8, const void* sq, const void* k8, const void* sk, const void* v, void* o,
-    int B, int H, int Nq, int Nk, int D, long long q_sb, long long q_sn, long long q_sh,
-    long long sq_sb, long long sq_sn, long long sq_sh, long long k_sb, long long k_sn,
-    long long k_sh, long long sk_sb, long long sk_sn, long long sk_sh, long long v_sb,
-    long long v_sn, long long v_sh, long long o_sb, long long o_sn, long long o_sh,
-    void* stream) {
-  if (B < 1 || H < 1 || Nq < 1 || Nk < 1) return cudaErrorInvalidValue;
-  Int8Params p;
-  p.q8 = static_cast<const int8_t*>(q8);
-  p.sq = static_cast<const float*>(sq);
-  p.k8 = static_cast<const int8_t*>(k8);
-  p.sk = static_cast<const float*>(sk);
-  p.v = static_cast<const float*>(v);
-  p.o = static_cast<float*>(o);
-  p.H = H; p.Nq = Nq; p.Nk = Nk;
-  p.n_qt = (Nq + kBlock - 1) / kBlock;
-  p.q_sb = q_sb; p.q_sn = q_sn; p.q_sh = q_sh;
-  p.sq_sb = sq_sb; p.sq_sn = sq_sn; p.sq_sh = sq_sh;
-  p.k_sb = k_sb; p.k_sn = k_sn; p.k_sh = k_sh;
-  p.sk_sb = sk_sb; p.sk_sn = sk_sn; p.sk_sh = sk_sh;
-  p.v_sb = v_sb; p.v_sn = v_sn; p.v_sh = v_sh;
-  p.o_sb = o_sb; p.o_sn = o_sn; p.o_sh = o_sh;
-  // q8 and k8 rows are copied by 16 bytes (the wrapper checks the rule); V
-  // by 16 bytes when every row starts on 16 bytes, else by 4
-  if ((reinterpret_cast<uintptr_t>(q8) | reinterpret_cast<uintptr_t>(k8)) % 16 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  for (long long s : {q_sb, q_sn, q_sh, k_sb, k_sn, k_sh}) {
-    if (s % 16 != 0) return cudaErrorInvalidValue;
-  }
-  bool vec = reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  for (long long s : {v_sb, v_sn, v_sh}) vec = vec && s % 4 == 0;
-  p.vec = vec ? 1 : 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_int8<16>(p, B, s);
-    case 32: return launch_int8<32>(p, B, s);
-    case 64: return launch_int8<64>(p, B, s);
-    case 128: return launch_int8<128>(p, B, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// registers a thread and dynamic shared memory a CTA, for reports: the wide
-// f32 kernel at head_dim D, the int8 / f32 kernel at head_dim D
+// registers a thread and dynamic shared memory a CTA at head_dim D, for reports
 extern "C" int videogpa_flash_attn_fwd_wide_f32_attrs(int D, int* regs, int* smem_bytes) {
   if (D <= 128 || D % kChunk != 0) return cudaErrorInvalidValue;
   int nc = 0, n_slices = 0, ncs = 0;
   slices_of(D, &nc, &n_slices, &ncs);
   return ncs == 3 ? attrs_of(attn_wide_f32_kernel<3>, kWideBytes, regs, smem_bytes)
                   : attrs_of(attn_wide_f32_kernel<4>, kWideBytes, regs, smem_bytes);
-}
-
-extern "C" int videogpa_flash_attn_int8_f32_attrs(int D, int* regs, int* smem_bytes) {
-  switch (D) {
-    case 16: return attrs_of(attn_int8_f32_kernel<16>, Int8Cfg<16>::kBytes, regs, smem_bytes);
-    case 32: return attrs_of(attn_int8_f32_kernel<32>, Int8Cfg<32>::kBytes, regs, smem_bytes);
-    case 64: return attrs_of(attn_int8_f32_kernel<64>, Int8Cfg<64>::kBytes, regs, smem_bytes);
-    case 128: return attrs_of(attn_int8_f32_kernel<128>, Int8Cfg<128>::kBytes, regs, smem_bytes);
-    default: return cudaErrorInvalidValue;
-  }
 }

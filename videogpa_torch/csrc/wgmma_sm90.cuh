@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
 // (flash_attn_fwd.cu, flash_attn_bwd.cu, flash_attn_bwd_d128.cu,
-// flash_attn_fwd_d128.cu, flash_attn_short.cu, flash_attn_int8.cu):
-// shared-memory matrix descriptors, the bf16 -> f32 `wgmma.mma_async`
-// products (A from shared memory or from registers) and the s8 -> s32 one,
-// wgmma fence / commit / wait, a flush-to-zero exp2, mbarrier init / arrive /
-// expect-tx / wait, 4-byte cp.async copies that arrive on an mbarrier, TMA
-// tile and bulk loads, bulk f32 reduce-add, setmaxnreg, named barriers, and
-// on the host a rank-4 tensor map over (D, N, H, B) built with
-// cuTensorMapEncodeTiled, which is reached through cudaGetDriverEntryPoint so
-// that nothing links against libcuda.
+// flash_attn_fwd_d128.cu, flash_attn_short.cu, flash_attn_int8.cu,
+// flash_attn_int8_f32.cu, the wide bf16 kernels): shared-memory matrix
+// descriptors, the bf16 -> f32 `wgmma.mma_async` products (A from shared
+// memory or from registers) and the s8 -> s32 ones (N = 128 and 64), wgmma
+// fence / commit / wait, a flush-to-zero exp2, mbarrier init / arrive /
+// expect-tx / wait, 4- and 16-byte cp.async copies (zero-filled when not
+// valid) and their arrival on an mbarrier, TMA tile and bulk loads, bulk f32
+// reduce-add, setmaxnreg, named barriers, and on the host a rank-4 tensor
+// map over (D, N, H, B) built with cuTensorMapEncodeTiled, which is reached
+// through cudaGetDriverEntryPoint so that nothing links against libcuda.
 //
 // Layout conventions (the PTX ISA's canonical wgmma layouts):
 //  - Tiles are loaded by TMA with a 32-, 64- or 128-byte swizzle that matches
@@ -258,6 +259,21 @@ __device__ __forceinline__ void wgmma_ss_s8_n128(int (&d)[64], uint64_t da, uint
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The same at N = 64: d (64 x 64, s32) = or += A (64 x 32) * B (32 x 64), s8.
+__device__ __forceinline__ void wgmma_ss_s8_n64(int (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // 2^x as one ex2.approx.ftz on the special-function unit: a result below
 // 2^-126 flushes to 0. exp2f (no fast-math) wraps the same instruction in a
 // subnormal fix-up, which in flash_attn_bwd.cu's softmax cost a tenth of
@@ -328,6 +344,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(valid ? 4 : 0)
+               : "memory");
+}
+// The same with 16 bytes (both 16-byte aligned).
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
                : "memory");
 }
 // One arrival on `bar` once this thread's earlier cp.async copies have

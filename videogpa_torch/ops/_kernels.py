@@ -33,6 +33,8 @@ SOURCES = {
     "flash_attn_fwd_wide": _CSRC / "flash_attn_fwd_wide.cu",
     "flash_attn_fwd_wide_bf16": _CSRC / "flash_attn_fwd_wide_bf16.cu",
     "flash_attn_bwd_wide": _CSRC / "flash_attn_bwd_wide.cu",
+    "flash_attn_bwd_wide_f32": _CSRC / "flash_attn_bwd_wide_f32.cu",
+    "flash_attn_int8_f32": _CSRC / "flash_attn_int8_f32.cu",
 }
 HEADERS = (_CSRC / "wgmma_sm90.cuh",)
 NVCC_FLAGS = [
@@ -49,7 +51,8 @@ _BWD_ARGS = [_P] * 14 + [_I] * 7 + [_LL] * 24 + [_F, _P]
 # q8, sq, k8, sk, v, o; B, H, Nq, Nk, D; (b, n, h) strides of the six; stream.
 # The kernel needs every query scale sq > 0, as quantize_qk_int8 makes them.
 _INT8_ARGS = [_P] * 6 + [_I] * 5 + [_LL] * 18 + [_P]
-# the CUDA-core backward (f32): q, k, v, o, do, lse, dq, dk, dv and the
+# the CUDA-core backwards (f32, flash_attn_bwd_f32.cu and
+# flash_attn_bwd_wide_f32.cu): q, k, v, o, do, lse, dq, dk, dv and the
 # scratch (delta, dq_acc, turn counters); B, H, Nq, Nk, D; (b, n, h) strides
 # of q, k, v, o, do, dq, dk, dv; scale; stream
 _BWD_F32_ARGS = [_P] * 12 + [_I] * 5 + [_LL] * 24 + [_F, _P]
@@ -73,14 +76,14 @@ _SIGNATURES = {
     "flash_attn_int8": ("flash_attn_int8", "videogpa_flash_attn_int8", _INT8_ARGS),
     "flash_attn_bwd_f32": ("flash_attn_bwd_f32", "videogpa_flash_attn_bwd_f32", _BWD_F32_ARGS),
     "flash_attn_bwd_wide_f32": (
-        "flash_attn_bwd_f32", "videogpa_flash_attn_bwd_wide_f32", _BWD_F32_ARGS),
+        "flash_attn_bwd_wide_f32", "videogpa_flash_attn_bwd_wide_f32", _BWD_F32_ARGS),
     "flash_attn_bwd_wide_bf16": (
         "flash_attn_bwd_wide", "videogpa_flash_attn_bwd_wide_bf16", _BWD_WIDE_ARGS),
     "flash_attn_fwd_wide_f32": (
         "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_f32", _FWD_ARGS),
     "flash_attn_fwd_wide_bf16": (
         "flash_attn_fwd_wide_bf16", "videogpa_flash_attn_fwd_wide_bf16", _FWD_ARGS),
-    "flash_attn_int8_f32": ("flash_attn_fwd_wide", "videogpa_flash_attn_int8_f32", _INT8_ARGS),
+    "flash_attn_int8_f32": ("flash_attn_int8_f32", "videogpa_flash_attn_int8_f32", _INT8_ARGS),
     # reports, not kernels: registers a thread and dynamic shared memory a CTA
     "flash_attn_fwd_attrs": ("flash_attn_fwd", "videogpa_flash_attn_fwd_attrs", [_I, _P, _P]),
     "flash_attn_fwd_f32_attrs": (
@@ -101,8 +104,14 @@ _SIGNATURES = {
         "flash_attn_fwd_wide", "videogpa_flash_attn_fwd_wide_f32_attrs", [_I, _P, _P]),
     "flash_attn_fwd_wide_bf16_attrs": (
         "flash_attn_fwd_wide_bf16", "videogpa_flash_attn_fwd_wide_bf16_attrs", [_I, _P, _P]),
+    "flash_attn_bwd_wide_f32_attrs": (
+        "flash_attn_bwd_wide_f32", "videogpa_flash_attn_bwd_wide_f32_attrs", [_I, _P, _P]),
     "flash_attn_int8_f32_attrs": (
-        "flash_attn_fwd_wide", "videogpa_flash_attn_int8_f32_attrs", [_I, _P, _P]),
+        "flash_attn_int8_f32", "videogpa_flash_attn_int8_f32_attrs", [_I, _P, _P]),
+    # the walk of the f32 wide backward's last launch (1 diagonal, 0 in
+    # order) and its grid in clusters
+    "flash_attn_bwd_wide_f32_walk": (
+        "flash_attn_bwd_wide_f32", "videogpa_flash_attn_bwd_wide_f32_walk", [_P, _P]),
     "flash_attn_int8_d128": (
         "flash_attn_int8", "videogpa_flash_attn_int8_d128", _INT8_ARGS),
 }
@@ -173,11 +182,21 @@ def kernel(name: str) -> Callable[..., int]:
     return fn
 
 
+def bwd_wide_f32_walk() -> Dict[str, int]:
+    """The walk the f32 wide backward's last launch took (``diagonal`` 1: a
+    cooperative launch of the whole grid; 0: in order) and its grid in
+    clusters."""
+    walk, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    kernel("flash_attn_bwd_wide_f32_walk")(ctypes.byref(walk), ctypes.byref(clusters))
+    return {"diagonal": walk.value, "clusters": clusters.value}
+
+
 def kernel_attrs(name: str, *args: int) -> Dict[str, int]:
     """Registers a thread and dynamic shared memory a CTA of a kernel with a
     report entry (``flash_attn_fwd``, ``flash_attn_fwd_f32``,
     ``flash_attn_short``, ``flash_attn_bwd``, ``flash_attn_bwd_f32``,
-    ``flash_attn_int8`` (K8 and K9), ``flash_attn_int8_f32``,
+    ``flash_attn_bwd_wide_f32``, ``flash_attn_int8`` (K8 and K9),
+    ``flash_attn_int8_f32``,
     ``flash_attn_fwd_wide_f32`` and ``flash_attn_fwd_wide_bf16`` at head dim
     ``args[0]``, ``flash_attn_bwd_wide_bf16`` at head dim ``args[0]`` (its
     dK/dV kernel with ``args[1]`` 1, its dQ kernel with 0),

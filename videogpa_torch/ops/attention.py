@@ -19,11 +19,12 @@ the kernel or raises. There is no fallback from one to the other.
 - ``flash_attn_fwd_f32`` (K6's float32 entry, same source): float32 at
   head_dim 16-128 on CUDA cores, tiled (64-query CTAs on a flat grid, K and
   V staged in shared memory by 64-key tiles), for short and long rows.
-- ``flash_attn_bwd_f32`` (the float32 entry of K3/K7,
-  ``csrc/flash_attn_bwd_f32.cu``): its backward at head_dim 16-128 on CUDA
-  cores, a delta prologue and one fused kernel over key tiles (a persistent
-  grid) that sums dQ across key tiles in a fixed order, so runs are
-  bit-stable.
+- ``flash_attn_bwd_f32`` (the float32 entry of K3/K7): its backward at
+  head_dim 16-128 on CUDA cores, a delta prologue and one fused kernel over
+  key tiles (a persistent grid) that sums dQ across key tiles in a fixed
+  order, so runs are bit-stable: ``csrc/flash_attn_bwd_f32.cu`` at 16-64,
+  ``csrc/flash_attn_bwd_wide_f32.cu`` (one CTA of two 64-column slots) at
+  128.
 - ``flash_attn_fwd_wide`` and ``flash_attn_bwd_wide``: the forward and
   backward at any head_dim above 128 that is a multiple of 64. bf16 runs on
   wgmma + TMA (``csrc/flash_attn_fwd_wide_bf16.cu``: K6's persistent scheme
@@ -31,15 +32,16 @@ the kernel or raises. There is no fallback from one to the other.
   ``csrc/flash_attn_bwd_wide.cu``: a dK/dV kernel over key tiles and a dQ
   kernel over query tiles, bit-stable); float32 on the CUDA cores
   (``csrc/flash_attn_fwd_wide.cu``: S once a key tile for slices of up to
-  256 columns; ``csrc/flash_attn_bwd_f32.cu``: 64-column slices of the
-  gradients, each recomputing S and dP).
+  256 columns; ``csrc/flash_attn_bwd_wide_f32.cu``: two 64-column slots a
+  CTA, the CTAs of a key tile in a thread block cluster summing the slots'
+  partial S and dP, so S and dP are computed once a tile pair).
 - ``flash_attn_int8`` (K8) and ``flash_attn_int8_d128`` (K9), both in
   ``csrc/flash_attn_int8.cu``: the int8-QK forward on operands quantised by
   ``quantize_qk_int8``, inference only, at head_dim < 128 and at 128; QK^T
   on int8 wgmma, PV on bf16 wgmma, TMA, a persistent grid.
-- ``flash_attn_int8_f32`` (``csrc/flash_attn_fwd_wide.cu``): the same
-  function with a float32 V at head_dim 16-128, on CUDA cores (``__dp4a``
-  integer scores, P and PV in f32).
+- ``flash_attn_int8_f32`` (``csrc/flash_attn_int8_f32.cu``): the same
+  function with a float32 V at head_dim 16-128: QK^T on int8 wgmma, P and
+  PV in f32 on the CUDA cores, TMA and cp.async, a persistent grid.
 
 ``attention`` routes as the JAX package does for bf16, and sends float32
 operands to ``flash_attn_fwd_f32``, since the tensor-core kernels take bf16
@@ -645,15 +647,18 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
     ``flash_attn_bwd``; Nq may differ from Nk.
 
     Two launches: a prologue writes delta = rowsum(O * dO); one kernel takes
-    (64-key tile, column slice, b*h) items on a persistent grid, walks the
-    query tiles (five products: S, dP, dV, dK and dQ's partial) and adds dQ's
-    partials of a query tile in a fixed order of the key tiles. Every
-    gradient element is summed in the same order on every run, so two runs
-    give the same bits. While a head's key tiles fit the grid, they walk
-    the query tiles diagonally, which can make a key tile wait on a later
-    one: that grid is started by a cooperative launch, which runs it only
-    with every CTA resident (else the in-order walk runs, as it does for
-    longer rows); the header of ``csrc/flash_attn_bwd_f32.cu`` has the order.
+    (64-key tile, b*h) items on a persistent grid, walks the query tiles
+    (five products: S, dP, dV, dK and dQ's partial) and adds dQ's partials of
+    a query tile in a fixed order of the key tiles. Every gradient element is
+    summed in the same order on every run, so two runs give the same bits.
+    While a head's key tiles fit the grid, they walk the query tiles
+    diagonally, which can make a key tile wait on a later one: that grid is
+    started by a cooperative launch, which runs it only with every CTA
+    resident (else the in-order walk runs, as it does for longer rows); the
+    header of ``csrc/flash_attn_bwd_f32.cu`` has the order. At head_dim 128
+    the item is one CTA of two 64-column slots
+    (``csrc/flash_attn_bwd_wide_f32.cu``, as ``flash_attn_bwd_wide`` runs
+    f32).
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
     tensors must be float32 with D in ``F32_HEAD_DIMS``, at any B*H; anything
@@ -665,8 +670,9 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
         return flash_attn_bwd_reference(q, k, v, o, lse, do, layout, softmax_scale)
     if not _on_card(q):
         raise ValueError(f"flash_attn_bwd_f32: unsupported device {q.device}")
-    grads = _launch_bwd_f32("flash_attn_bwd_f32", "flash_attn_bwd_f32", F32_HEAD_DIMS,
-                            torch.float32, q, k, v, o, lse, do, layout, softmax_scale)
+    entry = "flash_attn_bwd_f32" if q.shape[-1] < 128 else "flash_attn_bwd_wide_f32"
+    grads = _launch_bwd_f32("flash_attn_bwd_f32", entry, F32_HEAD_DIMS, torch.float32, q, k, v,
+                            o, lse, do, layout, softmax_scale)
     if not traced(q):
         flash_attn_bwd_f32.launches += 1
     return grads
@@ -674,9 +680,10 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
 
 flash_attn_bwd_f32.launches = 0
 
-# The CUDA-core backward's tiles (csrc/flash_attn_bwd_f32.cu, float32 only):
-# 64 keys a work item, 64 queries a tile, and above head_dim 64 the gradients
-# in slices of 64 columns, each slice an item of its own.
+# The CUDA-core backwards' tiles (csrc/flash_attn_bwd_f32.cu and
+# csrc/flash_attn_bwd_wide_f32.cu, float32 only): 64 keys a work item, 64
+# queries a tile, and above head_dim 64 one CTA of a cluster for each
+# 64-column chunk of the gradients, each chunk with its own dQ turns.
 BWD_F32_BLOCK, BWD_F32_SLICE = 64, 64
 # The bf16 wide backward's tiles (csrc/flash_attn_bwd_wide.cu): 64 rows on
 # both sides; its LSE2 and delta cover the query rows padded to whole tiles.
@@ -684,7 +691,8 @@ BWD_WIDE_BLOCK = 64
 
 
 def bwd_f32_slices(D: int) -> int:
-    """Column slices of the CUDA-core (float32) backward at head_dim ``D``."""
+    """The 64-column chunks of the CUDA-core (float32) backward's gradients at
+    head_dim ``D``, each with its own dQ turn counters (one above 64)."""
     return 1 if D <= BWD_F32_SLICE else D // BWD_F32_SLICE
 
 
@@ -702,9 +710,14 @@ def flash_attn_bwd_wide(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     tiles and a dQ kernel over 64-query tiles, each recomputing S and dP
     (seven products) and summing nothing across CTAs; slices of at most 256
     gradient columns, each recomputing S and dP. P is rounded to bf16 before dV and dS
-    before dQ and dK, as the JAX kernels round them. float32: the kernel of
-    ``flash_attn_bwd_f32`` with 64-column slices of the gradients, each
-    slice's items recomputing S and dP over all of D.
+    before dQ and dK, as the JAX kernels round them. float32
+    (``csrc/flash_attn_bwd_wide_f32.cu``): the fused kernel of
+    ``flash_attn_bwd_f32`` with one 128-thread slot for each 64-column chunk
+    of D, two a CTA, the CTAs of a key tile in a thread block cluster that
+    sums the slots' partial S and dP in a fixed order, so S and dP are
+    computed once a (key tile, query tile) pair: five products, 10 N^2 D
+    operations up to D = 1,024 (clusters of at most 8 CTAs; above, groups of
+    chunks each recompute S and dP).
 
     CPU tensors take the plain version (``flash_attn_bwd_reference``). CUDA
     tensors must be float32 or bf16 with D in ``WIDE_HEAD_DIMS``, at any
@@ -911,21 +924,28 @@ def quantize_qk_int8(q: torch.Tensor, k: torch.Tensor, layout: str = "bhnd",
     return q8, sq.squeeze(-1), k8, sk.squeeze(-1)
 
 
+def _int8_scores(q8, sq, k8, sk) -> torch.Tensor:
+    """S = int32(q8 k8^T) * sq * sk on (B, H, N, D) operands, (B, H, Nq, Nk)
+    f32: an f32 product of int8 operands holds every term (< 2^14) and every
+    partial sum (< 2^24 up to head_dim 1,040) as an integer, so the integer
+    scores are exact; then the row scale, then the key scale."""
+    if q8.shape[-1] * 127 * 127 >= 2 ** 24:
+        raise ValueError("flash_attn_int8_reference: head_dim too large for exact f32 sums")
+    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
+    return s.mul_(sq[..., :, None]).mul_(sk[..., None, :])  # in place: (Nq, Nk) f32 per head
+
+
 def flash_attn_int8_reference(q8, sq, k8, sk, v, layout: str = "bnhd") -> torch.Tensor:
     """Plain version of K8 and K9: the same function, the same layouts.
 
-    The integer scores are exact: an f32 product of int8 operands holds every
-    term (< 2^14) and every partial sum (< 2^24 up to head_dim 1,040) as an
-    integer. Then S = s * sq[row] * sk[col], exp2 against the row max, P cast
-    to V's dtype, PV in f32, divided by the f32 row sum. Returns O in
-    ``layout``, contiguous, in V's dtype."""
-    if q8.shape[-1] * 127 * 127 >= 2 ** 24:
-        raise ValueError("flash_attn_int8_reference: head_dim too large for exact f32 sums")
+    The integer scores are exact (``_int8_scores``). Then S = s * sq[row] *
+    sk[col], exp2 against the row max, P cast to V's dtype, PV in f32,
+    divided by the f32 row sum. Returns O in ``layout``, contiguous, in V's
+    dtype."""
     if layout == "bnhd":
         q8, k8, v = (x.transpose(1, 2) for x in (q8, k8, v))
         sq, sk = sq.transpose(1, 2), sk.transpose(1, 2)
-    s = torch.matmul(q8.float(), k8.float().transpose(-1, -2))
-    s.mul_(sq[..., :, None]).mul_(sk[..., None, :])  # in place: (Nq, Nk) f32 per head
+    s = _int8_scores(q8, sq, k8, sk)
     p = s.sub_(s.amax(dim=-1, keepdim=True)).exp2_()
     l = p.sum(dim=-1, keepdim=True)
     o = (torch.matmul(p.to(v.dtype).float(), v.float()) / l).to(v.dtype)
@@ -1046,9 +1066,11 @@ def flash_attn_int8_f32(q8: torch.Tensor, sq: torch.Tensor, k8: torch.Tensor,
     """K8's function with a float32 V (``_fwd_kernel_T8`` on f32 operands,
     which casts P to V's dtype): softmax2(int32(q8 k8^T) * sq * sk) V with P
     and P V in f32, at head_dim 16, 32, 64 or 128 (``attention`` pads 65-127
-    to 128). A tiled kernel on the CUDA cores: ``__dp4a`` integer scores, an
-    exact online softmax, f32 FMAs for P V. Returns O in f32, a new
-    contiguous tensor shaped like q8. Takes any sq.
+    to 128) (``csrc/flash_attn_int8_f32.cu``): the integer scores on int8
+    wgmma (exact), an exact base-2 online softmax, P V in f32 on the CUDA
+    cores (8 queries x D / 8 or D / 16 columns of O a thread), a persistent
+    grid. Returns O in f32, a new contiguous tensor shaped like q8. Takes any
+    sq.
 
     CPU tensors take the plain version. CUDA tensors must have V in float32
     and q8, k8 that meet TMA's 16-byte rule (``check_16_bytes``), at any B*H;
