@@ -151,9 +151,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
              noise) and decode at T = 1 and 9, streaming and full-sequence.
    wan_sample — ``sample_ti2v`` at full width and depth with [wan]'s DiT:
              umT5-XXL (f32) encodes 2 x 512 ids, the Wan VAE (f32) encodes a
-             704 x 1,280 image, 3 UniPC steps, the streamed decode of 81
+             704 x 1,280 image, 2 UniPC steps, the streamed decode of 81
              frames; prints umT5, image-encode, step and decode ms, the
-             decode's TFLOP/s, peak GB and the launches (K6 bf16 180, every
+             decode's TFLOP/s, peak GB and the launches (K6 bf16 120, every
              other kernel 0).
    encode_files — ``cli.encode_wan.run`` (umT5 + Wan VAE, one group: image
              and an 81-frame 704 x 1,280 clip) and ``cli.encode.run`` (T5-XXL
@@ -169,7 +169,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              reference views equal; the tiny DA3 scorer, card against CPU.
    scorer_da3 — the DA3-Large scorer at full width and depth (24 blocks at
              1,024, 16 heads x 64, DualDPT 256 / (256, 512, 1,024, 1,024))
-             on random weights: 3 batches of K = 4 clips x 10 frames x 518^2
+             on random weights: 2 batches of K = 4 clips x 10 frames x 518^2
              through ``process_frames_batch``, bf16 trunk, f32 heads, LPIPS
              VGG16; batch ms, clips/min, peak GB, the geometry's ranges and
              the launches a batch (K4 16, K1 8, K5 4); then in int8 mode on
@@ -183,6 +183,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
              ``cli.replicate_scorer`` on 2 prompts x 4 clips (the generated
              video among them, decoded from memory) at score_batch 4, and a
              resumed run.
+   parity_cog15 — K1 and K8 at CogVideoX1.5-5B's CFG pair (2, 45,106, 48,
+             64) against their plain versions over one head at a time, their
+             ms beside their bounds (K1's beside SDPA's, K8's in turns with
+             K1's); a small CogVideoX1.5 DiT (patch_size_t 2, 2,568 tokens
+             through K1) bf16 on the card against f32 on the CPU.
+   cog15   — the CogVideoX1.5-5B denoise path at full width and depth (42
+             layers, 48 x 64, patch 2 x 2 x 2) on random bf16 weights: one
+             warm (profiled) DPM step, then 1 request x 2 DPM steps of the CFG
+             pair with dynamic CFG on (1, 22, 16, 96, 170) latents (81f@768x1360
+             rounded up to 22 latent frames: 45,106 tokens); K1 42 launches a
+             step, every other kernel 0; step ms and peak GB.
+   cog15-int8 — the same DiT after ``quantize_dit_int8`` in place under
+             ``flash_int8``: 1 warm and 1 timed step, K8 42 launches, the drift
+             from [cog15]'s warm step on the same draws, peak GB.
+   cog15_sample — T5-XXL on a prompt and the empty negative; ``sample_t2v``
+             for 2 DPM steps at 81f@768x1360 with the DiT, T5 and VAE
+             resident, ``decode_latents`` of its first 2 latent frames (a
+             temporal cut) and ``video_to_uint8``; then ``cli.generate.main
+             --recipe CogVideoX1.5-5B`` around the resident models (1 DPM
+             step, a random PEFT LoRA merged at the absolute 0.2, every one of
+             the 22 latent frames decoded at 768 x 1360: 85 frames); text-
+             encode, step and decode ms, frame counts, peaks, K1's launches.
    slice_da3_nested — the tiny and the small DA3, each with a mono net of
              its widths, a GSDPT head and a gaussian scene, f32 on the card
              against the CPU: mono depth and sky, ``nested_inference``
@@ -192,7 +214,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
              width and depth (DA3-Giant: 40 blocks at 1,536, 24 heads x 64,
              SwiGLU; the metric DA3-Large: 24 plain blocks, the sky DPT) on
              random weights, one scene of 10 x 518^2, bf16 trunks, f32
-             heads: 1 cold + 2 warm calls, each with the anyview, metric and
+             heads: 1 cold + 1 warm call, each with the anyview, metric and
              host-alignment ms, peak GB and launches (K1 14, K4 50); one
              profiled call; each branch's layers alone.
    da3_service — DA3-Large written as a checkpoint and served by the port's
@@ -4118,8 +4140,8 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
     import torch
 
     from videogpa_torch.models.cogvideox import (
-        CogVideoXConfig, SamplerSettings, dit_init, pipeline, sample_i2v, sample_t2v,
-        vae_decode, vae_init, video_to_uint8)
+        CogVideoXConfig, SamplerSettings, dit_init, sample_i2v, sample_t2v, vae_decode, vae_init,
+        video_to_uint8)
     from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
 
     cfg = CogVideoXConfig.cogvideox_5b()
@@ -4152,32 +4174,16 @@ def phase_sample(dit, steps: int = 2, i2v_layers: int = 42):
     log(f"[sample] t5_encode 2 x {cfg.max_text_seq_length} ids: {t5_ms:.1f} ms, "
         f"embeddings {tuple(emb.shape)} finite")
 
-    timing = {}
-    real_decode = pipeline.decode_latents
-
-    def timed_decode(vae_, latents, cfg_):
-        """sample_t2v's decode, timed apart from its denoise loop."""
-        torch.cuda.synchronize()
-        timing["denoise_s"] = time.perf_counter() - timing["t0"]
-        timing["latents"] = tuple(latents.shape)
-        t1 = time.perf_counter()
-        out = real_decode(vae_, latents, cfg_, log=timing.setdefault("tile_log", []).append)
-        torch.cuda.synchronize()
-        timing["decode_s"] = time.perf_counter() - t1
-        return out
-
     settings = SamplerSettings(num_inference_steps=steps, sampler="dpm")
-    pipeline.decode_latents = timed_decode
-    try:
-        torch.cuda.synchronize()
-        timing["t0"] = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _TimedSampling() as timed:
         video = sample_t2v(dit, vae, emb[:1], emb[1:], cfg, num_frames=49, height=480,
                            width=720, settings=settings,
                            generator=torch.Generator(device="cuda").manual_seed(47))
         torch.cuda.synchronize()
-    finally:
-        pipeline.decode_latents = real_decode
-    total_s = time.perf_counter() - timing["t0"]
+    total_s = time.perf_counter() - t0
+    timing = timed.timing
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     frames = video_to_uint8(video)
@@ -5807,6 +5813,476 @@ def _replicate_lightglue(root, score_cfg, frames, want, replicate_scorer, metric
 # large, the Gaussian branch and renderer, the export pack, the HTTP backend
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# CogVideoX1.5-5B served at full width and depth on one card: 81 frames at
+# 768 x 1360 -> 21 latent frames, rounded up to patch_size_t = 2 -> 22 x 96 x
+# 170 latents -> 11 x 48 x 85 = 44,880 video tokens + 226 text = 45,106
+# ---------------------------------------------------------------------------
+
+COG15_VIDEO = (81, 768, 1360)  # frames, height, width: generate/CogVideoX1.5-5B.py
+
+
+def cog15_shapes():
+    """(config, one request's latent shape (1, 22, 16, 96, 170), the CFG
+    pair's attention shape (2, 45,106, 48, 64))."""
+    from videogpa_torch.models.cogvideox import CogVideoXConfig, num_latent_frames
+
+    cfg = CogVideoXConfig.cogvideox_1_5_5b()
+    frames, height, width = COG15_VIDEO
+    F_, sc = num_latent_frames(cfg, frames), cfg.spatial_compression_ratio
+    lat = (1, F_, cfg.vae_latent_channels, height // sc, width // sc)
+    p, pt = cfg.patch_size, cfg.patch_size_t
+    n = cfg.max_text_seq_length + (F_ // pt) * (lat[3] // p) * (lat[4] // p)
+    return cfg, lat, (2, n, cfg.num_heads, cfg.head_dim)
+
+
+def small_cog15_config():
+    """CogVideoX1.5's layout (patch_size_t 2, the Linear patch embed, latents
+    scaled by inversion) at 2 layers of 2 x 16 and 4 latent frames of 64 x
+    80: 8 + 2 x 32 x 40 = 2,568 tokens, past K4's 2,048, so its attention runs
+    K1 as the 5B's does."""
+    import dataclasses
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+
+    return dataclasses.replace(CogVideoXConfig.tiny(), patch_size_t=2, sample_frames=4,
+                               sample_height=64, sample_width=80,
+                               vae_invert_scale_latents=True)
+
+
+def phase_parity_cog15(shape):
+    """K1 and K8 at CogVideoX1.5-5B's CFG pair (2, 45,106, 48, 64) against
+    their plain versions over one head at a time (a head's f32 score matrix
+    is 8.1 GB, the pair's 781 GB), at [parity]'s and [parity-int8]'s
+    tolerances; each kernel's ms beside its bound, K1's beside SDPA's and K8's
+    in turns with K1's; then a small CogVideoX1.5 DiT (``small_cog15_config``)
+    in bf16 on the card against f32 on the CPU. Returns K1's and K8's
+    figures at the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.models.cogvideox import dit_forward, dit_init
+    from videogpa_torch.ops.attention import flash_attn_fwd, flash_attn_int8, quantize_qk_int8
+
+    B, N, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(150)
+    q, k, v = _int8_case(gen, B, N, N, H, D, "bnhd")
+    zero_launches()
+    k1_err, k1_plain_ms = _parity_full(f"CogVideoX1.5-5B shape {shape}", q, k, v, chunk=1)
+    k8_err, k8_plain_ms = _int8_full("K8", f"CogVideoX1.5-5B shape {shape}", flash_attn_int8,
+                                     q, k, v, chunk=1)
+    k1 = {"shape_bnhd": list(shape), "max_abs_err": k1_err, "plain_ms": k1_plain_ms}
+    k8 = {"shape_bnhd": list(shape), "max_abs_err": k8_err, "plain_ms": k8_plain_ms}
+    ops = quantize_qk_int8(q, k, "bnhd")
+    t = [cuda_ms(f, iters=3, warmup=1) for f in (
+        lambda: flash_attn_fwd(q, k, v, layout="bnhd"), lambda: flash_attn_int8(*ops, v),
+        lambda: flash_attn_int8(*ops, v), lambda: flash_attn_fwd(q, k, v, layout="bnhd"))]
+    k1["ms"], k1["turns_ms"] = 0.5 * (t[0] + t[3]), [t[0], t[3]]
+    k8["ms"], k8["turns_ms"] = 0.5 * (t[1] + t[2]), t[1:3]
+    k8["quantize_qk_ms"] = cuda_ms(lambda: quantize_qk_int8(q, k, "bnhd"), iters=3, warmup=1)
+    del ops
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    # yardstick only: the port never calls SDPA
+    k1["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3,
+                               warmup=1)
+    k8["library_ms"] = None  # no PyTorch call computes int8-QK attention
+    k1["bound_ms"], k1["bound_by"] = _fwd_bound(B, N, N, H, D)
+    k8["bound_ms"], k8["bound_by"] = _int8_bound(B, N, N, H, D)
+    for r in (k1, k8):
+        r["tflops"] = 4.0 * B * H * N * N * D / r["ms"] / 1e9
+    log(f"[parity_cog15] K1 at {shape}: {t[0]:.2f}, {t[3]:.2f} ms (bound {k1['bound_ms']:.2f}, "
+        f"{k1['bound_by']}; {k1['tflops']:.0f} TFLOP/s), SDPA {k1['library_ms']:.2f} ms, plain "
+        f"version {k1_plain_ms:.1f} ms over one head at a time; K8 {t[1]:.2f}, {t[2]:.2f} ms "
+        f"(bound {k8['bound_ms']:.2f}, {k8['bound_by']}) + quantize_qk_int8 "
+        f"{k8['quantize_qk_ms']:.2f} ms, plain version {k8_plain_ms:.1f} ms")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    cfg = small_cog15_config()
+    ref = dit_init(cfg, torch.Generator().manual_seed(151), device="cpu").requires_grad_(False)
+    dev = dit_init(cfg, device="cuda", dtype=torch.bfloat16).requires_grad_(False)
+    dev.load_state_dict({n: w.to(torch.bfloat16) for n, w in ref.state_dict().items()})
+    cpu_gen = torch.Generator().manual_seed(152)
+    x = torch.randn(2, cfg.sample_frames, cfg.in_channels, cfg.sample_height,
+                    cfg.sample_width, generator=cpu_gen)
+    txt = torch.randn(2, cfg.max_text_seq_length, cfg.text_embed_dim, generator=cpu_gen)
+    t_ = torch.tensor([100, 900])
+    want = dit_forward(ref, x, txt, t_, compute_dtype=torch.float32, attn_layout="bnhd")
+    zero_launches()
+    got = dit_forward(dev, x.cuda(), txt.cuda(), t_.cuda(), attn_layout="bnhd").cpu()
+    small = read_launches()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[parity_cog15] small CogVideoX1.5 DiT (patch_size_t 2, {cfg.sample_frames} latent "
+        f"frames of {cfg.sample_height} x {cfg.sample_width}) bf16 on the card vs f32 on the "
+        f"CPU: max|d|/max|ref| {rel:.3e} (limit 5e-2); launches "
+        f"{json.dumps({n: c for n, c in small.items() if c})}")
+    if not (torch.isfinite(got).all() and rel < 5e-2):
+        fail("the small CogVideoX1.5 DiT on the card disagrees with the CPU reference")
+    if small != {**dict.fromkeys(small, 0), "flash_attn_fwd": cfg.num_layers}:
+        fail("the small CogVideoX1.5 DiT did not run its attention through K1")
+    return {"k1": k1, "k8": k8}
+
+
+def _cog15_dit(cfg):
+    import torch
+
+    from videogpa_torch.models.cogvideox import dit_init
+
+    t0 = time.perf_counter()
+    dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(153), device="cuda",
+                   dtype=torch.bfloat16).requires_grad_(False)
+    torch.cuda.synchronize()
+    return dit, time.perf_counter() - t0
+
+
+def phase_cog15(steps: int = 2):
+    """The CogVideoX1.5-5B denoise path at full width and depth (42 layers,
+    48 x 64, no depth cut) on random bf16 weights: one warm DPM step, then 1
+    request x ``steps`` DPM steps of the CFG pair with dynamic CFG on (1, 22,
+    16, 96, 170) latents; the warm step is profiled. Checks finite latents of
+    that shape and K1's launches (42 a step, every other kernel 0). Returns
+    the DiT (for [cog15-int8]) and the warm step's latents."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import SamplerSettings, denoise_loop
+
+    cfg, lat_shape, attn_shape = cog15_shapes()
+    log(f"[cog15] resident before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    dit, init_s = _cog15_dit(cfg)
+    n_params = sum(p.numel() for p in dit.parameters())
+    log(f"[cog15] CogVideoX1.5-5B DiT: {cfg.num_layers} layers (no depth cut), "
+        f"{cfg.num_heads}x{cfg.head_dim} heads, patch {cfg.patch_size_t}x{cfg.patch_size}x"
+        f"{cfg.patch_size} (Linear embed), {n_params / 1e9:.3f} B params in bf16 on the card in "
+        f"{init_s:.1f} s; latents {lat_shape}, attention {attn_shape}")
+    gen = torch.Generator(device="cuda").manual_seed(154)
+    text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim, generator=gen,
+                       device="cuda")
+    negative = torch.randn(text.shape, generator=gen, device="cuda")
+    one = SamplerSettings(num_inference_steps=1, sampler="dpm", use_dynamic_cfg=True)
+    settings = SamplerSettings(num_inference_steps=steps, sampler="dpm", use_dynamic_cfg=True)
+
+    def run(s, seed, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise_loop(dit, text, negative, s, lat_shape,
+                           generator=torch.Generator(device="cuda").manual_seed(seed), **kw)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    warm = {}
+
+    def warm_step():
+        warm["latents"], warm["s"] = run(one, 155)
+
+    # the warm step is the profiled one: a step at this shape costs ~7.6 s,
+    # and the first runs as fast as the next (PR 22's runs)
+    profile = profile_device_time("one CogVideoX1.5-5B denoise step (the warm one, profiled)",
+                                  warm_step)
+    zero_launches()
+    lat, request_s = run(settings, 156)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    warm_s = warm["s"]
+    for name, x in (("warm", warm["latents"]), ("timed", lat)):
+        if tuple(x.shape) != lat_shape or not bool(torch.isfinite(x).all()):
+            fail(f"[cog15] {name} latents {tuple(x.shape)} not finite or not {lat_shape}")
+    step_ms = 1e3 * request_s / steps
+    expected = steps * cfg.num_layers
+    log(f"[cog15] warm step (profiled) {1e3 * warm_s:.1f} ms; 1 request x {steps} DPM steps "
+        f"(CFG pair, dynamic CFG) in {request_s:.3f} s = {step_ms:.1f} ms a step, latents "
+        f"{tuple(lat.shape)} finite, std {lat.float().std().item():.4f}; peak allocated "
+        f"{peak_gb:.2f} GB; launches {json.dumps(launches)}; expected flash_attn_fwd 1 request "
+        f"x {steps} steps x {cfg.num_layers} layers = {expected}, every other 0")
+    if launches != {**dict.fromkeys(launches, 0), "flash_attn_fwd": expected}:
+        fail("the CogVideoX1.5-5B denoise path did not run every attention through K1 alone")
+    return {"dit": dit, "warm_latents": warm["latents"].float().cpu(), "launches": launches,
+            "warm_ms": 1e3 * warm_s, "request_s": request_s, "step_ms": step_ms,
+            "peak_gb": peak_gb, "profile": profile, "text": text, "negative": negative}
+
+
+def phase_cog15_int8(exact):
+    """[cog15]'s DiT after ``quantize_dit_int8`` in place, under
+    ``attn_impl="flash_int8"``: one warm DPM step, then one timed step with
+    the draws of [cog15]'s warm step, its latents against that step's
+    (cosine and rel-L2, as [main-int8]). Checks finite latents and K8's
+    launches (42, every other kernel 0)."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import SamplerSettings, denoise_loop
+    from videogpa_torch.ops.quant import QuantLinear, quantize_dit_int8
+
+    cfg, lat_shape, _ = cog15_shapes()
+    dit, text, negative = exact.pop("dit"), exact.pop("text"), exact.pop("negative")
+    torch.cuda.synchronize()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    quantize_dit_int8(dit)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    after_gb = torch.cuda.memory_allocated() / 1e9
+    n_q = sum(isinstance(m, QuantLinear) for m in dit.modules())
+    if n_q != 6 * cfg.num_layers:
+        fail("quantize_dit_int8 did not swap 6 linears a layer of the CogVideoX1.5-5B DiT")
+    one = SamplerSettings(num_inference_steps=1, sampler="dpm", use_dynamic_cfg=True)
+
+    def run(seed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise_loop(dit, text, negative, one, lat_shape, attn_impl="flash_int8",
+                           generator=torch.Generator(device="cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    _, warm_s = run(158)
+    zero_launches()
+    lat, step_s = run(155)  # [cog15]'s warm step's draws
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if tuple(lat.shape) != lat_shape or not bool(torch.isfinite(lat).all()):
+        fail(f"[cog15-int8] latents {tuple(lat.shape)} not finite or not {lat_shape}")
+    cos, rel = _cos_rel(lat.float().cpu(), exact["warm_latents"])
+    log(f"[cog15-int8] quantize_dit_int8 in place: {n_q} linears in {quant_s:.2f} s, "
+        f"allocated {before_gb:.2f} -> {after_gb:.2f} GB; warm step {1e3 * warm_s:.1f} ms, "
+        f"timed step {1e3 * step_s:.1f} ms, latents {tuple(lat.shape)} finite; against [cog15]'s "
+        f"exact step on the same draws: cosine {cos:.6f}, rel-L2 {rel:.4f} (floor "
+        f"{MAIN_INT8_COS_FLOOR}, ceiling {MAIN_INT8_REL_CEIL}); peak allocated {peak_gb:.2f} "
+        f"GB; launches {json.dumps(launches)}; expected flash_attn_int8 {cfg.num_layers}, every "
+        f"other 0")
+    if not (cos > MAIN_INT8_COS_FLOOR and rel < MAIN_INT8_REL_CEIL):
+        fail("the int8 CogVideoX1.5-5B step is far from the exact one")
+    if launches != {**dict.fromkeys(launches, 0), "flash_attn_int8": cfg.num_layers}:
+        fail("the int8 CogVideoX1.5-5B step did not run every attention through K8 alone")
+    del dit
+    torch.cuda.empty_cache()
+    return {"launches": launches, "quantise_s": quant_s, "weights_gb": [before_gb, after_gb],
+            "warm_ms": 1e3 * warm_s, "step_ms": 1e3 * step_s, "peak_gb": peak_gb,
+            "drift_cos_rel": [cos, rel]}
+
+
+class _TimedSampling:
+    """``pipeline.denoise_loop`` and ``pipeline.decode_latents`` timed for
+    the length of a ``with`` (``sample_t2v`` calls both through the module),
+    the decode's tile logged; ``latent_frames`` decodes only that many
+    leading latent frames (a temporal cut)."""
+
+    def __init__(self, latent_frames=None):
+        self.latent_frames, self.timing = latent_frames, {"tile_log": []}
+
+    def __enter__(self):
+        import torch
+
+        from videogpa_torch.models.cogvideox import pipeline
+
+        self.real = pipeline.denoise_loop, pipeline.decode_latents
+
+        def timed(key, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            self.timing[key] = time.perf_counter() - t0
+            return out
+
+        def loop(*a, **kw):
+            out = timed("denoise_s", lambda: self.real[0](*a, **kw))
+            self.timing["latents"] = tuple(out.shape)
+            return out
+
+        def decode(vae, latents, cfg, log=print):
+            if self.latent_frames is not None:
+                latents = latents[:, :self.latent_frames]
+            return timed("decode_s", lambda: self.real[1](vae, latents, cfg,
+                                                          log=self.timing["tile_log"].append))
+
+        pipeline.denoise_loop, pipeline.decode_latents = loop, decode
+        return self
+
+    def __exit__(self, *exc):
+        from videogpa_torch.models.cogvideox import pipeline
+
+        pipeline.denoise_loop, pipeline.decode_latents = self.real
+        return False
+
+
+def phase_cog15_sample(steps: int = 2, decode_latent_frames=2, generate_steps: int = 1):
+    """CogVideoX1.5-5B sampling at full size with the DiT ([cog15]'s weights,
+    drawn again), T5-v1.1-XXL (f32) and the VAE (bf16) resident: T5 encodes a
+    prompt and the empty negative (2 x 226 ids); ``sample_t2v`` runs
+    ``steps`` DPM steps with dynamic CFG at 81f@768x1360 (latents rounded up
+    to 22 frames), ``decode_latents`` decodes its ``decode_latent_frames``
+    leading latent frames (a temporal cut; None decodes all 22: another ~85
+    s) and ``video_to_uint8`` makes the frames. Then the user's entry, ``cli.generate.main --recipe
+    CogVideoX1.5-5B`` (81f@768x1360, dynamic CFG, --lora_weight 0.2 as the
+    absolute LoRA scaling, ``generate_steps`` DPM steps, every latent frame
+    decoded) on one prompt with a random PEFT LoRA written to disk, its
+    models the resident ones (``generate.load_models`` replaced; the
+    tokenizer a seeded stub) and the mp4 writer keeping the frames.
+    Checks the videos' shapes and range, K1's launches (42 a step, every
+    other kernel 0) and the merge (the fitted scale of the to_q deltas)."""
+    import shutil
+
+    import torch
+
+    from videogpa_torch.cli import generate
+    from videogpa_torch.data import video_io
+    from videogpa_torch.models.cogvideox import (
+        SamplerSettings, sample_t2v, vae_init, video_to_uint8)
+    from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
+    from videogpa_torch.train.lora import export_peft, lora_init
+
+    cfg, lat_shape, _ = cog15_shapes()
+    frames_n, height, width = COG15_VIDEO
+    t5_cfg = T5Config.t5_v1_1_xxl()
+    torch.cuda.empty_cache()
+    log(f"[cog15_sample] resident before the phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    dit, _ = _cog15_dit(cfg)
+    t5 = t5_encoder_init(t5_cfg, torch.Generator(device="cuda").manual_seed(159), device="cuda")
+    vae = vae_init(cfg, torch.Generator(device="cuda").manual_seed(160), device="cuda",
+                   dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ids = torch.randint(0, t5_cfg.vocab_size, (2, cfg.max_text_seq_length),
+                        generator=torch.Generator().manual_seed(161))
+    ids[1, 1:] = 0  # the empty negative prompt: EOS then padding, as the tokenizer gives it
+    zero_launches()
+    with torch.no_grad():
+        t5_encode(t5, ids.cuda())  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        emb = t5_encode(t5, ids.cuda())
+        torch.cuda.synchronize()
+    t5_ms = 1e3 * (time.perf_counter() - t0)
+    if not bool(torch.isfinite(emb).all()):
+        fail("[cog15_sample] T5 embeddings are not finite")
+
+    # the decoded video has every latent frame's: 4 (22 - 1) + 1 = 85 frames
+    # for the 81 asked, as in the JAX package (its decode keeps them all)
+    decoded = lat_shape[1] if decode_latent_frames is None else decode_latent_frames
+    want_t = (decoded - 1) * cfg.temporal_compression_ratio + 1
+    settings = SamplerSettings(num_inference_steps=steps, sampler="dpm", use_dynamic_cfg=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _TimedSampling(decode_latent_frames) as timed:
+        video = sample_t2v(dit, vae, emb[:1], emb[1:], cfg, num_frames=frames_n, height=height,
+                           width=width, settings=settings,
+                           generator=torch.Generator(device="cuda").manual_seed(162))
+        torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    frames = video_to_uint8(video)
+    sample = {"t5_ms": t5_ms, "step_ms": 1e3 * timed.timing["denoise_s"] / steps,
+              "decode_ms": 1e3 * timed.timing["decode_s"], "tile_log": timed.timing["tile_log"],
+              "latents": timed.timing["latents"], "decoded_latent_frames": decoded,
+              "frames": int(video.shape[2]), "total_s": total_s, "peak_gb": peak_gb}
+    log(f"[cog15_sample] t5_encode 2 x {cfg.max_text_seq_length} ids {t5_ms:.1f} ms; sample_t2v "
+        f"{frames_n}f@{height}x{width}: {steps} DPM steps (dynamic CFG) in "
+        f"{timed.timing['denoise_s']:.3f} s ({sample['step_ms']:.1f} ms a step), latents "
+        f"{timed.timing['latents']}, decode_latents of {decoded} latent frames "
+        f"{sample['decode_ms']:.1f} ms ({'; '.join(timed.timing['tile_log'])}), total "
+        f"{total_s:.3f} s; video {tuple(video.shape)}: {video.shape[2]} frames for the "
+        f"{frames_n} asked, uint8 frames {frames.shape}; peak {peak_gb:.2f} GB with the DiT, T5 "
+        f"and VAE resident; launches {json.dumps(launches)}")
+    if (tuple(video.shape) != (1, 3, want_t, height, width)
+            or not bool(torch.isfinite(video).all()) or float(video.abs().max()) > 1.0
+            or frames.shape != (1, want_t, height, width, 3)):
+        fail(f"sample_t2v's video is not finite in [-1, 1] at {want_t}f@{height}x{width}")
+    if launches != {**dict.fromkeys(launches, 0), "flash_attn_fwd": steps * cfg.num_layers}:
+        fail("the CogVideoX1.5-5B sampling path's launches are not K1's alone")
+    sample_launches = launches
+    del video, frames, emb
+
+    # the user's entry: cli.generate --recipe CogVideoX1.5-5B around the
+    # resident models, with a random LoRA written as a PEFT adapter
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cog15_sample")
+    shutil.rmtree(root, ignore_errors=True)
+    lora_gen = torch.Generator(device="cuda").manual_seed(163)
+    lora = lora_init(cfg.num_layers, cfg.hidden_dim, 64, lora_gen, device="cuda")
+    for ab in lora.values():  # PEFT starts B at 0; give it values so the merge shows
+        ab["lora_B"].data.normal_(0.0, 0.1, generator=lora_gen)
+    export_peft(lora, os.path.join(root, "lora"), rank=64, alpha=128.0)
+    with open(os.path.join(root, "prompts.json"), "w") as f:
+        json.dump({"fox": "a red fox trotting through fresh snow at dawn"}, f)
+    w_before = dit.blocks[0].attn1.to_q.weight.float().clone()
+    written = {}
+
+    def memory_writer(path, frames, fps=8):
+        written[path] = (frames, fps)
+        open(path, "wb").close()
+
+    def resident(base_model, cfg_, device):
+        return dit, vae, t5, t5_cfg, _StubTokenizer(t5_cfg.vocab_size, seed=164)
+
+    real = (generate.load_models, video_io.write_video, generate.CogVideoXGenerator.encode_prompt)
+    encode_ms = []
+
+    def timed_encode(self, prompt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real[2](self, prompt)
+        torch.cuda.synchronize()
+        encode_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    generate.load_models, video_io.write_video = resident, memory_writer
+    generate.CogVideoXGenerator.encode_prompt = timed_encode
+    argv = ["--recipe", "CogVideoX1.5-5B", "--prompt_json", os.path.join(root, "prompts.json"),
+            "--output_dir", os.path.join(root, "out"), "--lora_path", os.path.join(root, "lora"),
+            "--num_inference_steps", str(generate_steps), "--seed", "42"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with _TimedSampling() as timed:
+            generate.main(argv, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        generate.load_models, video_io.write_video = real[:2]
+        generate.CogVideoXGenerator.encode_prompt = real[2]
+    gen_s = time.perf_counter() - t0
+    gen_launches = read_launches()
+    gen_peak = torch.cuda.max_memory_allocated() / 1e9
+    delta = dit.blocks[0].attn1.to_q.weight.float() - w_before
+    ba = (lora["to_q"]["lora_B"][0] @ lora["to_q"]["lora_A"][0]).detach()
+    scale = ((delta * ba).sum() / ba.square().sum()).item()
+    resid = ((delta - scale * ba).norm() / (scale * ba).norm()).item()
+    if len(written) != 1:
+        fail(f"cli.generate --recipe CogVideoX1.5-5B wrote {len(written)} videos, not 1")
+    (path, (vid, fps)), = written.items()
+    want_t = (lat_shape[1] - 1) * cfg.temporal_compression_ratio + 1
+    gen_run = {"s": gen_s, "encode_ms": encode_ms,
+               "step_ms": 1e3 * timed.timing["denoise_s"] / generate_steps,
+               "decode_ms": 1e3 * timed.timing["decode_s"], "tile_log": timed.timing["tile_log"],
+               "frames": int(vid.shape[0]), "fps": fps, "peak_gb": gen_peak,
+               "lora_scale_fitted": scale, "lora_residual": resid}
+    log(f"[cog15_sample] cli.generate.main --recipe CogVideoX1.5-5B ({generate_steps} DPM "
+        f"steps, cut from 50; --lora_weight 0.2 absolute, PEFT r 64 / alpha 128 from disk) around the "
+        f"resident DiT, T5 and VAE: {gen_s:.3f} s, wrote {os.path.relpath(path, root)} at fps "
+        f"{fps}: {vid.shape} {vid.dtype}; encode_prompt {encode_ms} ms, "
+        f"{gen_run['step_ms']:.1f} ms a step, decode {gen_run['decode_ms']:.1f} ms "
+        f"({'; '.join(timed.timing['tile_log'])}); peak {gen_peak:.2f} GB; block 0 to_q's "
+        f"merged delta against B A: fitted scale {scale:.5f} (recipe 0.2, alpha / r 2.0), "
+        f"residual {resid:.4f}; launches {json.dumps(gen_launches)}")
+    if vid.shape != (want_t, height, width, 3) or str(vid.dtype) != "uint8" or fps != 16:
+        fail(f"the recipe's video is {vid.shape} {vid.dtype} at fps {fps}, not "
+             f"({want_t}, {height}, {width}, 3) uint8 at 16")
+    if not (abs(scale - 0.2) < 2e-3 and resid < 0.1):
+        fail("the recipe did not merge the LoRA at the absolute scaling 0.2")
+    if gen_launches != {**dict.fromkeys(gen_launches, 0),
+                        "flash_attn_fwd": generate_steps * cfg.num_layers}:
+        fail("the recipe's sampling path's launches are not K1's alone")
+    shutil.rmtree(root)
+    del dit, t5, vae, lora, written, vid
+    torch.cuda.empty_cache()
+    return {"sample": sample, "generate": gen_run, "sample_launches": sample_launches,
+            "generate_launches": gen_launches}
+
+
 def _da3_mono_config(cfg):
     """A mono config of ``cfg``'s widths: alternating attention off, four of
     its eight blocks tapped."""
@@ -7050,6 +7526,7 @@ def main() -> int:
     gcfg = DA3Config.giant()  # the nested preset's anyview branch: one scene of 10 frames
     giant_local_shape = (10, da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
     giant_global_shape = (1, 10 * da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
+    _, cog15_latents, cog15_attn_shape = cog15_shapes()  # (2, 45,106, 48, 64)
 
     phase_build()
     reckonings = Reckonings()
@@ -7093,10 +7570,19 @@ def main() -> int:
     sample_run = phase_sample(main_run.pop("dit"))
     replicate_run = phase_replicate_files(sample_run.pop("models"))
     mark("main, sample, replicate_files")
+    torch.cuda.empty_cache()
+    cog15_parity = phase_parity_cog15(cog15_attn_shape)
+    cog15_run = phase_cog15()
+    cog15_int8_run = phase_cog15_int8(cog15_run)
+    # the recipe's run decodes all 22 latent frames at 768 x 1360; the plain
+    # sample_t2v run before it decodes the first 2 (5 frames) to keep the
+    # command inside its limit (PERF.md §4)
+    cog15_sample_run = phase_cog15_sample()
+    mark("parity_cog15, cog15, cog15-int8, cog15_sample")
     train_run = phase_train(reckonings)
     scorer_run = phase_scorer()
-    da3_run = phase_scorer_da3()
-    nested_run = phase_da3_nested()
+    da3_run = phase_scorer_da3(num_batches=2)
+    nested_run = phase_da3_nested(calls=1)
     service_run = phase_da3_service()
     eval_run = phase_da3_eval()
     track_run = phase_vggt_track()
@@ -7110,7 +7596,7 @@ def main() -> int:
     train_files_run = phase_train_files(score_files_run["runs"]["batch4"]["json"])
     wan_run = phase_wan()
     wan_dit = wan_run.pop("dit")
-    wan_sample_run = phase_wan_sample(wan_dit)
+    wan_sample_run = phase_wan_sample(wan_dit, steps=2)
     encode_wan_run = phase_encode_files_wan(wan_sample_run.pop("vae"), wan_sample_run.pop("t5"))
     wan_train_files_run = phase_wan_train_files(wan_dit)
     del wan_dit
@@ -7237,6 +7723,15 @@ def main() -> int:
         "sample_i2v_peak_allocated_gb": sample_run["i2v_peak_gb"],
         "sample_i2v_peak_allocated_gb_without_resident_t5": sample_run["i2v_peak_gb_without_t5"],
         "sample_int32_probe": sample_run["int32_probe"],
+        "cog15_latent_shape": list(cog15_latents),
+        "cog15_attention_shape_bnhd": list(cog15_attn_shape),
+        "cog15_denoise_step_ms": cog15_run["step_ms"],
+        "cog15_warm_step_ms": cog15_run["warm_ms"],
+        "cog15_denoise_peak_allocated_gb": cog15_run["peak_gb"],
+        "cog15_int8": {k: v for k, v in cog15_int8_run.items() if k != "launches"},
+        "cog15_sample": cog15_sample_run["sample"],
+        "cog15_generate": cog15_sample_run["generate"],
+        "cog15_k1_k8": cog15_parity,
         "score_files": {k: v for k, v in score_files_run.items() if k != "runs"},
         "score_files_runs": {tag: {k: v for k, v in r.items() if k not in ("scores", "json")}
                              for tag, r in score_files_run["runs"].items()},
@@ -7292,7 +7787,11 @@ def main() -> int:
             "ring_shards": ring_shards["launches"], "ring_nccl": ring_nccl["launches"],
             "vggt_track": track_run["launches"]["vggt_head"],
             "train_memory": train_memory_run["launches"],
-            "vggt_track_vggsfm": track_run["launches"]["vggsfm"]}
+            "vggt_track_vggsfm": track_run["launches"]["vggsfm"],
+            "cog15": cog15_run["launches"], "cog15_int8": cog15_int8_run["launches"],
+            "cog15_sample": {k: cog15_sample_run["sample_launches"][k]
+                             + cog15_sample_run["generate_launches"][k]
+                             for k in train_run["launches"]}}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -7304,7 +7803,8 @@ def main() -> int:
          "source": "videogpa_torch/csrc/flash_attn_fwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:221",
          **by_path("flash_attn_fwd"),
-         "max_abs_err": fwd_err, "ms": timing["fwd_ms"], "plain_ms": fwd_plain_ms,
+         "max_abs_err": max(fwd_err, cog15_parity["k1"]["max_abs_err"]), "ms": timing["fwd_ms"],
+         "plain_ms": fwd_plain_ms,
          "bound_ms": timing["fwd_bound_ms"], "bound_by": timing["fwd_bound_by"],
          "library_ms": timing["fwd_library_ms"],
          "train_shape_with_lse": {"ms": timing["fwd_ms_train_shape"],
@@ -7318,7 +7818,8 @@ def main() -> int:
                               "bound_ms": timing_da3["k1_bound_ms"],
                               "bound_by": timing_da3["k1_bound_by"],
                               "library_ms": timing_da3["k1_library_ms"]},
-         "da3_giant_global_shape": giant["k1"]},
+         "da3_giant_global_shape": giant["k1"],
+         "cog15_shape": cog15_parity["k1"]},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:951,983",
@@ -7389,7 +7890,8 @@ def main() -> int:
          "source": "videogpa_torch/csrc/flash_attn_int8.cu",
          "replaces": "videogpa_tpu/ops/attention.py:640",
          **by_path("flash_attn_int8"),
-         "max_abs_err": k8_err, "ms": timing["k8_ms"], "plain_ms": k8_plain_ms,
+         "max_abs_err": max(k8_err, cog15_parity["k8"]["max_abs_err"]), "ms": timing["k8_ms"],
+         "plain_ms": k8_plain_ms,
          "bound_ms": timing["k8_bound_ms"], "bound_by": timing["k8_bound_by"],
          "library_ms": None, "quantize_qk_ms": timing["k8_quantize_ms"],
          "turns_ms": timing["k8_turns_ms"], "tflops": timing["k8_tflops"],
@@ -7407,7 +7909,8 @@ def main() -> int:
          "da3_global_shape": {**k8_da3, "ms": timing_da3["k8_ms"],
                               "bound_ms": timing_da3["k8_bound_ms"],
                               "bound_by": timing_da3["k8_bound_by"], "library_ms": None,
-                              "quantize_qk_ms": timing_da3["k8_quantize_ms"]}},
+                              "quantize_qk_ms": timing_da3["k8_quantize_ms"]},
+         "cog15_shape": cog15_parity["k8"]},
         {"name": "flash_attn_int8_d128", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_int8.cu",
          "replaces": "videogpa_tpu/ops/attention.py:766",

@@ -97,7 +97,10 @@ def test_sample_t2v_matches_jax(models):
     np.testing.assert_array_equal(tp.video_to_uint8(_t(want)), jp.video_to_uint8(want))
 
 
-def test_sample_t2v_rounds_latent_frames_up_to_patch_size_t(monkeypatch):
+# 9 frames: 3 latent frames -> 4; 13: 4 stay; 81 (the 1.5 recipe's): 21 -> 22
+@pytest.mark.parametrize("num_frames, latent_frames", [(9, 4), (13, 4), (81, 22)])
+def test_sample_t2v_rounds_latent_frames_up_to_patch_size_t(monkeypatch, num_frames,
+                                                            latent_frames):
     cfg = dataclasses.replace(CogVideoXConfig.tiny(), patch_size_t=2)
     seen = {}
 
@@ -108,8 +111,9 @@ def test_sample_t2v_rounds_latent_frames_up_to_patch_size_t(monkeypatch):
     monkeypatch.setattr(tp, "denoise_loop", fake_loop)
     monkeypatch.setattr(tp, "decode_latents", lambda vae, lat, cfg: lat)
     tp.sample_t2v(None, None, torch.zeros(1, 8, 32), torch.zeros(1, 8, 32), cfg,
-                  num_frames=9, height=64, width=96)
-    assert seen["shape"] == (1, 4, 4, 8, 12)  # 3 latent frames -> 4
+                  num_frames=num_frames, height=64, width=96)
+    assert seen["shape"] == (1, latent_frames, 4, 8, 12)
+    assert tp.num_latent_frames(cfg, num_frames) == latent_frames
 
 
 def test_sample_i2v_matches_jax(models):

@@ -36,6 +36,10 @@ torch.set_num_threads(2)
 # conversion's choice: transposes surface at any width when dims differ)
 DIT_CFG = dataclasses.replace(CogVideoXConfig.cogvideox_5b(), num_heads=3, head_dim=16,
                               text_embed_dim=24, time_embed_dim=40)
+# CogVideoX1.5-5B's: the Linear patch embed of pt x p x p x C inputs and a
+# proj_out of that width
+DIT15_CFG = dataclasses.replace(CogVideoXConfig.cogvideox_1_5_5b(), num_heads=3, head_dim=16,
+                                text_embed_dim=24, time_embed_dim=40)
 
 
 def _np_sd(module):
@@ -57,27 +61,29 @@ def _bridged(jax_tree):
             .items()}
 
 
-@pytest.fixture(scope="module")
-def dit_sd():
+@pytest.fixture(scope="module", params=[DIT_CFG, DIT15_CFG], ids=["5b", "1_5"])
+def dit_case(request):
     torch.manual_seed(0)
-    return _np_sd(OracleDiT(DIT_CFG))
+    return request.param, _np_sd(OracleDiT(request.param))
 
 
-def test_convert_dit_equals_jax_converter_and_bridge(dit_sd):
-    got = tconv.convert_dit(dit_sd, DIT_CFG)
-    _assert_equal_sd(got, _bridged(jconv.convert_dit(dit_sd, _jcfg(DIT_CFG))))
-    model = CogVideoXTransformer(DIT_CFG, device="meta")
+def test_convert_dit_equals_jax_converter_and_bridge(dit_case):
+    cfg, dit_sd = dit_case
+    got = tconv.convert_dit(dit_sd, cfg)
+    _assert_equal_sd(got, _bridged(jconv.convert_dit(dit_sd, _jcfg(cfg))))
+    model = CogVideoXTransformer(cfg, device="meta")
     assert set(model.state_dict()) == set(got)
     assert all(tuple(model.state_dict()[k].shape) == v.shape for k, v in got.items())
 
 
-def test_export_dit_round_trips_and_equals_jax(dit_sd):
-    model = CogVideoXTransformer(DIT_CFG)
+def test_export_dit_round_trips_and_equals_jax(dit_case):
+    cfg, dit_sd = dit_case
+    model = CogVideoXTransformer(cfg)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in
-                           tconv.convert_dit(dit_sd, DIT_CFG).items()}, strict=True)
-    out = tconv.export_dit(model, DIT_CFG)
+                           tconv.convert_dit(dit_sd, cfg).items()}, strict=True)
+    out = tconv.export_dit(model, cfg)
     _assert_equal_sd(out, dit_sd)  # every checkpoint key, back where it came from
-    want = jconv.export_dit(jconv.convert_dit(dit_sd, _jcfg(DIT_CFG)), _jcfg(DIT_CFG))
+    want = jconv.export_dit(jconv.convert_dit(dit_sd, _jcfg(cfg)), _jcfg(cfg))
     _assert_equal_sd(out, want)
 
 
@@ -172,11 +178,13 @@ def test_resolve_model_dir_local_only(tmp_path, monkeypatch):
         tloader.resolve_model_dir("org/missing")
 
 
-def test_load_cogvideox_and_t5_from_a_checkpoint_directory(tmp_path):
+@pytest.mark.parametrize("cfg", [CogVideoXConfig.tiny(), dataclasses.replace(
+    CogVideoXConfig.tiny(), patch_size_t=2, sample_frames=4, vae_invert_scale_latents=True)],
+    ids=["5b", "1_5"])
+def test_load_cogvideox_and_t5_from_a_checkpoint_directory(tmp_path, cfg):
     """A diffusers-layout directory: the DiT as two bf16 shards with an
     index, the VAE and T5 as f32 files; the port's loaders against the JAX
     converters + bridge on the same tensors."""
-    cfg = CogVideoXConfig.tiny()
     torch.manual_seed(4)
     dit = OracleDiT(cfg).state_dict()
     keys = sorted(dit)

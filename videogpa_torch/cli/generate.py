@@ -72,17 +72,28 @@ def load_tasks(prompt_json: str, num_prompts: Optional[int]):
     return tasks[:num_prompts] if num_prompts else tasks
 
 
+def load_models(base_model: str, cfg, device):
+    """The generator's models from a local diffusers-layout directory: (DiT
+    and VAE in bf16, T5 in f32 and its config, the tokenizer)."""
+    from transformers import AutoTokenizer
+
+    from videogpa_torch.models.loader import load_cogvideox, load_t5, resolve_model_dir
+
+    dit, vae = load_cogvideox(base_model, cfg, dtype=torch.bfloat16, device=device)
+    t5, t5_cfg = load_t5(base_model, device=device)
+    tokenizer = AutoTokenizer.from_pretrained(resolve_model_dir(base_model, "tokenizer"))
+    return dit, vae, t5, t5_cfg, tokenizer
+
+
 class CogVideoXGenerator:
-    """Holds the loaded models and samples one video a call."""
+    """Holds the models ``load_models`` gives, with the recipe's LoRA merged
+    (and int8 weights under ``--w8a8``), and samples one video a call."""
 
     def __init__(self, args, cfg, i2v: bool = False, dynamic_cfg: bool = False,
                  lora_weight: Optional[float] = None, absolute_lora: bool = False,
                  device=None):
-        from transformers import AutoTokenizer
-
         from videogpa_torch.device import resolve_device
         from videogpa_torch.models.cogvideox.pipeline import SamplerSettings
-        from videogpa_torch.models.loader import load_cogvideox, load_t5, resolve_model_dir
 
         self.cfg = cfg
         self.i2v = i2v
@@ -94,11 +105,8 @@ class CogVideoXGenerator:
             use_dynamic_cfg=dynamic_cfg,
         )
         self.attn_impl = getattr(args, "attn_impl", "auto")
-        self.dit, self.vae = load_cogvideox(args.base_model, cfg, dtype=torch.bfloat16,
-                                            device=self.device)
-        self.t5, self.t5_cfg = load_t5(args.base_model, device=self.device)
-        self.tokenizer = AutoTokenizer.from_pretrained(
-            resolve_model_dir(args.base_model, "tokenizer"))
+        (self.dit, self.vae, self.t5, self.t5_cfg,
+         self.tokenizer) = load_models(args.base_model, cfg, self.device)
         if args.lora_path and os.path.exists(args.lora_path):
             from videogpa_torch.train.lora import import_peft, merge_lora
 

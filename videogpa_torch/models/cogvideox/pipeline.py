@@ -107,6 +107,18 @@ def denoise_loop(
     return lat
 
 
+def num_latent_frames(cfg: CogVideoXConfig, num_frames: int) -> int:
+    """The latent frames ``sample_t2v`` denoises for ``num_frames`` video
+    frames: (num_frames - 1) / 4 + 1, which the 1.5 models round up to a
+    multiple of ``patch_size_t`` (81 frames -> 21 -> 22). Every latent frame
+    is decoded, so the video has 4 (F - 1) + 1 frames (85 for 81), as in the
+    JAX package."""
+    F = (num_frames - 1) // cfg.temporal_compression_ratio + 1
+    if cfg.patch_size_t is not None:
+        F += cfg.patch_size_t - (F % cfg.patch_size_t or cfg.patch_size_t)
+    return F
+
+
 def sample_t2v(
     dit: CogVideoXTransformer,
     vae: CogVideoXVAE,
@@ -127,11 +139,9 @@ def sample_t2v(
     Draws as ``denoise_loop``'s."""
     settings = settings or SamplerSettings()
     B = text_embeds.shape[0]
-    F = (num_frames - 1) // cfg.temporal_compression_ratio + 1
-    if cfg.patch_size_t is not None:
-        F += cfg.patch_size_t - (F % cfg.patch_size_t or cfg.patch_size_t)  # 1.5: round up
-    shape = (B, F, cfg.vae_latent_channels, height // cfg.spatial_compression_ratio,
-             width // cfg.spatial_compression_ratio)
+    sc = cfg.spatial_compression_ratio
+    shape = (B, num_latent_frames(cfg, num_frames), cfg.vae_latent_channels, height // sc,
+             width // sc)
     latents = denoise_loop(dit, text_embeds, negative_embeds, settings, shape,
                            generator=generator, init_latents=init_latents,
                            step_noise=step_noise, compute_dtype=compute_dtype,
