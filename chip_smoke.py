@@ -362,10 +362,12 @@ _LOG_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
 
 
 def log(msg: str) -> None:
+    """``msg`` on stdout as it is, and in the log file after the seconds
+    since the script started (which phase costs what)."""
     print(msg, flush=True)
     os.makedirs(os.path.dirname(_LOG_PATH), exist_ok=True)
     with open(_LOG_PATH, "a") as f:
-        f.write(msg + "\n")
+        f.write(f"{time.perf_counter() - _T0:7.1f} {msg}\n")
 
 
 def gpu_name_and_power() -> str:
@@ -1338,7 +1340,7 @@ def _memory_tcfg(recipe_name: str):
     from videogpa_torch.train.trainer import TrainerConfig
 
     r = default_config(recipe_name)
-    return TrainerConfig(accumulate_grad_batches=r["accumulate_grad_batches"],
+    return TrainerConfig(accumulate_grad_batches=r.get("accumulate_grad_batches", 1),
                          lora_rank=r["lora_rank"], lora_alpha=r["lora_alpha"], remat=True)
 
 
@@ -1350,15 +1352,24 @@ def _memory_fn(model: str):
 
 
 def reckon_main(path: str) -> None:
-    """``python3 chip_smoke.py --reckon PATH``: the reckonings of [train]'s
-    and [wan-train]'s steps (one card, batch 1, their recipes) and of rank 0
-    of each ``TRAIN_MEMORY_LAYOUTS`` step under the fake process group, in
-    that order, PATH (JSON) rewritten after each. CPU work only: no kernel
-    launches."""
+    """``python3 chip_smoke.py --reckon PATH``: the reckonings of
+    [cog15_train]'s, [train]'s and [wan-train]'s steps (one card, batch 1,
+    their recipes) and of rank 0 of each ``TRAIN_MEMORY_LAYOUTS`` step under
+    the fake process group, in that order, PATH (JSON) rewritten after each.
+    CPU work only: no kernel launches, at a lower priority and on one thread:
+    the card's phases beside it keep the host's cores."""
+    import torch
+
     from videogpa_torch.models.cogvideox import CogVideoXConfig
     from videogpa_torch.train import memory as M
 
-    steps = [("train", lambda: M.aot_train_memory(
+    os.nice(10)
+    torch.set_num_threads(1)
+
+    steps = [("cog15_train", lambda: M.aot_train_memory(
+                 CogVideoXConfig.cogvideox_1_5_5b(), _memory_tcfg("CogVideoX1.5-5B"),
+                 mesh=M.ONE_DEVICE, batch_size=1)),
+             ("train", lambda: M.aot_train_memory(
                  CogVideoXConfig.cogvideox_5b(), _memory_tcfg("CogVideoX-5B"),
                  mesh=M.ONE_DEVICE, batch_size=1)),
              ("wan_train", lambda: M.aot_wan_train_memory(
@@ -1449,12 +1460,13 @@ def check_reckoning(tag: str, reckoned: dict, measured: int) -> dict:
             "tokens": reckoned["tokens"]}
 
 
-def check_update(tag: str, state, b_norms, updates: int) -> None:
+def check_update(tag: str, state, b_norms, updates: int, accumulate: int = 2) -> None:
     """The optimiser made ``updates`` updates from gradients off zero; the
-    LoRA B tensors stayed zero through the first (lr schedule(0) = 0) and
-    left it in a later one, where the run has one."""
+    LoRA B tensors (``b_norms``: one a call, ``accumulate`` calls an update)
+    stayed zero through the first update (lr schedule(0) = 0) and left it in
+    a later one, where the run has one."""
     moved = any(float(m.abs().max()) > 0 for m in state.opt_state["mu"])
-    ok = state.opt_state["count"] == updates and moved and b_norms[1] == 0.0
+    ok = state.opt_state["count"] == updates and moved and b_norms[accumulate - 1] == 0.0
     if updates > 1:
         ok = ok and b_norms[-1] > 0.0
     if not ok:
@@ -1599,7 +1611,7 @@ def phase_train(reckonings, mini_steps: int = 2):
                         motion_threshold=recipe["motion_threshold"])
         if len(ds) != 2:
             fail(f"the synthetic preference dataset gave {len(ds)} pairs, expected 2")
-        batches = [collate([ds[i % len(ds)]]) for i in range(mini_steps + 1)]
+        batches = [collate([ds[i % len(ds)]]) for i in range(mini_steps)]
         log(f"[train] CogVideoX-5B DPO, recipe CogVideoX-5B: batch {recipe['batch_size']}, "
             f"accumulate {tcfg.accumulate_grad_batches}, LoRA r {tcfg.lora_rank} / alpha "
             f"{tcfg.lora_alpha} ({n_lora / 1e6:.2f} M f32 params), lr {tcfg.learning_rate}, "
@@ -1612,11 +1624,11 @@ def phase_train(reckonings, mini_steps: int = 2):
         zero_launches()
         for i in range(mini_steps):
             gen = torch.Generator(device="cuda").manual_seed(10 + i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = train_step(state, batches[i], generator=gen)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t0))
+            (state, metrics), ms, prof = _timed_step(
+                lambda: train_step(state, batches[i], generator=gen),
+                "one train mini-step (the first, profiled)" if i == 0 else None)
+            profile = prof if i == 0 else profile
+            step_ms.append(ms)
             m = {k: float(v) for k, v in metrics.items()}
             metrics_log.append(m)
             b_norms.append(sum(float(ab["lora_B"].detach().abs().max())
@@ -1663,8 +1675,6 @@ def phase_train(reckonings, mini_steps: int = 2):
         ev = eval_step(state, batches[0], generator=torch.Generator(device="cuda").manual_seed(3))
         if not all(math.isfinite(float(v)) for v in ev.values()):
             fail("non-finite eval metrics")
-        profile = profile_device_time("one train mini-step (profiled)", lambda: train_step(
-            state, batches[mini_steps], generator=torch.Generator(device="cuda").manual_seed(9)))
     del dit, state, lora
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms,
@@ -1673,10 +1683,37 @@ def phase_train(reckonings, mini_steps: int = 2):
             "metrics": metrics_log, "checkpoint_s": [save_s, restore_s]}
 
 
+def _timed_step(run, profile_label=None):
+    """(``run()``'s result, its ms with the card synchronised around it, the
+    device time by kernel group or None): with ``profile_label`` the call
+    runs under ``profile_device_time``."""
+    import torch
+
+    out = {}
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["result"] = run()
+        torch.cuda.synchronize()
+        out["ms"] = 1e3 * (time.perf_counter() - t0)
+
+    profile = profile_device_time(profile_label, call) if profile_label else call()
+    return out["result"], out["ms"], profile
+
+
 def _fwd_bound(B, Nq, Nk, H, D):
     """(bound ms, what bounds it) of a bf16 attention forward: 4 B H Nq Nk D
     operations against q, k, v read and O written once."""
     return _bound(4.0 * B * H * Nq * Nk * D, 2.0 * B * H * D * (2 * Nq + 2 * Nk),
+                  PEAK_BF16_FLOPS)
+
+
+def _bwd_bound(B, N, H, D):
+    """(bound ms, what bounds it) of K3 at a self-attention shape: five N x N
+    x D products a head (S, dV, dP, dQ, dK) against q, k, v, O, dO read and
+    dQ, dK, dV written once in bf16, LSE and delta in f32."""
+    return _bound(10.0 * B * H * N * N * D, 2.0 * B * H * N * D * 8 + 4.0 * B * H * N * 2,
                   PEAK_BF16_FLOPS)
 
 
@@ -1738,12 +1775,8 @@ def phase_timing(dit_shape, train_shape, vggt_global_shape):
     dot = do.transpose(1, 2)
     out["bwd_library_ms"] = cuda_ms(
         lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), iters=5)
-    # five N x N x D products per head: S, dV, dP, dQ, dK
-    flops = 10.0 * B * H * N * N * D
-    nbytes = 2.0 * B * H * N * D * 8 + 4.0 * B * H * N * 2  # q k v o dO dQ dK dV, LSE delta
-    out["bwd_bound_ms"] = 1e3 * max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES)
-    out["bwd_bound_by"] = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_HBM_BYTES else "bytes"
-    out["bwd_tflops"] = flops / out["bwd_ms"] / 1e9
+    out["bwd_bound_ms"], out["bwd_bound_by"] = _bwd_bound(B, N, H, D)
+    out["bwd_tflops"] = 10.0 * B * H * N * N * D / out["bwd_ms"] / 1e9
     attrs = _kernels.kernel_attrs("flash_attn_bwd", D)
     out["bwd_registers_at_launch"], out["bwd_smem_bytes"] = attrs["registers"], attrs["smem_bytes"]
     out["bwd_query_splits"] = bwd_splits(B * H, N, N, BWD_QUERIES)[0]
@@ -2509,7 +2542,7 @@ def phase_wan_train(reckonings, mini_steps: int = 2):
                         motion_threshold=recipe["motion_threshold"])
         if len(ds) != 2:
             fail(f"the synthetic preference dataset gave {len(ds)} pairs, expected 2")
-        batches = [collate([ds[i % len(ds)]]) for i in range(mini_steps + 1)]
+        batches = [collate([ds[i % len(ds)]]) for i in range(mini_steps)]
     if "image_latent" not in batches[0]:
         fail("the Wan preference batches carry no image_latent")
     log(f"[wan-train] {what}; recipe Wan2.2-TI2V-5B: batch {recipe['batch_size']}, accumulate "
@@ -2525,11 +2558,11 @@ def phase_wan_train(reckonings, mini_steps: int = 2):
     zero_launches()
     for i in range(mini_steps):
         gen = torch.Generator(device="cuda").manual_seed(20 + i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = train_step(state, batches[i], generator=gen)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
+        (state, metrics), ms, prof = _timed_step(
+            lambda: train_step(state, batches[i], generator=gen),
+            "one Wan train mini-step (the first, profiled)" if i == 0 else None)
+        profile = prof if i == 0 else profile
+        step_ms.append(ms)
         m = {k: float(v) for k, v in metrics.items()}
         metrics_log.append(m)
         b_norms.append(sum(float(ab["lora_B"].detach().abs().max())
@@ -2558,8 +2591,6 @@ def phase_wan_train(reckonings, mini_steps: int = 2):
     ev = eval_step(state, batches[0], generator=torch.Generator(device="cuda").manual_seed(3))
     if not all(math.isfinite(float(v)) for v in ev.values()):
         fail("non-finite Wan eval metrics")
-    profile = profile_device_time("one Wan train mini-step (profiled)", lambda: train_step(
-        state, batches[mini_steps], generator=torch.Generator(device="cuda").manual_seed(9)))
     del model, state, lora
     torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms,
@@ -2667,14 +2698,15 @@ def wan_vae_tflop(cfg, encode: bool, shape) -> float:
     return meta_tflop(lambda: (wan_vae_encode if encode else wan_vae_decode)(vae, x, cfg))
 
 
-def phase_wan_sample(dit, steps: int = 3):
+def phase_wan_sample(dit, steps: int = 3, decode_latent_frames=None):
     """``sample_ti2v`` at full width and depth: umT5-XXL (f32) encodes a
     prompt and the empty negative (2 x 512 ids), the Wan VAE (f32) encodes a
     704 x 1,280 image (posterior sample), ``steps`` UniPC steps of the [wan]
     phase's Wan2.2-TI2V-5B DiT (bf16) run the CFG pair with the clean first
-    frame, and the VAE decodes the (1, 48, 21, 44, 80) latents to 81 frames,
-    streaming, with the DiT, umT5 and the VAE resident. Returns the VAE and
-    umT5 for [encode_files]."""
+    frame, and the VAE decodes the (1, 48, 21, 44, 80) latents to 81 frames
+    (or their ``decode_latent_frames`` leading latent frames, a temporal
+    cut: 4 k - 3 frames), streaming, with the DiT, umT5 and the VAE
+    resident. Returns the VAE and umT5 for [encode_files]."""
     import torch
 
     from videogpa_torch.models.t5 import T5Config, t5_encode, t5_encoder_init
@@ -2728,6 +2760,11 @@ def phase_wan_sample(dit, steps: int = 3):
                        device="cuda") * 2 - 1
     for n, fn in real.items():
         setattr(pipeline, n, timed(n, fn))
+    if decode_latent_frames is not None:
+        pipeline.wan_vae_decode = timed("wan_vae_decode", lambda vae_, lat, *a, **k: real[
+            "wan_vae_decode"](vae_, lat[:, :, :decode_latent_frames], *a, **k))
+    decoded = WAN_LATENT[1] if decode_latent_frames is None else decode_latent_frames
+    frames = 4 * decoded - 3
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2742,7 +2779,7 @@ def phase_wan_sample(dit, steps: int = 3):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = dict.fromkeys(launches, 0)
     want["flash_attn_fwd_d128"] = steps * 2 * cfg.num_layers
-    decode_tflop = wan_vae_tflop(cfg, False, (1,) + WAN_LATENT)
+    decode_tflop = wan_vae_tflop(cfg, False, (1, WAN_LATENT[0], decoded) + WAN_LATENT[2:])
     image_tflop = wan_vae_tflop(cfg, True, (1, 3, 1, 704, 1280))
     out = {"t5_ms": t5_ms, "image_encode_ms": 1e3 * timing["wan_vae_encode"],
            "step_ms": 1e3 * timing["wan_denoise_loop"] / steps,
@@ -2750,8 +2787,10 @@ def phase_wan_sample(dit, steps: int = 3):
            "decode_tflop": decode_tflop,
            "decode_tflops": decode_tflop / timing["wan_vae_decode"],
            "decode_bound_ms": 1e3 * 1e12 * decode_tflop / PEAK_F32_FLOPS,
-           "image_encode_tflop": image_tflop, "launches": launches}
-    log(f"[wan_sample] sample_ti2v 81f@704x1280, {steps} UniPC steps (CFG pair, ti2v): image "
+           "image_encode_tflop": image_tflop, "decoded_latent_frames": decoded,
+           "launches": launches}
+    log(f"[wan_sample] sample_ti2v 81f@704x1280, {steps} UniPC steps (CFG pair, ti2v), "
+        f"decode of {decoded} of {WAN_LATENT[1]} latent frames: image "
         f"encode {out['image_encode_ms']:.1f} ms ({image_tflop:.2f} TFLOP), {out['step_ms']:.1f} "
         f"ms a step, decode {out['decode_ms']:.1f} ms ({decode_tflop:.1f} TFLOP, "
         f"{out['decode_tflops']:.1f} TFLOP/s, bound {out['decode_bound_ms'] / 1e3:.2f} s at the "
@@ -2763,9 +2802,9 @@ def phase_wan_sample(dit, steps: int = 3):
         f"{steps} steps x ({cfg.num_layers} self + {cfg.num_layers} cross) = "
         f"{want['flash_attn_fwd_d128']}, every other 0 (umT5 and the VAE attend in plain "
         f"PyTorch)")
-    if (tuple(video.shape) != (1, 3, 81, 704, 1280) or not bool(torch.isfinite(video).all())
-            or float(video.abs().max()) > 1.0):
-        fail("sample_ti2v's video is not finite in [-1, 1] at 81f@704x1280")
+    if (tuple(video.shape) != (1, 3, frames, 704, 1280)
+            or not bool(torch.isfinite(video).all()) or float(video.abs().max()) > 1.0):
+        fail(f"sample_ti2v's video is not finite in [-1, 1] at {frames}f@704x1280")
     if launches != want:
         fail(f"the Wan sampling path's launches {launches} are not K6's "
              f"{want['flash_attn_fwd_d128']} alone")
@@ -6003,8 +6042,9 @@ def phase_cog15(steps: int = 2):
 
 def phase_cog15_int8(exact):
     """[cog15]'s DiT after ``quantize_dit_int8`` in place, under
-    ``attn_impl="flash_int8"``: one warm DPM step, then one timed step with
-    the draws of [cog15]'s warm step, its latents against that step's
+    ``attn_impl="flash_int8"``: one timed DPM step (the first int8 one: K8 and
+    the int8 GEMMs ran before, in the parity phases) with the draws of
+    [cog15]'s warm step, its latents against that step's
     (cosine and rel-L2, as [main-int8]). Checks finite latents and K8's
     launches (42, every other kernel 0)."""
     import torch
@@ -6037,7 +6077,6 @@ def phase_cog15_int8(exact):
         return out, time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    _, warm_s = run(158)
     zero_launches()
     lat, step_s = run(155)  # [cog15]'s warm step's draws
     launches = read_launches()
@@ -6046,7 +6085,7 @@ def phase_cog15_int8(exact):
         fail(f"[cog15-int8] latents {tuple(lat.shape)} not finite or not {lat_shape}")
     cos, rel = _cos_rel(lat.float().cpu(), exact["warm_latents"])
     log(f"[cog15-int8] quantize_dit_int8 in place: {n_q} linears in {quant_s:.2f} s, "
-        f"allocated {before_gb:.2f} -> {after_gb:.2f} GB; warm step {1e3 * warm_s:.1f} ms, "
+        f"allocated {before_gb:.2f} -> {after_gb:.2f} GB; "
         f"timed step {1e3 * step_s:.1f} ms, latents {tuple(lat.shape)} finite; against [cog15]'s "
         f"exact step on the same draws: cosine {cos:.6f}, rel-L2 {rel:.4f} (floor "
         f"{MAIN_INT8_COS_FLOOR}, ceiling {MAIN_INT8_REL_CEIL}); peak allocated {peak_gb:.2f} "
@@ -6059,8 +6098,381 @@ def phase_cog15_int8(exact):
     del dit
     torch.cuda.empty_cache()
     return {"launches": launches, "quantise_s": quant_s, "weights_gb": [before_gb, after_gb],
-            "warm_ms": 1e3 * warm_s, "step_ms": 1e3 * step_s, "peak_gb": peak_gb,
+            "step_ms": 1e3 * step_s, "peak_gb": peak_gb,
             "drift_cos_rel": [cos, rel]}
+
+
+# CogVideoX1.5-5B DPO training: [cog15_train] at the recipe's generator size
+# (81f@768x1360: 21 latent frames of 96 x 170, trimmed to 20 by the step,
+# (20 / 2) x 48 x 85 + 226 = 41,026 tokens a forward), [cog15_train_files]
+# at the recipe's encoder size (81f@480x720: 21 latent frames of 60 x 90,
+# 10 x 30 x 45 + 226 = 13,726 tokens)
+COG15_TRAIN_LATENT = (1, 16, 21, 96, 170)  # (B, C, F, H, W)
+COG15_FILES_LATENT = (16, 21, 60, 90)  # (C, F, H, W): train/CogVideoX1.5-5B/02_encode.py
+
+
+def cog15_train_shape():
+    """The attention shape of one forward of the CogVideoX1.5-5B train step:
+    (1, 41,026, 48, 64)."""
+    cfg, _, _ = cog15_shapes()
+    _, _, F_, H, W = COG15_TRAIN_LATENT
+    p, pt = cfg.patch_size, cfg.patch_size_t
+    n = cfg.max_text_seq_length + (F_ // pt) * (H // p) * (W // p)
+    return 1, n, cfg.num_heads, cfg.head_dim
+
+
+def phase_parity_cog15_train(shape):
+    """K1 with LSE and K3 at the CogVideoX1.5-5B train step's shape (1,
+    41,026, 48, 64) against their plain versions over one head at a time,
+    every head (a head's f32 score matrix is 6.7 GB; all 48 heads' 323 GB),
+    at [parity]'s and [parity_bwd]'s tolerances; each kernel's ms beside its
+    bound and one SDPA forward and backward of the same shape (a yardstick
+    only). Returns K1's and K3's figures at the shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from videogpa_torch.ops.attention import flash_attn_bwd, flash_attn_fwd
+
+    B, N, H, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(170)
+    q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+    zero_launches()
+    k1_err, k1_plain_ms = _parity_full(f"CogVideoX1.5-5B train shape {shape} with LSE", q, k, v,
+                                       chunk=1)
+    k3_worst, k3_plain_ms = _bwd_full("K3", f"CogVideoX1.5-5B train shape {shape}",
+                                      flash_attn_fwd, flash_attn_bwd, q, k, v, "bnhd", gen,
+                                      chunk=1)
+    o, lse = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    k1 = {"shape_bnhd": list(shape), "max_abs_err": k1_err, "plain_ms": k1_plain_ms,
+          "ms": cuda_ms(lambda: flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True), iters=3,
+                        warmup=1)}
+    k3 = {"shape_bnhd": list(shape), "max_abs_err": max(k3_worst), "plain_ms": k3_plain_ms,
+          "max_abs_err_dq_dk_dv": k3_worst,
+          "ms": cuda_ms(lambda: flash_attn_bwd(q, k, v, o, lse, do, layout="bnhd"), iters=3,
+                        warmup=1)}
+    launches = read_launches()
+    # yardstick only: the port never calls SDPA
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    with torch.no_grad():
+        k1["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), iters=3,
+                                   warmup=1)
+    ot = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    k3["library_ms"] = cuda_ms(
+        lambda: torch.autograd.grad(ot, (qt, kt, vt), dot, retain_graph=True), iters=3, warmup=1)
+    k1["bound_ms"], k1["bound_by"] = _fwd_bound(B, N, N, H, D)
+    k3["bound_ms"], k3["bound_by"] = _bwd_bound(B, N, H, D)
+    k1["tflops"] = 4.0 * B * H * N * N * D / k1["ms"] / 1e9
+    k3["tflops"] = 10.0 * B * H * N * N * D / k3["ms"] / 1e9
+    for r in (k1, k3):
+        r["x_bound"] = r["ms"] / r["bound_ms"]
+    log(f"[parity_cog15_train] K1 with LSE at {shape}: {k1['ms']:.2f} ms (bound "
+        f"{k1['bound_ms']:.2f}, {k1['bound_by']}; {k1['x_bound']:.2f}x; {k1['tflops']:.0f} "
+        f"TFLOP/s), SDPA forward {k1['library_ms']:.2f} ms, plain version {k1_plain_ms:.1f} ms "
+        f"over one head at a time; K3 {k3['ms']:.2f} ms (bound {k3['bound_ms']:.2f}, "
+        f"{k3['bound_by']}; {k3['x_bound']:.2f}x; {k3['tflops']:.0f} TFLOP/s), SDPA backward "
+        f"{k3['library_ms']:.2f} ms, plain version {k3_plain_ms:.1f} ms; launches of the "
+        f"comparisons and timings {json.dumps({n: c for n, c in launches.items() if c})}")
+    del q, k, v, o, lse, do, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    return {"k1": k1, "k3": k3, "launches": launches}
+
+
+def phase_slice_dpo_cog15() -> dict:
+    """One DPO step of a small CogVideoX1.5 DiT (``small_cog15_config``),
+    bf16 on the card against f32 on the CPU on the same weights and draws,
+    as [slice_dpo]: latents of 5 frames of 63 x 77, which the step trims to
+    4 frames of 62 x 76 (2 x 31 x 38 patches, a grid under the 2 x 32 x 40
+    of the sample size; 2,364 tokens with the text, past K4's 2,048, so K1
+    and K3 run). Returns the card's launches and the errors."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import dit_init
+    from videogpa_torch.train.lora import lora_init
+
+    cfg = small_cog15_config()
+    ref = dit_init(cfg, torch.Generator().manual_seed(172), device="cpu").requires_grad_(False)
+    dev = dit_init(cfg, device="cuda", dtype=torch.bfloat16).requires_grad_(False)
+    dev.load_state_dict({k: v.to(torch.bfloat16) for k, v in ref.state_dict().items()})
+    gen = torch.Generator().manual_seed(173)
+    lora = lora_init(cfg.num_layers, cfg.hidden_dim, 4, gen, device="cpu")
+    with torch.no_grad():
+        for ab in lora.values():
+            ab["lora_B"].normal_(0.0, 0.1, generator=gen)  # every adapter live
+    F_, H, W = 5, 63, 77
+    shape = (2, cfg.vae_latent_channels, F_, H, W)
+    trimmed = (F_ - F_ % cfg.patch_size_t, H - H % cfg.patch_size, W - W % cfg.patch_size)
+    tokens = (cfg.max_text_seq_length + trimmed[0] // cfg.patch_size_t
+              * (trimmed[1] // cfg.patch_size) * (trimmed[2] // cfg.patch_size))
+    batch = {"x_win": torch.randn(shape, generator=gen), "x_lose": torch.randn(shape, generator=gen),
+             "prompt_emb": torch.randn(2, cfg.max_text_seq_length, cfg.text_embed_dim,
+                                       generator=gen)}
+    draws = {"timesteps": torch.tensor([150, 800]),
+             "noise": torch.randn((2, trimmed[0], cfg.vae_latent_channels) + trimmed[1:],
+                                  generator=gen)}
+    lora_dev = {n: {k: t.detach().to("cuda", copy=True) for k, t in ab.items()}
+                for n, ab in lora.items()}
+    m_cpu, g_cpu, l_cpu = _tiny_dpo_step(ref, cfg, lora, batch, draws, torch.float32)
+    zero_launches()
+    m_dev, g_dev, l_dev = _tiny_dpo_step(
+        dev, cfg, lora_dev, {k: v.cuda() for k, v in batch.items()},
+        {k: v.cuda() for k, v in draws.items()}, torch.bfloat16)
+    launches = read_launches()
+    grad_rel = max(((a - b).norm() / b.norm()).item() for a, b in zip(g_dev, g_cpu))
+    loss_err = abs(m_dev["loss"] - m_cpu["loss"])
+    upd_err = max((l_dev[n][k] - l_cpu[n][k]).abs().max().item()
+                  for n in l_cpu for k in l_cpu[n])
+    L = cfg.num_layers
+    # two calls (accumulate 2): 6 forwards (2 policy, their 2 recomputes, 2
+    # reference) and 2 backwards a layer each
+    want = {**dict.fromkeys(launches, 0), "flash_attn_fwd": 2 * 6 * L, "flash_attn_bwd": 2 * 2 * L}
+    log(f"[slice_dpo_cog15] small CogVideoX1.5 DPO step (patch_size_t 2, latents {shape} "
+        f"trimmed to {trimmed}, {tokens} tokens) bf16 on the card vs f32 on the CPU: loss "
+        f"{m_dev['loss']:.6f} vs {m_cpu['loss']:.6f} (|d| {loss_err:.2e}, limit "
+        f"{DPO_LOSS_ATOL}), grad_norm {m_dev['grad_norm']:.4e} vs {m_cpu['grad_norm']:.4e}, "
+        f"LoRA gradients max rel-norm error {grad_rel:.3e} (limit {DPO_GRAD_REL}), updated LoRA "
+        f"max|d| {upd_err:.2e} (limit 2.5 x lr = 2.5e-3); launches "
+        f"{json.dumps({n: c for n, c in launches.items() if c})}, expected "
+        f"{json.dumps({n: c for n, c in want.items() if c})}")
+    finite = all(math.isfinite(v) for v in m_dev.values())
+    if not (finite and loss_err <= DPO_LOSS_ATOL and grad_rel <= DPO_GRAD_REL
+            and upd_err <= 2.5e-3):
+        fail("the small CogVideoX1.5 DPO step on the card disagrees with the CPU reference")
+    if launches != want:
+        fail("the small CogVideoX1.5 DPO step did not run its attention through K1 and K3")
+    return {"launches": launches, "tokens": tokens, "loss_err": loss_err, "grad_rel": grad_rel,
+            "update_err": upd_err}
+
+
+def phase_cog15_train(dit, reckonings, steps: int = 2):
+    """The CogVideoX1.5-5B DPO LoRA train step at full width and depth on
+    [cog15]'s resident DiT: ``make_dpo_train_step`` with the recipe's
+    ``TrainerConfig`` (``cli.train_dpo``'s mapping of the recipe: batch 1,
+    accumulate 1, LoRA r 64 / alpha 128, remat, bf16, warmup 500, clip 1.0)
+    on synthetic (1, 16, 21, 96, 170) latents (trimmed to 20 frames by the
+    step: 41,026 tokens) and a (1, 226, 4,096) prompt embedding; ``steps``
+    steps, each an optimiser update, the first profiled. Checks finite
+    metrics, grad_norm > 0, the updates, K1 252 and K3 84 launches a step and
+    no other, and the peak against the reckoning of the same step
+    (``train.memory``) and the card's memory."""
+    import torch
+
+    from videogpa_torch.cli.train_dpo import _tcfg
+    from videogpa_torch.train.lora import lora_init, lora_leaves
+    from videogpa_torch.train.recipes import default_config
+    from videogpa_torch.train.trainer import init_train_state, make_dpo_train_step
+
+    cfg, _, _ = cog15_shapes()
+    tcfg = _tcfg(default_config("CogVideoX1.5-5B"))
+    gen = torch.Generator(device="cuda").manual_seed(174)
+    batch = {"x_win": torch.randn(COG15_TRAIN_LATENT, generator=gen, device="cuda"),
+             "x_lose": torch.randn(COG15_TRAIN_LATENT, generator=gen, device="cuda"),
+             "prompt_emb": torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim,
+                                       generator=gen, device="cuda")}
+    lora = lora_init(cfg.num_layers, cfg.hidden_dim, tcfg.lora_rank,
+                     torch.Generator(device="cuda").manual_seed(175), device="cuda")
+    n_lora = sum(t.numel() for t in lora_leaves(lora))
+    state = init_train_state(lora, tcfg)
+    train_step, _ = make_dpo_train_step(dit, cfg, tcfg)
+    _, n, _, _ = cog15_train_shape()
+    log(f"[cog15_train] CogVideoX1.5-5B DPO on [cog15]'s DiT ({cfg.num_layers} layers, no depth "
+        f"cut), recipe CogVideoX1.5-5B: accumulate {tcfg.accumulate_grad_batches}, LoRA r "
+        f"{tcfg.lora_rank} / alpha {tcfg.lora_alpha} ({n_lora / 1e6:.2f} M f32 params), lr "
+        f"{tcfg.learning_rate}, warmup {tcfg.warmup_steps}, max {tcfg.max_steps}, clip "
+        f"{tcfg.gradient_clip_val}, beta {tcfg.beta}, remat {tcfg.remat}, "
+        f"{tcfg.compute_dtype}; latents {COG15_TRAIN_LATENT} (trimmed to 20 frames: {n:,} "
+        f"tokens), prompt_emb {tuple(batch['prompt_emb'].shape)}; resident "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L = cfg.num_layers
+    per_step = {"flash_attn_fwd": 6 * L, "flash_attn_bwd": 2 * L}
+    b_norms, step_ms, metrics_log, launches, profile = [], [], [], None, None
+    for i in range(steps):
+        draws = torch.Generator(device="cuda").manual_seed(176 + i)
+        zero_launches()
+        (_, metrics), ms, prof = _timed_step(
+            lambda: train_step(state, batch, generator=draws),
+            "one CogVideoX1.5-5B train step (the first, profiled)" if i == 0 else None)
+        profile = prof if i == 0 else profile
+        got = read_launches()
+        launches = got if launches is None else {k: launches[k] + got[k] for k in got}
+        step_ms.append(ms)
+        m = {k: float(v) for k, v in metrics.items()}
+        metrics_log.append(m)
+        b_norms.append(sum(float(ab["lora_B"].detach().abs().max())
+                           for ab in state.lora.values()))
+        log(f"[cog15_train] step {i + 1}{' (profiled)' if i == 0 else ''}: {step_ms[-1]:.1f} ms, "
+            + json.dumps(m) + f", max|LoRA B| summed over targets {b_norms[-1]:.3e}, launches "
+            + json.dumps({k: c for k, c in got.items() if c}))
+        if got != {**dict.fromkeys(got, 0), **per_step}:
+            fail(f"[cog15_train] step {i + 1} launched {got}, not K1 {per_step['flash_attn_fwd']} "
+                 f"and K3 {per_step['flash_attn_bwd']} alone")
+    measured = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    reckoned = check_reckoning("[cog15_train]", reckonings.get("cog15_train"), measured)
+    log(f"[cog15_train] {steps} steps (updates): {', '.join(f'{t:.1f}' for t in step_ms)} ms; "
+        f"peak allocated {measured / 1e9:.2f} GB of the card's {total / 1e9:.2f} GB; remat "
+        f"residual {reckoned['residual_gib']:.3f} GiB, {reckoned['block_residual_bytes']:,} B a "
+        f"block at {reckoned['tokens']:,} tokens; launches a step: 6 forwards (2 policy, 2 remat "
+        f"recomputes, 2 reference) and 2 backwards of {L} layers")
+    if not all(math.isfinite(v) for m in metrics_log for v in m.values()):
+        fail("[cog15_train] non-finite train metrics")
+    if not all(m["grad_norm"] > 0 for m in metrics_log):
+        fail("[cog15_train] a step's gradients are zero")
+    check_update("[cog15_train]", state, b_norms, steps, accumulate=tcfg.accumulate_grad_batches)
+    if measured >= total:
+        fail("[cog15_train] the step does not fit the card")
+    del state, lora, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "per_step": per_step, "step_ms": step_ms,
+            "peak_gb": measured / 1e9, "reckoned": reckoned, "profile": profile,
+            "metrics": metrics_log, "tokens": n}
+
+
+def phase_cog15_train_files(dit, steps: int = 2):
+    """The recipe's entry from files: ``run_recipe("CogVideoX1.5-5B",
+    config)`` on ``meta_data.json`` groups whose latents have the recipe
+    encoder's shape (16, 21, 60, 90) (13,726 tokens a forward after the
+    trim) and (226, 4,096) conditions as ``.npz``, ``load_cogvideox``
+    handed [cog15]'s resident DiT: ``steps`` steps with validation on 1
+    pair and a checkpoint at the last step, then a resume to ``steps + 1``.
+    The exported ``final_lora`` is read back by ``import_peft`` and held
+    against the last checkpoint's LoRA, then merged into the DiT by the
+    generator's own path (``cli.generate.CogVideoXGenerator`` with
+    ``load_models`` handing it the resident DiT, the recipe's absolute 0.2
+    from ``parse_args``): block 0's merged to_q against W + 0.2 B A. The
+    DiT's weights are put back after."""
+    import shutil
+
+    import torch
+
+    import videogpa_torch.cli.train_dpo as train_cli
+    from videogpa_torch.cli import generate
+    from videogpa_torch.train.lora import TARGETS, import_peft
+    from videogpa_torch.train.recipes import build_config, run_recipe
+
+    cfg, _, _ = cog15_shapes()
+    _, F_, H, W = COG15_FILES_LATENT
+    p, pt = cfg.patch_size, cfg.patch_size_t
+    tokens = cfg.max_text_seq_length + (F_ - F_ % pt) // pt * (H // p) * (W // p)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cog15_train_files")
+    shutil.rmtree(root, ignore_errors=True)
+    data_dir = os.path.join(root, "data")
+    _write_preference_dataset(data_dir, COG15_FILES_LATENT,
+                              (cfg.max_text_seq_length, cfg.text_embed_dim), seed=177)
+    config = build_config("CogVideoX1.5-5B", base_path=data_dir)
+    # random weights: every group's winner and loser by its score, whatever
+    # the gap; a warmup shorter than the run (the schedule needs max_steps >
+    # warmup)
+    config.update(output_dir=os.path.join(root, "out"), max_steps=steps,
+                  checkpoint_every_n_steps=steps, log_every_n_steps=1, seed=0,
+                  metric_threshold=None, min_gap=0.0, motion_threshold=0.0, warmup_steps=1)
+    log(f"[cog15_train_files] 2 groups of 2 videos, latents {COG15_FILES_LATENT} ({tokens:,} "
+        f"tokens a forward after the trim) and conditions ({cfg.max_text_seq_length}, "
+        f"{cfg.text_embed_dim}) as .npz; recipe CogVideoX1.5-5B (batch {config['batch_size']}, "
+        f"accumulate {config.get('accumulate_grad_batches', 1)}, LoRA r {config['lora_rank']}, "
+        f"lr {config['learning_rate']}), max_steps {steps}, checkpoint every {steps}; "
+        f"load_cogvideox is handed [cog15]'s resident DiT")
+    real_load = train_cli.load_cogvideox
+    train_cli.load_cogvideox = lambda *a, **k: (dit, None)
+    out = {}
+    try:
+        for tag, max_steps in (("run", steps), ("resume", steps + 1)):
+            config["max_steps"] = max_steps
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_recipe("CogVideoX1.5-5B", config)
+            torch.cuda.synchronize()
+            out[f"{tag}_s"] = time.perf_counter() - t0
+            out[f"{tag}_launches"] = read_launches()
+            out[f"{tag}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        train_cli.load_cogvideox = real_load
+    with open(os.path.join(root, "out", "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    train = [r for r in recs if "train/loss" in r]
+    steps_seen = [r["step"] for r in train]
+    log(f"[cog15_train_files] metrics.jsonl train records: " + json.dumps(
+        [{k: r[k] for k in ("step", "time", "train/loss", "train/grad_norm",
+                            "stats/samples_per_sec", "stats/max_memory_gb")} for r in train]))
+    if steps_seen != list(range(1, steps + 2)):
+        fail(f"train_dpo took steps {steps_seen}, expected 1..{steps} then {steps + 1} resumed")
+    if not all(math.isfinite(r["train/loss"]) for r in train):
+        fail("[cog15_train_files] non-finite train loss")
+    L = cfg.num_layers
+    want_run = {"flash_attn_fwd": steps * 6 * L + 4 * L, "flash_attn_bwd": steps * 2 * L}
+    want_resume = {"flash_attn_fwd": 6 * L + 4 * L, "flash_attn_bwd": 2 * L}
+    for tag, want in (("run", want_run), ("resume", want_resume)):
+        got = {k: v for k, v in out[f"{tag}_launches"].items() if v}
+        log(f"[cog15_train_files] {tag}: {out[f'{tag}_s']:.1f} s, peak "
+            f"{out[f'{tag}_peak_gb']:.2f} GB, launches {json.dumps(got)}; expected "
+            f"{json.dumps(want)} (6 forwards and 2 backwards of {L} layers a step, 4 forwards a "
+            f"validation pair)")
+        if got != want:
+            fail(f"run_recipe CogVideoX1.5-5B ({tag}) did not run every attention through K1 "
+                 "and K3")
+    kept = sorted(json.load(open(os.path.join(root, "out", "checkpoints", "scores.json"))))
+    state = torch.load(os.path.join(root, "out", "checkpoints", kept[-1], "state.pt"),
+                       weights_only=True)
+    final = os.path.join(root, "out", "final_lora")
+    lora = import_peft(final, L, device="cpu")
+    same = state["step"] == steps + 1 and all(
+        torch.equal(lora[n][k], state["lora"][n][k]) for n in state["lora"]
+        for k in ("lora_A", "lora_B"))
+    log(f"[cog15_train_files] checkpoints kept {kept}; import_peft(final_lora) equals the "
+        f"trained LoRA of step {state['step']}: {same}")
+    if not same:
+        fail("the exported CogVideoX1.5-5B LoRA is not the trained one")
+
+    # the user's next step: the generator merges the adapter at the recipe's
+    # absolute 0.2 into the DiT it loads (here the resident one)
+    originals = [[getattr(blk.attn1, t).weight.clone() for t in TARGETS] for blk in dit.blocks]
+    args = generate.parse_args(["--recipe", "CogVideoX1.5-5B", "--prompt_json", "unused",
+                                "--output_dir", root, "--lora_path", final])
+    recipe = generate._RECIPES[args.recipe]
+    real_models = generate.load_models
+    generate.load_models = lambda base_model, cfg_, device: (dit, None, None, None, None)
+    try:
+        generate.CogVideoXGenerator(args, cfg, i2v=recipe.get("i2v", False),
+                                    dynamic_cfg=recipe.get("dynamic_cfg", False),
+                                    lora_weight=args.lora_weight,
+                                    absolute_lora=recipe.get("absolute_lora", False),
+                                    device="cuda")
+    finally:
+        generate.load_models = real_models
+    w0 = originals[0][TARGETS.index("to_q")]
+    merged = dit.blocks[0].attn1.to_q.weight
+    a, b = (lora["to_q"][k][0].cuda() for k in ("lora_A", "lora_B"))
+    delta = 0.2 * (b @ a)
+    want = w0.float() + delta
+    # two bf16 roundings: the delta's and the sum's, each within 2^-8 relative
+    err = (merged.float() - want).abs()
+    ok = bool((err <= 2.0 ** -8 * (want.abs() + delta.abs()) + 1e-30).all())
+    changed = int((merged != w0).sum())
+    with torch.no_grad():
+        for blk, ws in zip(dit.blocks, originals):
+            for t, w in zip(TARGETS, ws):
+                getattr(blk.attn1, t).weight.copy_(w)
+    log(f"[cog15_train_files] the generator (--recipe CogVideoX1.5-5B, --lora_weight "
+        f"{args.lora_weight} absolute) merged final_lora: block 0 to_q against W + "
+        f"{args.lora_weight} B A: max|d| {err.max().item():.3e} within two bf16 roundings: {ok}; "
+        f"{changed:,} of {merged.numel():,} weights changed (|0.2 B A| up to "
+        f"{delta.abs().max().item():.3e}); the DiT's weights put back")
+    if not (ok and changed > 0 and args.lora_weight == 0.2):
+        fail("the generator did not merge the trained CogVideoX1.5-5B LoRA at 0.2")
+    step_s = train[1]["time"] - train[0]["time"]
+    out.update(step_ms=1e3 * step_s, samples_per_sec=[r["stats/samples_per_sec"] for r in train],
+               max_memory_gb=[r["stats/max_memory_gb"] for r in train], steps=steps_seen,
+               tokens=tokens, per_step={"flash_attn_fwd": 6 * L, "flash_attn_bwd": 2 * L},
+               merge_max_abs_err=err.max().item(), merge_changed=changed)
+    del state, lora, originals, merged, w0, want, err, delta, a, b
+    shutil.rmtree(root)
+    torch.cuda.empty_cache()
+    return out
 
 
 class _TimedSampling:
@@ -6108,17 +6520,18 @@ class _TimedSampling:
         return False
 
 
-def phase_cog15_sample(steps: int = 2, decode_latent_frames=2, generate_steps: int = 1):
+def phase_cog15_sample(steps: int = 1, decode_latent_frames=2, generate_steps: int = 1):
     """CogVideoX1.5-5B sampling at full size with the DiT ([cog15]'s weights,
     drawn again), T5-v1.1-XXL (f32) and the VAE (bf16) resident: T5 encodes a
     prompt and the empty negative (2 x 226 ids); ``sample_t2v`` runs
     ``steps`` DPM steps with dynamic CFG at 81f@768x1360 (latents rounded up
     to 22 frames), ``decode_latents`` decodes its ``decode_latent_frames``
-    leading latent frames (a temporal cut; None decodes all 22: another ~85
-    s) and ``video_to_uint8`` makes the frames. Then the user's entry, ``cli.generate.main --recipe
-    CogVideoX1.5-5B`` (81f@768x1360, dynamic CFG, --lora_weight 0.2 as the
-    absolute LoRA scaling, ``generate_steps`` DPM steps, every latent frame
-    decoded) on one prompt with a random PEFT LoRA written to disk, its
+    leading latent frames (a temporal cut; None decodes all 22, ~85 s a
+    run) and ``video_to_uint8`` makes the frames. Then the user's entry,
+    ``cli.generate.main --recipe CogVideoX1.5-5B`` (81f@768x1360, dynamic CFG,
+    --lora_weight 0.2 as the absolute LoRA scaling, ``generate_steps`` DPM
+    steps, the same leading latent frames decoded) on one prompt with a
+    random PEFT LoRA written to disk, its
     models the resident ones (``generate.load_models`` replaced; the
     tokenizer a seeded stub) and the mp4 writer keeping the frames.
     Checks the videos' shapes and range, K1's launches (42 a step, every
@@ -6238,7 +6651,7 @@ def phase_cog15_sample(steps: int = 2, decode_latent_frames=2, generate_steps: i
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     try:
-        with _TimedSampling() as timed:
+        with _TimedSampling(decode_latent_frames) as timed:
             generate.main(argv, device="cuda")
             torch.cuda.synchronize()
     finally:
@@ -6254,7 +6667,6 @@ def phase_cog15_sample(steps: int = 2, decode_latent_frames=2, generate_steps: i
     if len(written) != 1:
         fail(f"cli.generate --recipe CogVideoX1.5-5B wrote {len(written)} videos, not 1")
     (path, (vid, fps)), = written.items()
-    want_t = (lat_shape[1] - 1) * cfg.temporal_compression_ratio + 1
     gen_run = {"s": gen_s, "encode_ms": encode_ms,
                "step_ms": 1e3 * timed.timing["denoise_s"] / generate_steps,
                "decode_ms": 1e3 * timed.timing["decode_s"], "tile_log": timed.timing["tile_log"],
@@ -7527,6 +7939,7 @@ def main() -> int:
     giant_local_shape = (10, da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
     giant_global_shape = (1, 10 * da3_frame, gcfg.num_heads, gcfg.embed_dim // gcfg.num_heads)
     _, cog15_latents, cog15_attn_shape = cog15_shapes()  # (2, 45,106, 48, 64)
+    cog15_train_attn_shape = cog15_train_shape()  # (1, 41,026, 48, 64)
 
     phase_build()
     reckonings = Reckonings()
@@ -7572,15 +7985,28 @@ def main() -> int:
     mark("main, sample, replicate_files")
     torch.cuda.empty_cache()
     cog15_parity = phase_parity_cog15(cog15_attn_shape)
-    cog15_run = phase_cog15()
+    cog15_train_parity = phase_parity_cog15_train(cog15_train_attn_shape)
+    slice_dpo_cog15 = phase_slice_dpo_cog15()
+    cog15_run = phase_cog15(steps=1)
+    # the train phases run on [cog15]'s DiT before [cog15-int8] quantises it
+    cog15_train_run = phase_cog15_train(cog15_run["dit"], reckonings)
+    cog15_files_run = phase_cog15_train_files(cog15_run["dit"])
     cog15_int8_run = phase_cog15_int8(cog15_run)
-    # the recipe's run decodes all 22 latent frames at 768 x 1360; the plain
-    # sample_t2v run before it decodes the first 2 (5 frames) to keep the
-    # command inside its limit (PERF.md §4)
+    # both runs decode the first 2 of their 22 latent frames (5 frames at 768
+    # x 1360) to keep the command inside its limit (PERF.md §4)
     cog15_sample_run = phase_cog15_sample()
-    mark("parity_cog15, cog15, cog15-int8, cog15_sample")
+    mark("parity_cog15, parity_cog15_train, slice_dpo_cog15, cog15, cog15_train, "
+         "cog15_train_files, cog15-int8, cog15_sample")
     train_run = phase_train(reckonings)
-    scorer_run = phase_scorer()
+    log(f"[cog15_train] beside [train]: CogVideoX1.5-5B step (an update) "
+        f"{cog15_train_run['step_ms'][-1]:.1f} ms at {cog15_train_run['tokens']:,} tokens, peak "
+        f"{cog15_train_run['peak_gb']:.2f} GB, remat residual "
+        f"{cog15_train_run['reckoned']['block_residual_bytes']:,} B a block; CogVideoX-5B "
+        f"mini-step {train_run['step_ms'][-1]:.1f} ms (update "
+        f"{train_run['update_ms'][-1]:.1f} ms) at {train_run['reckoned']['tokens']:,} tokens, "
+        f"peak {train_run['peak_gb']:.2f} GB, "
+        f"{train_run['reckoned']['block_residual_bytes']:,} B a block")
+    scorer_run = phase_scorer(num_batches=2)
     da3_run = phase_scorer_da3(num_batches=2)
     nested_run = phase_da3_nested(calls=1)
     service_run = phase_da3_service()
@@ -7596,7 +8022,7 @@ def main() -> int:
     train_files_run = phase_train_files(score_files_run["runs"]["batch4"]["json"])
     wan_run = phase_wan()
     wan_dit = wan_run.pop("dit")
-    wan_sample_run = phase_wan_sample(wan_dit, steps=2)
+    wan_sample_run = phase_wan_sample(wan_dit, steps=2, decode_latent_frames=6)
     encode_wan_run = phase_encode_files_wan(wan_sample_run.pop("vae"), wan_sample_run.pop("t5"))
     wan_train_files_run = phase_wan_train_files(wan_dit)
     del wan_dit
@@ -7732,6 +8158,13 @@ def main() -> int:
         "cog15_sample": cog15_sample_run["sample"],
         "cog15_generate": cog15_sample_run["generate"],
         "cog15_k1_k8": cog15_parity,
+        "cog15_train_k1_k3": {k: cog15_train_parity[k] for k in ("k1", "k3")},
+        "slice_dpo_cog15": {k: v for k, v in slice_dpo_cog15.items() if k != "launches"},
+        "cog15_train": {k: v for k, v in cog15_train_run.items()
+                        if k not in ("launches", "profile")},
+        "cog15_train_profile": cog15_train_run["profile"],
+        "cog15_train_files": {k: v for k, v in cog15_files_run.items()
+                              if not k.endswith("_launches")},
         "score_files": {k: v for k, v in score_files_run.items() if k != "runs"},
         "score_files_runs": {tag: {k: v for k, v in r.items() if k not in ("scores", "json")}
                              for tag, r in score_files_run["runs"].items()},
@@ -7791,7 +8224,12 @@ def main() -> int:
             "cog15": cog15_run["launches"], "cog15_int8": cog15_int8_run["launches"],
             "cog15_sample": {k: cog15_sample_run["sample_launches"][k]
                              + cog15_sample_run["generate_launches"][k]
-                             for k in train_run["launches"]}}
+                             for k in train_run["launches"]},
+            "slice_dpo_cog15": slice_dpo_cog15["launches"],
+            "cog15_train": cog15_train_run["launches"],
+            "cog15_train_files": {k: cog15_files_run["run_launches"][k]
+                                  + cog15_files_run["resume_launches"][k]
+                                  for k in train_run["launches"]}}
 
     def by_path(name):
         """A wrapper's launches on each main path, as counted in that path's run."""
@@ -7803,7 +8241,8 @@ def main() -> int:
          "source": "videogpa_torch/csrc/flash_attn_fwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:221",
          **by_path("flash_attn_fwd"),
-         "max_abs_err": max(fwd_err, cog15_parity["k1"]["max_abs_err"]), "ms": timing["fwd_ms"],
+         "max_abs_err": max(fwd_err, cog15_parity["k1"]["max_abs_err"],
+                            cog15_train_parity["k1"]["max_abs_err"]), "ms": timing["fwd_ms"],
          "plain_ms": fwd_plain_ms,
          "bound_ms": timing["fwd_bound_ms"], "bound_by": timing["fwd_bound_by"],
          "library_ms": timing["fwd_library_ms"],
@@ -7819,14 +8258,19 @@ def main() -> int:
                               "bound_by": timing_da3["k1_bound_by"],
                               "library_ms": timing_da3["k1_library_ms"]},
          "da3_giant_global_shape": giant["k1"],
-         "cog15_shape": cog15_parity["k1"]},
+         "cog15_shape": cog15_parity["k1"],
+         "cog15_train_shape_with_lse": cog15_train_parity["k1"],
+         "launches_in_parity_cog15_train": cog15_train_parity["launches"]["flash_attn_fwd"]},
         {"name": "flash_attn_bwd", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_bwd.cu",
          "replaces": "videogpa_tpu/ops/attention.py:951,983",
          **by_path("flash_attn_bwd"),
-         "max_abs_err": bwd_err, "ms": timing["bwd_ms"], "plain_ms": bwd_plain_ms,
+         "max_abs_err": max(bwd_err, cog15_train_parity["k3"]["max_abs_err"]),
+         "ms": timing["bwd_ms"], "plain_ms": bwd_plain_ms,
          "bound_ms": timing["bwd_bound_ms"], "bound_by": timing["bwd_bound_by"],
-         "library_ms": timing["bwd_library_ms"]},
+         "library_ms": timing["bwd_library_ms"],
+         "cog15_train_shape": cog15_train_parity["k3"],
+         "launches_in_parity_cog15_train": cog15_train_parity["launches"]["flash_attn_bwd"]},
         {"name": "flash_attn_short", "route": "cuda",
          "source": "videogpa_torch/csrc/flash_attn_short.cu",
          "replaces": "videogpa_tpu/ops/attention.py:544",
