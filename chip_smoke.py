@@ -301,6 +301,39 @@ Phases, each of which fails the run (non-zero exit) on any error:
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and as
 its last line ``{"ok": true, "device": {...}}``. Exits non-zero without a
 result when no CUDA device is present.
+
+    python3 chip_smoke.py --ranks 4 [--phases ranks_nccl,ranks_ring,...]
+
+runs the multi-card path on four cards over NCCL instead (``ranks_main``):
+the kernels built once, then four ranks started with ``torch.multiprocessing``
+(spawn), each on its own card in one ``nccl`` group over a FileStore with a
+timeout, every rank making every mesh of ``ranks_plan`` (data 4, seq 4, model
+4, dp 2 x tp 2, the sub-meshes of ranks 0-1 and 2-3). Phases, each against
+the one-card computation of the same thing on the same card, with per-rank
+launch counts (``ranks_launches``):
+
+   ranks_nccl — all_reduce, all_gather_into_tensor and a batch_isend_irecv
+             ring on every axis of every mesh against closed forms; the NCCL
+             version and transports; one 256 MiB all-reduce's bus bandwidth.
+   ranks_ring — ``attention(impl="ring")`` over seq 4 at (1, 17,776, 48, 64)
+             and the ragged (1, 41,026, 48, 64), forward and autograd, the
+             ring's shard O and LSE, and the rotations' NCCL time beside the
+             pairs' kernels.
+   ranks_train — the CogVideoX-5B DPO step at dp 2 x tp 2, global batch 2,
+             full width and depth; each rank's peak against ``train.memory``'s
+             reckoning of rank_mesh(2, 2) (a process beside, as [train]'s).
+   ranks_seq_train — the same step with ``attn_impl="ring"`` over seq 4.
+   ranks_wan_train — the Wan2.2-TI2V-5B DPO step at tp 4 (K6/K7).
+   ranks_overlap — the CogVideoX-5B sampler (one CFG-pair DPM step) at tp 2 on
+             ranks 0-1 beside the VGGT-1B forward (4 clips x 10 x 518^2) at
+             dp 2 on ranks 2-3; each half alone and both at once.
+   ranks_cog15_train — the CogVideoX1.5-5B DPO step at tp 4, 41,026 tokens,
+             its peak against the reckoning of rank_mesh(1, 4).
+
+It needs four visible cards and never falls back to fewer, to ``gloo`` or to
+the CPU; a rank that raises fails the run, and the parent kills the ranks past
+``RANKS_WALL_S``. Its last line has the form above with the count of cards it
+used; ``build/chip_smoke_ranks.log`` keeps every line.
 """
 
 from __future__ import annotations
@@ -1405,16 +1438,17 @@ class Reckonings:
     this one); ``get`` waits for the figure asked for, ``stop`` ends the
     process if it still runs."""
 
-    def __init__(self):
+    def __init__(self, mode: str = "--reckon", *args: str):
         root = os.path.dirname(os.path.abspath(__file__))
-        self.path = os.path.join(root, "build", "reckonings.json")
-        self.log_path = os.path.join(root, "build", "reckonings.log")
+        stem = "reckonings" + mode[len("--reckon"):].replace("-", "_")
+        self.path = os.path.join(root, "build", stem + ".json")
+        self.log_path = os.path.join(root, "build", stem + ".log")
         if os.path.exists(self.path):
             os.remove(self.path)
         self.t0 = time.perf_counter()
         with open(self.log_path, "w") as out:
             self.proc = subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--reckon", self.path],
+                [sys.executable, os.path.abspath(__file__), mode, self.path, *args],
                 stdout=out, stderr=subprocess.STDOUT, cwd=root)
         self._data = {}
 
@@ -7892,6 +7926,1046 @@ def phase_vggt_track(query_pts: int = 256, query_frames: int = 2, runs: int = 2)
     return result
 
 
+# ---------------------------------------------------------------------------
+# Four cards over NCCL: python3 chip_smoke.py --ranks 4 [--phases NAME,...]
+# ---------------------------------------------------------------------------
+
+RANKS_WORLD = 4
+# the parent kills the ranks and fails past RANKS_WALL_S; a collective that
+# waits past the process group's timeout fails its rank before that
+RANKS_WALL_S, RANKS_PG_TIMEOUT_S = 900, 240
+# [ranks_nccl]'s bandwidth figure: one all-reduce of 2^28 bytes of f32
+RANKS_BUSBW_BYTES = 2 ** 28
+# [ranks_overlap]'s outputs against the one-card computation of the same
+# thing, by the norm of the difference over the norm of the one-card output:
+# both are bf16 runs of one function that round at other points (partial
+# sums all-reduced in bf16, GEMMs of other shapes), and guidance (x 11 at
+# CFG 6) scales the sampler's rounding, so the bound is RANKS_FLOOR_MULT x
+# the one-card bf16 output's own distance from the one-card output in f32
+RANKS_FLOOR_MULT = 3
+# the DPO steps' settings: LoRA r 64 / alpha 128, remat, bf16, accumulate 1,
+# clip 1.0, warmup 0 so that the first update moves the LoRA
+RANKS_TRAIN_KW = dict(learning_rate=1e-4, warmup_steps=0, max_steps=10, lora_rank=64,
+                      lora_alpha=128.0, remat=True)
+# global batch of each phase (a data rank takes its batch_specs slice)
+RANKS_BATCH = {"ranks_train": 2, "ranks_seq_train": 2, "ranks_wan_train": 1,
+               "ranks_cog15_train": 1, "ranks_overlap": 4}
+# the mesh each phase runs on (ranks_overlap: the sampler's, then the scorer's)
+RANKS_PHASE_MESH = {"ranks_ring": ("seq",), "ranks_train": ("dp_tp",),
+                    "ranks_seq_train": ("seq",), "ranks_wan_train": ("model",),
+                    "ranks_overlap": ("gen", "score"), "ranks_cog15_train": ("model",)}
+
+
+def ranks_plan(world: int = RANKS_WORLD) -> dict:
+    """Every mesh of the ``--ranks`` mode, in the order every rank makes
+    them: {name: (``MeshAxes`` keyword arguments, the ranks or None for the
+    whole world)}. dp x tp is the JAX package's dry-run rule (dp 2 where the
+    count of devices is even, tp the rest); the sampler and the scorer take
+    the two halves of the ranks, as its segment 4 does."""
+    dp = 2 if world % 2 == 0 else 1
+    tp = world // dp
+    half = world // 2
+    return {"data": ({"data": world}, None), "seq": ({"seq": world}, None),
+            "model": ({"model": world}, None), "dp_tp": ({"data": dp, "model": tp}, None),
+            "gen": ({"model": half}, list(range(half))),
+            "score": ({"data": world - half}, list(range(half, world)))}
+
+
+def ranks_coord(axes: dict, ranks, rank: int):
+    """``rank``'s (data, seq, model) coordinate on a mesh of ``axes`` over
+    ``ranks`` (None: the whole world), row-major as ``make_mesh`` lays the
+    ranks out; None for a rank outside it."""
+    members = list(range(rank + 1)) if ranks is None else list(ranks)
+    if rank not in members:
+        return None
+    i = members.index(rank)
+    seq, model = axes.get("seq", 1), axes.get("model", 1)
+    return i // (seq * model), (i // model) % seq, i % model
+
+
+def ranks_rows(phase: str, rank: int, world: int = RANKS_WORLD):
+    """The rows of ``phase``'s global batch that ``rank`` holds (its
+    ``batch_specs`` slice over its mesh's data axis), or None for a rank
+    the phase's batch does not reach."""
+    mesh = RANKS_PHASE_MESH[phase][-1]
+    axes, ranks = ranks_plan(world)[mesh]
+    coord = ranks_coord(axes, ranks, rank)
+    if coord is None:
+        return None
+    n = RANKS_BATCH[phase] // axes.get("data", 1)
+    return range(coord[0] * n, (coord[0] + 1) * n)
+
+
+def cog5b_train_shape():
+    """The attention shape of one forward of the CogVideoX-5B train step:
+    (1, 17,776, 48, 64)."""
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+
+    cfg = CogVideoXConfig.cogvideox_5b()
+    n = cfg.max_text_seq_length + cfg.sample_frames * (
+        cfg.sample_height // cfg.patch_size) * (cfg.sample_width // cfg.patch_size)
+    return 1, n, cfg.num_heads, cfg.head_dim
+
+
+def ranks_ring_pairs(n_tokens: int, P: int) -> int:
+    """The (query shard, key shard) pairs a rank's ring launches a kernel
+    for: its P resident shards less the empty ones of a padded sequence."""
+    from videogpa_torch.ops import ring_attention as ring
+
+    L = -(-n_tokens // P)
+    validity = ring._shard_validity(n_tokens, L) if L * P != n_tokens else None
+    return sum(ring._resident_keys(s, L, validity) > 0 for s in range(P))
+
+
+def ranks_launches(phase: str, rank: int, world: int = RANKS_WORLD) -> dict:
+    """The kernel launches ``rank`` makes on ``phase``'s sharded path, by
+    wrapper (those left out: 0). L the layers; a DPO step runs 6 forwards (2
+    policy, their 2 remat recomputes, 2 reference) and 2 backwards of every
+    attention, each one launch on a rank whatever its share of the heads or
+    of the batch, or one a ring pair under ``seq``; the ring phase runs one
+    autograd call a shape."""
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+    from videogpa_torch.models.vggt import VGGTConfig
+    from videogpa_torch.models.wan import WanConfig
+
+    cog = CogVideoXConfig.cogvideox_5b()
+    cog_tokens = cog5b_train_shape()[1]
+    if phase == "ranks_ring":
+        pairs = [ranks_ring_pairs(n, world) for n in (cog_tokens, cog15_train_shape()[1])]
+        return {"flash_attn_fwd": sum(pairs), "flash_attn_bwd": sum(pairs)}
+    if phase in ("ranks_train", "ranks_seq_train"):
+        pairs = ranks_ring_pairs(cog_tokens, world) if phase == "ranks_seq_train" else 1
+        return {"flash_attn_fwd": 6 * cog.num_layers * pairs,
+                "flash_attn_bwd": 2 * cog.num_layers * pairs}
+    if phase == "ranks_cog15_train":
+        L = CogVideoXConfig.cogvideox_1_5_5b().num_layers
+        return {"flash_attn_fwd": 6 * L, "flash_attn_bwd": 2 * L}
+    if phase == "ranks_wan_train":  # self- and cross-attention a layer
+        L = WanConfig.ti2v_5b().num_layers
+        return {"flash_attn_fwd_d128": 6 * 2 * L, "flash_attn_bwd_d128": 2 * 2 * L}
+    if phase == "ranks_overlap":
+        if ranks_coord(*ranks_plan(world)["gen"], rank) is not None:
+            return {"flash_attn_fwd": cog.num_layers}  # one CFG-pair forward
+        v = VGGTConfig()
+        return {"flash_attn_fwd": v.depth, "flash_attn_short": v.backbone_depth + v.depth,
+                "flash_attn_fwd_f32": v.camera_trunk_depth * v.camera_iterations}
+    raise ValueError(f"no launches for {phase!r}")
+
+
+def _ranks_tcfg(**kw):
+    from videogpa_torch.train.trainer import TrainerConfig
+
+    return TrainerConfig(**RANKS_TRAIN_KW, **kw)
+
+
+def _rlog(tag: str, msg: str) -> None:
+    import torch.distributed as dist
+
+    log(f"[{tag}] r{dist.get_rank()}: {msg}")
+
+
+def _sync_all() -> None:
+    """Every rank here and its card idle: an all-reduce of one value on the
+    world, read back."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(1, device="cuda")
+    dist.all_reduce(x)
+    if x.item() != dist.get_world_size():
+        fail(f"the world all-reduce summed {x.item()}")
+
+
+def _outside_allocator() -> int:
+    """Bytes in use on this card that PyTorch's allocator does not hold
+    (contexts, NCCL's buffers and channels, library handles)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    return total - free - torch.cuda.memory_reserved()
+
+
+def _ranks_nccl(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_nccl]: on each axis above 1 of every mesh this rank is in, an
+    all-reduce, an all-gather into one tensor and a ``batch_isend_irecv``
+    ring, each against its closed form; the NCCL version and the transports
+    NCCL's INIT log names; the bus bandwidth of one 256 MiB all-reduce over
+    the world."""
+    import re
+
+    import torch
+    import torch.distributed as dist
+
+    from videogpa_torch.parallel.mesh import AXES
+
+    checked = []
+    for name, (axes, _) in ranks_plan(world).items():
+        mesh = meshes[name]
+        if mesh.get_coordinate() is None:
+            continue  # a sub-mesh of the other ranks
+        for axis in AXES:
+            if axes.get(axis, 1) == 1:
+                continue
+            group = mesh.get_group(axis)
+            members = dist.get_process_group_ranks(group)
+            n, me = len(members), dist.get_rank(group)
+            x = torch.full((1024,), float(rank + 1), device="cuda")
+            dist.all_reduce(x, group=group)
+            got = torch.empty(n * 8, device="cuda")
+            dist.all_gather_into_tensor(got, torch.full((8,), float(rank), device="cuda"),
+                                        group=group)
+            nxt = dist.get_global_rank(group, (me + 1) % n)
+            prv = dist.get_global_rank(group, (me - 1) % n)
+            recv = torch.empty(16, device="cuda")
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, torch.full((16,), float(rank), device="cuda"), nxt, group),
+                dist.P2POp(dist.irecv, recv, prv, group)])
+            for req in reqs:
+                req.wait()
+            ok = (bool((x == sum(m + 1 for m in members)).all())
+                  and torch.equal(got.cpu(), torch.tensor(members, dtype=torch.float32)
+                                  .repeat_interleave(8))
+                  and bool((recv == prv).all()))
+            checked.append(f"{name}.{axis} {members}")
+            if not ok:
+                fail(f"[ranks_nccl] {name}.{axis} over {members}: all_reduce {x[0].item()} (want "
+                     f"{sum(m + 1 for m in members)}), all_gather {got[::8].tolist()}, ring "
+                     f"received {recv[0].item()} (want {prv})")
+    _rlog("ranks_nccl", f"all_reduce, all_gather_into_tensor and a batch_isend_irecv ring "
+          f"equal their closed forms on {len(checked)} groups: {'; '.join(checked)}")
+
+    big = torch.ones(RANKS_BUSBW_BYTES // 4, device="cuda")
+    for _ in range(2):
+        dist.all_reduce(big)
+    torch.cuda.synchronize()
+    iters = 5
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        dist.all_reduce(big)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    alg = RANKS_BUSBW_BYTES / (ms * 1e-3) / 1e9
+    bus = alg * 2 * (world - 1) / world
+    del big
+    torch.cuda.empty_cache()
+
+    transports, version = [], None
+    path = os.path.join(workdir, f"nccl_r{rank}.log")
+    if os.path.exists(path):
+        with open(path, errors="replace") as f:
+            text = f.read()
+        transports = sorted(set(re.findall(r" via (\S+)", text)))
+        m = re.search(r"NCCL version (\S+)", text)
+        version = m.group(1) if m else None
+        nvls = sorted(set(re.findall(r"NVLS[^\n]{0,60}", text)))[:3]
+    else:
+        nvls = []
+    out = {"groups": len(checked), "allreduce_ms": ms, "algbw_gb_s": alg, "busbw_gb_s": bus,
+           "nccl_version": ".".join(map(str, torch.cuda.nccl.version())),
+           "nccl_log_version": version, "transports": transports, "nvls_lines": nvls}
+    _rlog("ranks_nccl", f"NCCL {out['nccl_version']} ({version or 'no version line'} in its "
+          f"INIT log); transports in the log: {transports or 'none found'}; NVLS: {nvls or 'none'}"
+          f"; all-reduce of {RANKS_BUSBW_BYTES / 2 ** 20:.0f} MiB f32 over the world: {ms:.3f} ms, "
+          f"algbw {alg:.1f} GB/s, busbw {bus:.1f} GB/s (2(n-1)/n x algbw; a figure only)")
+    return out
+
+
+def _kernel_overlap(trace_path: str) -> dict:
+    """From a chrome trace of the profiler: the device time of the NCCL
+    kernels, of the attention kernels, and of the NCCL kernels that ran while
+    an attention kernel ran (ms)."""
+    with open(trace_path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [(e["ts"], e["ts"] + e.get("dur", 0), e["name"]) for e in events
+               if e.get("cat") == "kernel" and "ts" in e]
+    comm = [(a, b) for a, b, n in kernels if "nccl" in n.lower()]
+    attn = sorted((a, b) for a, b, n in kernels if "flash_attn" in n)
+    overlap = 0.0
+    for a, b in comm:
+        for c, d in attn:
+            overlap += max(0.0, min(b, d) - max(a, c))
+    return {"nccl_ms": sum(b - a for a, b in comm) / 1e3,
+            "attention_ms": sum(b - a for a, b in attn) / 1e3, "overlap_ms": overlap / 1e3,
+            "nccl_kernels": len(comm), "attention_kernels": len(attn)}
+
+
+def _ranks_ring(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_ring]: ``attention(impl="ring")`` over ``seq`` = world at the
+    CogVideoX-5B train shape (1, 17,776, 48, 64) and the CogVideoX1.5-5B one
+    (1, 41,026, 48, 64), whose shards are ragged: forward and autograd
+    against whole K1/K3 calls on this card, the ring's own (O, LSE) of this
+    rank's shard, the pairs' launches, and how much of the rotations' NCCL
+    time ran beside the pairs' kernels (a profiled second call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from videogpa_torch.ops import ring_attention as ring
+    from videogpa_torch.ops.attention import attention, flash_attn_bwd, flash_attn_fwd
+    from videogpa_torch.parallel import set_mesh
+    from videogpa_torch.parallel.mesh import axis_rank, axis_size
+
+    mesh = meshes["seq"]
+    group, r, P = mesh.get_group("seq"), axis_rank(mesh, "seq"), axis_size(mesh, "seq")
+    cases, launched = {}, dict.fromkeys(_wrappers(), 0)
+    for label, shape in (("CogVideoX-5B", cog5b_train_shape()),
+                         ("CogVideoX1.5-5B", cog15_train_shape())):
+        B, N, H, D = shape
+        gen = torch.Generator(device="cuda").manual_seed(61)
+        q, k, v = _attn_case(gen, B, N, N, H, D, "bnhd")
+        do = torch.randn(q.shape, generator=gen, device="cuda").to(torch.bfloat16)
+        # the one-card computation, twice: the second gives the noise floor
+        # (K3 sums dQ with reduce-adds)
+        o_ref, lse_ref = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
+        g_ref = flash_attn_bwd(q, k, v, o_ref, lse_ref, do, layout="bnhd")
+        o_2, lse_2 = flash_attn_fwd(q, k, v, layout="bnhd", with_lse=True)
+        g_2 = flash_attn_bwd(q, k, v, o_2, lse_2, do, layout="bnhd")
+        floor = [(o_2.float() - o_ref.float()).abs().max().item()] + [
+            (a.float() - b.float()).abs().max().item() for a, b in zip(g_2, g_ref)]
+        del o_2, lse_2, g_2
+
+        # the ring's forward on this rank's shard: its O and LSE rows
+        L = -(-N // P)
+        n_valid = N if L * P != N else None
+
+        def my_shard(x):
+            x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, L * P - N)) if n_valid else x
+            return x[:, r * L:(r + 1) * L].contiguous()
+
+        rows = slice(r * L, min((r + 1) * L, N))
+        n_rows = rows.stop - rows.start
+        o_s, lse_s = ring._ring_forward(my_shard(q), my_shard(k), my_shard(v), None, group,
+                                        n_valid, "bnhd", None)
+        o_err, o_atol, lse_err, shard_ok = _check(o_s[:, :n_rows], lse_s[:, :, :n_rows],
+                                                  o_ref[:, rows], lse_ref[:, :, rows])
+        del o_s, lse_s
+
+        # the public entry, forward and autograd, counted
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        with set_mesh(mesh):
+            o = attention(qq, kk, vv, impl="ring", layout="bnhd")
+        grads = torch.autograd.grad(o, (qq, kk, vv), do)
+        torch.cuda.synchronize()
+        ring_ms = 1e3 * (time.perf_counter() - t0)
+        got = read_launches()
+        pairs = ranks_ring_pairs(N, P)
+        want = {**dict.fromkeys(got, 0), "flash_attn_fwd": pairs, "flash_attn_bwd": pairs}
+        o_pub_err, o_pub_atol, ok = _check_o(o, o_ref)
+        g_errs = []
+        for g, w in zip(grads, g_ref):
+            err, atol, g_ok = _grad_check(g, w)
+            g_errs.append((err, atol))
+            ok = ok and g_ok
+        del o, grads
+
+        # a second call under the profiler: the rotations beside the pairs
+        trace = os.path.join(workdir, f"ring_{label}_r{rank}.json")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with set_mesh(mesh):
+                o = attention(qq, kk, vv, impl="ring", layout="bnhd")
+            torch.autograd.grad(o, (qq, kk, vv), do)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        ov = _kernel_overlap(trace)
+        os.remove(trace)
+        del o, qq, kk, vv
+        _rlog("ranks_ring", f"{label} {shape} over seq = {P} (shards of {L}, this rank's "
+              f"{n_rows} valid rows; {pairs} non-empty pairs): shard O max|d| {o_err:.3e} (atol "
+              f"{o_atol:.2e} + rtol {O_RTOL}), LSE max|d| {lse_err:.3e} (atol {LSE_ATOL} + rtol "
+              f"{LSE_RTOL}); attention(impl='ring') O max|d| {o_pub_err:.3e} (atol "
+              f"{o_pub_atol:.2e} + rtol {O_RTOL}), dQ/dK/dV max|d| "
+              f"{[f'{e:.3e}' for e, _ in g_errs]} (atol {[f'{a:.2e}' for _, a in g_errs]} + rtol "
+              f"{GRAD_RTOL}); one-card noise floor (two runs) O/dQ/dK/dV "
+              f"{[f'{e:.3e}' for e in floor]}; forward + autograd {ring_ms:.1f} ms (first call); "
+              f"launches {json.dumps({n: c for n, c in got.items() if c})} (want K1 {pairs}, "
+              f"K3 {pairs}); profiled call: NCCL {ov['nccl_kernels']} kernels "
+              f"{ov['nccl_ms']:.3f} ms, attention {ov['attention_kernels']} kernels "
+              f"{ov['attention_ms']:.3f} ms, NCCL time beside an attention kernel "
+              f"{ov['overlap_ms']:.3f} ms")
+        if not (shard_ok and ok):
+            fail(f"[ranks_ring] {label}: the ring over {P} cards disagrees with the whole calls")
+        if got != want:
+            fail(f"[ranks_ring] {label}: launches {got}, want {want}")
+        if ov["nccl_kernels"] and ov["attention_kernels"] and ov["overlap_ms"] <= 0:
+            fail(f"[ranks_ring] {label}: no rotation ran beside a pair's kernel")
+        for n, c in got.items():
+            launched[n] += c
+        cases[label] = {"shape": list(shape), "shard_o_err": o_err, "lse_err": lse_err,
+                        "o_err": o_pub_err, "grad_errs": [e for e, _ in g_errs],
+                        "floor_o_dq_dk_dv": floor, "ms_first": ring_ms, **ov}
+        del q, k, v, do, o_ref, lse_ref, g_ref
+        torch.cuda.empty_cache()
+    return {"cases": cases, "launches": launched}
+
+
+def _broadcast_floor(vec, group, src: int):
+    """``vec`` (a 1-D f32 tensor on the card) of rank ``src`` of ``group``
+    sent to every member: (max |d|, |d| / |src's|) of this rank's against it."""
+    import torch.distributed as dist
+
+    theirs = vec.clone()
+    dist.broadcast(theirs, src=src, group=group)
+    d = vec - theirs
+    return d.abs().max().item(), (d.norm() / theirs.norm().clamp_min(1e-30)).item()
+
+
+def _dpo_compare(tag: str, ref: dict, got: dict, lr: float,
+                 bounds=(DPO_GRAD_REL, DPO_LOSS_ATOL), exact=None) -> dict:
+    """A sharded DPO step's numbers against the one-card step's: the loss,
+    grad_norm, each LoRA leaf's first moment after the update (0.1 x the
+    clipped gradient) and the LoRA itself; fails beyond the bounds of the
+    model's bf16-against-f32 DPO slice (``bounds``: grad_norm and each moment
+    by relative norm, the loss by absolute difference; [slice_dpo]'s by
+    default) and the LoRA beyond 2.5 x lr. With ``exact``, the one-card step
+    in f32, each moment's bound is RANKS_FLOOR_MULT x the one-card bf16
+    step's own distance from it on that leaf instead."""
+    grad_rel, loss_atol = bounds
+    loss_d = abs(got["metrics"]["loss"] - ref["metrics"]["loss"])
+    gn_rel = abs(got["metrics"]["grad_norm"] - ref["metrics"]["grad_norm"]) / ref["metrics"][
+        "grad_norm"]
+    leaf_rel = [_rel_norm(a, b) for a, b in zip(got["mu"], ref["mu"])]
+    mu_rel = max(leaf_rel)
+    if exact is None:
+        leaf_limit = [grad_rel] * len(leaf_rel)
+    else:
+        leaf_limit = [RANKS_FLOOR_MULT * _rel_norm(a, b) for a, b in zip(ref["mu"], exact["mu"])]
+    _rlog(tag, "first moments by leaf, rel-norm d against the one-card step (limit): "
+          + ", ".join(f"{n} {e:.3e} ({lim:.3e})"
+                      for n, e, lim in zip(ref["names"], leaf_rel, leaf_limit))
+          + ("" if exact is None else
+             f"; the limits are {RANKS_FLOOR_MULT} x the one-card bf16 step's rel-norm d from "
+             f"the one-card f32 step (loss {exact['metrics']['loss']:.6f}, grad_norm "
+             f"{exact['metrics']['grad_norm']:.6e}; f32 step {exact['ms']:.1f} ms)"))
+    lora_d = max((a - b).abs().max().item() for a, b in zip(got["lora"], ref["lora"]))
+    moved = max((a - b).abs().max().item() for a, b in zip(got["lora"], ref["lora0"]))
+    out = {"loss": got["metrics"]["loss"], "loss_ref": ref["metrics"]["loss"], "loss_d": loss_d,
+           "grad_norm": got["metrics"]["grad_norm"], "grad_norm_ref": ref["metrics"]["grad_norm"],
+           "grad_norm_rel": gn_rel, "moment_rel_max": mu_rel, "moment_rel": leaf_rel,
+           "moment_limit": leaf_limit, "lora_max_d": lora_d, "lora_moved": moved}
+    _rlog(tag, f"against the one-card step: loss {out['loss']:.6f} vs {out['loss_ref']:.6f} "
+          f"(|d| {loss_d:.2e}, limit {loss_atol}), grad_norm {out['grad_norm']:.6e} vs "
+          f"{out['grad_norm_ref']:.6e} (rel {gn_rel:.2e}, limit {grad_rel}), first moments "
+          f"max rel-norm d {mu_rel:.3e}, LoRA after the update max|d| "
+          f"{lora_d:.3e} (limit 2.5 x lr = {2.5 * lr:.1e}; the update moved it {moved:.3e})")
+    finite = all(math.isfinite(v) for v in got["metrics"].values())
+    if not (finite and loss_d <= loss_atol and gn_rel <= grad_rel
+            and all(e <= lim for e, lim in zip(leaf_rel, leaf_limit))
+            and lora_d <= 2.5 * lr and moved > 0.5 * lr):
+        fail(f"[{tag}] the sharded step disagrees with the one-card step")
+    return out
+
+
+def _live_lora(num_layers: int, dim: int, rank: int, seed: int) -> dict:
+    """A LoRA tree of ``lora_init`` with every B drawn too (every adapter
+    live, so every gradient is off zero)."""
+    import torch
+
+    from videogpa_torch.train.lora import lora_init
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    lora = lora_init(num_layers, dim, rank, gen, device="cuda")
+    with torch.no_grad():
+        for ab in lora.values():
+            ab["lora_B"].normal_(0.0, 0.01, generator=gen)
+    # kept on the host: a step's state holds the rank's one copy on the card
+    return {n: {k: t.detach().cpu() for k, t in ab.items()} for n, ab in lora.items()}
+
+
+def _run_step(step, lora0: dict, tcfg, batch, draws, mesh=None) -> dict:
+    """One train-step call from a fresh state on a copy of ``lora0``, under
+    ``mesh``: the metrics, first moments and LoRA (on the host) and the ms
+    with the card synchronised around it."""
+    import torch
+
+    from videogpa_torch.parallel import set_mesh
+    from videogpa_torch.train.lora import lora_leaves
+    from videogpa_torch.train.trainer import init_train_state
+
+    state = init_train_state({n: {k: t.to("cuda", copy=True) for k, t in ab.items()}
+                              for n, ab in lora0.items()}, tcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with set_mesh(mesh):
+        state, m = step(state, batch, **draws)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {"metrics": {k: float(v) for k, v in m.items()}, "ms": ms,
+            "names": [f"{n}.{k}" for n in lora0 for k in ("lora_A", "lora_B")],
+            "mu": [t.detach().float().cpu() for t in state.opt_state["mu"]],
+            "lora": [t.detach().float().cpu() for t in lora_leaves(state.lora)],
+            "lora0": lora_leaves(lora0)}
+
+
+def _floor(tag: str, ref: dict) -> dict:
+    """The one-card step's spread across the cards (each rank ran it on its
+    own card on the same draws): each rank's against rank 0's, the largest."""
+    import torch
+    import torch.distributed as dist
+
+    vec = torch.cat([torch.tensor([ref["metrics"]["loss"], ref["metrics"]["grad_norm"]])]
+                    + [t.reshape(-1) for t in ref["mu"]]).cuda()
+    lo = torch.cat([t.reshape(-1) for t in ref["lora"]]).cuda()
+    d_all, _ = _broadcast_floor(vec[:2], None, 0)
+    mu_d, mu_rel = _broadcast_floor(vec[2:], None, 0)
+    lora_d, _ = _broadcast_floor(lo, None, 0)
+    spread = torch.tensor([d_all, mu_rel, lora_d], device="cuda")
+    dist.all_reduce(spread, op=dist.ReduceOp.MAX)
+    d_all, mu_rel, lora_d = spread.tolist()
+    out = {"loss_grad_norm_max_d": d_all, "moment_rel": mu_rel, "lora_max_d": lora_d}
+    if dist.get_rank() == 0:
+        _rlog(tag, f"noise floor, the one-card step on each card against rank 0's card, the "
+              f"largest: loss / grad_norm max|d| {d_all:.3e}, first moments rel-norm d "
+              f"{mu_rel:.3e}, LoRA max|d| {lora_d:.3e}")
+    return out
+
+
+def _cog_dpo_case(cfg, batch_size: int, latent_fhw, seed: int):
+    """(batch, draws) of a CogVideoX DPO step, made from ``seed`` on the card:
+    the whole global batch (latents (B, C, F, H, W) and the prompt), its
+    timesteps and the noise of the frames the step keeps."""
+    import torch
+
+    F_, H, W = latent_fhw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (batch_size, cfg.vae_latent_channels, F_, H, W)
+    batch = {"x_win": torch.randn(shape, generator=g, device="cuda"),
+             "x_lose": torch.randn(shape, generator=g, device="cuda"),
+             "prompt_emb": torch.randn(batch_size, cfg.max_text_seq_length, cfg.text_embed_dim,
+                                       generator=g, device="cuda")}
+    pt = cfg.patch_size_t or 1
+    kept = (F_ - F_ % pt, cfg.vae_latent_channels, H - H % cfg.patch_size,
+            W - W % cfg.patch_size)
+    draws = {"timesteps": torch.tensor([600, 250][:batch_size], device="cuda"),
+             "noise": torch.randn((batch_size,) + kept, generator=g, device="cuda")}
+    return batch, draws
+
+
+_RANK_CACHE: dict = {}
+
+
+def _cog5b_reference():
+    """The one-card CogVideoX-5B DPO step at global batch 2 on this card
+    (cached: [ranks_train] and [ranks_seq_train] both hold their steps
+    against it)."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig, dit_init
+    from videogpa_torch.train.trainer import make_dpo_train_step
+
+    if "cog5b" not in _RANK_CACHE:
+        cfg = CogVideoXConfig.cogvideox_5b()
+        tcfg = _ranks_tcfg()
+        batch, draws = _cog_dpo_case(cfg, 2, (cfg.sample_frames, cfg.sample_height,
+                                              cfg.sample_width), seed=62)
+        lora0 = _live_lora(cfg.num_layers, cfg.hidden_dim, tcfg.lora_rank, 63)
+        dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                       dtype=torch.bfloat16).requires_grad_(False)
+        ref = _run_step(make_dpo_train_step(dit, cfg, tcfg)[0], lora0, tcfg, batch, draws)
+        floor = _floor("ranks_train", ref)
+        _RANK_CACHE["cog5b"] = (cfg, tcfg, batch, draws, lora0, ref, floor)
+        del dit
+        torch.cuda.empty_cache()
+    return _RANK_CACHE["cog5b"]
+
+
+def _sharded_dpo(tag: str, phase: str, rank: int, make_model, specs_of, make_step, cfg, tcfg,
+                 batch, draws, lora0, ref, mesh, shard_model: bool,
+                 bounds=(DPO_GRAD_REL, DPO_LOSS_ATOL), exact=None) -> dict:
+    """``phase``'s DPO step under ``mesh`` on this rank: the model made
+    whole (``make_model``) and, with ``shard_model``, split by ``specs_of``
+    (``shard_tree``); this rank's ``batch_specs`` rows of the batch; the
+    step twice from fresh states, the first checked against ``ref`` and
+    counted, the second timed. Returns the numbers, the launches, the peak
+    allocated since the model was laid out and the bytes outside the
+    allocator."""
+    import torch
+
+    from videogpa_torch.parallel.sharding import batch_specs, shard_tree
+
+    model = make_model()
+    if shard_model:
+        model = shard_tree(model, specs_of(model), mesh)
+    rows = ranks_rows(phase, rank)
+    local = shard_tree(batch, batch_specs(batch), mesh)
+    if local["x_win"].shape[0] != len(rows) or not torch.equal(
+            local["x_win"], batch["x_win"][rows.start:rows.stop]):
+        fail(f"[{tag}] batch_specs gave this rank rows other than {rows}")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_step(model, cfg, tcfg)[0]
+    zero_launches()
+    first = _run_step(step, lora0, tcfg, local, draws, mesh)
+    got = read_launches()
+    second = _run_step(step, lora0, tcfg, local, draws, mesh)
+    peak = torch.cuda.max_memory_allocated()
+    want = {**dict.fromkeys(got, 0), **ranks_launches(phase, rank)}
+    res = _dpo_compare(tag, ref, first, tcfg.learning_rate, bounds, exact)
+    _rlog(tag, f"rows {list(rows)} of the global batch of {RANKS_BATCH[phase]}; step "
+          f"{first['ms']:.1f} ms (first call) and {second['ms']:.1f} ms, the one-card step "
+          f"{ref['ms']:.1f} ms on this card; peak allocated {peak / 2 ** 30:.3f} GiB; outside "
+          f"the allocator {_outside_allocator() / 2 ** 30:.3f} GiB; launches "
+          f"{json.dumps({n: c for n, c in got.items() if c})}, want "
+          f"{json.dumps({n: c for n, c in want.items() if c})}")
+    if got != want:
+        fail(f"[{tag}] the sharded step launched {got}, not {want}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {**res, "rows": list(rows), "step_ms": [first["ms"], second["ms"]],
+            "one_card_ms": ref["ms"], "peak_bytes": peak, "launches": got}
+
+
+def _ranks_train(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_train]: the CogVideoX-5B DPO step at dp 2 x tp 2, global batch
+    2, 42 layers, 24 of 48 heads a rank, 17,776 tokens, against the one-card
+    step at batch 2 on the same draws."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import dit_init
+    from videogpa_torch.parallel.sharding import dit_param_specs
+    from videogpa_torch.train.trainer import make_dpo_train_step
+
+    cfg, tcfg, batch, draws, lora0, ref, floor = _cog5b_reference()
+    res = _sharded_dpo(
+        "ranks_train", "ranks_train", rank,
+        lambda: dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16).requires_grad_(False),
+        dit_param_specs, make_dpo_train_step, cfg, tcfg, batch, draws, lora0, ref,
+        meshes["dp_tp"], shard_model=True)
+    return {**res, "floor": floor}
+
+
+def _ranks_seq_train(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_seq_train]: the same step with ``attn_impl="ring"`` over seq =
+    world (the model whole on every rank, the batch whole: data 1), against
+    the same one-card step."""
+    import dataclasses
+
+    import torch
+
+    from videogpa_torch.models.cogvideox import dit_init
+    from videogpa_torch.train.trainer import make_dpo_train_step
+
+    cfg, tcfg, batch, draws, lora0, ref, floor = _cog5b_reference()
+    res = _sharded_dpo(
+        "ranks_seq_train", "ranks_seq_train", rank,
+        lambda: dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                         dtype=torch.bfloat16).requires_grad_(False),
+        None, make_dpo_train_step, cfg, dataclasses.replace(tcfg, attn_impl="ring"), batch,
+        draws, lora0, ref, meshes["seq"], shard_model=False)
+    return {**res, "floor": floor}
+
+
+def _ranks_wan_train(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_wan_train]: the Wan2.2-TI2V-5B DPO step at tp = world (6 of 24
+    heads a rank, the q/k RMS norm over the whole width across the ranks),
+    batch 1 with a clean first frame, 18,480 tokens, through K6/K7, against
+    the one-card step; each LoRA leaf's moment within RANKS_FLOOR_MULT x the
+    one-card bf16 step's distance from the one-card f32 step on that leaf."""
+    import dataclasses
+
+    import torch
+
+    from videogpa_torch.models.wan import WanConfig, wan_init
+    from videogpa_torch.parallel.sharding import wan_param_specs
+    from videogpa_torch.train.wan_trainer import make_wan_dpo_train_step
+
+    cfg = WanConfig.ti2v_5b()
+    tcfg = _ranks_tcfg()
+    C, F_, H, W = WAN_LATENT
+    g = torch.Generator(device="cuda").manual_seed(64)
+    batch = {"x_win": torch.randn((1, C, F_, H, W), generator=g, device="cuda"),
+             "x_lose": torch.randn((1, C, F_, H, W), generator=g, device="cuda"),
+             "prompt_emb": torch.randn((1, cfg.text_len, cfg.text_dim), generator=g,
+                                       device="cuda"),
+             "image_latent": torch.randn((1, C, 1, H, W), generator=g, device="cuda")}
+    draws = {"timesteps": torch.tensor([500], device="cuda"),
+             "noise": torch.randn((1, C, F_, H, W), generator=g, device="cuda")}
+    lora0 = _live_lora(cfg.num_layers, cfg.dim, tcfg.lora_rank, 65)
+
+    def make_model():
+        return wan_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(False)
+
+    model = make_model()
+    ref = _run_step(make_wan_dpo_train_step(model, cfg, tcfg)[0], lora0, tcfg, batch, draws)
+    # the same step in f32 on this card: how far bf16 alone moves each leaf
+    t32 = dataclasses.replace(tcfg, compute_dtype=torch.float32)
+    exact = _run_step(make_wan_dpo_train_step(model, cfg, t32)[0], lora0, t32, batch, draws)
+    del model
+    torch.cuda.empty_cache()
+    floor = _floor("ranks_wan_train", ref)
+    res = _sharded_dpo("ranks_wan_train", "ranks_wan_train", rank, make_model, wan_param_specs,
+                       make_wan_dpo_train_step, cfg, tcfg, batch, draws, lora0, ref,
+                       meshes["model"], shard_model=True,
+                       bounds=(WAN_DPO_GRAD_REL, WAN_DPO_LOSS_ATOL), exact=exact)
+    return {**res, "floor": floor}
+
+
+def _ranks_cog15_train(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_cog15_train]: the CogVideoX1.5-5B DPO step at dp 1 x tp =
+    world, batch 1, 41,026 tokens (the residual streams in 1/tp blocks,
+    ``seq_shard``), against the one-card step."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import dit_init
+    from videogpa_torch.parallel.sharding import dit_param_specs
+    from videogpa_torch.train.trainer import make_dpo_train_step
+
+    cfg, _, _ = cog15_shapes()
+    tcfg = _ranks_tcfg()
+    batch, draws = _cog_dpo_case(cfg, 1, COG15_TRAIN_LATENT[2:], seed=66)
+    lora0 = _live_lora(cfg.num_layers, cfg.hidden_dim, tcfg.lora_rank, 67)
+
+    def make_model():
+        return dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(False)
+
+    model = make_model()
+    ref = _run_step(make_dpo_train_step(model, cfg, tcfg)[0], lora0, tcfg, batch, draws)
+    del model
+    torch.cuda.empty_cache()
+    floor = _floor("ranks_cog15_train", ref)
+    res = _sharded_dpo("ranks_cog15_train", "ranks_cog15_train", rank, make_model,
+                       dit_param_specs, make_dpo_train_step, cfg, tcfg, batch, draws, lora0, ref,
+                       meshes["model"], shard_model=True)
+    return {**res, "floor": floor}
+
+
+def _ranks_overlap(rank: int, world: int, meshes: dict, workdir: str) -> dict:
+    """[ranks_overlap]: the JAX dry run's segment 4 at full size. The first
+    half of the ranks runs the CogVideoX-5B sampler at tp = half (one
+    CFG-pair DPM step at 49f@480x720, ``denoise_loop``), the second half the
+    VGGT-1B forward at dp = half (``vggt_forward`` on 4 clips x 10 frames x
+    518^2, 4 / half clips a rank; bf16 trunk, f32 camera head). Each against
+    its one-card output on this card; the wall time of each half alone and of
+    both at once, started together after a barrier."""
+    import torch
+    import torch.distributed as dist
+
+    from videogpa_torch.models.cogvideox import (
+        CogVideoXConfig, SamplerSettings, denoise_loop, dit_init)
+    from videogpa_torch.models.vggt import VGGTConfig, vggt_forward, vggt_init
+    from videogpa_torch.parallel import set_mesh
+    from videogpa_torch.parallel.mesh import P as Spec
+    from videogpa_torch.parallel.sharding import dit_param_specs, shard_tree
+
+    gen_mesh, score_mesh = meshes["gen"], meshes["score"]
+    sampler = gen_mesh.get_coordinate() is not None
+    tag = "ranks_overlap"
+    if sampler:
+        cfg = CogVideoXConfig.cogvideox_5b()
+        dit = dit_init(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                       dtype=torch.bfloat16).requires_grad_(False)
+        g = torch.Generator(device="cuda").manual_seed(68)
+        text = torch.randn(1, cfg.max_text_seq_length, cfg.text_embed_dim, generator=g,
+                           device="cuda")
+        negative = torch.randn(text.shape, generator=g, device="cuda")
+        shape = (1, cfg.sample_frames, cfg.vae_latent_channels, cfg.sample_height,
+                 cfg.sample_width)
+        settings = SamplerSettings(num_inference_steps=1, sampler="dpm")
+
+        def run(dtype=torch.bfloat16):
+            with set_mesh(gen_mesh if sharded else None):
+                return denoise_loop(dit, text, negative, settings, shape,
+                                    generator=torch.Generator(device="cuda").manual_seed(69),
+                                    compute_dtype=dtype)
+        mesh, what = gen_mesh, (f"CogVideoX-5B sampler, one CFG-pair DPM step at 49f@480x720 "
+                                f"(latents {shape})")
+    else:
+        vcfg = VGGTConfig()
+        model = vggt_init(vcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                          dtype=torch.bfloat16).eval()
+        regular_camera_(model)
+        model.camera_head.float()
+        images = torch.rand((RANKS_BATCH[tag], 10, 3, vcfg.img_size, vcfg.img_size),
+                            generator=torch.Generator(device="cuda").manual_seed(70),
+                            device="cuda")
+
+        def run(dtype=torch.bfloat16):
+            x = shard_tree(images, Spec("data"), score_mesh) if sharded else images
+            with set_mesh(score_mesh if sharded else None), torch.no_grad():
+                out = vggt_forward(model, x, compute_dtype=dtype, dpt_chunk=8)
+            return {k: out[k] for k in ("pose_enc", "depth", "world_points")}
+        mesh, what = score_mesh, (f"VGGT-1B forward, {RANKS_BATCH[tag]} clips x 10 frames x "
+                                  f"{vcfg.img_size}^2")
+
+    # the one-card output on this card, twice (run to run: the second call
+    # timed), and in f32: the bf16 output's own distance from it sets the bound
+    sharded = False
+    want = run()
+    again, one_ms = _timed(run)
+    exact = run(torch.float32)
+    if sampler:
+        want, again, exact = ({"latents": x} for x in (want, again, exact))
+    same = all(torch.equal(again[k], want[k]) for k in want)
+    floor = max(_rel_norm(want[k], exact[k]) for k in want)
+    limit = RANKS_FLOOR_MULT * floor
+    if sampler:
+        dit = shard_tree(dit, dit_param_specs(dit), gen_mesh)
+    else:
+        rows = ranks_rows(tag, rank)
+        want = {k: v[rows.start:rows.stop] for k, v in want.items()}
+    del again, exact
+    torch.cuda.empty_cache()
+    sharded = True
+
+    # checked and counted: both halves at once
+    _sync_all()
+    zero_launches()
+    got = run()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    _sync_all()
+    if sampler:
+        got = {"latents": got}
+    errs = {k: _rel_norm(got[k], want[k]) for k in want}
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    del got
+
+    def wall(active: bool) -> float:
+        """ms from a barrier to the next, this rank running its half when
+        ``active``."""
+        _sync_all()
+        t0 = time.perf_counter()
+        if active:
+            run()
+            torch.cuda.synchronize()
+        _sync_all()
+        return 1e3 * (time.perf_counter() - t0)
+
+    alone_gen = wall(sampler)
+    alone_score = wall(not sampler)
+    both = wall(True)
+    wl = {**dict.fromkeys(launches, 0), **ranks_launches(tag, rank)}
+    members = dist.get_process_group_ranks(mesh.get_group("model" if sampler else "data"))
+    _rlog(tag, f"{what} on ranks {members}: "
+          f"rel-norm d against the one-card output "
+          f"{json.dumps({k: f'{v:.3e}' for k, v in errs.items()})} (limit {RANKS_FLOOR_MULT} x "
+          f"the one-card bf16 output's rel-norm d from f32, {floor:.3e}: {limit:.3e}; two "
+          f"one-card bf16 runs bit-equal: {same}); one-card {one_ms:.1f} ms; wall from barrier "
+          f"to barrier: sampler alone {alone_gen:.1f} ms, "
+          f"scorer alone {alone_score:.1f} ms (sum {alone_gen + alone_score:.1f}), both at once "
+          f"{both:.1f} ms; launches {json.dumps({n: c for n, c in launches.items() if c})}, "
+          f"want {json.dumps({n: c for n, c in wl.items() if c})}")
+    if not finite or max(errs.values()) > limit:
+        fail(f"[{tag}] the {'sampler' if sampler else 'scorer'} half disagrees with one card")
+    if launches != wl:
+        fail(f"[{tag}] launches {launches}, want {wl}")
+    if sampler:
+        del dit
+    else:
+        del model, images
+    torch.cuda.empty_cache()
+    return {"role": "sampler" if sampler else "scorer", "rel_norm": errs, "floor": floor,
+            "limit": limit, "one_card_bit_equal": same,
+            "one_card_ms": one_ms, "sampler_alone_ms": alone_gen, "scorer_alone_ms": alone_score,
+            "both_ms": both, "launches": launches}
+
+
+RANK_PHASES = {"ranks_nccl": _ranks_nccl, "ranks_ring": _ranks_ring,
+               "ranks_train": _ranks_train, "ranks_seq_train": _ranks_seq_train,
+               "ranks_wan_train": _ranks_wan_train, "ranks_overlap": _ranks_overlap,
+               "ranks_cog15_train": _ranks_cog15_train}
+RANKS_PHASES = tuple(RANK_PHASES)
+
+
+def _rank_entry(rank: int, world: int, workdir: str, phases: list, log_path: str) -> None:
+    """One rank of ``--ranks``: its card first, then an NCCL group over a
+    FileStore with a timeout, every mesh of ``ranks_plan`` in order, then
+    ``phases``; its results go to ``workdir/rank{rank}.json``."""
+    global _LOG_PATH
+    import datetime
+    import inspect
+
+    import torch
+
+    torch.cuda.set_device(rank)
+    _LOG_PATH = log_path
+    import torch.distributed as dist
+
+    from videogpa_torch.parallel import MeshAxes, make_mesh
+
+    torch.ones(1, device="cuda")  # this process's context on its card
+    context_bytes = _outside_allocator()
+    if "ranks_nccl" in phases:  # NCCL reads these at its first communicator
+        os.environ.update(NCCL_DEBUG="INFO", NCCL_DEBUG_SUBSYS="INIT",
+                          NCCL_DEBUG_FILE=os.path.join(workdir, f"nccl_r{rank}.log"))
+    kw = {}
+    if "device_id" in inspect.signature(dist.init_process_group).parameters:
+        kw["device_id"] = torch.device("cuda", rank)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=RANKS_PG_TIMEOUT_S), **kw)
+    try:
+        meshes = {name: make_mesh(MeshAxes(**axes), ranks=ranks)
+                  for name, (axes, ranks) in ranks_plan(world).items()}
+        _sync_all()
+        init_s = time.perf_counter() - t0
+        out = {"init_s": init_s, "context_bytes": context_bytes, "phases": {}}
+        if rank == 0:
+            log(f"[ranks] {world} ranks: NCCL group and the meshes "
+                f"{json.dumps({n: a for n, (a, _) in ranks_plan(world).items()})} in "
+                f"{init_s:.2f} s; device {torch.cuda.get_device_name(rank)}")
+        for phase in phases:
+            t1 = time.perf_counter()
+            res = RANK_PHASES[phase](rank, world, meshes, workdir)
+            _sync_all()
+            res["wall_s"] = time.perf_counter() - t1
+            res["outside_allocator_bytes"] = _outside_allocator() - context_bytes
+            out["phases"][phase] = res
+            if rank == 0:
+                mark(phase)
+        with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except BaseException as e:
+        # out at once: a rank that raised leaves the others inside a
+        # collective, where tearing its communicators down could wait on them
+        import traceback
+
+        log(f"[ranks] r{rank}: {type(e).__name__}: {e}\n{traceback.format_exc()[-4000:]}")
+        sys.stdout.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def reckon_ranks_main(path: str, phases: str) -> None:
+    """``python3 chip_smoke.py --reckon-ranks PATH PHASES``: ``train.memory``'s
+    reckoning of rank 0 of [ranks_train]'s step (rank_mesh(2, 2), global
+    batch 2) and of [ranks_cog15_train]'s (rank_mesh(1, 4), batch 1), where
+    PHASES (comma-separated) holds them, PATH (JSON) rewritten after each.
+    CPU work only, as ``reckon_main``."""
+    import torch
+
+    from videogpa_torch.models.cogvideox import CogVideoXConfig
+    from videogpa_torch.train import memory as M
+
+    os.nice(10)
+    torch.set_num_threads(1)
+    tcfg = _ranks_tcfg()
+    steps = {"ranks_train": lambda: M.aot_train_memory(
+                 CogVideoXConfig.cogvideox_5b(), tcfg, mesh=M.rank_mesh(2, 2),
+                 batch_size=RANKS_BATCH["ranks_train"]),
+             "ranks_cog15_train": lambda: M.aot_train_memory(
+                 CogVideoXConfig.cogvideox_1_5_5b(), tcfg, mesh=M.rank_mesh(1, 4),
+                 batch_size=RANKS_BATCH["ranks_cog15_train"])}
+    out = {}
+    for name in [p for p in phases.split(",") if p in steps]:
+        out[name] = steps[name]()
+        with open(path + ".tmp", "w") as f:
+            json.dump(out, f)
+        os.replace(path + ".tmp", path)
+
+
+def ranks_main(argv: list) -> int:
+    """``python3 chip_smoke.py --ranks 4 [--phases NAME,...]``: the port's
+    multi-card path on four cards over NCCL (``RANK_PHASES``, each alone
+    with ``--phases``). Needs four visible cards; starts the ranks itself
+    and fails if one raises or the wall limit passes."""
+    import shutil
+
+    world = int(argv[0]) if argv and argv[0].isdigit() else 0
+    phases = list(RANKS_PHASES)
+    if "--phases" in argv[1:]:
+        phases = argv[argv.index("--phases") + 1].split(",")
+    if world != RANKS_WORLD or any(p not in RANK_PHASES for p in phases):
+        print(f"chip_smoke: --ranks takes {RANKS_WORLD} and --phases from "
+              f"{','.join(RANKS_PHASES)}; got {argv}", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < world:
+        print(f"chip_smoke: --ranks {world} needs {world} CUDA devices, this host has "
+              f"{torch.cuda.device_count() if torch.cuda.is_available() else 0} "
+              f"(torch.cuda.is_available() is {torch.cuda.is_available()})", file=sys.stderr)
+        return 1
+    import torch.multiprocessing as mp
+
+    global _LOG_PATH
+    root = os.path.dirname(os.path.abspath(__file__))
+    _LOG_PATH = os.path.join(root, "build", "chip_smoke_ranks.log")
+    if os.path.exists(_LOG_PATH):
+        os.remove(_LOG_PATH)
+    workdir = os.path.join(root, "build", "ranks")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True, text=True,
+                          timeout=60).stdout.rstrip()
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+        f"{torch.cuda.device_count()} cards: {cards}; phases {phases}")
+    for line in topo.splitlines():
+        log(f"[env] topo: {line}")
+    phase_build()
+    reckon = None
+    if {"ranks_train", "ranks_cog15_train"} & set(phases):
+        reckon = Reckonings("--reckon-ranks", ",".join(phases))
+        atexit.register(reckon.stop)
+    ctx = mp.start_processes(_rank_entry, args=(world, workdir, phases, _LOG_PATH),
+                             nprocs=world, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANKS_WALL_S:
+                fail(f"[ranks] the ranks ran past the wall limit of {RANKS_WALL_S} s")
+    except SystemExit:
+        raise
+    except Exception as e:  # a rank raised or exited non-zero
+        fail(f"[ranks] {type(e).__name__}: {str(e)[-3000:]}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    ranks_wall = time.perf_counter() - t0
+    results = []
+    for r in range(world):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    summary = {"world": world, "ranks_wall_s": ranks_wall, "cards": cards,
+               "init_s": [r["init_s"] for r in results], "phases": {}}
+    for phase in phases:
+        per = [r["phases"][phase] for r in results]
+        entry = {"wall_s": max(p["wall_s"] for p in per),
+                 "outside_allocator_gib": [p["outside_allocator_bytes"] / 2 ** 30 for p in per],
+                 "launches": [{n: c for n, c in p.get("launches", {}).items() if c}
+                              for p in per]}
+        if phase in ("ranks_train", "ranks_cog15_train"):
+            reckoned = reckon.get(phase)
+            model, tp = ("cog15", 4) if phase == "ranks_cog15_train" else ("cogvideox", 2)
+            block = _block_residual(model, tp, 1)
+            entry["memory"] = [check_reckoning(f"[{phase}] rank {r}:", reckoned, p["peak_bytes"])
+                               for r, p in enumerate(per)]
+            log(f"[{phase}] remat residual a rank {reckoned['residual_gib']:.3f} GiB, "
+                f"{reckoned['block_residual_bytes']:,} B a block (1/tp layout: {block:,} B); "
+                f"bytes outside the allocator a rank beyond its context "
+                f"{[round(g, 3) for g in entry['outside_allocator_gib']]} GiB")
+            if reckoned["block_residual_bytes"] != block:
+                fail(f"[{phase}] a block keeps {reckoned['block_residual_bytes']} B, not the "
+                     f"1/tp layout's {block}")
+        for key in ("step_ms", "one_card_ms", "loss_d", "grad_norm_rel", "moment_rel",
+                    "moment_limit", "lora_max_d", "floor", "role", "rel_norm", "limit",
+                    "sampler_alone_ms", "scorer_alone_ms", "both_ms", "busbw_gb_s", "algbw_gb_s",
+                    "transports", "nccl_version", "cases", "peak_bytes"):
+            if key in per[0]:
+                entry[key] = [p.get(key) for p in per]
+        summary["phases"][phase] = entry
+    log(json.dumps({"ranks": summary}))
+    for card in cards:
+        log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": world}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -8456,6 +9530,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--reckon"]:
         reckon_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--reckon-ranks"]:
+        reckon_ranks_main(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--ranks"]:
+        sys.exit(ranks_main(sys.argv[2:]))
     elif sys.argv[1:2] == ["--measure-layout"]:
         measure_layout_main(*sys.argv[2:6])
     else:

@@ -238,6 +238,10 @@ def parallel_cases(rank: int, workdir: str) -> dict:
     dit = shard_tree(dit, specs, dp_tp)
     out["local_numel"] = {n: np.int64([p.numel(), full_numel[n]])
                           for n, p in dit.named_parameters() if any(specs[n])}
+    # the bytes each sharded leaf's storage holds against its block's
+    out["local_storage"] = {n: np.int64([p.untyped_storage().nbytes(),
+                                         p.numel() * p.element_size()])
+                            for n, p in dit.named_parameters() if any(specs[n])}
     batch = {k: _t(c[k]) for k in ("x", "txt", "t")}
     local = shard_tree(batch, batch_specs(batch), dp_tp)
     with set_mesh(dp_tp), torch.no_grad():

@@ -319,6 +319,15 @@ def test_sharded_leaves_hold_one_tp_th_each(runs):
             assert local * 2 == full, name
 
 
+def test_sharded_leaves_free_the_whole_tensor(runs):
+    """A sharded leaf's storage holds its block alone: a column-parallel
+    block (leading rows, a contiguous view) kept the whole weight alive, so
+    a real rank held every q/k/v/fc1 weight whole besides its block."""
+    for r in runs["ranks"]:
+        for name, (storage, block) in r["local_storage"].items():
+            assert storage == block, name
+
+
 def test_wan_tp_matches_replicated(runs):
     """TestWanTP: the Wan DiT split by wan_param_specs over dp 2 x tp 2."""
     np.testing.assert_allclose(_same_on(runs["ranks"], "wan"), runs["ref"]["wan"],

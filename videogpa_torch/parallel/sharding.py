@@ -141,10 +141,11 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
 
     An ``nn.Module`` with a ``{parameter name: spec}`` dict is split in
     place: each sharded parameter keeps this rank's block only (its
-    ``.data`` replaced by a contiguous copy of the block) and the module is
-    returned. A tree of tensors or numpy arrays with a spec tree of the same
-    structure gives a new tree of this rank's blocks (a replicated leaf is
-    returned as it is)."""
+    ``.data`` replaced by a copy of the block in storage of its own, so the
+    whole tensor is freed: a block of leading rows is a contiguous view
+    that would keep it) and the module is returned. A tree of tensors or
+    numpy arrays with a spec tree of the same structure gives a new tree of
+    this rank's blocks (a replicated leaf is returned as it is)."""
     if isinstance(tree, nn.Module):
         params = dict(tree.named_parameters())
         if set(specs) != set(params):
@@ -152,7 +153,8 @@ def shard_tree(tree: Any, specs: Any, mesh) -> Any:
         with torch.no_grad():
             for name, p in params.items():
                 if any(specs[name]):
-                    p.data = local_slice(p.data, specs[name], mesh).contiguous()
+                    p.data = local_slice(p.data, specs[name], mesh).clone(
+                        memory_format=torch.contiguous_format)
         return tree
     if isinstance(tree, dict):
         return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
